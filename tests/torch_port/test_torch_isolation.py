@@ -1,0 +1,98 @@
+"""trlx_tpu_torch stands alone: it imports neither JAX nor the JAX
+package, its entry points refuse to fall back to the CPU silently, and
+it reads the same YAML configs as the JAX package."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parents[2]
+PKG = REPO / "trlx_tpu_torch"
+PORT_FILES = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def _module_names():
+    for path in sorted(PKG.rglob("*.py")):
+        parts = path.relative_to(REPO).with_suffix("").parts
+        if parts[-1] == "__init__":
+            parts = parts[:-1]
+        yield ".".join(parts)
+
+
+def test_every_module_imports_without_jax():
+    mods = list(_module_names()) + ["chip_smoke"]
+    code = (
+        "import sys, importlib\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['trlx_tpu'] = None\n"
+        f"for name in {mods!r}:\n"
+        "    importlib.import_module(name)\n"
+        "print('ok')\n"
+    )
+    res = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120,
+        env=dict(os.environ, PYTHONPATH=str(REPO)),
+    )
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
+def test_no_jax_or_reference_import(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            root = name.split(".")[0]
+            assert root not in ("jax", "jaxlib", "flax", "optax", "trlx_tpu"), (path, name)
+
+
+def test_entry_points_raise_without_a_gpu(monkeypatch):
+    from trlx_tpu_torch.models.transformer import TransformerConfig, TransformerLM
+    from trlx_tpu_torch.models.wrappers import CausalLMWithValueHead
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = TransformerConfig(vocab_size=32, hidden_size=16, n_layer=1, n_head=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TransformerLM(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        CausalLMWithValueHead(cfg, branch_at=0)
+    assert TransformerLM(cfg, device="cpu").device.type == "cpu"
+
+
+def test_unported_switches_raise():
+    from trlx_tpu_torch.models.transformer import TransformerConfig, TransformerLM
+
+    base = dict(vocab_size=32, hidden_size=16, n_layer=1, n_head=2)
+    for kw in (dict(pos_embed="rotary"), dict(norm="rmsnorm"), dict(mlp_gated=True),
+               dict(parallel_residual=True), dict(attention_impl="ring"),
+               dict(local_window=4), dict(tie_word_embeddings=False)):
+        with pytest.raises(NotImplementedError):
+            TransformerLM(TransformerConfig(**base, **kw), device="cpu")
+
+
+def test_test_config_loads_to_equal_dicts():
+    from trlx_tpu.data.configs import TRLConfig as JTRLConfig
+
+    from trlx_tpu_torch.data.configs import TRLConfig
+
+    path = REPO / "configs" / "test_config.yml"
+    assert TRLConfig.load_yaml(str(path)).to_dict() == JTRLConfig.load_yaml(str(path)).to_dict()
+
+
+def test_default_ppo_config_matches():
+    from trlx_tpu.data.default_configs import default_ppo_config as j_default
+
+    from trlx_tpu_torch.data.default_configs import default_ppo_config
+
+    assert default_ppo_config().to_dict() == j_default().to_dict()

@@ -1,0 +1,100 @@
+"""Method (algorithm) hyperparameter configs and their registry.
+
+A schema-identical copy of trlx_tpu.data.method_configs for the methods
+the port has reached (PPO), so a YAML config loads to the same dict in
+both packages. The loss functions arrive with the training slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Any, Dict, Optional
+
+_METHODS: Dict[str, type] = {}
+
+
+def register_method(name_or_cls):
+    """Register a method config class under a lowercase name (decorator).
+    A different class under a taken name raises; re-registering the same
+    class is a no-op (module reloads)."""
+
+    def _register(cls, name: str):
+        key = name.lower()
+        existing = _METHODS.get(key)
+        if existing is not None and (
+            (existing.__module__, existing.__qualname__)
+            != (cls.__module__, cls.__qualname__)
+        ):
+            raise ValueError(
+                f"method config {name!r} is already registered to "
+                f"{existing.__module__}.{existing.__qualname__}"
+            )
+        _METHODS[key] = cls
+        return cls
+
+    if isinstance(name_or_cls, str):
+        return lambda cls: _register(cls, name_or_cls)
+    return _register(name_or_cls, name_or_cls.__name__)
+
+
+def get_method(name: str) -> type:
+    try:
+        return _METHODS[name.lower()]
+    except KeyError:
+        raise ValueError(
+            f"Unknown method {name!r}; registered: {sorted(_METHODS)}"
+        ) from None
+
+
+def _fields_only(cls, config: Dict[str, Any]) -> Dict[str, Any]:
+    known = {f.name for f in dataclasses.fields(cls)}
+    unknown = set(config) - known
+    if unknown:
+        raise ValueError(f"{cls.__name__}: unknown config keys {sorted(unknown)}")
+    return dict(config)
+
+
+@dataclass
+@register_method
+class MethodConfig:
+    """Base config for an RL method; `name` selects the registry entry."""
+
+    name: str
+
+    @classmethod
+    def from_dict(cls, config: Dict[str, Any]):
+        return cls(**_fields_only(cls, config))
+
+    def to_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
+
+@dataclass
+@register_method
+class PPOConfig(MethodConfig):
+    """PPO hyperparameters; field for field the reference's PPOConfig.
+    The rollout path reads `gen_kwargs`; the rest serves the trainer."""
+
+    ppo_epochs: int = 4
+    num_rollouts: int = 128
+    chunk_size: int = 128
+    init_kl_coef: float = 0.05
+    target: Optional[float] = None
+    horizon: int = 10000
+    gamma: float = 1.0
+    lam: float = 0.95
+    cliprange: float = 0.2
+    cliprange_value: float = 0.2
+    vf_coef: float = 1.0
+    scale_reward: Optional[str] = "ignored"
+    ref_mean: Optional[float] = None
+    ref_std: Optional[float] = None
+    cliprange_reward: float = 10.0
+    gen_kwargs: dict = field(default_factory=lambda: dict(max_new_tokens=40))
+    gen_experience_kwargs: Optional[dict] = None
+    num_value_layers_unfrozen: int = 0
+    overlap_rollouts: bool = False
+    gen_engine: dict = field(default_factory=dict)
+    exp: dict = field(default_factory=dict)
+    fleet: dict = field(default_factory=dict)
