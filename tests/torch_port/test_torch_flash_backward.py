@@ -1,0 +1,112 @@
+"""The backward of trlx_tpu_torch's fused attention on the CPU (its plain
+version, `flash_attention_backward_plain`, behind the autograd Function)
+against the JAX package's Pallas backward (interpret mode): the raw
+`_flash_backward` on shared residuals, and `jax.grad` through
+`flash_attention` against `torch.autograd.grad` through the port's.
+
+fp32 inputs from numpy. Tolerance atol = rtol = 1e-4: the gradients are
+sums over up to S terms of O(1) products, taken in a different order by
+the two frameworks (the Pallas kernels sum chunk by chunk)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from trlx_tpu.ops.flash_attention import _flash_backward, _flash_forward
+from trlx_tpu.ops.flash_attention import flash_attention as j_flash
+
+from trlx_tpu_torch.ops.flash_attention import flash_attention, flash_attention_backward_plain
+
+TOL = dict(atol=1e-4, rtol=1e-4)
+
+# name: (B, H, Hkv, T, S, D, q_offset, left pads per batch row)
+CASES = {
+    "square": (2, 2, 2, 16, 16, 8, None, (5, 0)),
+    "gqa-rep3": (2, 6, 2, 16, 16, 8, None, (0, 7)),
+    "t-lt-s": (2, 2, 2, 8, 24, 8, None, (3, 20)),  # row 1: every query fully masked
+    "prefill-offset": (2, 2, 2, 8, 24, 8, 4, (2, 0)),
+    "fully-padded-row": (2, 4, 2, 8, 8, 8, None, (8, 1)),
+}
+
+
+def _inputs(B, H, Hkv, T, S, D, q_offset, pads, seed=0):
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(B, H, T, D)).astype(np.float32)
+    k = rng.normal(size=(B, Hkv, S, D)).astype(np.float32)
+    v = rng.normal(size=(B, Hkv, S, D)).astype(np.float32)
+    g = rng.normal(size=(B, H, T, D)).astype(np.float32)
+    mask = np.ones((B, S), np.int32)
+    for b, n in enumerate(pads):
+        mask[b, :n] = 0  # left padding
+    if q_offset is not None:
+        mask[:, q_offset + T:] = 0  # a prefill: cache slots not yet written
+    return q, k, v, g, mask
+
+
+def _t(*xs):
+    return [torch.from_numpy(np.array(x)) for x in xs]
+
+
+@pytest.mark.parametrize("case", list(CASES))
+@pytest.mark.parametrize("causal", [True, False])
+def test_backward_matches_jax_flash_backward(case, causal):
+    """`flash_attention_backward_plain` against `_flash_backward` on the
+    same forward residuals (out, m, l)."""
+    B, H, Hkv, T, S, D, off, pads = CASES[case]
+    q, k, v, g, mask = _inputs(B, H, Hkv, T, S, D, off, pads)
+    scale = D ** -0.5
+    jq, jk, jv, jg, jm = map(jnp.asarray, (q, k, v, g, mask))
+    o, m, l = _flash_forward(jq, jk, jv, jm, causal, scale, 256, with_stats=True, q_offset=off)
+    ref = _flash_backward(jq, jk, jv, jm, o, m, l, jg, causal, scale, 256, q_offset=off)
+    got = flash_attention_backward_plain(
+        *_t(q, k, v, mask, np.asarray(o), np.asarray(m), np.asarray(l), g),
+        causal, scale, S - T if off is None else off,
+    )
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), err_msg=name, **TOL)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+@pytest.mark.parametrize("causal", [True, False])
+def test_autograd_matches_jax_grad(case, causal):
+    """torch.autograd through the port's `flash_attention` (the autograd
+    Function) against jax.grad through the reference's custom_vjp."""
+    B, H, Hkv, T, S, D, off, pads = CASES[case]
+    q, k, v, g, mask = _inputs(B, H, Hkv, T, S, D, off, pads, seed=1)
+
+    def j_loss(q, k, v):
+        return jnp.sum(j_flash(q, k, v, jnp.asarray(mask), causal, None, 256, off) * jnp.asarray(g))
+
+    ref = jax.grad(j_loss, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_(True) for x in (q, k, v))
+    out = flash_attention(tq, tk, tv, torch.from_numpy(mask), causal=causal, q_offset=off)
+    got = torch.autograd.grad((out * torch.from_numpy(g)).sum(), (tq, tk, tv))
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), err_msg=name, **TOL)
+
+
+def test_fully_masked_rows_reach_dv_only():
+    """A fully masked query row has uniform p = 1/l over every slot,
+    causal-future slots included: its output gradient lands in dv at all
+    S slots and nowhere in dq or dk."""
+    B, H, Hkv, T, S, D = 1, 2, 2, 8, 8, 8
+    q, k, v, g, mask = _inputs(B, H, Hkv, T, S, D, None, (S,))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_(True) for x in (q, k, v))
+    out = flash_attention(tq, tk, tv, torch.from_numpy(mask))
+    dq, dk, dv = torch.autograd.grad((out * torch.from_numpy(g)).sum(), (tq, tk, tv))
+    assert torch.all(dq == 0) and torch.all(dk == 0)
+    np.testing.assert_allclose(
+        dv.numpy(), np.broadcast_to(g.sum(axis=2, keepdims=True) / S, dv.shape), **TOL
+    )
+
+
+def test_grad_flows_only_through_the_function_when_required():
+    """Without grad, the forward is the plain path (no autograd graph);
+    with grad, the output carries the Function's backward."""
+    q, k, v, _, mask = _inputs(1, 2, 2, 4, 4, 8, None, (0,))
+    tq, tk, tv = _t(q, k, v)
+    assert flash_attention(tq, tk, tv, torch.from_numpy(mask)).grad_fn is None
+    out = flash_attention(tq.requires_grad_(True), tk, tv, torch.from_numpy(mask))
+    assert type(out.grad_fn).__name__ == "_FlashAttentionFnBackward"

@@ -96,3 +96,64 @@ def test_default_ppo_config_matches():
     from trlx_tpu_torch.data.default_configs import default_ppo_config
 
     assert default_ppo_config().to_dict() == j_default().to_dict()
+
+
+def _tiny_ppo_config(**sections):
+    from trlx_tpu_torch.data.default_configs import default_ppo_config
+
+    base = dict(
+        train=dict(batch_size=2, total_steps=1, seq_length=8, tracker=None),
+        model=dict(model_path="random", model_extra_configs={
+            "transformer": dict(hidden_size=16, n_layer=1, n_head=2, n_positions=32)
+        }),
+        tokenizer=dict(tokenizer_path="byte"),
+        method=dict(num_rollouts=2, chunk_size=2, gen_kwargs=dict(max_new_tokens=2)),
+    )
+    for name, kw in sections.items():
+        base[name] = dict(base.get(name, {}), **kw)
+    return default_ppo_config().evolve(**base)
+
+
+def test_train_raises_without_a_gpu(monkeypatch):
+    import trlx_tpu_torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        trlx_tpu_torch.train(reward_fn=lambda **kw: [0.0], prompts=["a", "b"], config=_tiny_ppo_config())
+
+
+@pytest.mark.parametrize("section,kw", [
+    ("train", dict(minibatch_size=1)),
+    ("train", dict(grads_dtype="bfloat16")),
+    ("train", dict(remat_policy="full")),
+    ("train", dict(guardrails={"enabled": True})),
+    ("train", dict(watchdog={"enabled": True})),
+    ("train", dict(memory={"enabled": True})),
+    ("train", dict(chaos={"seed": 0})),
+    ("train", dict(resume_from_checkpoint="auto")),
+    ("method", dict(overlap_rollouts=True)),
+    ("method", dict(exp={"enabled": True})),
+    ("method", dict(gen_engine={"enabled": True})),
+    ("model", dict(model_arch_type="seq2seq")),
+    ("model", dict(model_path="gpt2", model_extra_configs={})),
+    ("tokenizer", dict(tokenizer_path="gpt2")),
+])
+def test_unported_training_knobs_raise(section, kw):
+    """Each knob that would turn on a part the port has not reached raises
+    NotImplementedError naming its ROADMAP queue, rather than training
+    without it."""
+    import trlx_tpu_torch
+
+    with pytest.raises(NotImplementedError, match="ROADMAP queue"):
+        trlx_tpu_torch.train(reward_fn=lambda **kw: [0.0], prompts=["a", "b"],
+                             config=_tiny_ppo_config(**{section: kw}), device="cpu")
+
+
+def test_offline_sft_and_stop_sequences_raise():
+    import trlx_tpu_torch
+
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 6"):
+        trlx_tpu_torch.train(samples=["a"], rewards=[1.0], config=_tiny_ppo_config(), device="cpu")
+    with pytest.raises(NotImplementedError, match="left out of slice 2"):
+        trlx_tpu_torch.train(reward_fn=lambda **kw: [0.0], prompts=["a", "b"], config=_tiny_ppo_config(),
+                             stop_sequences=["\n"], device="cpu")

@@ -1,0 +1,99 @@
+"""`trlx_tpu_torch.train` against `trlx_tpu.train`: the whole online PPO
+loop (evaluate, rollout, experience, ppo_epochs x minibatch steps, the
+next rollout) on a tiny fp32 config on the CPU, from the same weights
+(the reference trainer's own init, converted), with greedy decoding and a
+deterministic reward, for two cycles. The reference runs its per-step
+loop (train.fused_inner_loop off: its fused scan disagrees with it on
+this tree, ROADMAP queue 3).
+
+Compared: the stored rollouts of the last cycle (tokens and masks
+exactly; logprobs, values and rewards atol 1e-4, fp32 after a cycle of
+training whose updates differ in the last bits), the per-step loss stream
+(rtol 1e-4, atol 1e-5), the adaptive KL controller's value and the eval
+rewards."""
+
+import jax
+import numpy as np
+import pytest
+
+import trlx_tpu
+from trlx_tpu.data.default_configs import default_ppo_config as j_default_ppo_config
+from trlx_tpu.trainer.base import TPUBaseTrainer as JBaseTrainer
+from trlx_tpu.trainer.ppo import TPUPPOTrainer as JPPOTrainer
+
+import trlx_tpu_torch
+from trlx_tpu_torch.data.configs import TRLConfig
+from trlx_tpu_torch.models import wrappers
+from trlx_tpu_torch.models.convert import params_from_jax
+
+PROMPTS = ["hello world", "the cat", "a b", "xyz", "what is", "I am", "go", "ok",
+           "one", "two three", "four", "five six seven", "eight", "nine", "ten", "eleven"]
+
+
+def reward_fn(samples, prompts, outputs, **kw):
+    return [0.25 * len(set(o)) - 0.05 * len(o) for o in outputs]
+
+
+def _config(tmp_path):
+    return j_default_ppo_config().evolve(
+        train=dict(batch_size=8, total_steps=8, eval_interval=100, checkpoint_interval=100,
+                   seq_length=12, epochs=4, tracker=None, compute_dtype="float32",
+                   fused_inner_loop=False, checkpoint_dir=str(tmp_path / "ckpts"), seed=5),
+        model=dict(model_path="random", num_layers_unfrozen=1, model_extra_configs={
+            "transformer": dict(hidden_size=32, n_layer=2, n_head=2, n_positions=64)
+        }),
+        tokenizer=dict(tokenizer_path="byte"),
+        optimizer=dict(name="adamw", kwargs=dict(lr=1e-3, betas=(0.9, 0.95), eps=1e-8, weight_decay=1e-6)),
+        method=dict(num_rollouts=16, chunk_size=8, ppo_epochs=2, target=0.01, horizon=100,
+                    init_kl_coef=0.05, gen_kwargs=dict(max_new_tokens=4, do_sample=False)),
+    )
+
+
+def test_train_matches_reference(tmp_path, monkeypatch):
+    jconfig = _config(tmp_path)
+    init, j_stats = {}, []
+    setup = JPPOTrainer.setup_model
+
+    def capture_setup(self):
+        setup(self)
+        init.update(jax.tree_util.tree_map(np.asarray, self.params))
+
+    monkeypatch.setattr(JPPOTrainer, "setup_model", capture_setup)
+    monkeypatch.setattr(JBaseTrainer, "_tracker_log",
+                        lambda self, stats, step: j_stats.append((step, dict(stats))))
+    # the checkpoint writes are not under comparison (the port's are
+    # ROADMAP queue 4)
+    monkeypatch.setattr(JBaseTrainer, "_save_checkpoint", lambda self, name, final=False: None)
+    ref = trlx_tpu.train(reward_fn=reward_fn, prompts=PROMPTS, config=jconfig)
+
+    monkeypatch.setattr(
+        wrappers.CausalLMWithValueHead, "init_params",
+        lambda self, gen: self.load_state_dict(params_from_jax(init, self.cfg)) and self,
+    )
+    ours = trlx_tpu_torch.train(
+        reward_fn=reward_fn, prompts=PROMPTS, config=TRLConfig.from_dict(jconfig.to_dict()), device="cpu"
+    )
+    assert ours.iter_count == ref.iter_count == 8
+
+    j_hist = jax.tree_util.tree_map(np.asarray, ref.store.history)
+    hist = ours.store.history
+    for name in ("query_tensors", "response_tensors", "response_mask"):
+        np.testing.assert_array_equal(getattr(hist, name).numpy(), getattr(j_hist, name), err_msg=name)
+    for name in ("logprobs", "values", "rewards"):
+        np.testing.assert_allclose(getattr(hist, name).numpy(), getattr(j_hist, name),
+                                   atol=1e-4, rtol=0, err_msg=name)
+
+    def losses(stream):
+        return [(step, s["losses/total_loss"]) for step, s in stream if "losses/total_loss" in s]
+
+    want, got = losses(j_stats), losses(ours.stats_history)
+    assert [s for s, _ in got] == [s for s, _ in want] == list(range(1, 9))
+    np.testing.assert_allclose([v for _, v in got], [float(v) for _, v in want], rtol=1e-4, atol=1e-5)
+    assert ours.kl_ctl.value == pytest.approx(ref.kl_ctl.value, rel=1e-5)
+    assert ours.kl_ctl.value != jconfig.method.init_kl_coef  # the controller moved
+
+    def evals(stream):
+        return [float(s["reward/mean"]) for _, s in stream if "reward/mean" in s]
+
+    assert len(evals(ours.stats_history)) == 2  # before the first cycle and at the end
+    np.testing.assert_allclose(evals(ours.stats_history), evals(j_stats), rtol=1e-6)

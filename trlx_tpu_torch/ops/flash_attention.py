@@ -1,9 +1,14 @@
-"""Fused causal attention forward: the port of
-trlx_tpu.ops.flash_attention.flash_attention (forward only).
+"""Fused causal attention, forward and backward: the port of
+trlx_tpu.ops.flash_attention.flash_attention.
 
-`flash_attention` runs the hand-written Hopper kernel `csrc/flash_fwd.cu`
-on CUDA tensors and its plain PyTorch version, `flash_attention_plain`,
-on CPU tensors. Both compute the same function:
+`flash_attention` runs the hand-written Hopper kernels on CUDA tensors
+and their plain PyTorch versions on CPU tensors:
+
+- forward: `csrc/flash_fwd.cu`, plain version `flash_attention_plain`;
+- backward: the dq and dk/dv kernels of `csrc/flash_bwd.cu`, plain
+  version `flash_attention_backward_plain`.
+
+Both compute the same function:
 
 - q [B, H, T, D]; k/v [B, Hkv, S, D] with Hkv | H (grouped-query
   attention: query head h reads kv head h // (H // Hkv), never repeated);
@@ -14,11 +19,22 @@ on CPU tensors. Both compute the same function:
 - Masked scores are replaced by the finite NEG_INF = -1e30, so a fully
   masked row (a left-pad query) averages v uniformly over all S slots
   instead of producing NaN.
-- Optionally returns the per-row softmax stats (m, l), fp32
-  [B*H, T, 1], which the backward of the training slice consumes.
+- Optionally returns the per-row softmax stats (m, l), fp32 [B*H, T, 1].
 
-The kernel takes any T and S (it masks the ragged edge itself); it has
-no backward yet, so it refuses inputs that require grad.
+With grad enabled and an input that requires grad, the call goes through
+`_FlashAttentionFn`, the counterpart of the reference's `custom_vjp`: its
+forward saves exactly (q, k, v, key_mask, out, m, l) and its backward
+recomputes the probabilities from (q, k, m, l) as the reference's
+`_flash_backward` does: p = exp(s - m) / max(l, 1e-30), so a fully masked
+row keeps its uniform 1/l weights (they reach dv at every slot), while
+ds = p (dp - delta) sm_scale is zeroed on masked pairs, so those rows add
+nothing to dq or dk. dk and dv are summed over each GQA group. The plain
+version takes the reference's delta = rowsum(dO * O); the kernels sum
+delta = sum_j p dp from the p and dp that form ds, which is the same in
+exact arithmetic and keeps each row's ds summing to zero in bf16 (see
+`csrc/flash_bwd.cu`).
+
+The kernels take any T and S (they mask the ragged edge themselves).
 """
 
 from __future__ import annotations
@@ -46,6 +62,15 @@ def _prepare(q, k, key_mask, sm_scale, q_offset):
     return key_mask, float(sm_scale), int(q_offset)
 
 
+def _valid_pairs(key_mask, T, S, causal, q_offset, device):
+    """[B, 1, 1, T, S] bool: the (query row, slot) pairs that attend."""
+    valid = (key_mask > 0)[:, None, None, None, :]
+    if causal:
+        rows = torch.arange(T, device=device)[:, None] + q_offset
+        valid = valid & (rows >= torch.arange(S, device=device)[None, :])
+    return valid
+
+
 def flash_attention_plain(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -56,18 +81,15 @@ def flash_attention_plain(
     q_offset: Optional[int] = None,
     with_stats: bool = False,
 ):
-    """The kernel's function in plain PyTorch, computed in fp32 (the
-    oracle the kernel is held to, and the CPU path)."""
+    """The forward kernel's function in plain PyTorch, computed in fp32
+    (the oracle the kernel is held to, and the CPU path)."""
     key_mask, sm_scale, q_offset = _prepare(q, k, key_mask, sm_scale, q_offset)
     B, H, T, D = q.shape
     Hkv, S = k.shape[1], k.shape[2]
     rep = H // Hkv
     qf = q.float().reshape(B, Hkv, rep, T, D)
     s = torch.einsum("bgrtd,bgsd->bgrts", qf, k.float()) * sm_scale
-    valid = (key_mask > 0)[:, None, None, None, :]
-    if causal:
-        rows = torch.arange(T, device=q.device)[:, None] + q_offset
-        valid = valid & (rows >= torch.arange(S, device=q.device)[None, :])
+    valid = _valid_pairs(key_mask, T, S, causal, q_offset, q.device)
     s = torch.where(valid, s, torch.full_like(s, NEG_INF))
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
@@ -79,6 +101,49 @@ def flash_attention_plain(
     return out
 
 
+def flash_attention_backward_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    key_mask: torch.Tensor,
+    o: torch.Tensor,
+    m: torch.Tensor,
+    l: torch.Tensor,
+    g: torch.Tensor,
+    causal: bool,
+    sm_scale: float,
+    q_offset: int,
+):
+    """(dq, dk, dv) of the fused attention in plain PyTorch, computed in
+    fp32 from the forward's residuals (out o and stats m, l) and the
+    output gradient g: the backward kernels' oracle and the CPU path.
+    Each gradient comes out in its input's dtype."""
+    B, H, T, D = q.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    rep = H // Hkv
+    qf = q.float().reshape(B, Hkv, rep, T, D)
+    kf, vf = k.float(), v.float()
+    gf = g.float().reshape(B, Hkv, rep, T, D)
+    delta = (gf * o.float().reshape(B, Hkv, rep, T, D)).sum(dim=-1, keepdim=True)
+    s = torch.einsum("bgrtd,bgsd->bgrts", qf, kf) * sm_scale
+    valid = _valid_pairs(key_mask, T, S, causal, q_offset, q.device)
+    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    p = torch.exp(s - m.float().reshape(B, Hkv, rep, T, 1)) / torch.clamp(
+        l.float().reshape(B, Hkv, rep, T, 1), min=1e-30
+    )
+    dp = torch.einsum("bgrtd,bgsd->bgrts", gf, vf)
+    ds = torch.where(valid, p * (dp - delta) * sm_scale, torch.zeros_like(p))
+    dq = torch.einsum("bgrts,bgsd->bgrtd", ds, kf).reshape(B, H, T, D)
+    dk = torch.einsum("bgrts,bgrtd->bgsd", ds, qf)
+    dv = torch.einsum("bgrts,bgrtd->bgsd", p, gf)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+# ---------------------------------------------------------------------------
+# CUDA launches
+# ---------------------------------------------------------------------------
+
+
 def _check_cuda(name: str, x: torch.Tensor, device: torch.device, dtype, ndim: int):
     if x.device != device:
         raise ValueError(f"{name} is on {x.device}, expected {device}")
@@ -86,6 +151,193 @@ def _check_cuda(name: str, x: torch.Tensor, device: torch.device, dtype, ndim: i
         raise TypeError(f"{name} must be {dtype} for the CUDA kernel, got {x.dtype}")
     if x.dim() != ndim:
         raise ValueError(f"{name} must have {ndim} dims, got shape {tuple(x.shape)}")
+
+
+def _kernel_layout_ok(x: torch.Tensor) -> bool:
+    """A contiguous last dim, row strides in whole 16-byte vectors and a
+    16-byte aligned start: what the kernels' vector loads need."""
+    return x.stride(-1) == 1 and not any(s % 8 for s in x.stride()[:3]) and x.data_ptr() % 16 == 0
+
+
+def _check_inputs(q, k, v, key_mask):
+    """Validate the kernels' operands; returns the int32 key mask."""
+    B, H, T, D = q.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    dev = q.device
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        _check_cuda(name, x, dev, torch.bfloat16, 4)
+        if not _kernel_layout_ok(x):
+            raise ValueError(
+                f"{name} needs a contiguous last dim, strides in multiples of 8 "
+                f"elements and a 16-byte aligned start (strides {x.stride()})"
+            )
+    if tuple(k.shape) != (B, Hkv, S, D) or tuple(v.shape) != (B, Hkv, S, D):
+        raise ValueError(f"k/v shapes {tuple(k.shape)}, {tuple(v.shape)} do not match q {tuple(q.shape)}")
+    if D != 64:
+        raise ValueError(f"head_dim {D} unsupported by the CUDA kernels (built for 64)")
+    if tuple(key_mask.shape) != (B, S) or key_mask.device != dev:
+        raise ValueError(f"key_mask must be [B, S] = {(B, S)} on {dev}")
+    return key_mask.to(torch.int32).contiguous()
+
+
+def _launch(source: str, fn_name: str, argtypes, args) -> None:
+    """Call the C entry `fn_name` of `csrc/<source>`; raise with the CUDA
+    error string when the launch was refused."""
+    from trlx_tpu_torch.ops import _build
+
+    lib = _build.load(source)
+    fn = getattr(lib, fn_name)
+    fn.restype = ctypes.c_int
+    fn.argtypes = argtypes
+    rc = fn(*args)
+    if rc != 0:
+        err = getattr(lib, source.split(".")[0] + "_error_string")
+        err.restype = ctypes.c_char_p
+        err.argtypes = [ctypes.c_int]
+        raise RuntimeError(f"{fn_name} kernel launch failed: {err(rc).decode()}")
+
+
+def _strides(*tensors):
+    return ctypes.cast(
+        (ctypes.c_longlong * (3 * len(tensors)))(*(s for x in tensors for s in x.stride()[:3])),
+        ctypes.c_void_p,
+    )
+
+
+def _bhtd_empty(B, H, T, D, like):
+    """A [B, H, T, D] view of a [B, T, H, D] buffer, so `.transpose(1, 2)`
+    of the result is contiguous (the layout of the projections)."""
+    return torch.empty((B, T, H, D), dtype=like.dtype, device=like.device).transpose(1, 2)
+
+
+def _stream(x: torch.Tensor):
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _flash_forward_cuda(q, k, v, key_mask, causal, sm_scale, q_offset):
+    km = _check_inputs(q, k, v, key_mask)
+    B, H, T, D = q.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    out = _bhtd_empty(B, H, T, D, q)
+    m = torch.empty((B * H, T, 1), dtype=torch.float32, device=q.device)
+    l = torch.empty((B * H, T, 1), dtype=torch.float32, device=q.device)
+    flash_attention.launches += 1
+    _launch(
+        "flash_fwd.cu", "flash_fwd_bf16",
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+        + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p],
+        (q.data_ptr(), k.data_ptr(), v.data_ptr(), km.data_ptr(), out.data_ptr(),
+         m.data_ptr(), l.data_ptr(), B, H, Hkv, T, S, D, _strides(q, k, v, out),
+         int(causal), q_offset, sm_scale, _stream(q)),
+    )
+    return out, m, l
+
+
+def backward_operands(q, k, v, key_mask, g, m, l):
+    """Check the backward kernels' operands and prepare them: returns
+    (int32 key mask, dout in a layout the kernels read, an fp32 [B*H, T]
+    buffer for delta). The reference forms delta = rowsum(dO * O) outside
+    its kernels from the bf16 output; here the dq kernel sums delta =
+    sum_j p dp from the same p and dp that form ds (equal in exact
+    arithmetic, see `csrc/flash_bwd.cu`) and writes it for the dk/dv
+    kernel, so the forward's output is not read."""
+    km = _check_inputs(q, k, v, key_mask)
+    B, H, T, D = q.shape
+    _check_cuda("dout", g, q.device, torch.bfloat16, 4)
+    if tuple(g.shape) != (B, H, T, D):
+        raise ValueError(f"dout shape {tuple(g.shape)} does not match q {tuple(q.shape)}")
+    if not _kernel_layout_ok(g):
+        g = g.contiguous()
+    for name, x in (("m", m), ("l", l)):
+        _check_cuda(name, x, q.device, torch.float32, 3)
+        if not x.is_contiguous() or tuple(x.shape) != (B * H, T, 1):
+            raise ValueError(f"{name} must be a contiguous fp32 [B*H, T, 1] tensor")
+    delta = torch.empty((B * H, T), dtype=torch.float32, device=q.device)
+    return km, g, delta
+
+
+def flash_attention_dq(q, k, v, km, g, m, l, delta, causal, sm_scale, q_offset):
+    """dq [B, H, T, D] by the dq kernel of `csrc/flash_bwd.cu`, on the
+    operands `backward_operands` prepared; also fills `delta`, which
+    `flash_attention_dkv` reads."""
+    B, H, T, D = q.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    dq = _bhtd_empty(B, H, T, D, q)
+    flash_attention_dq.launches += 1
+    _launch(
+        "flash_bwd.cu", "flash_bwd_dq_bf16",
+        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
+        + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p],
+        (q.data_ptr(), k.data_ptr(), v.data_ptr(), km.data_ptr(), g.data_ptr(), m.data_ptr(),
+         l.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, H, Hkv, T, S, D,
+         _strides(q, k, v, g, dq), int(causal), q_offset, sm_scale, _stream(q)),
+    )
+    return dq
+
+
+def flash_attention_dkv(q, k, v, km, g, m, l, delta, causal, sm_scale, q_offset):
+    """(dk, dv) [B, Hkv, S, D] by the dk/dv kernel of `csrc/flash_bwd.cu`,
+    on the operands `backward_operands` prepared and the delta that
+    `flash_attention_dq` wrote."""
+    B, H, T, D = q.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    dk = _bhtd_empty(B, Hkv, S, D, k)
+    dv = _bhtd_empty(B, Hkv, S, D, v)
+    flash_attention_dkv.launches += 1
+    _launch(
+        "flash_bwd.cu", "flash_bwd_dkv_bf16",
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+        + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p],
+        (q.data_ptr(), k.data_ptr(), v.data_ptr(), km.data_ptr(), g.data_ptr(), m.data_ptr(),
+         l.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, Hkv, T, S, D,
+         _strides(q, k, v, g, dk, dv), int(causal), q_offset, sm_scale, _stream(q)),
+    )
+    return dk, dv
+
+
+flash_attention_dq.launches = 0
+flash_attention_dkv.launches = 0
+
+
+def flash_attention_backward(q, k, v, key_mask, o, m, l, g, causal, sm_scale, q_offset):
+    """(dq, dk, dv) from the forward's residuals: on CPU tensors
+    `flash_attention_backward_plain`; on CUDA tensors the dq kernel and
+    the dk/dv kernel (two kernels and no atomics, so the result is the
+    same run to run), or an exception. q/k/v/dout are bf16 there."""
+    if q.device.type == "cpu":
+        return flash_attention_backward_plain(q, k, v, key_mask, o, m, l, g, causal, sm_scale, q_offset)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cpu or cuda, not {q.device}")
+    km, g, delta = backward_operands(q, k, v, key_mask, g, m, l)
+    dq = flash_attention_dq(q, k, v, km, g, m, l, delta, causal, sm_scale, q_offset)
+    dk, dv = flash_attention_dkv(q, k, v, km, g, m, l, delta, causal, sm_scale, q_offset)
+    return dq, dk, dv
+
+
+def _forward(q, k, v, key_mask, causal, sm_scale, q_offset):
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, key_mask, causal, sm_scale, q_offset, with_stats=True)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cpu or cuda, not {q.device}")
+    return _flash_forward_cuda(q, k, v, key_mask, causal, sm_scale, q_offset)
+
+
+class _FlashAttentionFn(torch.autograd.Function):
+    """The reference's `custom_vjp` pair (`_fwd` / `_bwd`)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_mask, causal, sm_scale, q_offset):
+        out, m, l = _forward(q, k, v, key_mask, causal, sm_scale, q_offset)
+        ctx.save_for_backward(q, k, v, key_mask, out, m, l)
+        ctx.static = (causal, sm_scale, q_offset)
+        ctx.mark_non_differentiable(m, l)
+        return out, m, l
+
+    @staticmethod
+    def backward(ctx, g, _gm, _gl):
+        q, k, v, key_mask, out, m, l = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, key_mask, out, m, l, g, *ctx.static)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(
@@ -98,71 +350,20 @@ def flash_attention(
     q_offset: Optional[int] = None,
     with_stats: bool = False,
 ):
-    """Fused attention (see the module docstring for the contract).
+    """Fused attention (see the module docstring for the contract),
+    differentiable in q, k and v.
 
-    On CPU tensors this is `flash_attention_plain`. On CUDA tensors it
-    launches `csrc/flash_fwd.cu` or raises: q/k/v must be bf16 with a
-    contiguous last dimension, D = 64, 16-byte aligned rows.
-    q/k/v may be strided views (e.g. a [B, S, Hkv, D] cache slice
-    transposed to [B, Hkv, S, D]); `out` is returned as a [B, H, T, D]
-    view of a buffer laid out [B, T, H, D], so `out.transpose(1, 2)` is
-    contiguous."""
-    if q.device.type == "cpu":
-        return flash_attention_plain(
-            q, k, v, key_mask, causal, sm_scale, q_offset, with_stats
-        )
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cpu or cuda, not {q.device}")
-    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
-        raise NotImplementedError(
-            "the CUDA flash-attention kernel has no backward yet; run the "
-            "forward under torch.no_grad()"
-        )
+    On CPU tensors the plain versions run. On CUDA tensors the kernels
+    launch or the call raises: q/k/v must be bf16 with a contiguous last
+    dimension, D = 64, 16-byte aligned rows. q/k/v may be strided views
+    (e.g. [B, T, H, D] projections transposed to [B, H, T, D]); `out` and
+    the gradients come back as [B, H, T, D] views of [B, T, H, D] buffers,
+    so `.transpose(1, 2)` of each is contiguous."""
     key_mask, sm_scale, q_offset = _prepare(q, k, key_mask, sm_scale, q_offset)
-    B, H, T, D = q.shape
-    Hkv, S = k.shape[1], k.shape[2]
-    dev = q.device
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        _check_cuda(name, x, dev, torch.bfloat16, 4)
-        if x.stride(-1) != 1 or any(s % 8 for s in x.stride()[:3]) or x.data_ptr() % 16:
-            raise ValueError(
-                f"{name} needs a contiguous last dim, strides in multiples of 8 "
-                f"elements and a 16-byte aligned start (strides {x.stride()})"
-            )
-    if tuple(k.shape) != (B, Hkv, S, D) or tuple(v.shape) != (B, Hkv, S, D):
-        raise ValueError(f"k/v shapes {tuple(k.shape)}, {tuple(v.shape)} do not match q {tuple(q.shape)}")
-    if D != 64:
-        raise ValueError(f"head_dim {D} unsupported by the CUDA kernel (built for 64)")
-    if tuple(key_mask.shape) != (B, S) or key_mask.device != dev:
-        raise ValueError(f"key_mask must be [B, S] = {(B, S)} on {dev}")
-    km = key_mask.to(torch.int32).contiguous()
-    out = torch.empty((B, T, H, D), dtype=q.dtype, device=dev).transpose(1, 2)
-    m = torch.empty((B * H, T, 1), dtype=torch.float32, device=dev)
-    l = torch.empty((B * H, T, 1), dtype=torch.float32, device=dev)
-    strides = (ctypes.c_longlong * 12)(
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3]
-    )
-    from trlx_tpu_torch.ops import _build
-
-    lib = _build.load("flash_fwd.cu")
-    fn = lib.flash_fwd_bf16
-    fn.restype = ctypes.c_int
-    fn.argtypes = (
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
-        + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
-    )
-    rc = fn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), km.data_ptr(), out.data_ptr(),
-        m.data_ptr(), l.data_ptr(), B, H, Hkv, T, S, D, ctypes.cast(strides, ctypes.c_void_p),
-        int(causal), q_offset, sm_scale, torch.cuda.current_stream(dev).cuda_stream,
-    )
-    flash_attention.launches += 1
-    if rc != 0:
-        lib.flash_fwd_error_string.restype = ctypes.c_char_p
-        lib.flash_fwd_error_string.argtypes = [ctypes.c_int]
-        raise RuntimeError(
-            f"flash_fwd kernel launch failed: {lib.flash_fwd_error_string(rc).decode()}"
-        )
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        out, m, l = _FlashAttentionFn.apply(q, k, v, key_mask, causal, sm_scale, q_offset)
+    else:
+        out, m, l = _forward(q, k, v, key_mask, causal, sm_scale, q_offset)
     if with_stats:
         return out, m, l
     return out

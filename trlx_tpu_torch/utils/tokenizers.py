@@ -127,3 +127,18 @@ class ByteTokenizer:
         os.makedirs(path, exist_ok=True)
         with open(os.path.join(path, "tokenizer_config.json"), "w") as f:
             json.dump({"tokenizer_class": "ByteTokenizer"}, f)
+
+
+def load_tokenizer(tokenizer_cfg) -> ByteTokenizer:
+    """TokenizerConfig -> tokenizer: `tokenizer_path` "byte" or "char" gives
+    the built-in ByteTokenizer; HF tokenizers are ROADMAP queue 7."""
+    path = tokenizer_cfg.tokenizer_path
+    if path not in ("byte", "char"):
+        raise NotImplementedError(
+            f"tokenizer_path={path!r} is not ported yet (ROADMAP queue 7: HF interop); "
+            "use tokenizer_path='byte'"
+        )
+    return ByteTokenizer(
+        padding_side=tokenizer_cfg.padding_side,
+        truncation_side=tokenizer_cfg.truncation_side,
+    )
