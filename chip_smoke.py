@@ -6,8 +6,10 @@
 Builds the CUDA kernels from `trlx_tpu_torch/csrc` (into build/kernels/)
 and holds each kernel against its plain PyTorch version on the card: the
 flash forward, the flash backward's dq and dk/dv kernels, the int8
-decode step. Then, at GPT-2-small width (12 x 768, vocab 50257, random
-weights from the seed), through the entry points a user calls:
+decode step, the paged decode step; and checks that the per-lane
+sampler's counter stream is the same on the CPU and the card. Then, at
+GPT-2-small width (12 x 768, vocab 50257, random weights from the seed),
+through the entry points a user calls:
 
 - the rollout path: `CausalLMWithValueHead.from_config` on the default
   PPO config, `generate` (greedy and sampled, int8 KV cache, 64
@@ -17,12 +19,17 @@ weights from the seed), through the entry points a user calls:
 - the training path: `trlx_tpu_torch.train` on bench.py's headline
   workload (64 rollouts of 32 + 32 tokens, batch 32, 4 PPO epochs, two
   cycles = 16 optimizer steps); one train step through the plain bf16
-  and fp32 attention math is its reference.
+  and fp32 attention math is its reference;
+- the decode engine: `engine_generate` on the hydra policy (64 prompts,
+  16 slots, int8 pages, greedy, with and without speculative decoding),
+  on the paged kernel and on the plain gather math; then
+  `trlx_tpu_torch.train` on the headline workload with
+  `method.gen_engine` on (32 slots, the kernel, speculative decoding).
 
 Launch counters, zeroed before each path and read after it, show each
 path ran through its kernels. Then the kernels are timed at the paths'
-shapes beside their bounds, and one rollout, one experience pass and one
-train step are profiled.
+shapes beside their bounds, and one rollout, one experience pass, one
+train step and one engine call of each mode are profiled.
 
 Each phase prints one JSON line. The last two lines are the card's name
 and power limit as nvidia-smi reports them, then
@@ -51,8 +58,12 @@ TRAIN_NEW_TOKENS = 32  # bench.py's headline workload: 32-token prompts + 32 new
 TRAIN_LEN = PROMPT_LEN + TRAIN_NEW_TOKENS
 
 
+_START = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line per phase; `t_s` is the command's seconds so far."""
+    print(json.dumps({"phase": phase, "t_s": round(time.perf_counter() - _START, 3), **fields}), flush=True)
 
 
 def nvidia_smi() -> str:
@@ -290,6 +301,249 @@ def check_decode(gen) -> dict:
     return {"max_abs_err": worst}
 
 
+def paged_inputs(gen, B, T, H, Hkv, PS, MP, quant, depths, L=12, nulls=()):
+    """A paged pool of L layers with every lane's pages, the step's q/k/v and
+    the engine's bias. Lane b holds depths[b] tokens before the step's T
+    (left padding masks the first pad[b] slots); a lane's pages past its
+    depth are null, and so is each (lane, page) in `nulls`, whose slots
+    the bias masks as the engine's key mask does for a released page."""
+    import torch
+
+    from trlx_tpu_torch.ops import paged_kv
+
+    S = MP * PS
+    NP = 1 + B * MP
+    D = 64
+    depths = torch.tensor(depths, device="cuda")
+    pad = torch.clamp(depths // 3, max=PS + 2)
+    pad[depths <= 1] = 0
+    pools = paged_kv.init_pool(L, NP, PS, Hkv, D, quant, torch.bfloat16, "cuda")
+    if quant:
+        for name in ("pk", "pv"):
+            pools[name].copy_(torch.randint(-127, 128, pools[name].shape, generator=gen, device="cuda"))
+        for name in ("pk_scale", "pv_scale"):
+            pools[name].copy_(torch.rand(pools[name].shape, generator=gen, device="cuda") * 0.02)
+    else:
+        for name in ("pk", "pv"):
+            pools[name].copy_(torch.randn(pools[name].shape, generator=gen, device="cuda"))
+    table = (1 + torch.arange(B * MP, device="cuda")).reshape(B, MP)
+    pages_used = (depths + T + PS - 1) // PS
+    table[torch.arange(MP, device="cuda")[None, :] >= pages_used[:, None]] = 0
+    slots = torch.arange(S, device="cuda")
+    key_mask = (slots[None, :] >= pad[:, None]) & (slots[None, :] < (depths + T)[:, None])
+    for b, j in nulls:
+        table[b, j] = 0
+        key_mask[b, j * PS:(j + 1) * PS] = False
+    q_slots = depths[:, None] + torch.arange(T, device="cuda")[None, :]
+    visible = (q_slots[:, :, None] >= slots[None, None, :]) & key_mask[:, None, :]
+    bias = torch.where(visible, 0.0, -1e9)[:, None].float().contiguous()
+    q = torch.randn((B, T, H, D), generator=gen, device="cuda").to(torch.bfloat16)
+    kn = torch.randn((B, T, Hkv, D), generator=gen, device="cuda").to(torch.bfloat16)
+    vn = torch.randn((B, T, Hkv, D), generator=gen, device="cuda").to(torch.bfloat16)
+    return q, kn, vn, pools, table.to(torch.int32).contiguous(), depths, bias, visible
+
+
+def paged_work(visible, table, H, Hkv, T, PS, quant):
+    """Bytes and operations the paged attention function needs on this
+    table and mask: the K and V rows (and with int8 their per-row scales)
+    of every slot some query of the lane sees, bf16 q and out, the fp32
+    bias and the int32 table; 4 * D operations per visible (query head,
+    slot) pair."""
+    D = 64
+    seen = visible.any(dim=1)  # [B, S]
+    n_rows = int(seen.sum().item()) * Hkv
+    row_bytes = 2 * D * (1 if quant else 2) + (8 if quant else 0)
+    B, S = seen.shape
+    n_bytes = n_rows * row_bytes + 2 * 2 * B * T * H * D + 4 * B * T * S + 4 * table.numel()
+    return n_bytes, 4 * D * H * int(visible.sum().item())
+
+
+def check_paged(gen) -> dict:
+    """The paged kernel against paged_attention_plain on the card, through
+    paged_attention_step(impl="pallas") (the write half included): page
+    sizes 8, 16 and 128, T 1 and 4, int8 and bf16 pools, GQA groups 1 and
+    3, layer 5 of 12, ragged lane depths down to 1, a null page in the
+    middle of a lane's table and a lane_valid=False lane. Every query row
+    here sees some slot, so every row is compared."""
+    import torch
+
+    from trlx_tpu_torch.ops.decode_attention import paged_attention_plain, paged_attention_step
+
+    cases = {  # name: (B, T, H, Hkv, PS, MP, quant, depths, nulls)
+        "decode_int8_ps16": (8, 1, 12, 12, 16, 5, "int8", [1, 5, 16, 17, 40, 63, 70, 33], [(3, 1)]),
+        "verify_int8_ps16": (8, 4, 12, 12, 16, 5, "int8", [1, 5, 16, 17, 40, 60, 70, 33], [(4, 1)]),
+        "decode_bf16_ps8": (6, 1, 12, 4, 8, 9, None, [1, 9, 30, 64, 20, 7], [(3, 2)]),
+        "verify_bf16_gqa_ps8": (6, 4, 12, 4, 8, 9, None, [2, 9, 30, 64, 20, 7], [(3, 4)]),
+        "verify_int8_gqa_ps128": (4, 4, 12, 4, 128, 2, "int8", [1, 100, 127, 200], [(3, 0)]),
+        "decode_int8_ps128": (4, 1, 12, 12, 128, 2, "int8", [3, 129, 250, 60], []),
+    }
+    worst = 0.0
+    for name, (B, T, H, Hkv, PS, MP, quant, depths, nulls) in cases.items():
+        q, kn, vn, pools, table, slot_pos, bias, visible = paged_inputs(
+            gen, B, T, H, Hkv, PS, MP, quant, depths, nulls=nulls)
+        lane_valid = torch.ones(B, dtype=torch.bool, device="cuda")
+        lane_valid[1] = False
+        out, pools = paged_attention_step(q, kn, vn, pools, 5, table, slot_pos, bias, 64 ** -0.5,
+                                          lane_valid=lane_valid, impl="pallas")
+        torch.cuda.synchronize()
+        ref = paged_attention_plain(q.float(), pools, 5, table, bias, 64 ** -0.5)
+        seen = visible.any(dim=-1)[:, :, None, None].expand(B, T, H, 64)
+        if not bool(seen.all()):
+            raise AssertionError(f"{name}: every query row must see a slot")
+        err = ((out.float() - ref).abs().max() / ref.abs().max().clamp(min=1.0)).item()
+        emit("paged_check", case=name, shape=[B, T, H, Hkv, PS, MP], quant=quant, rel_err=err)
+        if err > 2e-2:
+            raise AssertionError(f"paged kernel disagrees with its plain version on {name}")
+        worst = max(worst, err)
+    return {"max_abs_err": worst}
+
+
+def check_rng(seed: int) -> None:
+    """The per-lane counter stream is the same integers on the CPU and the card."""
+    import torch
+
+    from trlx_tpu_torch.models.generation import lane_bits, lane_keys
+
+    ids = torch.arange(0, 4096 * 97, 97)
+    cpu = lane_bits(lane_keys(seed, ids), 50257)
+    gpu = lane_bits(lane_keys(seed, ids.cuda()), 50257).cpu()
+    same = bool(torch.equal(cpu, gpu))
+    emit("rng_check", lanes=len(ids), vocab=50257, identical=same)
+    if not same:
+        raise AssertionError("the per-lane counter stream differs between the CPU and the card")
+
+
+ENGINE_BUDGETS = (8, 16, 24, 40)  # row budgets, cycling over the queue
+ENGINE = dict(slots=16, page_size=16, kv_quant="int8")
+
+
+def engine_path(seed: int) -> dict:
+    """`engine_generate` on the hydra GPT-2-small policy (branch_at=10):
+    64 byte prompts left-padded to 32, budgets cycling (8, 16, 24, 40) over
+    40 new tokens, 16 slots, 16-token int8 pages, greedy; without and with
+    speculative decoding (draft_k=4, the hydra draft sharing the trunk's
+    pages). Each runs on the kernel (impl="pallas") and on the plain gather
+    math (impl="xla") on the card. Gates: per-step (>= 95%) and
+    free-running (>= 90%) greedy agreement, the exact pool balance, the
+    kernel's acceptance within 5 points of the plain path's,
+    paged launches == n_layer x decode_steps, and flash launches a
+    positive multiple of n_layer (the refills' prefills)."""
+    import torch
+
+    from trlx_tpu_torch.models import gen_engine as ge
+    from trlx_tpu_torch.models.generation import SamplerSettings
+    from trlx_tpu_torch.ops.decode_attention import paged_attention
+    from trlx_tpu_torch.ops.flash_attention import flash_attention
+    from trlx_tpu_torch.utils.tokenizers import ByteTokenizer
+
+    _, policy = build_policy(seed, "pallas", "int8_kernel")
+    ref = policy.make_ref_params()
+    tok = ByteTokenizer()
+    ids, mask = byte_prompts(tok)
+    greedy = SamplerSettings(max_new_tokens=NEW_TOKENS, do_sample=False,
+                             eos_token_id=tok.eos_token_id, pad_token_id=tok.pad_token_id)
+    budget = torch.tensor([ENGINE_BUDGETS[i % 4] for i in range(PROMPTS)], device="cuda")
+    L = policy.cfg.n_layer
+    shared = ge.hydra_shared_trunk_layers(L, len(ref.blocks))
+    draft = ge.compose_draft_params(policy.cfg, policy.base, ref)
+    modes = {"plain": {}, "spec": dict(spec_decode=True, draft_k=4, draft_shared_layers=shared)}
+
+    def run(impl, kw):
+        spec = ge.EngineSpec(paged_attention_impl=impl, **ENGINE, **kw)
+        return ge.engine_generate(policy.base, ids, mask, seed, greedy, spec,
+                                  draft_params=draft if kw else None, row_budget=budget)
+
+    def agree(a, b):
+        real = a["response_mask"].bool() & b["response_mask"].bool()
+        return (a["response_ids"] == b["response_ids"])[real].float().mean().item()
+
+    launches, outs = {}, {}
+    with torch.no_grad():
+        for mode, kw in modes.items():
+            for impl in ("pallas", "xla"):
+                paged_attention.launches = flash_attention.launches = 0
+                out = run(impl, kw)
+                torch.cuda.synchronize()
+                outs[mode, impl] = out
+                launches[mode, impl] = {"paged": paged_attention.launches, "flash": flash_attention.launches}
+                g = out["gen_stats"]
+                n_pages = 1 + ENGINE["slots"] * -(-(PROMPT_LEN + NEW_TOKENS + (4 if kw else 0)) // ENGINE["page_size"])
+                balance = dict(free_pages=g["free_pages"], pool=n_pages, held_pages=g.get("held_pages", 0),
+                               oom_truncated=g["oom_truncated"], unserved=g["unserved"])
+                emit("engine_run", mode=mode, impl=impl, gen_stats=g, launches=launches[mode, impl],
+                     pool_balance=balance)
+                if (g["free_pages"], balance["held_pages"], g["oom_truncated"], g["unserved"]) != (n_pages - 1, 0, 0, 0):
+                    raise AssertionError(f"engine {mode}/{impl}: the pool does not balance: {balance}")
+                want = L * g["decode_steps"] if impl == "pallas" else 0
+                if launches[mode, impl]["paged"] != want or g["real_tokens"] != int(out["response_mask"].sum()):
+                    raise AssertionError(f"engine {mode}/{impl}: paged launches {launches[mode, impl]} != {want}")
+                # each refill prefills through the flash forward, once a layer
+                n_flash = launches[mode, impl]["flash"]
+                if n_flash == 0 or n_flash % L:
+                    raise AssertionError(f"engine {mode}/{impl}: flash launches {n_flash} are not whole prefills")
+                if not bool((out["response_mask"].sum(dim=1) <= budget).all()):
+                    raise AssertionError("a row emitted past its budget")
+
+    # per-step agreement on the same prefix: the plain path is forced onto
+    # the kernel path's tokens (the draw functions the engine calls are
+    # swapped for ones that record the plain path's own argmax and return
+    # the kernel's token; lane ids stand in for keys, and greedy draws
+    # read no key), and each decision is compared where the kernel's row
+    # emitted; the first decision recorded at a (row, index) is the one
+    # made there
+    kernel_ids = outs["plain", "pallas"]["response_ids"]
+    own = {}
+    saved = ge.lane_keys, ge.sample_token_lanes
+
+    def record_and_force(keys, logits, settings):
+        rows, cols = keys // NEW_TOKENS, keys % NEW_TOKENS
+        for r, c, t in zip(rows.tolist(), cols.tolist(), logits.argmax(dim=-1).tolist()):
+            own.setdefault((r, c), t)
+        return kernel_ids[rows, cols]
+
+    ge.lane_keys, ge.sample_token_lanes = (lambda base, lane_ids: lane_ids), record_and_force
+    try:
+        with torch.no_grad():
+            run("xla", {})
+    finally:
+        ge.lane_keys, ge.sample_token_lanes = saved
+    real = outs["plain", "pallas"]["response_mask"].bool().cpu()
+    kid = kernel_ids.cpu()
+    pairs = [own[r, c] == int(kid[r, c]) for r, c in torch.nonzero(real).tolist() if (r, c) in own]
+    step = sum(pairs) / max(len(pairs), 1)
+    free = {mode: agree(outs[mode, "pallas"], outs[mode, "xla"]) for mode in modes}
+    accept = {impl: outs["spec", impl]["gen_stats"]["accepted"] / max(outs["spec", impl]["gen_stats"]["drafted"], 1)
+              for impl in ("pallas", "xla")}
+    emit("engine_reference", greedy_step_agreement=step, decisions=len(pairs),
+         greedy_free_running_agreement=free, spec_accept_rate=accept,
+         spec_vs_plain_free_running={impl: agree(outs["spec", impl], outs["plain", impl]) for impl in ("pallas", "xla")})
+    if step < 0.95:
+        raise AssertionError(f"only {step:.2%} of the engine's greedy decisions agree with the plain path")
+    if min(free.values()) < 0.90:
+        raise AssertionError(f"free-running greedy agreement {free} is under 90%")
+    if accept["pallas"] < accept["xla"] - 0.05:
+        raise AssertionError(f"speculative acceptance on the kernel {accept} is more than 5 points under the plain path's")
+
+    # wall time (median of 3 after the gated run) and one traced run, for
+    # each mode on the kernel path
+    for mode, kw in modes.items():
+        samples = []
+        with torch.no_grad():
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = run("pallas", kw)
+                torch.cuda.synchronize()
+                samples.append(time.perf_counter() - t0)
+        wall = statistics.median(samples)
+        emit("engine_time", mode=mode, wall_s=wall, samples_s=samples, real_tokens=out["gen_stats"]["real_tokens"],
+             tokens_per_s=out["gen_stats"]["real_tokens"] / wall, decode_steps=out["gen_stats"]["decode_steps"],
+             occupancy=out["gen_stats"]["occupancy"])
+        with torch.no_grad():
+            profile_phase(f"engine_{mode}", lambda: run("pallas", kw), wall, host_ops=False)
+    return {mode: launches[mode, "pallas"]["paged"] for mode in modes}
+
+
 def build_policy(seed: int, attention_impl: str, kv_cache_quant, **transformer_kw):
     import torch
 
@@ -505,7 +759,6 @@ def train_path(seed: int):
     import torch
 
     import trlx_tpu_torch
-    from trlx_tpu_torch.models.wrappers import CausalLMWithValueHead
     from trlx_tpu_torch.ops import flash_attention as fa
     from trlx_tpu_torch.ops.decode_attention import decode_attention_int8
 
@@ -531,14 +784,10 @@ def train_path(seed: int):
              for step, st in trainer.stats_history if "losses/total_loss" in st]
     rewards = [st["reward/mean"] for _, st in trainer.stats_history if "reward/mean" in st]
     rollout_scores = [st["rollout_scores/mean"] for _, st in trainer.stats_history if "rollout_scores/mean" in st]
-    marks = trainer.phase_marks + [dict(trainer.phase_seconds)]
-    split = [{k: marks[i + 1].get(k, 0.0) - marks[i].get(k, 0.0)
-              for k in ("generate", "experience", "train", "eval")} for i in range(len(marks) - 1)]
     emit("train_path", wall_s=wall, launches=launches, expected=expect, iter_count=trainer.iter_count,
          losses=[x[1] for x in steps], approx_kl=[x[2] for x in steps], eval_reward_mean=rewards,
          rollout_score_mean=rollout_scores, kl_ctl_value=trainer.kl_ctl.value,
-         cycle_seconds=[{"rollout": c["generate"], "experience": c["experience"], "train": c["train"],
-                         "eval": c["eval"]} for c in split])
+         cycle_seconds=cycle_split(trainer))
     if len(steps) != TRAIN_STEPS or not all(math.isfinite(x[1]) for x in steps):
         raise AssertionError(f"expected {TRAIN_STEPS} finite losses, got {[x[1] for x in steps]}")
     if {k: launches[k] for k in expect} != expect:
@@ -546,15 +795,91 @@ def train_path(seed: int):
     if not (0 < launches["decode"] <= L * (cycles + 2) * (TRAIN_NEW_TOKENS - 1) and launches["decode"] % L == 0):
         raise AssertionError(f"decode launches {launches['decode']} are not whole decode steps of {L} layers")
 
+    check_params_moved(trainer, seed)
+    return trainer, launches
+
+
+def check_params_moved(trainer, seed: int, phase: str = "train_params") -> None:
+    """Every trainable tensor moved from its seeded init; the frozen
+    reference copy did not."""
+    import torch
+
+    from trlx_tpu_torch.models.wrappers import CausalLMWithValueHead
+
     init = CausalLMWithValueHead(trainer.model.cfg, device="cuda").init_params(torch.Generator().manual_seed(seed))
     start = dict(init.named_parameters())
     still = [n for n, p in trainer.model.named_parameters() if torch.equal(p, start[n])]
     ref_moved = [n for n, p in trainer.ref_params.named_parameters() if not torch.equal(p, start["base." + n])]
-    emit("train_params", trainable=len(trainer.trainable_params), unmoved=still, reference_moved=ref_moved)
+    emit(phase, trainable=len(trainer.trainable_params), unmoved=still, reference_moved=ref_moved)
     if still or ref_moved or len(trainer.trainable_params) != len(start):
         raise AssertionError(f"parameters that did not move: {still}; reference tensors that moved: {ref_moved}")
-    del init, start
-    return trainer, launches
+
+
+def cycle_split(trainer) -> list:
+    """Seconds of each rollout cycle by phase, from the trainer's marks."""
+    marks = trainer.phase_marks + [dict(trainer.phase_seconds)]
+    return [{"rollout": marks[i + 1].get("generate", 0.0) - marks[i].get("generate", 0.0),
+             **{k: marks[i + 1].get(k, 0.0) - marks[i].get(k, 0.0) for k in ("experience", "train", "eval")}}
+            for i in range(len(marks) - 1)]
+
+
+ENGINE_TRAIN = dict(enabled=True, slots=32, page_size=16, paged_attention_impl="pallas", spec_decode=True, draft_k=4)
+
+
+def train_engine_path(seed: int) -> dict:
+    """`trlx_tpu_torch.train` on the headline workload with rollouts (and
+    evaluations) through the decode engine: 32 slots, 16-token int8 pages,
+    the paged kernel, speculative decoding with draft_k=4 off the full
+    frozen reference copy. Gates: paged launches == n_layer x the decode
+    steps of every engine call, the engine's rollout stats, no pool
+    exhaustion, trainable parameters moved and the reference did not."""
+    import torch
+
+    import trlx_tpu_torch
+    from trlx_tpu_torch.ops.decode_attention import paged_attention
+    from trlx_tpu_torch.trainer.base import TPUBaseTrainer
+
+    calls = []
+    engine_generate = TPUBaseTrainer._engine_generate
+
+    def counted(self, *args, **kwargs):
+        out = engine_generate(self, *args, **kwargs)
+        calls.append(out["gen_stats"])
+        return out
+
+    config = train_config(seed)
+    config = config.evolve(method=dict(gen_engine=ENGINE_TRAIN))
+    paged_attention.launches = 0
+    TPUBaseTrainer._engine_generate = counted
+    try:
+        t0 = time.perf_counter()
+        trainer = trlx_tpu_torch.train(reward_fn=train_reward_fn, prompts=TRAIN_PROMPTS, config=config)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        TPUBaseTrainer._engine_generate = engine_generate
+    L = trainer.model.cfg.n_layer
+    steps = sum(g["decode_steps"] for g in calls)
+    launches = paged_attention.launches
+    keys = ("rollout/engine_occupancy", "rollout/engine_refills", "rollout/engine_decode_steps",
+            "rollout/engine_reclaimed_pages", "rollout/spec_accept_rate")
+    rollouts = [{k: st[k] for k in keys if k in st} for _, st in trainer.stats_history if "rollout/engine_refills" in st]
+    losses = [st["losses/total_loss"] for _, st in trainer.stats_history if "losses/total_loss" in st]
+    emit("train_engine_path", wall_s=wall, engine_calls=len(calls), decode_steps=steps, paged_launches=launches,
+         expected=L * steps, iter_count=trainer.iter_count, rollout_stats=rollouts, losses=losses,
+         oom_truncated=sum(g["oom_truncated"] for g in calls), unserved=sum(g["unserved"] for g in calls),
+         cycle_seconds=cycle_split(trainer))
+    if launches != L * steps or not calls:
+        raise AssertionError(f"paged launches {launches} != {L} x {steps} engine decode steps")
+    if not rollouts or any(set(r) != set(keys) for r in rollouts):
+        raise AssertionError(f"the engine's rollout stats are missing: {rollouts}")
+    if any(g["oom_truncated"] or g["unserved"] for g in calls):
+        raise AssertionError("the engine's page pool ran out")
+    if len(losses) != TRAIN_STEPS or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"expected {TRAIN_STEPS} finite losses, got {losses}")
+    check_params_moved(trainer, seed, "train_engine_params")
+    del trainer
+    return {"paged": launches}
 
 
 def train_reference(trainer, seed: int) -> dict:
@@ -745,14 +1070,17 @@ def bwd_kernel_times(gen, launches, errs) -> list:
     return rows
 
 
-def profile_phase(name: str, fn, wall_s: float, grad: bool = False) -> None:
+def profile_phase(name: str, fn, wall_s: float, grad: bool = False, host_ops: bool = True) -> None:
     """Device time by kernel over one traced run of `fn` (torch.profiler).
     The idle share compares the traced device time with the untraced wall
-    time `wall_s` of the same work."""
+    time `wall_s` of the same work. `host_ops=False` traces the device
+    alone: a run of many thousand host operations (the engine's loop)
+    makes a host trace slow to gather and adds nothing to the device sums."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with torch.set_grad_enabled(grad), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if host_ops else [ProfilerActivity.CUDA]
+    with torch.set_grad_enabled(grad), profile(activities=activities) as prof:
         fn()
         torch.cuda.synchronize()
     # a user annotation (the optimizer's `Optimizer.step#AdamW.step` range)
@@ -772,7 +1100,8 @@ def profile_phase(name: str, fn, wall_s: float, grad: bool = False) -> None:
     emit("profile", what=name, wall_ms=wall_s * 1e3, device_busy_ms=busy_ms,
          device_idle_share=(1 - busy_ms / (wall_s * 1e3)) if busy_ms else None,
          attention_kernels_ms=share("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
-                                    "decode_int8_kernel"),
+                                    "decode_int8_kernel", "paged_attention_kernel"),
+         paged_kernel_ms=share("paged_attention_kernel"),
          flash_bwd_kernels_ms=share("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"),
          matmul_ms=share("gemm", "Gemm", "xmma", "nvjet", "cutlass"),
          top=[dict(kernel=e.key[:90], ms=e.self_device_time_total / 1e3, calls=e.count) for e in top])
@@ -836,6 +1165,41 @@ def kernel_times(gen, launches, errs, train_launches) -> list:
     return rows
 
 
+def paged_kernel_times(gen, launches, err) -> list:
+    """The paged kernel at the engine's shapes in the training workload (32
+    lanes, 12 heads, 16-token int8 pages, 5 pages a lane): a decode step
+    (T 1) and a speculative verify (T 4), on ragged lane depths and each
+    lane's own table, beside its bound and its plain version. No single
+    PyTorch call computes attention over int8 pages with per-row scales,
+    so there is no library time."""
+    import torch
+
+    from trlx_tpu_torch.ops.decode_attention import paged_attention, paged_attention_plain
+
+    rows = []
+    B, H, PS, MP = 32, 12, 16, 5
+    depths = torch.randint(33, MP * PS - 4, (B,), generator=gen, device="cuda").tolist()
+    with torch.no_grad():
+        for name, T in (("paged_attention/decode", 1), ("paged_attention/verify", 4)):
+            q, _, _, pools, table, _, bias, visible = paged_inputs(gen, B, T, H, H, PS, MP, "int8", depths)
+            ms = time_ms(lambda: paged_attention(q, pools, 5, table, bias, 64 ** -0.5))
+            plain = time_ms(lambda: paged_attention_plain(q, pools, 5, table, bias, 64 ** -0.5))
+            n_bytes, n_flops = paged_work(visible, table, H, H, T, PS, True)
+            bms, by = bound_ms(n_bytes, n_flops)
+            rows.append(dict(
+                name=name, route="cuda", source="trlx_tpu_torch/csrc/paged_attention.cu",
+                replaces="trlx_tpu/ops/decode_attention.py:198",  # _paged_kernel, via paged_attention_pallas:268
+                launches=launches["engine_plain"] + launches["engine_spec"],
+                launches_engine_path=launches["engine_plain"], launches_engine_spec_path=launches["engine_spec"],
+                launches_train_engine_path=launches["train_engine"], max_abs_err=err,
+                shape=[B, T, H, PS, MP, 64], ms=ms, kernel_ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
+                bound_bytes=n_bytes, bound_flops=n_flops, library_ms=None,
+            ))
+    for row in rows:
+        emit("kernel_time", **row)
+    return rows
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -863,14 +1227,21 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     errs = {"flash": check_flash(gen)["max_abs_err"], "decode": check_decode(gen)["max_abs_err"]}
     bwd_errs = check_flash_bwd(gen)
+    paged_err = check_paged(gen)["max_abs_err"]
+    check_rng(args.seed)
     launches = main_path(args.seed)
     trainer, train_launches = train_path(args.seed)
     batch = train_reference(trainer, args.seed)["batch"]
     train_step_profile(trainer, batch)
     del trainer, batch
     torch.cuda.empty_cache()
+    engine = engine_path(args.seed)
+    paged_launches = {"engine_plain": engine["plain"], "engine_spec": engine["spec"],
+                      "train_engine": train_engine_path(args.seed)["paged"]}
+    torch.cuda.empty_cache()
     rows = kernel_times(gen, launches, errs, train_launches)
     rows += bwd_kernel_times(gen, train_launches, bwd_errs)
+    rows += paged_kernel_times(gen, paged_launches, paged_err)
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

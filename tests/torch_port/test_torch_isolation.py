@@ -133,7 +133,7 @@ def test_train_raises_without_a_gpu(monkeypatch):
     ("train", dict(resume_from_checkpoint="auto")),
     ("method", dict(overlap_rollouts=True)),
     ("method", dict(exp={"enabled": True})),
-    ("method", dict(gen_engine={"enabled": True})),
+    ("method", dict(gen_engine={"enabled": True, "data_groups": 2})),
     ("model", dict(model_arch_type="seq2seq")),
     ("model", dict(model_path="gpt2", model_extra_configs={})),
     ("tokenizer", dict(tokenizer_path="gpt2")),

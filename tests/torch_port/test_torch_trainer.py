@@ -97,3 +97,50 @@ def test_train_matches_reference(tmp_path, monkeypatch):
 
     assert len(evals(ours.stats_history)) == 2  # before the first cycle and at the end
     np.testing.assert_allclose(evals(ours.stats_history), evals(j_stats), rtol=1e-6)
+
+
+def test_train_through_engine_matches_reference(tmp_path, monkeypatch):
+    """The same loop with rollouts through the decode engine (4 slots, 8-token
+    pages, speculative decoding with k = 2 off the hydra reference, whose
+    trunk KV the pool shares), against the reference's engine. The
+    reference must really run its engine: its rollout stats carry the
+    engine ledger."""
+    jconfig = _config(tmp_path).evolve(method=dict(gen_engine=dict(
+        enabled=True, slots=4, page_size=8, spec_decode=True, draft_k=2)))
+    init, j_stats = {}, []
+    setup = JPPOTrainer.setup_model
+
+    def capture_setup(self):
+        setup(self)
+        init.update(jax.tree_util.tree_map(np.asarray, self.params))
+
+    monkeypatch.setattr(JPPOTrainer, "setup_model", capture_setup)
+    monkeypatch.setattr(JBaseTrainer, "_tracker_log",
+                        lambda self, stats, step: j_stats.append((step, dict(stats))))
+    monkeypatch.setattr(JBaseTrainer, "_save_checkpoint", lambda self, name, final=False: None)
+    ref = trlx_tpu.train(reward_fn=reward_fn, prompts=PROMPTS, config=jconfig)
+    engine_keys = ("rollout/engine_refills", "rollout/engine_decode_steps", "rollout/engine_occupancy",
+                   "rollout/engine_reclaimed_pages", "rollout/spec_accept_rate")
+    j_rollouts = [s for _, s in j_stats if "rollout/engine_refills" in s]
+    assert j_rollouts, "the reference fell back to its static sampler"
+
+    monkeypatch.setattr(
+        wrappers.CausalLMWithValueHead, "init_params",
+        lambda self, gen: self.load_state_dict(params_from_jax(init, self.cfg)) and self,
+    )
+    ours = trlx_tpu_torch.train(
+        reward_fn=reward_fn, prompts=PROMPTS, config=TRLConfig.from_dict(jconfig.to_dict()), device="cpu"
+    )
+    assert ours.iter_count == ref.iter_count == 8
+    j_hist = jax.tree_util.tree_map(np.asarray, ref.store.history)
+    hist = ours.store.history
+    for name in ("query_tensors", "response_tensors", "response_mask"):
+        np.testing.assert_array_equal(getattr(hist, name).numpy(), getattr(j_hist, name), err_msg=name)
+    for name in ("logprobs", "values", "rewards"):
+        np.testing.assert_allclose(getattr(hist, name).numpy(), getattr(j_hist, name),
+                                   atol=1e-4, rtol=0, err_msg=name)
+    rollouts = [s for _, s in ours.stats_history if "rollout/engine_refills" in s]
+    assert len(rollouts) == len(j_rollouts)
+    for got, want in zip(rollouts, j_rollouts):
+        for key in engine_keys:
+            assert got[key] == pytest.approx(float(want[key]), rel=1e-6), key

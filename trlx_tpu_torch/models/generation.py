@@ -113,6 +113,75 @@ def sample_token(
     return torch.multinomial(probs, 1, generator=generator)[:, 0]
 
 
+# -- per-lane sampling -------------------------------------------------------
+#
+# The decode engine keys every draw on (queue row, response index, event
+# kind), never on the slot or the step. `jax.random` cannot be reproduced
+# in torch, so the port builds the same contract on a counter-based hash:
+# a draw is a pure function of (base seed, lane id, vocab index), computed
+# with int64 tensor ops masked to 32 bits, so the integers are the same on
+# every device. The base seed comes from the trainer's torch.Generator once
+# per generate call.
+
+_M32 = 0xFFFFFFFF
+
+
+def _mulmod32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x * c) mod 2**32 for x in [0, 2**32), without leaving int64: the
+    high 16 bits of x multiply only the low 16 bits of c."""
+    lo = (x & 0xFFFF) * c
+    hi = (((x >> 16) * (c & 0xFFFF)) & 0xFFFF) << 16
+    return (lo + hi) & _M32
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """A 32-bit integer finaliser (lowbias32) on int64 tensors."""
+    x = x & _M32
+    x = x ^ (x >> 16)
+    x = _mulmod32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mulmod32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def lane_keys(base: int, lane_ids: torch.Tensor) -> torch.Tensor:
+    """Per-lane 32-bit keys [M] (int64) from a base seed and lane ids."""
+    seed = _mix32(torch.full((), int(base) & _M32, dtype=torch.int64, device=lane_ids.device))
+    return _mix32(seed ^ _mix32(lane_ids.to(torch.int64) & _M32))
+
+
+def lane_bits(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """Counter stream [M, n]: 32 random bits for each (lane, index)."""
+    idx = _mulmod32(torch.arange(n, dtype=torch.int64, device=keys.device), 0x9E3779B9)
+    return _mix32(_mix32(keys[:, None] ^ idx[None, :]) + keys[:, None])
+
+
+def lane_uniform(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """Uniform draws in (0, 1), fp32, [M, n]: the top 24 bits of the
+    counter stream, so every value is exact in fp32."""
+    return ((lane_bits(keys, n) >> 8).to(torch.float32) + 0.5) * (1.0 / (1 << 24))
+
+
+def lane_gumbel(keys: torch.Tensor, n: int) -> torch.Tensor:
+    return -torch.log(-torch.log(lane_uniform(keys, n)))
+
+
+def sample_token_lanes(keys: torch.Tensor, logits: torch.Tensor, settings: SamplerSettings) -> torch.Tensor:
+    """Per-lane sampling from [M, V] logits: each row draws from its own
+    key (Gumbel-max, which is a categorical draw); the argmax when greedy."""
+    logits = process_logits(logits, settings)
+    if not settings.do_sample:
+        return torch.argmax(logits, dim=-1)
+    return torch.argmax(logits + lane_gumbel(keys, logits.shape[-1]), dim=-1)
+
+
+def categorical_lanes(keys: torch.Tensor, probs: torch.Tensor) -> torch.Tensor:
+    """Per-lane categorical draw from probability rows [M, V] (need not be
+    normalised): the speculative residual re-draw."""
+    logp = torch.log(torch.clamp(probs, min=1e-30))
+    return torch.argmax(logp + lane_gumbel(keys, probs.shape[-1]), dim=-1)
+
+
 def cast_params_for_decode(model: TransformerLM, compute_dtype: torch.dtype) -> TransformerLM:
     """A copy of `model` whose matmul weights (`kernel`, `wte`, `wpe`) are
     pre-cast to the compute dtype, so decode steps do not re-cast them;

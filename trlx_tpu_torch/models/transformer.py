@@ -32,7 +32,11 @@ switch raises NotImplementedError.
 The KV cache is a dict of tensors plus a host-int write `index`. Forwards
 with a cache write their new K/V columns into the cache buffers IN PLACE
 (the reference's functional update-carry; in place it needs no second
-copy of the cache) and return the dict with the index advanced.
+copy of the cache) and return the dict with the index advanced. A cache
+dict holding "pk" is the decode engine's paged pool instead
+(models/gen_engine.py): each lane has its own slot position, the pages
+are written in place, and attention runs through
+`ops.decode_attention.paged_attention_step`.
 """
 
 from __future__ import annotations
@@ -47,7 +51,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from trlx_tpu_torch.ops.decode_attention import decode_attention_int8
+from trlx_tpu_torch.ops.decode_attention import (
+    POOL_KEYS,
+    decode_attention_int8,
+    paged_attention_step,
+)
 from trlx_tpu_torch.ops.flash_attention import flash_attention
 from trlx_tpu_torch.utils.device import resolve_device
 
@@ -297,7 +305,17 @@ class Attention(nn.Module):
 
         out = None
         q_offset = None
-        if cache is not None:
+        if cache is not None and "pk" in cache:
+            # paged pools (models/gen_engine.py): write this layer's T tokens
+            # into their pages in place and attend over each lane's logical
+            # sequence; all masking rides attn_bias
+            pools = {name: cache[name] for name in POOL_KEYS if name in cache}
+            out, _ = paged_attention_step(
+                q, k, v, pools, ix, cache["page_table"], cache["slot_pos"], attn_bias, sm_scale,
+                lane_valid=cache.get("lane_valid"), contiguous=bool(cache.get("contiguous", False)),
+                impl=cache.get("attn_impl", "xla"),
+            )
+        elif cache is not None:
             idx = cache["index"]
             if "k_scale" in cache:
                 # int8 cache [L, B, Hkv, S, D] (decode only; generate()
@@ -491,9 +509,15 @@ class TransformerLM(nn.Module):
             "key_mask": key_mask,
         }
 
-    def _run_blocks(self, blocks, h, attn_bias, cache=None, key_mask=None, layer_offset=0):
+    def _run_blocks(self, blocks, h, attn_bias, cache=None, key_mask=None, layer_offset=0,
+                    layer_ixs=None):
+        """`layer_ixs` maps block i onto cache layer layer_ixs[i] (a hydra
+        draft's trunk blocks onto the policy's trunk slots of a paged pool,
+        its branch blocks onto the extension slots); default
+        layer_offset + i."""
         for i, block in enumerate(blocks):
-            h = block(h, attn_bias, cache, layer_offset + i, key_mask)
+            ix = layer_offset + i if layer_ixs is None else int(layer_ixs[i])
+            h = block(h, attn_bias, cache, ix, key_mask)
         return h
 
     def _logits(self, hidden: torch.Tensor) -> torch.Tensor:
@@ -516,6 +540,26 @@ class TransformerLM(nn.Module):
         dev = input_ids.device
         if attention_mask is None:
             attention_mask = torch.ones((B, T), dtype=torch.int32, device=dev)
+        if cache is not None and "pk" in cache:
+            # paged pools: each lane sits at its own depth (per-row slot_pos
+            # instead of one write index); the engine precomputes key_mask
+            # over the valid slots including the T incoming tokens, and
+            # causality among those tokens falls out of the slot comparison
+            S = cache["page_table"].shape[1] * cache["pk"].shape[2]
+            q_slots = cache["slot_pos"][:, None] + torch.arange(T, device=dev)[None, :]
+            if positions is None:
+                positions = q_slots
+            bias = make_attention_bias(cache["key_mask"], q_slots, torch.arange(S, device=dev))
+            h = self.embed(input_ids, positions)
+            h = self._run_blocks(self.blocks, h, bias, cache, cache["key_mask"],
+                                 layer_ixs=cache.get("layer_ixs"))
+            hidden = self.ln_f(h)
+            return {
+                "logits": self._logits(hidden) if compute_logits else None,
+                "hidden_states": hidden,
+                "cache": cache,  # the pools were written in place
+                "positions": positions,
+            }
         if cache is not None:
             quant = "k_scale" in cache
             S = cache["k"].shape[3 if quant else 2]

@@ -1,7 +1,17 @@
-"""One decode step of attention over the stacked int8 KV cache: the port
-of trlx_tpu.ops.decode_attention.decode_attention_int8.
+"""Decode attention over the two cache layouts: the stacked int8 cache of
+the static sampler and the paged pools of the decode engine (port of
+trlx_tpu.ops.decode_attention).
 
-`decode_attention_int8` runs the hand-written Hopper kernel
+Paged layout. `paged_attention_step` is one layer's attention over a
+paged pool: it writes the T incoming tokens' K/V into their pages (in
+place), then attends every query over its lane's logical sequence. Its
+`impl="xla"` half gathers the lane's [B, S] view and runs the plain math
+(grouped GQA, folded per-row int8 scales); `impl="pallas"` calls
+`paged_attention`, which runs the hand-written Hopper kernel
+`csrc/paged_attention.cu` on CUDA tensors and `paged_attention_plain` on
+CPU tensors. The contiguous layout always takes the gather half.
+
+Contiguous int8 layout. `decode_attention_int8` runs the hand-written Hopper kernel
 `csrc/decode_int8.cu` on CUDA tensors and `decode_attention_int8_plain`
 on CPU tensors. The function, for one layer `layer_ix` of the cache:
 
@@ -19,10 +29,188 @@ Query head h reads kv head h // (H // Hkv). Any cache length S works.
 from __future__ import annotations
 
 import ctypes
+from typing import Dict, Optional, Tuple
 
 import torch
 
+from trlx_tpu_torch.ops import paged_kv
+
 NEG_INF = -1e30
+POOL_KEYS = ("pk", "pv", "pk_scale", "pv_scale")
+
+
+def paged_attention_step(
+    q: torch.Tensor,  # [B, T, H, D] queries, T >= 1
+    k_new: torch.Tensor,  # [B, T, Hkv, D] this step's keys
+    v_new: torch.Tensor,  # [B, T, Hkv, D] this step's values
+    pools: Dict[str, torch.Tensor],  # pk/pv [L, NP, PS, Hkv, D] (+ scales)
+    layer_ix: int,
+    page_table: torch.Tensor,  # [B, MP] int32
+    slot_pos: torch.Tensor,  # [B] logical slot of the first incoming token
+    attn_bias: torch.Tensor,  # [B, 1, T, S] additive fp32, S = MP * PS
+    sm_scale: float,
+    lane_valid: Optional[torch.Tensor] = None,  # [B] bool; False -> null-page write
+    contiguous: bool = False,
+    impl: str = "xla",
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One layer's attention over a paged KV cache: write the T incoming
+    tokens into their pages (IN PLACE: `pools` is returned, updated), then
+    attend each query over its lane's whole logical sequence, reading the
+    pool after the write. All masking (lane lengths, causality among the T
+    tokens, stale slots, null pages) rides `attn_bias`, so one function
+    serves the T = 1 decode step and the T = draft_k verify. Returns
+    (out [B, T, H, D] in q's dtype, pools)."""
+    if impl not in ("xla", "pallas"):
+        raise ValueError(f"paged attention impl must be xla/pallas, got {impl!r}")
+    B, T, H, D = q.shape
+    Hkv = k_new.shape[2]
+    PS = pools["pk"].shape[2]
+    quant = "pk_scale" in pools
+    positions = slot_pos[:, None] + torch.arange(T, device=q.device)[None, :]
+    pids, offs = paged_kv.write_positions(page_table, positions, PS, lane_valid)
+    if quant:
+        kq, ks = paged_kv.quantize_rows(k_new)
+        vq, vs = paged_kv.quantize_rows(v_new)
+        for name, x in (("pk", kq), ("pv", vq), ("pk_scale", ks), ("pv_scale", vs)):
+            paged_kv.scatter_layer(pools[name], layer_ix, pids, offs, x)
+    else:
+        paged_kv.scatter_layer(pools["pk"], layer_ix, pids, offs, k_new)
+        paged_kv.scatter_layer(pools["pv"], layer_ix, pids, offs, v_new)
+
+    if impl == "pallas" and not contiguous:
+        return paged_attention(q, pools, layer_ix, page_table, attn_bias, sm_scale), pools
+
+    k_all = paged_kv.gather_layer(pools["pk"], layer_ix, page_table, contiguous)  # [B, S, Hkv, D]
+    v_all = paged_kv.gather_layer(pools["pv"], layer_ix, page_table, contiguous)
+    rep = H // Hkv
+    # GQA grouped: rows (g, r) of group g share kv head g; K and V are
+    # never repeated to H heads
+    qg = q.reshape(B, T, Hkv, rep, D)
+    scores = torch.einsum("btgrd,bsgd->bgrts", qg.float(), k_all.to(q.dtype).float()) * sm_scale
+    bias = attn_bias[:, :, None]  # [B, 1, 1, T, S]
+    if quant:
+        ks_all = paged_kv.gather_layer(pools["pk_scale"], layer_ix, page_table, contiguous)  # [B, S, Hkv]
+        vs_all = paged_kv.gather_layer(pools["pv_scale"], layer_ix, page_table, contiguous)
+        scores = scores * ks_all.permute(0, 2, 1)[:, :, None, None, :]
+        probs = torch.softmax(scores + bias, dim=-1)
+        probs = (probs * vs_all.permute(0, 2, 1)[:, :, None, None, :]).to(q.dtype)
+    else:
+        probs = torch.softmax(scores + bias, dim=-1).to(q.dtype)
+    out = torch.einsum("bgrts,bsgd->btgrd", probs, v_all.to(q.dtype))
+    return out.reshape(B, T, H, D).to(q.dtype), pools
+
+
+def paged_attention_plain(
+    q: torch.Tensor,
+    pools: Dict[str, torch.Tensor],
+    layer_ix: int,
+    page_table: torch.Tensor,
+    attn_bias: torch.Tensor,
+    sm_scale: float,
+) -> torch.Tensor:
+    """The paged kernel's function in plain PyTorch, in fp32: for lane b,
+    query (t, head h) and kv head g = h // (H // Hkv), over every slot j
+    of the lane's pages (page_table[b, j // PS], row j % PS),
+    s_j = (q . k_j) * sm_scale * k_scale_j + bias[b, 0, t, j], softmax
+    over j, o = sum_j p_j * v_scale_j * v_j / max(l, 1e-30)."""
+    B, T, H, D = q.shape
+    Hkv = pools["pk"].shape[3]
+    if H % Hkv:
+        raise ValueError(f"n_head={H} not a multiple of n_kv_head={Hkv}")
+    k = paged_kv.gather_layer(pools["pk"], layer_ix, page_table).float()  # [B, S, Hkv, D]
+    v = paged_kv.gather_layer(pools["pv"], layer_ix, page_table).float()
+    qg = q.float().reshape(B, T, Hkv, H // Hkv, D)
+    s = torch.einsum("btgrd,bsgd->bgrts", qg, k) * sm_scale
+    if "pk_scale" in pools:
+        ks = paged_kv.gather_layer(pools["pk_scale"], layer_ix, page_table)  # [B, S, Hkv]
+        s = s * ks.permute(0, 2, 1)[:, :, None, None, :]
+    s = s + attn_bias.float()[:, :, None]
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    if "pv_scale" in pools:
+        vs = paged_kv.gather_layer(pools["pv_scale"], layer_ix, page_table)
+        p = p * vs.permute(0, 2, 1)[:, :, None, None, :]
+    o = torch.einsum("bgrts,bsgd->btgrd", p, v) / torch.clamp(l, min=1e-30).permute(0, 3, 1, 2, 4)
+    return o.reshape(B, T, H, D).to(q.dtype)
+
+
+def paged_attention(
+    q: torch.Tensor,  # [B, T, H, D] bf16
+    pools: Dict[str, torch.Tensor],  # the pools AFTER this step's write
+    layer_ix: int,
+    page_table: torch.Tensor,  # [B, MP] int32
+    attn_bias: torch.Tensor,  # [B, 1, T, MP * PS] fp32
+    sm_scale: float,
+) -> torch.Tensor:
+    """Attention of T queries per lane over that lane's pages of one pool
+    layer (see `paged_attention_plain`). CPU tensors take the plain
+    version; CUDA tensors launch `csrc/paged_attention.cu` or raise: q
+    bf16, D = 64, (H // Hkv) * T <= 32, an int8 pool with its fp32 scales
+    or a bf16 pool without, all operands contiguous.
+
+    The kernel skips null pages (table entry 0). For a query row with at
+    least one visible slot (bias 0) that gives the plain version's result:
+    a null page's slots are masked by the bias, and exp(-1e9 - m) is 0.
+    Rows with no visible slot belong only to lanes the engine has retired,
+    whose output it never reads; there the two versions may differ."""
+    if q.device.type == "cpu":
+        return paged_attention_plain(q, pools, layer_ix, page_table, attn_bias, sm_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_attention runs on cpu or cuda, not {q.device}")
+    B, T, H, D = q.shape
+    L, NP, PS, Hkv, _ = pools["pk"].shape
+    MP = page_table.shape[1]
+    quant = "pk_scale" in pools
+    kv_dtype = torch.int8 if quant else torch.bfloat16
+    dev = q.device
+    expect = {
+        "q": (q, torch.bfloat16, (B, T, H, D)),
+        "pk": (pools["pk"], kv_dtype, (L, NP, PS, Hkv, D)),
+        "pv": (pools["pv"], kv_dtype, (L, NP, PS, Hkv, D)),
+        "page_table": (page_table, torch.int32, (B, MP)),
+        "attn_bias": (attn_bias, torch.float32, (B, 1, T, MP * PS)),
+    }
+    if quant:
+        expect["pk_scale"] = (pools["pk_scale"], torch.float32, (L, NP, PS, Hkv))
+        expect["pv_scale"] = (pools["pv_scale"], torch.float32, (L, NP, PS, Hkv))
+    for name, (x, dtype, shape) in expect.items():
+        if x.device != dev or x.dtype != dtype or tuple(x.shape) != shape:
+            raise ValueError(
+                f"{name}: expected {dtype} {shape} on {dev}, got "
+                f"{x.dtype} {tuple(x.shape)} on {x.device}"
+            )
+        if not x.is_contiguous() or x.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    if H % Hkv or D != 64 or (H // Hkv) * T > 32:
+        raise ValueError(f"unsupported (H, Hkv, T, D) = {(H, Hkv, T, D)} for the CUDA kernel")
+    if not 0 <= int(layer_ix) < L:
+        raise IndexError(f"layer_ix {layer_ix} out of range for {L} layers")
+    out = torch.empty_like(q)
+    from trlx_tpu_torch.ops import _build
+
+    lib = _build.load("paged_attention.cu")
+    fn = lib.paged_attention_bf16
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p]
+    pks, pvs = (pools["pk_scale"].data_ptr(), pools["pv_scale"].data_ptr()) if quant else (None, None)
+    rc = fn(
+        q.data_ptr(), pools["pk"].data_ptr(), pools["pv"].data_ptr(), pks, pvs,
+        page_table.data_ptr(), attn_bias.data_ptr(), out.data_ptr(),
+        B, T, H, Hkv, D, NP, PS, MP, int(layer_ix), int(quant), float(sm_scale),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    paged_attention.launches += 1
+    if rc != 0:
+        lib.paged_attention_error_string.restype = ctypes.c_char_p
+        lib.paged_attention_error_string.argtypes = [ctypes.c_int]
+        raise RuntimeError(
+            f"paged_attention kernel launch failed: {lib.paged_attention_error_string(rc).decode()}"
+        )
+    return out
+
+
+paged_attention.launches = 0
 
 
 def decode_attention_int8_plain(

@@ -21,6 +21,10 @@ What the port does differently, and why:
 - One process, one device: no mesh, no row padding for sharding, no
   deferred device->host stats copies (the rollout stats are held until
   the next train-step flush, as in the reference, but read eagerly).
+- The decode engine (`method.gen_engine`) takes rollout and evaluation
+  sampling as in the reference, with one lane group; its speculative
+  draft is the frozen reference (the hydra Branch under the policy's
+  trunk, or the full copy).
 - The robustness, transport, fleet, serving and checkpoint tiers are not
   ported yet; each knob that would turn one on raises NotImplementedError
   naming its ROADMAP queue, and `_save_checkpoint` only warns.
@@ -40,6 +44,12 @@ import torch
 
 from trlx_tpu_torch.data import PromptBatch
 from trlx_tpu_torch.data.configs import TRLConfig
+from trlx_tpu_torch.models.gen_engine import (
+    GenEngineConfig,
+    compose_draft_params,
+    hydra_shared_trunk_layers,
+    make_engine_fn,
+)
 from trlx_tpu_torch.models.generation import (
     HF_GEN_KWARGS_UNIMPLEMENTED,
     SamplerSettings,
@@ -106,7 +116,8 @@ def check_ported(config: TRLConfig) -> None:
         (getattr(method, "overlap_rollouts", False), "method.overlap_rollouts", LEFT_OUT),
         (_enabled(getattr(method, "exp", None)), "method.exp (the experience transport)", "ROADMAP queue 11"),
         (_enabled(getattr(method, "fleet", None)), "method.fleet", "ROADMAP queue 11"),
-        (_enabled(getattr(method, "gen_engine", None)), "method.gen_engine", "ROADMAP queue 5"),
+        (int(dict(getattr(method, "gen_engine", None) or {}).get("data_groups", 1)) > 1,
+         "method.gen_engine.data_groups > 1 (engine lane groups)", "ROADMAP queue 12"),
         (bool(getattr(method, "num_value_layers_unfrozen", 0)), "method.num_value_layers_unfrozen (the value branch)", LEFT_OUT),
         (model.model_arch_type != "causal", f"model.model_arch_type={model.model_arch_type!r}", "ROADMAP queue 8"),
         (model.peft_config is not None, "model.peft_config", "ROADMAP queue 7"),
@@ -146,6 +157,10 @@ class TPUBaseTrainer(BaseRLTrainer):
         # the sampler's random stream (the reference splits a jax PRNG key
         # per call; the two streams differ, greedy decoding does not)
         self.generator = torch.Generator(device=self.device).manual_seed(train.seed)
+        # the continuous-batching decode engine (method.gen_engine.*) behind
+        # the same generate() seam; off by default
+        self._engine_cfg = GenEngineConfig.from_dict(getattr(config.method, "gen_engine", None))
+        self._engine_fns: Dict[Tuple, Callable] = {}
 
         self.setup_model()
         self.freeze_parameters()
@@ -266,11 +281,65 @@ class TPUBaseTrainer(BaseRLTrainer):
         mask = (torch.ones_like(ids) if attention_mask is None
                 else torch.as_tensor(attention_mask, device=self.device)).to(torch.int32)
         with self._phase("generate"):
-            out = generate(self.model.base, ids, mask, self.generator, settings)
+            if self._engine_cfg.enabled and self._engine_eligible():
+                out = self._engine_generate(ids, mask, settings)
+            else:
+                out = generate(self.model.base, ids, mask, self.generator, settings)
         return dict(out, prompt_mask=mask)
 
     def generate_eval(self, input_ids, attention_mask=None, **kwargs):
         return self.generate(input_ids, attention_mask, settings=self.generate_settings, **kwargs)
+
+    # -- the rollout decode engine (method.gen_engine.*) -----------------
+
+    def _engine_eligible(self) -> bool:
+        """The engine's envelope: a causal LM without prompt or prefix
+        adapters (the port has no logits processor on this path, and one
+        data group by `check_ported`)."""
+        return (self.config.model.model_arch_type == "causal"
+                and self.config.model.peft_config is None)
+
+    def _engine_spec(self, batch: int):
+        """The engine spec for a call's batch width. With speculative
+        decoding, a hydra reference (its top-k branch) gives the draft's
+        shared trunk depth, whose KV the pool holds once."""
+        spec = self._engine_cfg.resolve(batch, self.model.cfg)
+        if spec.spec_decode:
+            shared = hydra_shared_trunk_layers(self.model.cfg.n_layer, len(self.ref_params.blocks))
+            if shared:
+                spec = dataclasses.replace(spec, draft_shared_layers=shared)
+        return spec
+
+    def _decode_impl(self) -> str:
+        """Which decode implementation produces this run's rollout tokens."""
+        if not self._engine_cfg.enabled:
+            return "static"
+        if not self._engine_cfg.paged:
+            return "engine-contiguous"
+        return f"engine-paged-{self._engine_cfg.paged_attention_impl}"
+
+    def _get_engine_fn(self, settings: SamplerSettings, shape: Tuple[int, int]):
+        spec = self._engine_spec(shape[0])
+        key = (settings, shape, spec)
+        if key not in self._engine_fns:
+            logger.info("decode engine (%s) for a %s queue: %s", self._decode_impl(), shape, spec)
+            self._engine_fns[key] = make_engine_fn(self.model.base, settings, spec)
+        return self._engine_fns[key], spec
+
+    def _engine_generate(self, input_ids, attention_mask, settings):
+        """One generate() chunk through the decode engine: the chunk is the
+        engine's prompt queue, and finished lanes refill from it. The output
+        is the static sampler's plus `gen_stats`. The draft for speculative
+        decoding is the frozen reference: the hydra Branch under the
+        policy's trunk, or the full frozen copy."""
+        if self._engine_cfg.spec_decode and getattr(self, "ref_params", None) is None:
+            raise ValueError("method.gen_engine.spec_decode needs a frozen reference model to draft from")
+        fn, spec = self._get_engine_fn(settings, tuple(input_ids.shape))
+        seed = int(torch.randint(0, 2 ** 31 - 1, (), generator=self.generator, device=self.device))
+        draft = None
+        if spec.spec_decode:
+            draft = compose_draft_params(self.model.cfg, self.model.base, self.ref_params)
+        return fn(input_ids, attention_mask, seed, draft_params=draft)
 
     def decode(
         self,
@@ -675,9 +744,25 @@ class TPUOnlineTrainer(TPUBaseTrainer):
 
     @staticmethod
     def _rollout_accounting_stats(response_ids: np.ndarray, response_mask: np.ndarray,
-                                  eos_id: int, stats) -> None:
+                                  eos_id: int, stats, gen_stats: Optional[Dict[str, Any]] = None) -> None:
         """Mask-weighted real tokens, batch occupancy and the truncation
-        rate (rows that ran to max_new_tokens without an EOS)."""
+        rate (rows that ran to max_new_tokens without an EOS), plus the
+        decode engine's per-chunk ledger when `gen_stats` rode along."""
+        if gen_stats is not None:
+            g = {k: float(v) for k, v in gen_stats.items()}
+            stats["rollout/engine_occupancy"] = g.get("occupancy", 0.0)
+            stats["rollout/engine_refills"] = g.get("refills", 0.0)
+            stats["rollout/engine_decode_steps"] = g.get("decode_steps", 0.0)
+            # prompt pages that held only left padding, released at refill
+            stats["rollout/engine_reclaimed_pages"] = g.get("reclaimed_pages", 0.0)
+            if "drafted" in g:
+                stats["rollout/spec_accept_rate"] = g["accepted"] / max(g["drafted"], 1.0)
+            if g.get("oom_truncated") or g.get("unserved"):
+                logger.warning(
+                    "gen_engine: page pool exhausted (%d lanes truncated, %d prompts unserved): "
+                    "raise method.gen_engine.pool_pages",
+                    int(g.get("oom_truncated", 0)), int(g.get("unserved", 0)),
+                )
         n_resp = response_mask.shape[1]
         real = float(response_mask.sum())
         stats["rollout/real_tokens"] = real

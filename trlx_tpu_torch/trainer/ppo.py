@@ -252,7 +252,7 @@ class TPUPPOTrainer(TPUOnlineTrainer):
         )
         self._rollout_accounting_stats(
             gen_out["response_ids"].cpu().numpy(), response_mask.cpu().numpy(),
-            self.generate_settings.eos_token_id, stats,
+            self.generate_settings.eos_token_id, stats, gen_out.get("gen_stats"),
         )
         stats["time/rollout_time"] = clock.tick()
         stats["policy/sqrt_kl"] = torch.sqrt(torch.clamp(kl_stats["mean_kl"], min=0.0))
