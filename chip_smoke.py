@@ -5,9 +5,11 @@
 
 Builds the CUDA kernels from `trlx_tpu_torch/csrc` (into build/kernels/)
 and holds each kernel against its plain PyTorch version on the card: the
-flash forward, the flash backward's dq and dk/dv kernels, the int8
-decode step, the paged decode step; and checks that the per-lane
-sampler's counter stream is the same on the CPU and the card. Then, at
+flash forward, the flash backward's dq and dk/dv kernels (causal, and
+T5's non-causal cross-attention with more queries than keys), T5's
+bias-carrying forward, dq + dbias and dk/dv kernels, the int8 decode
+step, the paged decode step; and checks that the per-lane sampler's
+counter stream is the same on the CPU and the card. Then, at
 GPT-2-small width (12 x 768, vocab 50257, random weights from the seed),
 through the entry points a user calls:
 
@@ -24,7 +26,13 @@ through the entry points a user calls:
   16 slots, int8 pages, greedy, with and without speculative decoding),
   on the paged kernel and on the plain gather math; then
   `trlx_tpu_torch.train` on the headline workload with
-  `method.gen_engine` on (32 slots, the kernel, speculative decoding).
+  `method.gen_engine` on (32 slots, the kernel, speculative decoding);
+- seq2seq at T5-base width (12 + 12 x 768, vocab 32128): a
+  `generate_seq2seq` rollout (64 prompts, 64 new tokens) and one
+  `forward_train` experience pass against the plain bf16 and fp32 math,
+  then `trlx_tpu_torch.train` with model_arch_type "seq2seq" and the
+  settings of examples/ppo_sentiments_t5.py (two cycles of 48 rollouts,
+  32 optimizer steps) and one train step against the same references.
 
 Launch counters, zeroed before each path and read after it, show each
 path ran through its kernels. Then the kernels are timed at the paths'
@@ -56,6 +64,15 @@ GPT2_SMALL = dict(
 PROMPTS, PROMPT_LEN, NEW_TOKENS = 64, 32, 40
 TRAIN_NEW_TOKENS = 32  # bench.py's headline workload: 32-token prompts + 32 new tokens
 TRAIN_LEN = PROMPT_LEN + TRAIN_NEW_TOKENS
+# T5-base, the published t5-base config.json (the architecture of
+# lvwerra/t5-imdb, which examples/ppo_sentiments_t5.py trains)
+T5_BASE = dict(
+    vocab_size=32128, d_model=768, n_layer=12, n_decoder_layer=12, n_head=12, d_kv=64, d_ff=3072,
+    relative_attention_num_buckets=32, relative_attention_max_distance=128,
+    layer_norm_epsilon=1e-6, activation="relu", tie_word_embeddings=True,
+)
+T5_PROMPT_LEN, T5_NEW_TOKENS = 32, 64
+T5_DEC_LEN = T5_NEW_TOKENS + 1  # the decoder start token and the response
 
 
 _START = time.perf_counter()
@@ -187,24 +204,28 @@ def check_flash(gen) -> dict:
 
     from trlx_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
 
-    cases = {
-        "prefill": (64, 12, 12, PROMPT_LEN, 128, 64, 0, True),
-        "teacher_forced": (64, 12, 12, PROMPT_LEN + NEW_TOKENS, PROMPT_LEN + NEW_TOKENS, 64, 0, False),
-        "long": (8, 12, 12, 1024, 1024, 64, 0, False),
-        "gqa": (8, 12, 4, 200, 200, 64, 0, False),
-        "prefill_offset": (4, 4, 4, 37, 128, 64, 5, True),  # ragged, at an offset
+    cases = {  # name: (B, H, Hkv, T, S, D, q_offset, unwritten, causal)
+        "prefill": (64, 12, 12, PROMPT_LEN, 128, 64, 0, True, True),
+        "teacher_forced": (64, 12, 12, PROMPT_LEN + NEW_TOKENS, PROMPT_LEN + NEW_TOKENS, 64, 0, False, True),
+        "long": (8, 12, 12, 1024, 1024, 64, 0, False, True),
+        "gqa": (8, 12, 4, 200, 200, 64, 0, False, True),
+        "prefill_offset": (4, 4, 4, 37, 128, 64, 5, True, True),  # ragged, at an offset
+        # T5's cross-attention: not causal, no scale, 65 decoder rows over
+        # a 32-slot encoder (the default offset S - T is negative, ignored)
+        "t5_cross": (12, 12, 12, T5_DEC_LEN, T5_PROMPT_LEN, 64, 0, False, False),
     }
     worst = 0.0
-    for name, (B, H, Hkv, T, S, D, off, unwritten) in cases.items():
+    for name, (B, H, Hkv, T, S, D, off, unwritten, causal) in cases.items():
         q, k, v, mask = flash_inputs(gen, B, H, Hkv, T, S, D, off, unwritten)
-        kw = dict(q_offset=off if unwritten else None, with_stats=True)
+        kw = dict(q_offset=off if unwritten else None, with_stats=True, causal=causal,
+                  sm_scale=None if causal else 1.0)
         out, m, l = flash_attention(q, k, v, mask, **kw)
         torch.cuda.synchronize()
         ref, m_ref, l_ref = flash_attention_plain(q.float(), k.float(), v.float(), mask, **kw)
         err = (out.float() - ref).abs().max().item()
         m_rel = ((m - m_ref).abs() / m_ref.abs().clamp(min=1.0)).max().item()
         l_rel = ((l - l_ref).abs() / l_ref.abs().clamp(min=1.0)).max().item()
-        emit("flash_check", case=name, shape=[B, H, Hkv, T, S, D], max_abs_err=err,
+        emit("flash_check", case=name, shape=[B, H, Hkv, T, S, D], causal=causal, max_abs_err=err,
              m_rel_err=m_rel, l_rel_err=l_rel)
         if not (err <= 2e-2 and m_rel <= 1e-3 and l_rel <= 1e-3):
             raise AssertionError(f"flash kernel disagrees with its plain version on {name}")
@@ -212,26 +233,28 @@ def check_flash(gen) -> dict:
     return {"max_abs_err": worst}
 
 
-BWD_CASES = {  # name: (B, H, Hkv, T, S, q_offset, unwritten)
-    "train": (32, 12, 12, TRAIN_LEN, TRAIN_LEN, 0, False),
-    "experience": (64, 12, 12, PROMPT_LEN + NEW_TOKENS, PROMPT_LEN + NEW_TOKENS, 0, False),
-    "prefill_offset": (4, 4, 4, 37, 128, 5, True),
-    "gqa": (8, 12, 4, 200, 200, 0, False),
-    "long": (8, 12, 12, 1024, 1024, 0, False),
-    "ragged": (4, 12, 12, 50, 100, 50, False),  # T < S, S not a multiple of 64
+BWD_CASES = {  # name: (B, H, Hkv, T, S, q_offset, unwritten, causal)
+    "train": (32, 12, 12, TRAIN_LEN, TRAIN_LEN, 0, False, True),
+    "experience": (64, 12, 12, PROMPT_LEN + NEW_TOKENS, PROMPT_LEN + NEW_TOKENS, 0, False, True),
+    "prefill_offset": (4, 4, 4, 37, 128, 5, True, True),
+    "gqa": (8, 12, 4, 200, 200, 0, False, True),
+    "long": (8, 12, 12, 1024, 1024, 0, False, True),
+    "ragged": (4, 12, 12, 50, 100, 50, False, True),  # T < S, S not a multiple of 64
+    "t5_cross": (12, 12, 12, T5_DEC_LEN, T5_PROMPT_LEN, 0, False, False),  # not causal, T > S, scale 1
 }
 
 
-def flash_bwd_inputs(gen, B, H, Hkv, T, S, q_offset, unwritten):
+def flash_bwd_inputs(gen, B, H, Hkv, T, S, q_offset, unwritten, causal=True):
     """Kernel inputs of the backward: q/k/v/mask as `flash_inputs` makes
     them (batch row 0 fully padded), the forward kernel's (out, m, l) and a
-    bf16 output gradient."""
+    bf16 output gradient. Without `causal` the scale is T5's 1.0."""
     import torch
 
     from trlx_tpu_torch.ops.flash_attention import flash_attention
 
     q, k, v, mask = flash_inputs(gen, B, H, Hkv, T, S, 64, q_offset, unwritten)
-    out, m, l = flash_attention(q, k, v, mask, q_offset=q_offset, with_stats=True)
+    out, m, l = flash_attention(q, k, v, mask, q_offset=q_offset, with_stats=True, causal=causal,
+                                sm_scale=None if causal else 1.0)
     g = torch.randn(out.shape, generator=gen, device="cuda").to(torch.bfloat16)
     return q, k, v, mask, out, m, l, g
 
@@ -247,12 +270,13 @@ def check_flash_bwd(gen) -> dict:
     from trlx_tpu_torch.ops.flash_attention import flash_attention_backward, flash_attention_backward_plain
 
     worst = {"rel": 0.0, "dq": 0.0, "dkv": 0.0}
-    for name, (B, H, Hkv, T, S, off, unwritten) in BWD_CASES.items():
-        q, k, v, mask, out, m, l, g = flash_bwd_inputs(gen, B, H, Hkv, T, S, off, unwritten)
-        got = flash_attention_backward(q, k, v, mask, out, m, l, g, True, 64 ** -0.5, off)
+    for name, (B, H, Hkv, T, S, off, unwritten, causal) in BWD_CASES.items():
+        q, k, v, mask, out, m, l, g = flash_bwd_inputs(gen, B, H, Hkv, T, S, off, unwritten, causal)
+        scale = 64 ** -0.5 if causal else 1.0
+        got = flash_attention_backward(q, k, v, mask, out, m, l, g, causal, scale, off)
         torch.cuda.synchronize()
         ref = flash_attention_backward_plain(
-            q.float(), k.float(), v.float(), mask, out.float(), m, l, g.float(), True, 64 ** -0.5, off
+            q.float(), k.float(), v.float(), mask, out.float(), m, l, g.float(), causal, scale, off
         )
 
         def rel(a, b):
@@ -261,13 +285,109 @@ def check_flash_bwd(gen) -> dict:
         errs = {key: rel(a, b) for key, a, b in zip(("dq", "dk", "dv"), got, ref)}
         errs["dv_fully_masked_row"] = rel(got[2][0], ref[2][0])
         abs_err = {key: (a.float() - b).abs().max().item() for key, a, b in zip(("dq", "dk", "dv"), got, ref)}
-        emit("flash_bwd_check", case=name, shape=[B, H, Hkv, T, S, 64], q_offset=off,
+        emit("flash_bwd_check", case=name, shape=[B, H, Hkv, T, S, 64], q_offset=off, causal=causal,
              rel_err=errs, max_abs_err=abs_err, dv_masked_row_ref_max=ref[2][0].abs().max().item())
         if not all(e < 2e-2 for e in errs.values()):
             raise AssertionError(f"flash backward kernels disagree with the plain version on {name}: {errs}")
         worst["rel"] = max(worst["rel"], *errs.values())
         worst["dq"] = max(worst["dq"], abs_err["dq"])
         worst["dkv"] = max(worst["dkv"], abs_err["dk"], abs_err["dv"])
+    return worst
+
+
+BIAS_CASES = {  # name: (B, H, T = S, causal, mask kind)
+    "encoder": (12, 12, T5_PROMPT_LEN, False, "right_pad"),
+    "decoder": (12, 12, T5_DEC_LEN, True, "pad_tail"),
+    "long": (4, 12, 512, False, "right_pad"),
+    "ragged": (4, 12, 100, True, "masked_row"),
+}
+
+
+def flash_bias_inputs(gen, B, H, T, causal, kind):
+    """bf16 q/k/v, an fp32 bias [H, T, T], a key mask and a bf16 output
+    gradient, with the forward kernel's (out, m, l). Masks: right padding
+    (an encoder prompt), a padded response tail (the decoder: slot 0, the
+    start token, always valid), or right padding with batch row 0 wholly
+    masked (every query of it averages V uniformly)."""
+    import torch
+
+    from trlx_tpu_torch.ops.flash_attention import flash_attention_bias
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    q, k, v = (randn(B, H, T, 64).to(torch.bfloat16) for _ in range(3))
+    bias = randn(H, T, T)
+    length = torch.randint(T // 2, T + 1, (B,), generator=gen, device="cuda")
+    length[-1] = T
+    mask = (torch.arange(T, device="cuda")[None, :] < length[:, None]).to(torch.int32)
+    if kind == "masked_row":
+        mask[0] = 0
+    out, m, l = flash_attention_bias(q, k, v, mask, bias, causal=causal, with_stats=True)
+    g = randn(B, H, T, 64).to(torch.bfloat16)
+    return q, k, v, mask, bias, out, m, l, g
+
+
+def check_flash_bias(gen) -> dict:
+    """Kernels 4-6 (the bias forward, dq + dbias, dk/dv) against the plain
+    versions on the same bf16 inputs upcast to fp32: out, dq, dk, dv and
+    dbias each within 2e-2 of max |error| / max(|ref|, 1). m and l are held
+    row by row, within 2e-2 of |error| / max(|ref|, 1), on the rows that
+    attend some slot; a row that attends none must hold exactly m = -1e30
+    and l = S (every slot weighs exp(0))."""
+    import torch
+
+    from trlx_tpu_torch.ops.flash_attention import (
+        NEG_INF,
+        _bias_valid_pairs,
+        flash_attention_bias_backward,
+        flash_attention_bias_backward_plain,
+        flash_attention_bias_plain,
+    )
+
+    def rel(a, b):
+        return ((a.float() - b.float()).abs().max() / b.float().abs().max().clamp(min=1.0)).item()
+
+    def rel_rows(a, b, rows):
+        if not rows.any():
+            return 0.0
+        return ((a - b).abs() / b.abs().clamp(min=1.0))[rows].max().item()
+
+    worst = {"fwd": 0.0, "dq_dbias": 0.0, "dkv": 0.0}  # max |error| of each kernel's outputs
+    for name, (B, H, T, causal, kind) in BIAS_CASES.items():
+        q, k, v, mask, bias, out, m, l, g = flash_bias_inputs(gen, B, H, T, causal, kind)
+        got = flash_attention_bias_backward(q, k, v, mask, bias, out, m, l, g, causal, 1.0)
+        torch.cuda.synchronize()
+        f32 = [x.float() for x in (q, k, v)]
+        ref_out, ref_m, ref_l = flash_attention_bias_plain(*f32, mask, bias, causal, 1.0, with_stats=True)
+        ref = flash_attention_bias_backward_plain(*f32, mask, bias, out.float(), m, l, g.float(), causal, 1.0)
+        # [B*H, T, 1]: does the row attend any slot
+        live = _bias_valid_pairs(mask, T, T, causal, mask.device).any(-1).expand(B, H, T).reshape(B * H, T, 1)
+        errs = {"out": rel(out, ref_out), "m": rel_rows(m, ref_m, live), "l": rel_rows(l, ref_l, live)}
+        dead = ~live
+        if not (bool((m[dead] == NEG_INF).all()) and bool((l[dead] == T).all())):
+            raise AssertionError(f"rows that attend no slot must hold m = -1e30 and l = {T} on {name}: "
+                                 f"m {m[dead].unique().tolist()[:4]}, l {l[dead].unique().tolist()[:4]}")
+        errs.update({key: rel(a, b) for key, a, b in zip(("dq", "dk", "dv", "dbias"), got, ref)})
+        abs_err = {key: (a.float() - b.float()).abs().max().item() for key, a, b in
+                   zip(("out", "dq", "dk", "dv", "dbias"), (out,) + tuple(got), (ref_out,) + tuple(ref))}
+        emit("flash_bias_check", case=name, shape=[B, H, T, T, 64], causal=causal, mask=kind, rel_err=errs,
+             max_abs_err=abs_err, rows_attending_none=int(dead.sum().item()))
+        if not all(e <= 2e-2 for e in errs.values()):
+            raise AssertionError(f"bias kernels disagree with the plain versions on {name}: {errs}")
+        worst["fwd"] = max(worst["fwd"], abs_err["out"])
+        worst["dq_dbias"] = max(worst["dq_dbias"], abs_err["dq"], abs_err["dbias"])
+        worst["dkv"] = max(worst["dkv"], abs_err["dk"], abs_err["dv"])
+    # the CUDA wrapper takes the top-left causal rule only at T == S
+    q, k, v, mask, bias, *_ = flash_bias_inputs(gen, 2, 12, 40, False, "right_pad")
+    try:
+        from trlx_tpu_torch.ops.flash_attention import flash_attention_bias
+
+        flash_attention_bias(q[:, :, :20], k, v, mask, bias[:, :20], causal=True)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("a causal bias call with T != S must raise on CUDA")
     return worst
 
 
@@ -804,13 +924,14 @@ def check_params_moved(trainer, seed: int, phase: str = "train_params") -> None:
     reference copy did not."""
     import torch
 
-    from trlx_tpu_torch.models.wrappers import CausalLMWithValueHead
-
-    init = CausalLMWithValueHead(trainer.model.cfg, device="cuda").init_params(torch.Generator().manual_seed(seed))
+    init = type(trainer.model)(trainer.model.cfg, device="cuda").init_params(torch.Generator().manual_seed(seed))
     start = dict(init.named_parameters())
     still = [n for n, p in trainer.model.named_parameters() if torch.equal(p, start[n])]
     ref_moved = [n for n, p in trainer.ref_params.named_parameters() if not torch.equal(p, start["base." + n])]
-    emit(phase, trainable=len(trainer.trainable_params), unmoved=still, reference_moved=ref_moved)
+    rel_bias = {n: (p - start[n]).abs().max().item() for n, p in trainer.model.named_parameters()
+                if n.endswith("rel_bias")}
+    emit(phase, trainable=len(trainer.trainable_params), unmoved=still, reference_moved=ref_moved,
+         rel_bias_max_abs_move=rel_bias)
     if still or ref_moved or len(trainer.trainable_params) != len(start):
         raise AssertionError(f"parameters that did not move: {still}; reference tensors that moved: {ref_moved}")
 
@@ -882,32 +1003,38 @@ def train_engine_path(seed: int) -> dict:
     return {"paged": launches}
 
 
-def train_reference(trainer, seed: int) -> dict:
+def train_reference(trainer, seed: int, configs=None, rollouts: int = TRAIN_REFERENCE_ROLLOUTS,
+                    batch_size: int = TRAIN_BATCH, phase: str = "train_reference") -> dict:
     """One train step's loss and gradients from the same parameters on
     the same minibatches, three ways: the kernel path (the trainer
     itself), the plain bf16 path (attention_impl="xla") and the plain
-    fp32 path. The minibatches: a fresh store of TRAIN_REFERENCE_ROLLOUTS
-    rollouts from the trained policy, cut by two shuffles (16
-    minibatches). Gate: the kernel path strays from fp32 at most twice as
-    far as the plain bf16 path in the loss, the response tokens' logprobs
-    and values (mean |error| over the minibatches), and in ||d grad|| /
-    ||grad|| of every trainable tensor (both norms over all the
-    minibatches' gradients together). One minibatch's loss error, or the
-    gradient error of a tensor that sums a whole batch into one number
-    (the value head's output bias), is a single draw of bf16 rounding
-    noise that swings by 10x between minibatches on either bf16 path, so
-    the gate needs many independent rows to compare two such draws."""
+    fp32 path (`configs` gives the two plain trainers' configs; by default
+    the GPT-2 train path's). The minibatches: a fresh store of `rollouts`
+    rollouts from the trained policy, cut by two shuffles. Gate: the kernel
+    path strays from fp32 at most twice as far as the plain bf16 path in
+    the loss, the response tokens' logprobs and values (mean |error| over
+    the minibatches), and in ||d grad|| / ||grad|| of every trainable
+    tensor (both norms over all the minibatches' gradients together); and
+    the median of that ratio over the tensors is at most 1.1. One
+    minibatch's loss error, or the gradient error of a tensor that sums a
+    whole batch into one number (the value head's output bias), is a
+    single draw of bf16 rounding noise that swings by 10x between
+    minibatches on either bf16 path, so the gate needs many independent
+    rows to compare two such draws."""
     import torch
 
     from trlx_tpu_torch.utils.loading import get_trainer
 
+    if configs is None:
+        configs = {
+            "plain_bf16": train_config(seed, attention_impl="xla", kv_cache_quant="int8"),
+            "fp32": train_config(seed, attention_impl="xla", kv_cache_quant=None, compute_dtype="float32"),
+        }
     trainer.store.clear_history()
-    trainer.make_experience(TRAIN_REFERENCE_ROLLOUTS, trainer.iter_count)
+    trainer.make_experience(rollouts, trainer.iter_count)
     state = {k: v.clone() for k, v in trainer.model.state_dict().items()}
     paths = {"kernel": trainer}
-    for name, kw in (("plain_bf16", dict(attention_impl="xla", kv_cache_quant="int8")),
-                     ("fp32", dict(attention_impl="xla", kv_cache_quant=None, compute_dtype="float32"))):
-        config = train_config(seed, **kw)
+    for name, config in configs.items():
         paths[name] = get_trainer(config.train.trainer)(config=config, reward_fn=train_reward_fn)
         paths[name].model.load_state_dict(state)
 
@@ -923,7 +1050,7 @@ def train_reference(trainer, seed: int) -> dict:
         return loss.item(), grads, lp.float(), values.float()
 
     batches = [b for s in (seed, seed + 1)
-               for b in trainer.store.create_loader(TRAIN_BATCH, shuffle=True, drop_last=True, seed=s)]
+               for b in trainer.store.create_loader(batch_size, shuffle=True, drop_last=True, seed=s)]
     errs = {name: [] for name in ("kernel", "plain_bf16")}  # per minibatch: |d loss|, |d logprob|, |d value|
     # per tensor, summed over the minibatches: ||d grad||^2 of each path, ||grad||^2 of fp32
     sq = {name: {} for name in ("kernel", "plain_bf16", "fp32")}
@@ -957,13 +1084,16 @@ def train_reference(trainer, seed: int) -> dict:
     gk, gp = grad["kernel"], grad["plain_bf16"]
     ratio = {n: gk[n] / max(gp[n], 1e-30) for n in gated}
     worse = [n for n in gated if ratio[n] > 2]
+    median = statistics.median(ratio.values())
     summary = {what: {"kernel": mean("kernel", i), "plain_bf16": mean("plain_bf16", i)}
                for i, what in enumerate(("loss", "logprobs", "values"))}
-    emit("train_reference", minibatches=len(batches), losses=losses,
+    emit(phase, minibatches=len(batches), losses=losses,
          loss_err_by_minibatch={name: [e[0] for e in errs[name]] for name in errs},
          mean_abs_err=summary, grad_rel_err_kernel_max=max(gk[n] for n in gated),
          grad_rel_err_plain_bf16_max=max(gp[n] for n in gated), grad_rel_err_ratio_max=max(ratio.values()),
-         grad_rel_err_ratio_median=statistics.median(ratio.values()),
+         grad_rel_err_ratio_median=median,
+         rel_bias_grad_rel_err={n: {"kernel": gk[n], "plain_bf16": gp[n], "ratio": ratio[n]}
+                                for n in gated if n.endswith("rel_bias")},
          grad_rel_err_ratio_top=[(n, r, gk[n], gp[n]) for n, r in sorted(ratio.items(), key=lambda kv: -kv[1])[:5]],
          tensors=len(gated), tensors_over_2x=worse,
          not_gated={n: {"kernel": gk[n], "plain_bf16": gp[n]} for n in noise})
@@ -971,12 +1101,14 @@ def train_reference(trainer, seed: int) -> dict:
         if e["kernel"] > 2 * e["plain_bf16"]:
             raise AssertionError(f"the kernel path's {what} strays from fp32 by {e['kernel']}, "
                                  f"more than 2 x plain bf16 ({e['plain_bf16']})")
+    if median > 1.1:
+        raise AssertionError(f"the median gradient error ratio to the plain bf16 path is {median} > 1.1")
     if worse:
         raise AssertionError(f"gradients of {worse} stray from fp32 more than 2 x the plain bf16 path's")
     return {"batch": batches[0]}
 
 
-def train_step_profile(trainer, batch) -> None:
+def train_step_profile(trainer, batch, name: str = "train_step") -> None:
     """Wall time of one optimizer step (median of 3 after a warm-up) and
     one traced step: device busy and idle share, the largest kernels."""
     import torch
@@ -990,8 +1122,222 @@ def train_step_profile(trainer, batch) -> None:
         if i:
             samples.append(time.perf_counter() - t0)
     wall = statistics.median(samples)
-    emit("train_step_time", wall_ms=wall * 1e3, batch=TRAIN_BATCH, seq=TRAIN_LEN, samples_ms=[x * 1e3 for x in samples])
-    profile_phase("train_step", lambda: trainer.train_step(batch), wall, grad=True)
+    emit(f"{name}_time", wall_ms=wall * 1e3, batch=len(batch.query_tensors),
+         seq=[batch.query_tensors.shape[1], batch.response_tensors.shape[1]], samples_ms=[x * 1e3 for x in samples])
+    profile_phase(name, lambda: trainer.train_step(batch), wall, grad=True)
+
+
+# examples/ppo_sentiments_t5.py:17-59 at T5-base width: batch 12, chunk 12,
+# 4 PPO epochs, 64 new tokens, everything trainable; 48 rollouts a cycle
+# (the example's 128, cut to keep the run's time) and two cycles
+T5_ROLLOUTS, T5_BATCH, T5_EPOCHS = 48, 12, 4
+T5_TRAIN_STEPS = 2 * T5_EPOCHS * T5_ROLLOUTS // T5_BATCH
+T5_REFERENCE_ROLLOUTS = 96  # 8 minibatches of independent rows for the T5 train reference
+
+
+def t5_config(seed: int, attention_impl="pallas", compute_dtype="bfloat16", **model_kw):
+    """The example's settings on random T5-base weights and the byte
+    tokenizer. seq_length 96 keeps the 32-token prompts of the other paths
+    under the 64 new tokens (the example's 128 would pad them to 64). T5's
+    decoder starts from its pad token, which is not its EOS; the byte
+    tokenizer's pad IS its EOS, and random tied embeddings make the start
+    token predict itself, so every row would end at its first token: the
+    decoder starts from the byte tokenizer's BOS instead."""
+    from trlx_tpu_torch.data.default_configs import default_ppo_config
+    from trlx_tpu_torch.utils.tokenizers import ByteTokenizer
+
+    seq2seq = dict(T5_BASE, attention_impl=attention_impl, decoder_start_token_id=ByteTokenizer().bos_token_id)
+    model = dict(model_path="random", model_arch_type="seq2seq", num_layers_unfrozen=-1,
+                 model_extra_configs={"seq2seq": seq2seq})
+    model.update(model_kw)
+    return default_ppo_config().evolve(
+        train=dict(seq_length=T5_PROMPT_LEN + T5_NEW_TOKENS, epochs=10_000, total_steps=T5_TRAIN_STEPS,
+                   batch_size=T5_BATCH, checkpoint_interval=10_000, eval_interval=10_000, tracker=None,
+                   save_best=False, compute_dtype=compute_dtype, seed=seed),
+        model=model,
+        tokenizer=dict(tokenizer_path="byte", padding_side="right", truncation_side="right"),
+        optimizer=dict(name="adamw", kwargs=dict(lr=5.0e-5, betas=(0.9, 0.999), eps=1.0e-8, weight_decay=1.0e-6)),
+        scheduler=dict(name="cosine_annealing", kwargs=dict(T_max=10000, eta_min=5.0e-5)),
+        method=dict(num_rollouts=T5_ROLLOUTS, chunk_size=T5_BATCH, ppo_epochs=T5_EPOCHS, init_kl_coef=0.05,
+                    target=6, horizon=10000, gamma=0.99, lam=0.95, cliprange=0.2, cliprange_value=0.2,
+                    vf_coef=1.0, scale_reward=None, ref_mean=None, ref_std=None, cliprange_reward=10,
+                    gen_kwargs=dict(max_new_tokens=T5_NEW_TOKENS, do_sample=True, top_k=0, top_p=1.0)),
+    )
+
+
+def build_t5_policy(seed: int, attention_impl: str, compute_dtype="bfloat16"):
+    """`Seq2SeqLMWithValueHead.from_config` at T5-base width with the
+    default PPO config's hydra fork (num_layers_unfrozen 2: branch_at 10)."""
+    import torch
+
+    from trlx_tpu_torch.models.wrappers import Seq2SeqLMWithValueHead
+
+    policy = Seq2SeqLMWithValueHead.from_config(t5_config(seed, attention_impl, compute_dtype, num_layers_unfrozen=2))
+    policy.init_params(torch.Generator().manual_seed(seed))
+    return policy
+
+
+def bias_counters():
+    """The launch counters of the six attention kernels the T5 path runs."""
+    from trlx_tpu_torch.ops import flash_attention as fa
+
+    return {"flash_bias_fwd": fa.flash_attention_bias, "flash_bias_bwd_dq": fa.flash_attention_bias_dq,
+            "flash_bias_bwd_dkv": fa.flash_attention_bias_dkv, "flash_fwd": fa.flash_attention,
+            "flash_bwd_dq": fa.flash_attention_dq, "flash_bwd_dkv": fa.flash_attention_dkv}
+
+
+def t5_path(seed: int) -> dict:
+    """T5-base (random weights from the seed) through `generate_seq2seq`
+    (64 byte prompts right-padded to 32, 64 new tokens, greedy) and one
+    `forward_train` experience pass over its output, on the kernels
+    (attention_impl "pallas"); the same weights on the plain bf16 ("xla")
+    and fp32 math are its reference. Gates: the launch counts, shapes and
+    finite values, and the kernel path's experience logits, values and
+    reference logits within 2x the plain bf16 path's error against fp32."""
+    import torch
+
+    from trlx_tpu_torch.models.generation import SamplerSettings
+    from trlx_tpu_torch.models.seq2seq import generate_seq2seq
+    from trlx_tpu_torch.utils.tokenizers import ByteTokenizer
+
+    policy = build_t5_policy(seed, "pallas")
+    if policy.branch_at != 10 or policy.cfg.dtype != torch.bfloat16:
+        raise AssertionError("the default PPO config must give branch_at=10 and bf16 compute")
+    ref = policy.make_ref_params()
+    tok = ByteTokenizer(padding_side="right")
+    ids, mask = byte_prompts(tok)
+    greedy = SamplerSettings(max_new_tokens=T5_NEW_TOKENS, do_sample=False,
+                             eos_token_id=tok.eos_token_id, pad_token_id=tok.pad_token_id)
+    counters = bias_counters()
+
+    def rollout(model):
+        return generate_seq2seq(model.base, ids, mask, None, greedy)
+
+    def experience(model, ref_params, dec, dec_mask):
+        return model.forward_train(ref_params, ids, mask, dec, dec_mask)
+
+    with torch.no_grad():
+        for fn in counters.values():
+            fn.launches = 0
+        out = rollout(policy)
+        torch.cuda.synchronize()
+        gen_launches = {name: fn.launches for name, fn in counters.items()}
+        dec = out["sequences"]
+        dec_mask = torch.cat([torch.ones_like(dec[:, :1], dtype=torch.int32), out["response_mask"]], dim=1)
+        exp = experience(policy, ref, dec, dec_mask)
+        torch.cuda.synchronize()
+        launches = {name: fn.launches for name, fn in counters.items()}
+    cfg = policy.cfg
+    top = cfg.n_decoder_layer - policy.branch_at
+    expect = {"flash_bias_fwd": cfg.n_layer + (cfg.n_layer + cfg.n_decoder_layer + top),
+              "flash_fwd": cfg.n_decoder_layer + top,
+              "flash_bias_bwd_dq": 0, "flash_bias_bwd_dkv": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    emit("t5_path", launches=launches, expected=expect, generate_launches=gen_launches,
+         response_tokens=int(out["response_mask"].sum()), shape=list(dec.shape))
+    if launches != expect or gen_launches["flash_bias_fwd"] != cfg.n_layer:
+        raise AssertionError(f"launch counts {launches} != expected {expect}")
+    B, T = dec.shape
+    shapes = {"logits": (B, T, cfg.vocab_size), "values": (B, T), "ref_logits": (B, T, cfg.vocab_size)}
+    for key, shape in shapes.items():
+        if tuple(exp[key].shape) != shape or not torch.isfinite(exp[key]).all():
+            raise AssertionError(f"{key}: shape {tuple(exp[key].shape)} or non-finite values")
+
+    plain = build_t5_policy(seed, "xla")
+    plain.load_state_dict(policy.state_dict())
+    exact = build_t5_policy(seed, "xla", "float32")
+    exact.load_state_dict(policy.state_dict())
+    with torch.no_grad():
+        out_x = rollout(plain)
+        exp_x = experience(plain, plain.make_ref_params(), dec, dec_mask)
+        exp_f = experience(exact, exact.make_ref_params(), dec, dec_mask)
+    real = dec_mask.bool()
+
+    def max_err(a, b, key):
+        diff = (a[key].float() - b[key].float()).abs()
+        return (diff * (real[..., None] if diff.dim() == 3 else real)).max().item()
+
+    err = {key: {"kernel_vs_fp32": max_err(exp, exp_f, key), "plain_bf16_vs_fp32": max_err(exp_x, exp_f, key),
+                 "kernel_vs_plain_bf16": max_err(exp, exp_x, key)}
+           for key in ("logits", "ref_logits", "values")}
+    both = out["response_mask"].bool() & out_x["response_mask"].bool()
+    free = (out["response_ids"] == out_x["response_ids"])[both].float().mean().item()
+    emit("t5_reference", experience_max_abs_err=err, greedy_free_running_agreement_vs_plain_bf16=free)
+    for key, e in err.items():
+        if e["kernel_vs_fp32"] > 2 * e["plain_bf16_vs_fp32"]:
+            raise AssertionError(f"T5 {key}: the kernel path strays from fp32 more than 2 x plain bf16 does")
+    del plain, exact, exp_x, exp_f, out_x
+
+    walls = {}
+    with torch.no_grad():
+        for name, fn in (("t5_rollout", lambda: rollout(policy)),
+                         ("t5_experience", lambda: experience(policy, ref, dec, dec_mask))):
+            fn()
+            samples = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                samples.append(time.perf_counter() - t0)
+            walls[name] = statistics.median(samples)
+            emit(f"{name}_time", wall_s=walls[name], samples_s=samples, batch=B, prompt_len=T5_PROMPT_LEN,
+                 decoder_len=T, new_tokens=int(out["response_mask"].sum()))
+            profile_phase(name, fn, walls[name])
+    return launches
+
+
+def t5_train_path(seed: int):
+    """`trlx_tpu_torch.train` with model_arch_type "seq2seq" at T5-base
+    width (random weights from the seed, everything trainable, a full frozen
+    reference copy, bf16 compute / fp32 params, the six attention kernels):
+    evaluate, two rollout cycles of 48, 32 optimizer steps, evaluate.
+    Gates: finite losses, the launch counts the path implies, every
+    trainable tensor moved (both relative-bias tables and the encoder
+    included), the frozen reference did not."""
+    import torch
+
+    import trlx_tpu_torch
+
+    counters = bias_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    trainer = trlx_tpu_torch.train(reward_fn=train_reward_fn, prompts=TRAIN_PROMPTS, config=t5_config(seed))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+
+    cfg = trainer.model.cfg
+    chunks = 2 * T5_ROLLOUTS // T5_BATCH  # experience passes, one a rollout chunk
+    n_gen = chunks + 2  # and an evaluation at each end: each encodes once
+    tf = cfg.n_layer + cfg.n_decoder_layer  # bias forwards of one teacher-forced pass
+    # each experience chunk runs the policy and the full reference copy;
+    # each train step one forward and one backward through every layer
+    expect = {"flash_bias_fwd": cfg.n_layer * n_gen + 2 * tf * chunks + tf * T5_TRAIN_STEPS,
+              "flash_fwd": 2 * cfg.n_decoder_layer * chunks + cfg.n_decoder_layer * T5_TRAIN_STEPS,
+              "flash_bias_bwd_dq": tf * T5_TRAIN_STEPS, "flash_bias_bwd_dkv": tf * T5_TRAIN_STEPS,
+              "flash_bwd_dq": cfg.n_decoder_layer * T5_TRAIN_STEPS,
+              "flash_bwd_dkv": cfg.n_decoder_layer * T5_TRAIN_STEPS}
+    steps = [(step, st["losses/total_loss"]) for step, st in trainer.stats_history if "losses/total_loss" in st]
+    rewards = [st["reward/mean"] for _, st in trainer.stats_history if "reward/mean" in st]
+    emit("t5_train_path", wall_s=wall, launches=launches, expected=expect, iter_count=trainer.iter_count,
+         losses=[x[1] for x in steps], eval_reward_mean=rewards, kl_ctl_value=trainer.kl_ctl.value,
+         cycle_seconds=cycle_split(trainer))
+    if len(steps) != T5_TRAIN_STEPS or not all(math.isfinite(x[1]) for x in steps):
+        raise AssertionError(f"expected {T5_TRAIN_STEPS} finite losses, got {[x[1] for x in steps]}")
+    if launches != expect:
+        raise AssertionError(f"launch counts {launches} != expected {expect}")
+    check_params_moved(trainer, seed, "t5_train_params")
+    return trainer, launches
+
+
+def t5_train_reference(trainer, seed: int) -> dict:
+    return train_reference(
+        trainer, seed,
+        configs={"plain_bf16": t5_config(seed, attention_impl="xla"),
+                 "fp32": t5_config(seed, attention_impl="xla", compute_dtype="float32")},
+        rollouts=T5_REFERENCE_ROLLOUTS, batch_size=T5_BATCH, phase="t5_train_reference",
+    )
 
 
 def flash_bwd_work(mask, H, Hkv, T, S, D, q_offset):
@@ -1070,6 +1416,106 @@ def bwd_kernel_times(gen, launches, errs) -> list:
     return rows
 
 
+def flash_bias_work(mask, H, T, S, D, causal):
+    """Bytes and operations the three bias kernels' functions need on this
+    mask, in the way of `flash_work` and `flash_bwd_work` with the top-left
+    causal rule, plus the fp32 bias entries some batch row weighs (read
+    once, shared by the batch) and, for dq + dbias, the fp32 dbias written
+    in full. Returns (fwd, dq_dbias, dkv), each (bytes, operations)."""
+    import torch
+
+    cols = torch.arange(S, device="cuda")
+    rows = torch.arange(T, device="cuda")[:, None]
+    pairs = (mask[:, None, :] > 0).expand(-1, T, -1)  # [B, T, S]
+    if causal:
+        pairs = pairs & (rows >= cols[None, :])[None]
+    n_pairs = int(pairs.sum().item())
+    weighed = pairs.any(dim=1)  # [B, S]
+    n_weighed = int(weighed.sum().item())
+    row_has = pairs.any(dim=2)  # [B, T]
+    rows_with = int(row_has.sum().item())
+    B = mask.shape[0]
+    full_rows = B * T - rows_with
+    v_slots = int(torch.where(row_has.all(dim=1), weighed.sum(dim=1), S).sum().item())
+    bias_bytes = 4 * H * int(pairs.any(dim=0).sum().item())
+    stats = 2 * 4 * B * H * T + 4 * B * S
+    fwd = (2 * H * D * (n_weighed + v_slots) + 2 * 2 * B * H * T * D + stats + bias_bytes,
+           H * (4 * D * n_pairs + 2 * D * S * full_rows))
+    stats += 4 * B * H * T  # delta
+    dq = (2 * D * H * 2 * rows_with + 2 * D * H * 2 * n_weighed + 2 * B * H * T * D + stats + bias_bytes
+          + 4 * H * T * S, H * 3 * 2 * D * n_pairs)
+    dkv = (2 * D * H * (rows_with + B * T) + 2 * D * H * 2 * n_weighed + 2 * 2 * B * H * S * D + stats + bias_bytes,
+           H * (4 * 2 * D * n_pairs + 2 * D * S * full_rows))
+    return fwd, dq, dkv
+
+
+def bias_kernel_times(gen, launches, path_launches, errs) -> list:
+    """The three bias kernels at the T5 train path's shapes (B12 H12: the
+    encoder's T = S = 32, not causal, and the decoder's T = S = 65, causal):
+    kernel, plain and library times beside the bound. The library call is
+    F.scaled_dot_product_attention with the additive float mask (the bias
+    plus the key and causal masks, in bf16 as SDPA takes it), scale 1; its
+    backward yields dq, dk, dv and the mask's gradient."""
+    import torch
+    import torch.nn.functional as F
+
+    from trlx_tpu_torch.ops.flash_attention import (
+        _check_bias,
+        backward_operands,
+        flash_attention_bias,
+        flash_attention_bias_backward_plain,
+        flash_attention_bias_dkv,
+        flash_attention_bias_dq,
+        flash_attention_bias_plain,
+    )
+
+    rows = []
+    for case in ("encoder", "decoder"):
+        B, H, T, causal, kind = BIAS_CASES[case]
+        q, k, v, mask, bias, out, m, l, g = flash_bias_inputs(gen, B, H, T, causal, kind)
+        km, g2, delta = backward_operands(q, k, v, mask, g, m, l)
+        bias32 = _check_bias(q, k, bias, causal)
+        with torch.no_grad():
+            fwd_ms = time_ms(lambda: flash_attention_bias(q, k, v, mask, bias, causal=causal, with_stats=True))
+            fwd_plain = time_ms(lambda: flash_attention_bias_plain(q, k, v, mask, bias, causal, 1.0, with_stats=True))
+        # the dq kernel writes the delta that the dk/dv kernel reads
+        dq_ms = time_ms(lambda: flash_attention_bias_dq(q, k, v, km, bias32, g2, m, l, delta, causal, 1.0))
+        dkv_ms = time_ms(lambda: flash_attention_bias_dkv(q, k, v, km, bias32, g2, m, l, delta, causal, 1.0))
+        bwd_plain = time_ms(lambda: flash_attention_bias_backward_plain(
+            q, k, v, mask, bias, out, m, l, g, causal, 1.0))
+        allowed = (mask[:, None, None, :] > 0).expand(B, H, T, T)
+        if causal:
+            allowed = allowed & (torch.arange(T, device="cuda")[:, None] >= torch.arange(T, device="cuda"))
+        additive = (bias[None] + torch.where(allowed, 0.0, -1e30)).to(torch.bfloat16)
+        with torch.no_grad():
+            lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=additive, scale=1.0))
+        lq, lk, lv, lm = (x.detach().clone().requires_grad_(True) for x in (q, k, v, additive))
+        lib_out = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=lm, scale=1.0)
+        lib_bwd = time_ms(lambda: torch.autograd.grad(lib_out, (lq, lk, lv, lm), g, retain_graph=True))
+        works = flash_bias_work(mask, H, T, T, 64, causal)
+        for name, ms, plain, lib, (n_bytes, n_flops), src, line, err in (
+            ("flash_bias_fwd", fwd_ms, fwd_plain, lib_fwd, works[0], "flash_bias_fwd.cu", 452, errs["fwd"]),
+            ("flash_bias_bwd_dq", dq_ms, bwd_plain, lib_bwd, works[1], "flash_bias_bwd.cu", 550, errs["dq_dbias"]),
+            ("flash_bias_bwd_dkv", dkv_ms, bwd_plain, lib_bwd, works[2], "flash_bias_bwd.cu", 594, errs["dkv"]),
+        ):
+            bms, by = bound_ms(n_bytes, n_flops)
+            rows.append(dict(
+                name=f"{name}/{case}", route="cuda", source=f"trlx_tpu_torch/csrc/{src}",
+                # _flash_bias_kernel via _flash_bias_forward:517; _dq_dbias_kernel and
+                # _dkv_bias_kernel via _flash_bias_backward:665 and :703
+                replaces=f"trlx_tpu/ops/flash_attention.py:{line}",
+                launches=launches[name], launches_t5_path=path_launches[name], max_abs_err=err,
+                shape=[B, H, T, T, 64], causal=causal, ms=ms, kernel_ms=ms, plain_ms=plain,
+                plain_is="the plain forward" if name == "flash_bias_fwd" else "the whole plain backward",
+                bound_ms=bms, bound_by=by, bound_bytes=n_bytes, bound_flops=n_flops, library_ms=lib,
+                library_is=("F.scaled_dot_product_attention, additive bf16 mask, forward" if name == "flash_bias_fwd"
+                            else "F.scaled_dot_product_attention backward (dq, dk, dv, dmask together)"),
+            ))
+    for row in rows:
+        emit("kernel_time", **row)
+    return rows
+
+
 def profile_phase(name: str, fn, wall_s: float, grad: bool = False, host_ops: bool = True) -> None:
     """Device time by kernel over one traced run of `fn` (torch.profiler).
     The idle share compares the traced device time with the untraced wall
@@ -1100,7 +1546,8 @@ def profile_phase(name: str, fn, wall_s: float, grad: bool = False, host_ops: bo
     emit("profile", what=name, wall_ms=wall_s * 1e3, device_busy_ms=busy_ms,
          device_idle_share=(1 - busy_ms / (wall_s * 1e3)) if busy_ms else None,
          attention_kernels_ms=share("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
-                                    "decode_int8_kernel", "paged_attention_kernel"),
+                                    "decode_int8_kernel", "paged_attention_kernel", "flash_bias_"),
+         flash_bias_kernels_ms=share("flash_bias_"),
          paged_kernel_ms=share("paged_attention_kernel"),
          flash_bwd_kernels_ms=share("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"),
          matmul_ms=share("gemm", "Gemm", "xmma", "nvjet", "cutlass"),
@@ -1227,6 +1674,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     errs = {"flash": check_flash(gen)["max_abs_err"], "decode": check_decode(gen)["max_abs_err"]}
     bwd_errs = check_flash_bwd(gen)
+    bias_errs = check_flash_bias(gen)
     paged_err = check_paged(gen)["max_abs_err"]
     check_rng(args.seed)
     launches = main_path(args.seed)
@@ -1239,9 +1687,17 @@ def main() -> int:
     paged_launches = {"engine_plain": engine["plain"], "engine_spec": engine["spec"],
                       "train_engine": train_engine_path(args.seed)["paged"]}
     torch.cuda.empty_cache()
+    t5_launches = t5_path(args.seed)
+    torch.cuda.empty_cache()
+    trainer, t5_train_launches = t5_train_path(args.seed)
+    batch = t5_train_reference(trainer, args.seed)["batch"]
+    train_step_profile(trainer, batch, "t5_train_step")
+    del trainer, batch
+    torch.cuda.empty_cache()
     rows = kernel_times(gen, launches, errs, train_launches)
     rows += bwd_kernel_times(gen, train_launches, bwd_errs)
     rows += paged_kernel_times(gen, paged_launches, paged_err)
+    rows += bias_kernel_times(gen, t5_train_launches, t5_launches, bias_errs)
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -102,3 +102,21 @@ def test_real_rows_match_attention_reference():
     for b in range(B):
         real = mask[b].astype(bool)
         np.testing.assert_allclose(out[b][:, real], ref[b][:, real], **TOL)
+
+
+def test_cross_attention_t_gt_s_matches_jax_kernel():
+    """T5's cross-attention: not causal, no scale (sm_scale 1), more query
+    rows than key slots (T > S, so the default offset S - T is negative and
+    must play no part); batch row 1 has every slot masked."""
+    B, H, T, S, D = 2, 2, 24, 16, 8
+    q, k, v, mask = _inputs(B, H, H, T, S, D, seed=4, pad=((0, 5), (1, S)))
+    ref_out, ref_m, ref_l = _flash_forward(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(mask), False, 1.0, 256, with_stats=True,
+    )
+    out, m, l = flash_attention(*_torch(q, k, v, mask), causal=False, sm_scale=1.0, with_stats=True)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref_out), **TOL)
+    np.testing.assert_allclose(m.numpy(), np.asarray(ref_m), **TOL)
+    np.testing.assert_allclose(l.numpy(), np.asarray(ref_l), **TOL)
+    # an explicit negative offset is ignored without causality, as the default is
+    again = flash_attention(*_torch(q, k, v, mask), causal=False, sm_scale=1.0, q_offset=S - T)
+    np.testing.assert_array_equal(again.numpy(), out.numpy())

@@ -110,3 +110,27 @@ def test_grad_flows_only_through_the_function_when_required():
     assert flash_attention(tq, tk, tv, torch.from_numpy(mask)).grad_fn is None
     out = flash_attention(tq.requires_grad_(True), tk, tv, torch.from_numpy(mask))
     assert type(out.grad_fn).__name__ == "_FlashAttentionFnBackward"
+
+
+@pytest.mark.parametrize("path", ["raw", "autograd"])
+def test_cross_attention_t_gt_s_backward_matches_jax(path):
+    """T5's cross-attention backward: not causal, sm_scale 1, T = 24 query
+    rows over S = 16 slots (a negative default offset, ignored), batch row
+    1 wholly masked. `raw`: the plain backward against `_flash_backward`
+    on the same residuals; `autograd`: torch.autograd against jax.grad."""
+    B, H, T, S, D = 2, 2, 24, 16, 8
+    q, k, v, g, mask = _inputs(B, H, H, T, S, D, None, (5, S), seed=2)
+    jq, jk, jv, jg, jm = map(jnp.asarray, (q, k, v, g, mask))
+    if path == "raw":
+        o, m, l = _flash_forward(jq, jk, jv, jm, False, 1.0, 256, with_stats=True)
+        ref = _flash_backward(jq, jk, jv, jm, o, m, l, jg, False, 1.0, 256)
+        got = flash_attention_backward_plain(
+            *_t(q, k, v, mask, np.asarray(o), np.asarray(m), np.asarray(l), g), False, 1.0, 0,
+        )
+    else:
+        ref = jax.grad(lambda a, b, c: jnp.sum(j_flash(a, b, c, jm, False, 1.0) * jg), argnums=(0, 1, 2))(jq, jk, jv)
+        tq, tk, tv = (torch.from_numpy(x).requires_grad_(True) for x in (q, k, v))
+        out = flash_attention(tq, tk, tv, torch.from_numpy(mask), causal=False, sm_scale=1.0)
+        got = torch.autograd.grad((out * torch.from_numpy(g)).sum(), (tq, tk, tv))
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), err_msg=name, **TOL)

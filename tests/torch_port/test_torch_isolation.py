@@ -134,7 +134,8 @@ def test_train_raises_without_a_gpu(monkeypatch):
     ("method", dict(overlap_rollouts=True)),
     ("method", dict(exp={"enabled": True})),
     ("method", dict(gen_engine={"enabled": True, "data_groups": 2})),
-    ("model", dict(model_arch_type="seq2seq")),
+    ("model", dict(model_arch_type="seq2seq", model_extra_configs={"seq2seq": dict(
+        d_model=16, n_layer=1, n_head=2, d_kv=8, d_ff=32, decode_weights_quant="int8")})),
     ("model", dict(model_path="gpt2", model_extra_configs={})),
     ("tokenizer", dict(tokenizer_path="gpt2")),
 ])

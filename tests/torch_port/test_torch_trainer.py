@@ -144,3 +144,72 @@ def test_train_through_engine_matches_reference(tmp_path, monkeypatch):
     for got, want in zip(rollouts, j_rollouts):
         for key in engine_keys:
             assert got[key] == pytest.approx(float(want[key]), rel=1e-6), key
+
+
+def _seq2seq_config(tmp_path, num_layers_unfrozen):
+    """The tiny T5 of the reference's seq2seq PPO test (tests/test_trainers.py)
+    in the causal case's loop: two cycles of 16 rollouts, greedy."""
+    return _config(tmp_path).evolve(
+        model=dict(model_path="random", model_arch_type="seq2seq", num_layers_unfrozen=num_layers_unfrozen,
+                   model_extra_configs={"seq2seq": dict(
+                       d_model=16, n_layer=2, n_head=2, d_kv=8, d_ff=32, relative_attention_num_buckets=8)}),
+    )
+
+
+@pytest.mark.parametrize("num_layers_unfrozen", [1, -1])
+def test_seq2seq_train_matches_reference(tmp_path, monkeypatch, num_layers_unfrozen):
+    """seq2seq PPO (`model_arch_type="seq2seq"`) through `train()` against
+    the reference's, from the same T5 weights: the hydra branch over the
+    top decoder block (k = 1) and the full frozen copy (k = -1). Also the
+    freeze set against the reference's `make_seq2seq_freeze_mask`."""
+    jconfig = _seq2seq_config(tmp_path, num_layers_unfrozen)
+    init, j_stats = {}, []
+    setup = JPPOTrainer.setup_model
+
+    def capture_setup(self):
+        setup(self)
+        init.update(jax.tree_util.tree_map(np.asarray, self.params))
+
+    monkeypatch.setattr(JPPOTrainer, "setup_model", capture_setup)
+    monkeypatch.setattr(JBaseTrainer, "_tracker_log",
+                        lambda self, stats, step: j_stats.append((step, dict(stats))))
+    monkeypatch.setattr(JBaseTrainer, "_save_checkpoint", lambda self, name, final=False: None)
+    ref = trlx_tpu.train(reward_fn=reward_fn, prompts=PROMPTS, config=jconfig)
+
+    monkeypatch.setattr(
+        wrappers.Seq2SeqLMWithValueHead, "init_params",
+        lambda self, gen: self.load_state_dict(params_from_jax(init, self.cfg)) and self,
+    )
+    ours = trlx_tpu_torch.train(
+        reward_fn=reward_fn, prompts=PROMPTS, config=TRLConfig.from_dict(jconfig.to_dict()), device="cpu"
+    )
+    assert ours.iter_count == ref.iter_count == 8
+    assert (ours.model.branch_at is None) == (num_layers_unfrozen == -1)
+
+    j_hist = jax.tree_util.tree_map(np.asarray, ref.store.history)
+    hist = ours.store.history
+    assert hist.response_tensors.shape[1] == 5  # the decoder start token + 4 new tokens
+    for name in ("query_tensors", "response_tensors", "response_mask"):
+        np.testing.assert_array_equal(getattr(hist, name).numpy(), getattr(j_hist, name), err_msg=name)
+    for name in ("logprobs", "values", "rewards"):
+        np.testing.assert_allclose(getattr(hist, name).numpy(), getattr(j_hist, name),
+                                   atol=1e-4, rtol=0, err_msg=name)
+
+    def losses(stream):
+        return [(step, s["losses/total_loss"]) for step, s in stream if "losses/total_loss" in s]
+
+    want, got = losses(j_stats), losses(ours.stats_history)
+    assert [s for s, _ in got] == [s for s, _ in want] == list(range(1, 9))
+    np.testing.assert_allclose([v for _, v in got], [float(v) for _, v in want], rtol=1e-4, atol=1e-5)
+
+    mask = ref.make_seq2seq_freeze_mask(ref.params)
+    if mask is None:
+        frozen_ref = set()
+    else:
+        full = jax.tree_util.tree_map(lambda m, p: np.broadcast_to(m, np.shape(p)), mask, init)
+        frozen_ref = {n for n, m in params_from_jax(full, ours.model.cfg).items() if not m.any()}
+    frozen = {n for n, p in ours.model.named_parameters() if not p.requires_grad}
+    assert frozen == frozen_ref
+    assert bool(frozen) == (num_layers_unfrozen == 1)
+    if frozen:
+        assert {"base.encoder.rel_bias", "base.decoder.rel_bias", "base.shared.wte"} <= frozen

@@ -30,6 +30,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_bf16.cuh"
+
 namespace {
 
 constexpr int BQ = 64;         // query rows per CTA: 4 warps x 16 rows
@@ -38,31 +40,6 @@ constexpr int NTHREADS = 128;
 constexpr float NEG_INF = -1e30f;
 __device__ __forceinline__ float neg_infinity() { return -__int_as_float(0x7f800000); }
 
-__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-// d += a (16x16, row major) * b (16x8, column major); bf16 in, fp32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Fragment layout of mma.m16n8k16 (g = lane / 4, c = lane % 4):
-//   A reg0: row g,   k 2c..2c+1   reg1: row g+8, k 2c..2c+1
-//     reg2: row g,   k 2c+8..+9   reg3: row g+8, k 2c+8..+9
-//   B reg0: k 2c..2c+1, col g     reg1: k 2c+8..+9, col g
-//   C/D [0,1]: row g, cols 2c..2c+1   [2,3]: row g+8, cols 2c..2c+1
 // At most 128 registers a thread, so that four CTAs share an SM: the
 // teacher-forced pass launches B*H*ceil(T/64) CTAs, several waves of them.
 template <int D>

@@ -5,6 +5,7 @@ The input is the reference's param tree as nested dicts of numpy arrays
 module itself imports no JAX. The reference stacks block leaves along a
 leading layer axis and keeps attention kernels as [E, H, D] / [H, D, E];
 the port has one module per block and [E, H*D] / [H*D, E] kernels.
+The T5 trees (`models/seq2seq.py`) keep (H, d_kv) kernels the same way.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
+from trlx_tpu_torch.models.seq2seq import Seq2SeqConfig
 from trlx_tpu_torch.models.transformer import TransformerConfig
 
 
@@ -47,14 +49,43 @@ def lm_state_dict_from_jax(p: Mapping, cfg: TransformerConfig) -> Dict[str, torc
     return sd
 
 
-def params_from_jax(tree: Mapping, cfg: TransformerConfig) -> Dict[str, torch.Tensor]:
-    """State dict from a reference param tree: a
-    `CausalLMWithValueHead.init_params` tree {base, v_head} gives a
-    `CausalLMWithValueHead` state dict, a bare LM tree a `TransformerLM`
-    one."""
+def t5_state_dict_from_jax(p: Mapping, cfg: Seq2SeqConfig) -> Dict[str, torch.Tensor]:
+    """State dict of a `T5LM` from a reference `T5LM` param tree {shared,
+    encoder, decoder[, lm_head]}: block leaves stacked on a leading layer
+    axis, q/k/v kernels [E, H, d_kv] and o kernels [H, d_kv, E]."""
+    sd = {"shared.wte": _t(p["shared"]["wte"])}
+    E = cfg.d_model
+    for stack, n_layer in (("encoder", cfg.n_layer), ("decoder", cfg.n_decoder_layer)):
+        blocks = p[stack]["blocks"]
+        for i in range(n_layer):
+            pre = f"{stack}.blocks.{i}."
+            for ln in ("ln_1", "ln_cross", "ln_2"):
+                if ln in blocks:
+                    sd[pre + f"{ln}.scale"] = _t(blocks[ln]["scale"][i])
+            for attn in ("self_attn", "cross_attn"):
+                if attn not in blocks:
+                    continue
+                for name in ("q", "k", "v"):
+                    sd[pre + f"{attn}.{name}.kernel"] = _t(blocks[attn][name]["kernel"][i]).reshape(E, -1)
+                sd[pre + f"{attn}.o.kernel"] = _t(blocks[attn]["o"]["kernel"][i]).reshape(-1, E)
+            for name, dense in blocks["mlp"].items():
+                sd[pre + f"mlp.{name}.kernel"] = _t(dense["kernel"][i])
+        sd[f"{stack}.ln_f.scale"] = _t(p[stack]["ln_f"]["scale"])
+        sd[f"{stack}.rel_bias"] = _t(p[stack]["rel_bias"])
+    if "lm_head" in p:
+        sd["lm_head.kernel"] = _t(p["lm_head"]["kernel"])
+    return sd
+
+
+def params_from_jax(tree: Mapping, cfg) -> Dict[str, torch.Tensor]:
+    """State dict from a reference param tree: a `CausalLMWithValueHead` or
+    `Seq2SeqLMWithValueHead` `init_params` tree {base, v_head} gives the
+    wrapper's state dict, a bare LM tree a `TransformerLM` or `T5LM` one
+    (by the config's type)."""
+    lm = t5_state_dict_from_jax if isinstance(cfg, Seq2SeqConfig) else lm_state_dict_from_jax
     if "base" not in tree:
-        return lm_state_dict_from_jax(tree, cfg)
-    sd = {f"base.{k}": v for k, v in lm_state_dict_from_jax(tree["base"], cfg).items()}
+        return lm(tree, cfg)
+    sd = {f"base.{k}": v for k, v in lm(tree["base"], cfg).items()}
     for dense in ("fc_in", "fc_out"):
         for leaf, x in tree["v_head"][dense].items():
             sd[f"v_head.{dense}.{leaf}"] = _t(x)

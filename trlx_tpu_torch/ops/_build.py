@@ -23,7 +23,10 @@ from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "decode_int8.cu", "paged_attention.cu")
+SOURCES = (
+    "flash_fwd.cu", "flash_bwd.cu", "flash_bias_fwd.cu", "flash_bias_bwd.cu",
+    "decode_int8.cu", "paged_attention.cu",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -1,5 +1,6 @@
-"""Fused causal attention, forward and backward: the port of
-trlx_tpu.ops.flash_attention.flash_attention.
+"""Fused attention, forward and backward: the port of
+trlx_tpu.ops.flash_attention.flash_attention and of its bias-carrying
+variant, flash_attention_bias (T5's self-attention; end of this module).
 
 `flash_attention` runs the hand-written Hopper kernels on CUDA tensors
 and their plain PyTorch versions on CPU tensors:
@@ -35,6 +36,8 @@ exact arithmetic and keeps each row's ds summing to zero in bf16 (see
 `csrc/flash_bwd.cu`).
 
 The kernels take any T and S (they mask the ragged edge themselves).
+Without `causal` the query offset plays no part (a cross-attention with
+T > S gives a negative default offset, which is then ignored).
 """
 
 from __future__ import annotations
@@ -48,14 +51,16 @@ import torch
 NEG_INF = -1e30
 
 
-def _prepare(q, k, key_mask, sm_scale, q_offset):
+def _prepare(q, k, key_mask, sm_scale, q_offset, causal):
     B, H, T, D = q.shape
     Hkv, S = k.shape[1], k.shape[2]
     if H % Hkv:
         raise ValueError(f"n_head={H} not a multiple of n_kv_head={Hkv}")
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(D)
-    if q_offset is None:
+    if not causal:
+        q_offset = 0  # no causal window: the offset plays no part
+    elif q_offset is None:
         q_offset = S - T
     if key_mask is None:
         key_mask = torch.ones((B, S), dtype=torch.int32, device=q.device)
@@ -83,7 +88,7 @@ def flash_attention_plain(
 ):
     """The forward kernel's function in plain PyTorch, computed in fp32
     (the oracle the kernel is held to, and the CPU path)."""
-    key_mask, sm_scale, q_offset = _prepare(q, k, key_mask, sm_scale, q_offset)
+    key_mask, sm_scale, q_offset = _prepare(q, k, key_mask, sm_scale, q_offset, causal)
     B, H, T, D = q.shape
     Hkv, S = k.shape[1], k.shape[2]
     rep = H // Hkv
@@ -359,7 +364,7 @@ def flash_attention(
     (e.g. [B, T, H, D] projections transposed to [B, H, T, D]); `out` and
     the gradients come back as [B, H, T, D] views of [B, T, H, D] buffers,
     so `.transpose(1, 2)` of each is contiguous."""
-    key_mask, sm_scale, q_offset = _prepare(q, k, key_mask, sm_scale, q_offset)
+    key_mask, sm_scale, q_offset = _prepare(q, k, key_mask, sm_scale, q_offset, causal)
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
         out, m, l = _FlashAttentionFn.apply(q, k, v, key_mask, causal, sm_scale, q_offset)
     else:
@@ -370,3 +375,243 @@ def flash_attention(
 
 
 flash_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The bias-carrying variant (T5's relative position bias)
+#
+# softmax(q k^T * sm_scale + bias, masked) v with a learned bias [H, T, S]
+# shared by the batch and differentiable: the backward returns dbias, the
+# sum over the batch of ds = d(score + bias). T5 semantics: sm_scale 1.0 by
+# default, no GQA, and causality is TOP-LEFT (query row t sees slots
+# j <= t, no offset), which agrees with the plain kernel's right-aligned
+# rule only at T == S, the decoder's self-attention; the CUDA kernels
+# therefore take `causal` only at T == S. Kernels: `csrc/flash_bias_fwd.cu`
+# (forward), `csrc/flash_bias_bwd.cu` (dq + dbias, then dk/dv); plain
+# versions `flash_attention_bias_plain` and
+# `flash_attention_bias_backward_plain`, which keep the top-left rule at any
+# shape. The plain backward takes the reference's delta = rowsum(dO * O);
+# the kernels sum delta = sum_j p dp, as the plain variant's kernels do.
+# ---------------------------------------------------------------------------
+
+
+def _bias_valid_pairs(key_mask, T, S, causal, device):
+    """[B, 1, T|1, S] bool: the (query row, slot) pairs that attend, with
+    the bias variant's top-left causal rule."""
+    valid = (key_mask > 0)[:, None, None, :]
+    if causal:
+        valid = valid & (torch.arange(T, device=device)[:, None] >= torch.arange(S, device=device)[None, :])
+    return valid
+
+
+def _bias_prepare(q, k, key_mask):
+    B, H, T, D = q.shape
+    if k.shape[1] != H:
+        raise ValueError("flash_attention_bias does not support GQA")
+    if key_mask is None:
+        key_mask = torch.ones((B, k.shape[2]), dtype=torch.int32, device=q.device)
+    return key_mask
+
+
+def flash_attention_bias_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    key_mask: Optional[torch.Tensor],
+    bias: torch.Tensor,
+    causal: bool = False,
+    sm_scale: float = 1.0,
+    with_stats: bool = False,
+):
+    """The bias forward kernel's function in plain PyTorch, computed in
+    fp32: the kernel's oracle and the CPU path."""
+    key_mask = _bias_prepare(q, k, key_mask)
+    B, H, T, D = q.shape
+    S = k.shape[2]
+    s = torch.einsum("bhtd,bhsd->bhts", q.float(), k.float()) * sm_scale + bias.float()[None]
+    s = torch.where(_bias_valid_pairs(key_mask, T, S, causal, q.device), s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bhts,bhsd->bhtd", p, v.float()) / torch.clamp(l, min=1e-30)
+    out = o.to(q.dtype)
+    if with_stats:
+        return out, m.reshape(B * H, T, 1), l.reshape(B * H, T, 1)
+    return out
+
+
+def flash_attention_bias_backward_plain(q, k, v, key_mask, bias, o, m, l, g, causal: bool, sm_scale: float):
+    """(dq, dk, dv, dbias) of the bias variant in plain PyTorch, computed in
+    fp32 from the forward's residuals, as the reference's
+    `_flash_bias_backward`: delta = rowsum(dO * O), p = exp(s - m) /
+    max(l, 1e-30), ds = p (dp - delta) on valid pairs, dbias = sum_b ds.
+    Each gradient comes out in its input's dtype."""
+    B, H, T, D = q.shape
+    S = k.shape[2]
+    qf, kf, vf, gf = q.float(), k.float(), v.float(), g.float()
+    delta = (gf * o.float()).sum(dim=-1, keepdim=True)
+    s = torch.einsum("bhtd,bhsd->bhts", qf, kf) * sm_scale + bias.float()[None]
+    valid = _bias_valid_pairs(key_mask, T, S, causal, q.device)
+    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    p = torch.exp(s - m.float().reshape(B, H, T, 1)) / torch.clamp(l.float().reshape(B, H, T, 1), min=1e-30)
+    dp = torch.einsum("bhtd,bhsd->bhts", gf, vf)
+    ds = torch.where(valid, p * (dp - delta), torch.zeros_like(p))
+    dq = torch.einsum("bhts,bhsd->bhtd", ds, kf) * sm_scale
+    dk = torch.einsum("bhts,bhtd->bhsd", ds, qf) * sm_scale
+    dv = torch.einsum("bhts,bhtd->bhsd", p, gf)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), ds.sum(dim=0).to(bias.dtype)
+
+
+def _check_bias(q, k, bias, causal):
+    """Validate what the bias kernels take beyond `_check_inputs`' operands;
+    returns the bias as a contiguous fp32 [H, T, S]."""
+    B, H, T, D = q.shape
+    S = k.shape[2]
+    if k.shape[1] != H:
+        raise ValueError("flash_attention_bias does not support GQA")
+    if causal and T != S:
+        raise ValueError(
+            f"the bias kernels' causal rule is top-left and needs T == S (got T={T}, S={S})"
+        )
+    _check_cuda("bias", bias, q.device, torch.float32, 3)
+    if tuple(bias.shape) != (H, T, S):
+        raise ValueError(f"bias must be [H, T, S] = {(H, T, S)}, got {tuple(bias.shape)}")
+    return bias.contiguous()
+
+
+def _flash_bias_forward_cuda(q, k, v, key_mask, bias, causal, sm_scale):
+    km = _check_inputs(q, k, v, key_mask)
+    bias = _check_bias(q, k, bias, causal)
+    B, H, T, D = q.shape
+    S = k.shape[2]
+    out = _bhtd_empty(B, H, T, D, q)
+    m = torch.empty((B * H, T, 1), dtype=torch.float32, device=q.device)
+    l = torch.empty((B * H, T, 1), dtype=torch.float32, device=q.device)
+    flash_attention_bias.launches += 1
+    _launch(
+        "flash_bias_fwd.cu", "flash_bias_fwd_bf16",
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+        + [ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_void_p],
+        (q.data_ptr(), k.data_ptr(), v.data_ptr(), km.data_ptr(), bias.data_ptr(), out.data_ptr(),
+         m.data_ptr(), l.data_ptr(), B, H, T, S, D, _strides(q, k, v, out), int(causal),
+         sm_scale, _stream(q)),
+    )
+    return out, m, l
+
+
+def flash_attention_bias_dq(q, k, v, km, bias, g, m, l, delta, causal, sm_scale):
+    """(dq [B, H, T, D], dbias [H, T, S] fp32) by the dq kernel and the
+    dbias reduce kernel of `csrc/flash_bias_bwd.cu`, on operands
+    `backward_operands` and `_check_bias` prepared; also fills
+    `delta`, which `flash_attention_bias_dkv` reads. The per-batch ds
+    partial [B, H, T, S] fp32 is scratch of this call."""
+    B, H, T, D = q.shape
+    S = k.shape[2]
+    dq = _bhtd_empty(B, H, T, D, q)
+    ds_part = torch.empty((B, H, T, S), dtype=torch.float32, device=q.device)
+    dbias = torch.empty((H, T, S), dtype=torch.float32, device=q.device)
+    flash_attention_bias_dq.launches += 1
+    _launch(
+        "flash_bias_bwd.cu", "flash_bias_bwd_dq_bf16",
+        [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5
+        + [ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_void_p],
+        (q.data_ptr(), k.data_ptr(), v.data_ptr(), km.data_ptr(), bias.data_ptr(), g.data_ptr(),
+         m.data_ptr(), l.data_ptr(), delta.data_ptr(), dq.data_ptr(), ds_part.data_ptr(),
+         dbias.data_ptr(), B, H, T, S, D, _strides(q, k, v, g, dq), int(causal), sm_scale,
+         _stream(q)),
+    )
+    return dq, dbias
+
+
+def flash_attention_bias_dkv(q, k, v, km, bias, g, m, l, delta, causal, sm_scale):
+    """(dk, dv) [B, H, S, D] by the dk/dv kernel of `csrc/flash_bias_bwd.cu`,
+    on the prepared operands and the delta `flash_attention_bias_dq` wrote."""
+    B, H, T, D = q.shape
+    S = k.shape[2]
+    dk = _bhtd_empty(B, H, S, D, k)
+    dv = _bhtd_empty(B, H, S, D, v)
+    flash_attention_bias_dkv.launches += 1
+    _launch(
+        "flash_bias_bwd.cu", "flash_bias_bwd_dkv_bf16",
+        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
+        + [ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_void_p],
+        (q.data_ptr(), k.data_ptr(), v.data_ptr(), km.data_ptr(), bias.data_ptr(), g.data_ptr(),
+         m.data_ptr(), l.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+         B, H, T, S, D, _strides(q, k, v, g, dk, dv), int(causal), sm_scale, _stream(q)),
+    )
+    return dk, dv
+
+
+flash_attention_bias_dq.launches = 0
+flash_attention_bias_dkv.launches = 0
+
+
+def flash_attention_bias_backward(q, k, v, key_mask, bias, o, m, l, g, causal, sm_scale):
+    """(dq, dk, dv, dbias) from the forward's residuals: on CPU tensors
+    `flash_attention_bias_backward_plain`; on CUDA tensors the dq + dbias
+    kernels and the dk/dv kernel (no atomics: the same result run to run),
+    or an exception."""
+    if q.device.type == "cpu":
+        return flash_attention_bias_backward_plain(q, k, v, key_mask, bias, o, m, l, g, causal, sm_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bias runs on cpu or cuda, not {q.device}")
+    km, g, delta = backward_operands(q, k, v, key_mask, g, m, l)
+    bias32 = _check_bias(q, k, bias, causal)
+    dq, dbias = flash_attention_bias_dq(q, k, v, km, bias32, g, m, l, delta, causal, sm_scale)
+    dk, dv = flash_attention_bias_dkv(q, k, v, km, bias32, g, m, l, delta, causal, sm_scale)
+    return dq, dk, dv, dbias.to(bias.dtype)
+
+
+def _bias_forward(q, k, v, key_mask, bias, causal, sm_scale):
+    if q.device.type == "cpu":
+        return flash_attention_bias_plain(q, k, v, key_mask, bias, causal, sm_scale, with_stats=True)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bias runs on cpu or cuda, not {q.device}")
+    return _flash_bias_forward_cuda(q, k, v, key_mask, bias, causal, sm_scale)
+
+
+class _FlashBiasAttentionFn(torch.autograd.Function):
+    """The reference's `custom_vjp` pair (`_bias_fwd` / `_bias_bwd`)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_mask, bias, causal, sm_scale):
+        out, m, l = _bias_forward(q, k, v, key_mask, bias, causal, sm_scale)
+        ctx.save_for_backward(q, k, v, key_mask, bias, out, m, l)
+        ctx.static = (causal, sm_scale)
+        ctx.mark_non_differentiable(m, l)
+        return out, m, l
+
+    @staticmethod
+    def backward(ctx, g, _gm, _gl):
+        q, k, v, key_mask, bias, out, m, l = ctx.saved_tensors
+        dq, dk, dv, dbias = flash_attention_bias_backward(q, k, v, key_mask, bias, out, m, l, g, *ctx.static)
+        return dq, dk, dv, None, dbias, None, None
+
+
+def flash_attention_bias(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    key_mask: Optional[torch.Tensor],
+    bias: torch.Tensor,
+    causal: bool = False,
+    sm_scale: float = 1.0,
+    with_stats: bool = False,
+):
+    """Fused attention with a learned additive bias [H, T, S] (see the
+    section comment above), differentiable in q, k, v and the bias. On CPU
+    tensors the plain versions run; on CUDA tensors the kernels launch or
+    the call raises (q/k/v bf16 with D = 64 under `flash_attention`'s
+    layout rules, the bias fp32 [H, T, S], T == S when causal)."""
+    key_mask = _bias_prepare(q, k, key_mask)
+    sm_scale = float(sm_scale)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v, bias)):
+        out, m, l = _FlashBiasAttentionFn.apply(q, k, v, key_mask, bias, causal, sm_scale)
+    else:
+        out, m, l = _bias_forward(q, k, v, key_mask, bias, causal, sm_scale)
+    if with_stats:
+        return out, m, l
+    return out
+
+
+flash_attention_bias.launches = 0

@@ -55,6 +55,7 @@ from trlx_tpu_torch.models.generation import (
     SamplerSettings,
     generate,
 )
+from trlx_tpu_torch.models.seq2seq import Seq2SeqConfig, generate_seq2seq
 from trlx_tpu_torch.models.transformer import TransformerConfig
 from trlx_tpu_torch.ops.common import running_moments_init, running_moments_update
 from trlx_tpu_torch.trainer import BaseRLTrainer
@@ -119,7 +120,8 @@ def check_ported(config: TRLConfig) -> None:
         (int(dict(getattr(method, "gen_engine", None) or {}).get("data_groups", 1)) > 1,
          "method.gen_engine.data_groups > 1 (engine lane groups)", "ROADMAP queue 12"),
         (bool(getattr(method, "num_value_layers_unfrozen", 0)), "method.num_value_layers_unfrozen (the value branch)", LEFT_OUT),
-        (model.model_arch_type != "causal", f"model.model_arch_type={model.model_arch_type!r}", "ROADMAP queue 8"),
+        (model.model_arch_type not in ("causal", "seq2seq"),
+         f"model.model_arch_type={model.model_arch_type!r}", "ROADMAP queue 7"),
         (model.peft_config is not None, "model.peft_config", "ROADMAP queue 7"),
     ]
     for failed, what, where in checks:
@@ -148,6 +150,7 @@ class TPUBaseTrainer(BaseRLTrainer):
             raise _unported("stop_sequences", LEFT_OUT)
         train = config.train
         self.device = resolve_device(device)
+        self.seq2seq = config.model.model_arch_type == "seq2seq"
         self.tokenizer = load_tokenizer(config.tokenizer)
         if train.tracker is not None:
             logger.warning(
@@ -221,39 +224,73 @@ class TPUBaseTrainer(BaseRLTrainer):
         extra.setdefault("dtype", train.compute_dtype)
         extra.setdefault("param_dtype", train.param_dtype)
         cfg = TransformerConfig(**extra)
-        # an id >= vocab_size would index past the embedding: fail loudly
+        self._check_token_ids(cfg.vocab_size)
+        return cfg
+
+    def load_seq2seq_base(self) -> Seq2SeqConfig:
+        """The T5 architecture from `model.model_extra_configs["seq2seq"]`
+        with random weights, as the reference's random-init branch of
+        `_load_seq2seq_base`: the vocabulary from the tokenizer when not
+        given, and the decoder start token its pad token (the HF T5
+        convention). Loading a checkpoint is ROADMAP queues 7 and 4."""
+        mc, train = self.config.model, self.config.train
+        extra = dict((mc.model_extra_configs or {}).get("seq2seq", {}))
+        if mc.model_path != "random" and not set(extra) - _RUNTIME_TRANSFORMER_KEYS:
+            raise _unported(f"loading model_path={mc.model_path!r}", "ROADMAP queues 7 and 4")
+        extra.setdefault("vocab_size", getattr(self.tokenizer, "vocab_size", 258))
+        pad = getattr(self.tokenizer, "pad_token_id", None)
+        if pad is not None:
+            extra.setdefault("decoder_start_token_id", int(pad))
+        extra.setdefault("dtype", train.compute_dtype)
+        extra.setdefault("param_dtype", train.param_dtype)
+        cfg = Seq2SeqConfig(**extra)
+        self._check_token_ids(cfg.vocab_size)
+        return cfg
+
+    def _check_token_ids(self, vocab_size: int) -> None:
+        """An id >= vocab_size would index past the embedding: fail loudly."""
         for name in ("pad_token_id", "eos_token_id", "bos_token_id"):
             tid = getattr(self.tokenizer, name, None)
-            if tid is not None and int(tid) >= cfg.vocab_size:
+            if tid is not None and int(tid) >= vocab_size:
                 raise ValueError(
                     f"tokenizer {name}={tid} is out of range for model "
-                    f"vocab_size={cfg.vocab_size} (the byte tokenizer needs vocab_size>=258)"
+                    f"vocab_size={vocab_size} (the byte tokenizer needs vocab_size>=258)"
                 )
-        return cfg
 
     @abstractmethod
     def setup_model(self) -> None:
         """Set self.model (and any frozen auxiliaries)."""
 
     def branch_at(self) -> Optional[int]:
-        """Layer index where the trainable top starts (None = all)."""
+        """Layer index where the trainable top starts (None = all): of the
+        decoder stack for a seq2seq model."""
         k = self.config.model.num_layers_unfrozen
         if k is None or k < 0:
             return None
-        return max(self.model.cfg.n_layer - k, 0)
+        n = self.model.cfg.n_decoder_layer if self.seq2seq else self.model.cfg.n_layer
+        return max(n - k, 0)
 
     def freeze_parameters(self) -> None:
-        """The reference's causal-LM freeze mask: with num_layers_unfrozen
-        k >= 0 the embeddings and the blocks below n_layer - k do not
-        train; the top blocks, the final norm and the heads do."""
+        """The reference's freeze masks. Causal (`make_freeze_mask`): with
+        num_layers_unfrozen k >= 0 the embeddings and the blocks below
+        n_layer - k do not train; the top blocks, the final norm and the
+        heads do. Seq2seq (`make_seq2seq_freeze_mask`): the encoder, the
+        shared embedding, both relative-bias tables and the decoder blocks
+        below n_decoder_layer - k do not train; the top decoder blocks, the
+        decoder's final norm, an untied head and the value head do."""
         at = self.branch_at()
         if not at:
             return
         for name, p in self.model.named_parameters():
             parts = name.split(".")
-            if parts[:2] == ["base", "embed"] or (
-                parts[:2] == ["base", "blocks"] and int(parts[2]) < at
-            ):
+            if parts[0] != "base":
+                continue
+            if self.seq2seq:
+                frozen = (parts[1] in ("encoder", "shared") or parts[-1] == "rel_bias"
+                          or (parts[1:3] == ["decoder", "blocks"] and int(parts[3]) < at))
+            else:
+                frozen = parts[1] == "embed" or (parts[1] == "blocks" and int(parts[2]) < at)
+            if frozen:
                 p.requires_grad_(False)
 
     # ------------------------------------------------------------------
@@ -281,7 +318,9 @@ class TPUBaseTrainer(BaseRLTrainer):
         mask = (torch.ones_like(ids) if attention_mask is None
                 else torch.as_tensor(attention_mask, device=self.device)).to(torch.int32)
         with self._phase("generate"):
-            if self._engine_cfg.enabled and self._engine_eligible():
+            if self.seq2seq:
+                out = generate_seq2seq(self.model.base, ids, mask, self.generator, settings)
+            elif self._engine_cfg.enabled and self._engine_eligible():
                 out = self._engine_generate(ids, mask, settings)
             else:
                 out = generate(self.model.base, ids, mask, self.generator, settings)
@@ -293,11 +332,11 @@ class TPUBaseTrainer(BaseRLTrainer):
     # -- the rollout decode engine (method.gen_engine.*) -----------------
 
     def _engine_eligible(self) -> bool:
-        """The engine's envelope: a causal LM without prompt or prefix
-        adapters (the port has no logits processor on this path, and one
-        data group by `check_ported`)."""
-        return (self.config.model.model_arch_type == "causal"
-                and self.config.model.peft_config is None)
+        """The engine's envelope: a causal LM (never seq2seq, whose rollouts
+        take `generate_seq2seq`) without prompt or prefix adapters (the port
+        has no logits processor on this path, and one data group by
+        `check_ported`)."""
+        return not self.seq2seq and self.config.model.peft_config is None
 
     def _engine_spec(self, batch: int):
         """The engine spec for a call's batch width. With speculative
@@ -350,22 +389,27 @@ class TPUBaseTrainer(BaseRLTrainer):
     ) -> Tuple[List[str], List[str], List[str]]:
         """Token arrays -> (str_samples, str_prompts, str_outputs), with
         the EOS string appended to outputs that ended on EOS/pad when
-        asked (stop-sequence trimming is left out of this slice)."""
+        asked (stop-sequence trimming is left out of this slice). A seq2seq
+        sample is the decoder sequence alone (its output starts at 0), and
+        its str_sample joins prompt and output with the tokenizer's
+        sep_token."""
         if prompt_sizes is None:
             prompt_sizes = [np.shape(p)[-1] for p in prompts]
         str_samples, str_prompts, str_outputs = [], [], []
         eos_id = getattr(self.tokenizer, "eos_token_id", None)
         pad_id = getattr(self.tokenizer, "pad_token_id", None)
         eos_token = getattr(self.tokenizer, "eos_token", "") or ""
+        sep = (getattr(self.tokenizer, "sep_token", "") or "") if self.seq2seq else ""
         for prompt, sample, prompt_size in zip(prompts, samples, prompt_sizes):
             prompt, sample = np.asarray(prompt), np.asarray(sample)
+            output_start = 0 if self.seq2seq else int(prompt_size)
             str_prompt = self.tokenizer.decode(prompt[: int(prompt_size)], skip_special_tokens=True)
-            str_output = self.tokenizer.decode(sample[int(prompt_size):], skip_special_tokens=True)
+            str_output = self.tokenizer.decode(sample[output_start:], skip_special_tokens=True)
             if append_eos_token and (sample[-1] == eos_id or sample[-1] == pad_id):
                 str_output += eos_token
             str_prompts.append(str_prompt)
             str_outputs.append(str_output)
-            str_samples.append(str_prompt + str_output)
+            str_samples.append(str_prompt + sep + str_output)
         return str_samples, str_prompts, str_outputs
 
     # ------------------------------------------------------------------

@@ -1,8 +1,10 @@
 """PPO trainer: the method half of the online experience core (port of
-trlx_tpu.trainer.ppo for causal models): the value-headed hydra policy,
-the teacher-forced score/assemble step (policy + reference + value
-forward, per-token KL penalty, reward injection), the KL controllers, and
-GAE + the clipped surrogate loss. Metric keys match the reference's.
+trlx_tpu.trainer.ppo for causal and seq2seq models): the value-headed
+hydra policy, the teacher-forced score/assemble step (policy + reference
++ value forward, per-token KL penalty, reward injection), the KL
+controllers, and GAE + the clipped surrogate loss. Metric keys match the
+reference's. A seq2seq rollout stores the encoder prompt as its query and
+the decoder sequence (start token + response) as its response.
 
 The loss runs the policy-only forward (logits + values): the reference's
 loss calls `forward_train`, whose reference logits `jit` eliminates as
@@ -19,8 +21,9 @@ import torch
 
 from trlx_tpu_torch.data import PPORolloutBatch, PromptBatch
 from trlx_tpu_torch.data.method_configs import PPOConfig
+from trlx_tpu_torch.models.seq2seq import t5_logit_projection
 from trlx_tpu_torch.models.transformer import logit_projection
-from trlx_tpu_torch.models.wrappers import CausalLMWithValueHead
+from trlx_tpu_torch.models.wrappers import CausalLMWithValueHead, Seq2SeqLMWithValueHead
 from trlx_tpu_torch.ops.common import chunked_logprobs, logprobs_of_labels
 from trlx_tpu_torch.ops.ppo import gae_advantages_and_returns, ppo_loss
 from trlx_tpu_torch.trainer import register_trainer
@@ -72,12 +75,19 @@ class TPUPPOTrainer(TPUOnlineTrainer):
 
     def setup_model(self) -> None:
         """The value-headed policy with random weights from train.seed and
-        its frozen reference: the top branch above n_layer - k (hydra) for
-        0 < num_layers_unfrozen k < n_layer, else a full frozen copy."""
-        cfg = self.load_base_model()
+        its frozen reference: the top branch above n_layer - k (hydra; the
+        decoder's n_decoder_layer - k for seq2seq) for 0 < num_layers_unfrozen
+        k < that depth, else a full frozen copy."""
         k = self.config.model.num_layers_unfrozen
-        branch_at = cfg.n_layer - k if k is not None and 0 < k < cfg.n_layer else None
-        self.model = CausalLMWithValueHead(cfg, branch_at=branch_at, device=self.device)
+        if self.seq2seq:
+            cfg = self.load_seq2seq_base()
+            n = cfg.n_decoder_layer
+            branch_at = n - k if k is not None and 0 < k < n else None
+            self.model = Seq2SeqLMWithValueHead(cfg, branch_at=branch_at, device=self.device)
+        else:
+            cfg = self.load_base_model()
+            branch_at = cfg.n_layer - k if k is not None and 0 < k < cfg.n_layer else None
+            self.model = CausalLMWithValueHead(cfg, branch_at=branch_at, device=self.device)
         self.model.init_params(torch.Generator().manual_seed(self.config.train.seed))
         self.ref_params = self.model.make_ref_params()
 
@@ -97,6 +107,17 @@ class TPUPPOTrainer(TPUOnlineTrainer):
         response positions are projected to logits (the prompt's would be
         sliced away)."""
         pad = self.generate_settings.pad_token_id
+        if self.seq2seq:
+            # query = the encoder prompt; response = the decoder ids (start
+            # token + sampled tokens), whose mask leads with the start token
+            dec = batch.response_tensors
+            enc_mask = (batch.query_tensors != pad).to(torch.int32)
+            dec_mask = torch.cat([torch.ones_like(dec[:, :1], dtype=torch.int32),
+                                  batch.response_mask.to(torch.int32)], dim=1)
+            out = self.model(batch.query_tensors, enc_mask, dec, dec_mask, compute_logits=False)
+            logprobs = self._response_logprobs(self.model.logit_project_fn(), out["hidden_states"][:, :-1],
+                                               dec[:, 1:])
+            return logprobs, out["values"][:, :-1]
         P = batch.query_tensors.shape[1]
         N = batch.response_tensors.shape[1]
         tokens = torch.cat([batch.query_tensors, batch.response_tensors], dim=1)
@@ -181,6 +202,40 @@ class TPUPPOTrainer(TPUOnlineTrainer):
         )
         return batch, {"mean_kl": mean_kl, "mean_kl_per_token": mean_kl_per_token}
 
+    @torch.no_grad()
+    def experience_forward_seq2seq(self, enc_ids, enc_mask, dec_ids, response_mask, kl_coef: float):
+        """`experience_forward` for a seq2seq rollout (the reference's
+        `seq2seq_fn` up to the score injection): the teacher-forced pass over
+        the decoder ids (start token + response) with the encoder prompt, the
+        response-masked logprobs, values and KL penalty."""
+        chunks = self.config.train.logit_chunks
+        mask = response_mask.float()
+        dec_mask = torch.cat([torch.ones_like(dec_ids[:, :1], dtype=torch.int32),
+                              response_mask.to(torch.int32)], dim=1)
+        out = self.model.forward_train(self.ref_params, enc_ids, enc_mask, dec_ids, dec_mask,
+                                       compute_logits=chunks == 0)
+        labels = dec_ids[:, 1:]
+        if chunks:
+            logprobs = chunked_logprobs(self.model.logit_project_fn(), out["hidden_states"][:, :-1], labels, chunks)
+            ref_logprobs = chunked_logprobs(t5_logit_projection(self.ref_params, self.model.cfg),
+                                            out["ref_hidden"][:, :-1], labels, chunks)
+        else:
+            logprobs = logprobs_of_labels(out["logits"][:, :-1], labels)
+            ref_logprobs = logprobs_of_labels(out["ref_logits"][:, :-1], labels)
+        logprobs, ref_logprobs = logprobs * mask, ref_logprobs * mask
+        log_ratio = logprobs - ref_logprobs
+        kl = torch.exp(log_ratio) - 1 - log_ratio
+        mean_kl, mean_kl_per_token = _masked_kl_stats(kl)
+        batch = PPORolloutBatch(
+            query_tensors=enc_ids,
+            response_tensors=dec_ids,
+            logprobs=logprobs,
+            values=out["values"][:, :-1] * mask,
+            rewards=-kl_coef * log_ratio,  # scores injected later
+            response_mask=mask,
+        )
+        return batch, {"mean_kl": mean_kl, "mean_kl_per_token": mean_kl_per_token}
+
     @staticmethod
     def inject_scores(batch: PPORolloutBatch, scores: torch.Tensor, scores_mask: torch.Tensor,
                       scale_div: torch.Tensor) -> PPORolloutBatch:
@@ -209,10 +264,16 @@ class TPUPPOTrainer(TPUOnlineTrainer):
         response_mask = gen_out["response_mask"]
         N = response_mask.shape[1]
         P = batch.input_ids.shape[1]
-        attention_mask = torch.cat([gen_out["prompt_mask"], response_mask], dim=1).to(torch.int32)
-        pre_batch, kl_stats = self.experience_forward(
-            sequences, attention_mask, response_mask, self.kl_ctl.value
-        )
+        if self.seq2seq:
+            enc_ids = torch.as_tensor(batch.input_ids, device=self.device)
+            pre_batch, kl_stats = self.experience_forward_seq2seq(
+                enc_ids, gen_out["prompt_mask"], sequences, response_mask, self.kl_ctl.value
+            )
+        else:
+            attention_mask = torch.cat([gen_out["prompt_mask"], response_mask], dim=1).to(torch.int32)
+            pre_batch, kl_stats = self.experience_forward(
+                sequences, attention_mask, response_mask, self.kl_ctl.value
+            )
 
         seq_np = sequences.cpu().numpy()
         str_samples, str_prompts, str_outputs = self.decode(
