@@ -7,8 +7,9 @@ Builds the CUDA kernels from `trlx_tpu_torch/csrc` (into build/kernels/)
 and holds each kernel against its plain PyTorch version on the card: the
 flash forward, the flash backward's dq and dk/dv kernels (causal, and
 T5's non-causal cross-attention with more queries than keys), T5's
-bias-carrying forward, dq + dbias and dk/dv kernels, the int8 decode
-step, the paged decode step; and checks that the per-lane sampler's
+bias-carrying forward and both routes of its backward (one fused kernel
+up to 128 queries and keys; the dq + dbias and dk/dv kernels past that),
+the int8 decode step, the paged decode step; and checks that the per-lane sampler's
 counter stream is the same on the CPU and the card. Then, at
 GPT-2-small width (12 x 768, vocab 50257, random weights from the seed),
 through the entry points a user calls:
@@ -50,6 +51,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -112,6 +114,34 @@ def time_ms(fn, reps: int = 30, warmup: int = 3) -> float:
         events.append((start, end))
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in events)
+
+
+def ptxas_report(log: str, kernel: str) -> list:
+    """Registers, stack, spills and static shared memory of each compiled
+    entry whose (mangled) name holds `kernel`, from the `-Xptxas -v` log;
+    `nk` is the template argument of an instantiation."""
+    out, cur = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            cur = {"function": m.group(1)} if kernel in m.group(1) else None
+            if cur is not None:
+                nk = re.search(r"ILi(\d+)E", m.group(1))
+                cur["nk"] = int(nk.group(1)) if nk else None
+                out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)), spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            cur["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", ln)
+        if m:
+            cur["static_smem"] = int(m.group(1))
+    return out
 
 
 def bound_ms(n_bytes: float, n_flops: float):
@@ -298,6 +328,9 @@ def check_flash_bwd(gen) -> dict:
 BIAS_CASES = {  # name: (B, H, T = S, causal, mask kind)
     "encoder": (12, 12, T5_PROMPT_LEN, False, "right_pad"),
     "decoder": (12, 12, T5_DEC_LEN, True, "pad_tail"),
+    "max_fused": (12, 12, 128, True, "pad_tail"),  # the fused backward's largest shape
+    "one": (12, 12, 1, True, "right_pad"),
+    "b64": (64, 12, T5_DEC_LEN, True, "pad_tail"),  # 768 CTAs: a head's rows in several waves
     "long": (4, 12, 512, False, "right_pad"),
     "ragged": (4, 12, 100, True, "masked_row"),
 }
@@ -328,20 +361,48 @@ def flash_bias_inputs(gen, B, H, T, causal, kind):
     return q, k, v, mask, bias, out, m, l, g
 
 
+def bias_long_route(q, k, v, mask, bias, g, m, l, causal):
+    """(dq, dk, dv, dbias) by the bias backward's long route (the dq +
+    dbias kernels, then the dk/dv kernel) at any length: the route the
+    wrapper takes past 128 queries or keys."""
+    from trlx_tpu_torch.ops.flash_attention import (
+        _check_bias,
+        backward_operands,
+        flash_attention_bias_dkv,
+        flash_attention_bias_dq,
+    )
+
+    km, g, delta = backward_operands(q, k, v, mask, g, m, l)
+    bias32 = _check_bias(q, k, bias, causal)
+    dq, dbias = flash_attention_bias_dq(q, k, v, km, bias32, g, m, l, delta, causal, 1.0)
+    dk, dv = flash_attention_bias_dkv(q, k, v, km, bias32, g, m, l, delta, causal, 1.0)
+    return dq, dk, dv, dbias
+
+
 def check_flash_bias(gen) -> dict:
-    """Kernels 4-6 (the bias forward, dq + dbias, dk/dv) against the plain
-    versions on the same bf16 inputs upcast to fp32: out, dq, dk, dv and
-    dbias each within 2e-2 of max |error| / max(|ref|, 1). m and l are held
-    row by row, within 2e-2 of |error| / max(|ref|, 1), on the rows that
-    attend some slot; a row that attends none must hold exactly m = -1e30
-    and l = S (every slot weighs exp(0))."""
+    """Kernels 4-6 (the bias forward and the backward's two routes: the
+    fused kernel up to 128 queries and keys, the dq + dbias and dk/dv
+    kernels past that) against the plain versions on the same bf16 inputs
+    upcast to fp32: out, dq, dk, dv and dbias each within 2e-2 of max
+    |error| / max(|ref|, 1). Each case runs the route the wrapper picks;
+    a case the fused kernel takes also runs the long route. m and l are
+    held row by row, within 2e-2 of |error| / max(|ref|, 1), on the rows
+    that attend some slot; a row that attends none must hold exactly
+    m = -1e30 and l = S (every slot weighs exp(0)). The fused kernel's
+    results must be bit-identical when it runs again on the same inputs,
+    and again after a launch with more heads, which leaves its arrival
+    counters zero as every launch must."""
     import torch
 
+    from trlx_tpu_torch.ops import flash_attention as fa
     from trlx_tpu_torch.ops.flash_attention import (
         NEG_INF,
         _bias_valid_pairs,
+        bias_backward_route,
+        flash_attention_bias,
         flash_attention_bias_backward,
         flash_attention_bias_backward_plain,
+        flash_attention_bias_bwd_occupancy,
         flash_attention_bias_plain,
     )
 
@@ -353,10 +414,16 @@ def check_flash_bias(gen) -> dict:
             return 0.0
         return ((a - b).abs() / b.abs().clamp(min=1.0))[rows].max().item()
 
-    worst = {"fwd": 0.0, "dq_dbias": 0.0, "dkv": 0.0}  # max |error| of each kernel's outputs
+    def max_abs(a, b):
+        return (a.float() - b.float()).abs().max().item()
+
+    worst = {"fwd": 0.0, "fused": 0.0, "dq_dbias": 0.0, "dkv": 0.0}  # max |error| of each kernel's outputs
     for name, (B, H, T, causal, kind) in BIAS_CASES.items():
         q, k, v, mask, bias, out, m, l, g = flash_bias_inputs(gen, B, H, T, causal, kind)
-        got = flash_attention_bias_backward(q, k, v, mask, bias, out, m, l, g, causal, 1.0)
+        route = bias_backward_route(T, T, causal)
+        got = {route: flash_attention_bias_backward(q, k, v, mask, bias, out, m, l, g, causal, 1.0)}
+        if route == "fused":
+            got["long"] = bias_long_route(q, k, v, mask, bias, g, m, l, causal)
         torch.cuda.synchronize()
         f32 = [x.float() for x in (q, k, v)]
         ref_out, ref_m, ref_l = flash_attention_bias_plain(*f32, mask, bias, causal, 1.0, with_stats=True)
@@ -368,26 +435,54 @@ def check_flash_bias(gen) -> dict:
         if not (bool((m[dead] == NEG_INF).all()) and bool((l[dead] == T).all())):
             raise AssertionError(f"rows that attend no slot must hold m = -1e30 and l = {T} on {name}: "
                                  f"m {m[dead].unique().tolist()[:4]}, l {l[dead].unique().tolist()[:4]}")
-        errs.update({key: rel(a, b) for key, a, b in zip(("dq", "dk", "dv", "dbias"), got, ref)})
-        abs_err = {key: (a.float() - b.float()).abs().max().item() for key, a, b in
-                   zip(("out", "dq", "dk", "dv", "dbias"), (out,) + tuple(got), (ref_out,) + tuple(ref))}
-        emit("flash_bias_check", case=name, shape=[B, H, T, T, 64], causal=causal, mask=kind, rel_err=errs,
-             max_abs_err=abs_err, rows_attending_none=int(dead.sum().item()))
-        if not all(e <= 2e-2 for e in errs.values()):
-            raise AssertionError(f"bias kernels disagree with the plain versions on {name}: {errs}")
+        keys = ("dq", "dk", "dv", "dbias")
+        bwd_errs = {r: {key: rel(a, b) for key, a, b in zip(keys, res, ref)} for r, res in got.items()}
+        abs_err = {r: {key: max_abs(a, b) for key, a, b in zip(keys, res, ref)} for r, res in got.items()}
+        abs_err["out"] = max_abs(out, ref_out)
+        emit("flash_bias_check", case=name, shape=[B, H, T, T, 64], causal=causal, mask=kind, route=route,
+             rel_err={**errs, **bwd_errs}, max_abs_err=abs_err, rows_attending_none=int(dead.sum().item()),
+             fused_occupancy=flash_attention_bias_bwd_occupancy(T, T) if route == "fused" else None)
+        if not all(e <= 2e-2 for e in list(errs.values()) + [e for r in bwd_errs.values() for e in r.values()]):
+            raise AssertionError(f"bias kernels disagree with the plain versions on {name}: {errs} {bwd_errs}")
         worst["fwd"] = max(worst["fwd"], abs_err["out"])
-        worst["dq_dbias"] = max(worst["dq_dbias"], abs_err["dq"], abs_err["dbias"])
-        worst["dkv"] = max(worst["dkv"], abs_err["dk"], abs_err["dv"])
-    # the CUDA wrapper takes the top-left causal rule only at T == S
-    q, k, v, mask, bias, *_ = flash_bias_inputs(gen, 2, 12, 40, False, "right_pad")
-    try:
-        from trlx_tpu_torch.ops.flash_attention import flash_attention_bias
+        if "fused" in got:
+            worst["fused"] = max(worst["fused"], *abs_err["fused"].values())
+        worst["dq_dbias"] = max(worst["dq_dbias"], abs_err["long"]["dq"], abs_err["long"]["dbias"])
+        worst["dkv"] = max(worst["dkv"], abs_err["long"]["dk"], abs_err["long"]["dv"])
 
-        flash_attention_bias(q[:, :, :20], k, v, mask, bias[:, :20], causal=True)
-    except ValueError:
-        pass
-    else:
-        raise AssertionError("a causal bias call with T != S must raise on CUDA")
+    # the fused kernel: the same bits run to run, and after a launch with
+    # more heads (its arrival counters reset by every launch)
+    B, H, T, causal, kind = BIAS_CASES["decoder"]
+    first = flash_bias_inputs(gen, B, H, T, causal, kind)
+    wider = flash_bias_inputs(gen, B, H + 4, T, causal, kind)
+
+    def fused(inputs):
+        q, k, v, mask, bias, out, m, l, g = inputs
+        res = flash_attention_bias_backward(q, k, v, mask, bias, out, m, l, g, causal, 1.0)
+        torch.cuda.synchronize()
+        return res
+
+    runs = [fused(first), fused(first), fused(wider), fused(first)]
+    same = [all(torch.equal(a, b) for a, b in zip(runs[0], res)) for res in (runs[1], runs[3])]
+    counters = {str(key): int(buf.abs().sum().item()) for key, buf in fa._BIAS_ARRIVALS.items()}
+    emit("flash_bias_determinism", shape=[B, H, T, T, 64], wider_heads=H + 4, bitwise_same_rerun=same[0],
+         bitwise_same_after_wider=same[1], arrival_counters_abs_sum=counters)
+    if not all(same) or any(counters.values()):
+        raise AssertionError(f"the fused bias backward is not deterministic or left its counters set: "
+                             f"{same}, {counters}")
+
+    # the CUDA wrapper takes the top-left causal rule only at T == S
+    q, k, v, mask, bias, out, m, l, g = flash_bias_inputs(gen, 2, 12, 40, False, "right_pad")
+    for what, call in (
+        ("forward", lambda: flash_attention_bias(q[:, :, :20], k, v, mask, bias[:, :20], causal=True)),
+        ("backward", lambda: flash_attention_bias_backward(q[:, :, :20], k, v, mask, bias[:, :20], out, m, l,
+                                                           g[:, :, :20], True, 1.0)),
+    ):
+        try:
+            call()
+        except ValueError:
+            continue
+        raise AssertionError(f"a causal bias {what} call with T != S must raise on CUDA")
     return worst
 
 
@@ -1178,10 +1273,13 @@ def build_t5_policy(seed: int, attention_impl: str, compute_dtype="bfloat16"):
 
 
 def bias_counters():
-    """The launch counters of the six attention kernels the T5 path runs."""
+    """The launch counters of the attention kernels the T5 paths may run:
+    the bias forward, the bias backward's fused kernel and its long route's
+    pair, and the plain flash forward and backward pair."""
     from trlx_tpu_torch.ops import flash_attention as fa
 
-    return {"flash_bias_fwd": fa.flash_attention_bias, "flash_bias_bwd_dq": fa.flash_attention_bias_dq,
+    return {"flash_bias_fwd": fa.flash_attention_bias, "flash_bias_bwd": fa.flash_attention_bias_bwd,
+            "flash_bias_bwd_dq": fa.flash_attention_bias_dq,
             "flash_bias_bwd_dkv": fa.flash_attention_bias_dkv, "flash_fwd": fa.flash_attention,
             "flash_bwd_dq": fa.flash_attention_dq, "flash_bwd_dkv": fa.flash_attention_dkv}
 
@@ -1230,7 +1328,7 @@ def t5_path(seed: int) -> dict:
     cfg = policy.cfg
     top = cfg.n_decoder_layer - policy.branch_at
     expect = {"flash_bias_fwd": cfg.n_layer + (cfg.n_layer + cfg.n_decoder_layer + top),
-              "flash_fwd": cfg.n_decoder_layer + top,
+              "flash_fwd": cfg.n_decoder_layer + top, "flash_bias_bwd": 0,
               "flash_bias_bwd_dq": 0, "flash_bias_bwd_dkv": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
     emit("t5_path", launches=launches, expected=expect, generate_launches=gen_launches,
          response_tokens=int(out["response_mask"].sum()), shape=list(dec.shape))
@@ -1291,7 +1389,8 @@ def t5_train_path(seed: int):
     width (random weights from the seed, everything trainable, a full frozen
     reference copy, bf16 compute / fp32 params, the six attention kernels):
     evaluate, two rollout cycles of 48, 32 optimizer steps, evaluate.
-    Gates: finite losses, the launch counts the path implies, every
+    Gates: finite losses, the launch counts the path implies (the bias
+    backward's fused kernel, and none of its long route), every
     trainable tensor moved (both relative-bias tables and the encoder
     included), the frozen reference did not."""
     import torch
@@ -1312,10 +1411,11 @@ def t5_train_path(seed: int):
     n_gen = chunks + 2  # and an evaluation at each end: each encodes once
     tf = cfg.n_layer + cfg.n_decoder_layer  # bias forwards of one teacher-forced pass
     # each experience chunk runs the policy and the full reference copy;
-    # each train step one forward and one backward through every layer
+    # each train step one forward and one backward through every layer, the
+    # bias backward on the fused route (T5's lengths are at most 128)
     expect = {"flash_bias_fwd": cfg.n_layer * n_gen + 2 * tf * chunks + tf * T5_TRAIN_STEPS,
               "flash_fwd": 2 * cfg.n_decoder_layer * chunks + cfg.n_decoder_layer * T5_TRAIN_STEPS,
-              "flash_bias_bwd_dq": tf * T5_TRAIN_STEPS, "flash_bias_bwd_dkv": tf * T5_TRAIN_STEPS,
+              "flash_bias_bwd": tf * T5_TRAIN_STEPS, "flash_bias_bwd_dq": 0, "flash_bias_bwd_dkv": 0,
               "flash_bwd_dq": cfg.n_decoder_layer * T5_TRAIN_STEPS,
               "flash_bwd_dkv": cfg.n_decoder_layer * T5_TRAIN_STEPS}
     steps = [(step, st["losses/total_loss"]) for step, st in trainer.stats_history if "losses/total_loss" in st]
@@ -1417,11 +1517,15 @@ def bwd_kernel_times(gen, launches, errs) -> list:
 
 
 def flash_bias_work(mask, H, T, S, D, causal):
-    """Bytes and operations the three bias kernels' functions need on this
-    mask, in the way of `flash_work` and `flash_bwd_work` with the top-left
+    """Bytes and operations the bias kernels' functions need on this mask,
+    in the way of `flash_work` and `flash_bwd_work` with the top-left
     causal rule, plus the fp32 bias entries some batch row weighs (read
-    once, shared by the batch) and, for dq + dbias, the fp32 dbias written
-    in full. Returns (fwd, dq_dbias, dkv), each (bytes, operations)."""
+    once, shared by the batch) and, for the functions that give dbias, the
+    fp32 dbias written in full. Returns (fwd, dq_dbias, dkv, fused), each
+    (bytes, operations): the forward, the long route's two steps (which
+    pass delta between them), and the whole backward the fused kernel
+    computes (each input read once and each output written once; its
+    per-batch ds partial is the kernel's own choice and not counted)."""
     import torch
 
     cols = torch.arange(S, device="cuda")
@@ -1438,21 +1542,30 @@ def flash_bias_work(mask, H, T, S, D, causal):
     full_rows = B * T - rows_with
     v_slots = int(torch.where(row_has.all(dim=1), weighed.sum(dim=1), S).sum().item())
     bias_bytes = 4 * H * int(pairs.any(dim=0).sum().item())
+    dbias_bytes = 4 * H * T * S
     stats = 2 * 4 * B * H * T + 4 * B * S
     fwd = (2 * H * D * (n_weighed + v_slots) + 2 * 2 * B * H * T * D + stats + bias_bytes,
            H * (4 * D * n_pairs + 2 * D * S * full_rows))
+    # q of the rows that attend a slot, do of every row (a row that attends
+    # none still weighs dv), k and v of the weighed slots; dq, dk, dv, dbias
+    fused = (2 * D * H * (rows_with + B * T) + 2 * D * H * 2 * n_weighed + 2 * B * H * T * D
+             + 2 * 2 * B * H * S * D + stats + bias_bytes + dbias_bytes,
+             H * (5 * 2 * D * n_pairs + 2 * D * S * full_rows))
     stats += 4 * B * H * T  # delta
     dq = (2 * D * H * 2 * rows_with + 2 * D * H * 2 * n_weighed + 2 * B * H * T * D + stats + bias_bytes
-          + 4 * H * T * S, H * 3 * 2 * D * n_pairs)
+          + dbias_bytes, H * 3 * 2 * D * n_pairs)
     dkv = (2 * D * H * (rows_with + B * T) + 2 * D * H * 2 * n_weighed + 2 * 2 * B * H * S * D + stats + bias_bytes,
            H * (4 * 2 * D * n_pairs + 2 * D * S * full_rows))
-    return fwd, dq, dkv
+    return fwd, dq, dkv, fused
 
 
 def bias_kernel_times(gen, launches, path_launches, errs) -> list:
-    """The three bias kernels at the T5 train path's shapes (B12 H12: the
+    """The bias kernels at the T5 train path's shapes (B12 H12: the
     encoder's T = S = 32, not causal, and the decoder's T = S = 65, causal):
-    kernel, plain and library times beside the bound. The library call is
+    the forward and the fused backward, kernel, plain and library times
+    beside the bound, with the long route's pair timed on the same inputs
+    beside the fused kernel; then the long route's two steps at T = S = 512
+    (B4), where it is the route the wrapper takes. The library call is
     F.scaled_dot_product_attention with the additive float mask (the bias
     plus the key and causal masks, in bf16 as SDPA takes it), scale 1; its
     backward yields dq, dk, dv and the mask's gradient."""
@@ -1464,20 +1577,40 @@ def bias_kernel_times(gen, launches, path_launches, errs) -> list:
         backward_operands,
         flash_attention_bias,
         flash_attention_bias_backward_plain,
+        flash_attention_bias_bwd,
+        flash_attention_bias_bwd_occupancy,
         flash_attention_bias_dkv,
         flash_attention_bias_dq,
         flash_attention_bias_plain,
     )
 
+    # _flash_bias_kernel via _flash_bias_forward:517; _dq_dbias_kernel and
+    # _dkv_bias_kernel via _flash_bias_backward:665 and :703
+    ref = "trlx_tpu/ops/flash_attention.py:{}".format
     rows = []
-    for case in ("encoder", "decoder"):
+
+    def row(name, case, shape, causal, ms, plain, lib, work, src, line, err, plain_is, library_is, **extra):
+        bms, by = bound_ms(*work)
+        rows.append(dict(
+            name=f"{name}/{case}", route="cuda", source=f"trlx_tpu_torch/csrc/{src}", replaces=ref(line),
+            launches=launches[name], launches_t5_path=path_launches[name], max_abs_err=err,
+            shape=shape, causal=causal, ms=ms, kernel_ms=ms, plain_ms=plain, plain_is=plain_is,
+            bound_ms=bms, bound_by=by, bound_bytes=work[0], bound_flops=work[1], library_ms=lib,
+            library_is=library_is, **extra,
+        ))
+
+    lib_bwd_is = "F.scaled_dot_product_attention backward (dq, dk, dv, dmask together)"
+    for case in ("encoder", "decoder", "long"):
         B, H, T, causal, kind = BIAS_CASES[case]
         q, k, v, mask, bias, out, m, l, g = flash_bias_inputs(gen, B, H, T, causal, kind)
         km, g2, delta = backward_operands(q, k, v, mask, g, m, l)
         bias32 = _check_bias(q, k, bias, causal)
-        with torch.no_grad():
-            fwd_ms = time_ms(lambda: flash_attention_bias(q, k, v, mask, bias, causal=causal, with_stats=True))
-            fwd_plain = time_ms(lambda: flash_attention_bias_plain(q, k, v, mask, bias, causal, 1.0, with_stats=True))
+        if case != "long":
+            with torch.no_grad():
+                fwd_ms = time_ms(lambda: flash_attention_bias(q, k, v, mask, bias, causal=causal, with_stats=True))
+                fwd_plain = time_ms(lambda: flash_attention_bias_plain(q, k, v, mask, bias, causal, 1.0,
+                                                                       with_stats=True))
+            fused_ms = time_ms(lambda: flash_attention_bias_bwd(q, k, v, km, bias32, g2, m, l, causal, 1.0))
         # the dq kernel writes the delta that the dk/dv kernel reads
         dq_ms = time_ms(lambda: flash_attention_bias_dq(q, k, v, km, bias32, g2, m, l, delta, causal, 1.0))
         dkv_ms = time_ms(lambda: flash_attention_bias_dkv(q, k, v, km, bias32, g2, m, l, delta, causal, 1.0))
@@ -1493,26 +1626,22 @@ def bias_kernel_times(gen, launches, path_launches, errs) -> list:
         lib_out = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=lm, scale=1.0)
         lib_bwd = time_ms(lambda: torch.autograd.grad(lib_out, (lq, lk, lv, lm), g, retain_graph=True))
         works = flash_bias_work(mask, H, T, T, 64, causal)
-        for name, ms, plain, lib, (n_bytes, n_flops), src, line, err in (
-            ("flash_bias_fwd", fwd_ms, fwd_plain, lib_fwd, works[0], "flash_bias_fwd.cu", 452, errs["fwd"]),
-            ("flash_bias_bwd_dq", dq_ms, bwd_plain, lib_bwd, works[1], "flash_bias_bwd.cu", 550, errs["dq_dbias"]),
-            ("flash_bias_bwd_dkv", dkv_ms, bwd_plain, lib_bwd, works[2], "flash_bias_bwd.cu", 594, errs["dkv"]),
-        ):
-            bms, by = bound_ms(n_bytes, n_flops)
-            rows.append(dict(
-                name=f"{name}/{case}", route="cuda", source=f"trlx_tpu_torch/csrc/{src}",
-                # _flash_bias_kernel via _flash_bias_forward:517; _dq_dbias_kernel and
-                # _dkv_bias_kernel via _flash_bias_backward:665 and :703
-                replaces=f"trlx_tpu/ops/flash_attention.py:{line}",
-                launches=launches[name], launches_t5_path=path_launches[name], max_abs_err=err,
-                shape=[B, H, T, T, 64], causal=causal, ms=ms, kernel_ms=ms, plain_ms=plain,
-                plain_is="the plain forward" if name == "flash_bias_fwd" else "the whole plain backward",
-                bound_ms=bms, bound_by=by, bound_bytes=n_bytes, bound_flops=n_flops, library_ms=lib,
-                library_is=("F.scaled_dot_product_attention, additive bf16 mask, forward" if name == "flash_bias_fwd"
-                            else "F.scaled_dot_product_attention backward (dq, dk, dv, dmask together)"),
-            ))
-    for row in rows:
-        emit("kernel_time", **row)
+        shape = [B, H, T, T, 64]
+        if case != "long":
+            row("flash_bias_fwd", case, shape, causal, fwd_ms, fwd_plain, lib_fwd, works[0], "flash_bias_fwd.cu",
+                452, errs["fwd"], "the plain forward", "F.scaled_dot_product_attention, additive bf16 mask, forward")
+            row("flash_bias_bwd", case, shape, causal, fused_ms, bwd_plain, lib_bwd, works[3], "flash_bias_bwd.cu",
+                550, errs["fused"], "the whole plain backward", lib_bwd_is,
+                also_replaces=ref(594), long_route_ms=dq_ms + dkv_ms, long_route_dq_ms=dq_ms,
+                long_route_dkv_ms=dkv_ms, occupancy=flash_attention_bias_bwd_occupancy(T, T))
+        else:
+            row("flash_bias_bwd_dq", case, shape, causal, dq_ms, bwd_plain, lib_bwd, works[1], "flash_bias_bwd.cu",
+                550, errs["dq_dbias"], "the whole plain backward", lib_bwd_is)
+            row("flash_bias_bwd_dkv", case, shape, causal, dkv_ms, bwd_plain, lib_bwd, works[2],
+                "flash_bias_bwd.cu", 594, errs["dkv"], "the whole plain backward", lib_bwd_is)
+        del lq, lk, lv, lm, lib_out, additive
+    for r in rows:
+        emit("kernel_time", **r)
     return rows
 
 
@@ -1667,9 +1796,13 @@ def main() -> int:
 
     t0 = time.perf_counter()
     _build.build()
+    log = _build.build_log()
+    fused = ptxas_report(log, "flash_bias_bwd_fused_kernel")
     emit("build", seconds=time.perf_counter() - t0,
-         ptxas=[ln.strip() for ln in _build.build_log().splitlines()
-                if "registers" in ln or "spill" in ln])
+         ptxas=[ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln],
+         flash_bias_bwd_fused=fused)
+    if len(fused) != 8 or any(f.get("spill_stores", 1) or f.get("spill_loads", 1) for f in fused):
+        raise AssertionError(f"the fused bias backward's 8 instantiations must build without spills: {fused}")
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     errs = {"flash": check_flash(gen)["max_abs_err"], "decode": check_decode(gen)["max_abs_err"]}

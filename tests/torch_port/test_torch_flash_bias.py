@@ -19,6 +19,8 @@ from trlx_tpu.ops.flash_attention import _flash_bias_backward, _flash_bias_forwa
 from trlx_tpu.ops.flash_attention import flash_attention_bias as j_flash_bias
 
 from trlx_tpu_torch.ops.flash_attention import (
+    FUSED_BIAS_BWD_MAX_LEN,
+    bias_backward_route,
     flash_attention_bias,
     flash_attention_bias_backward_plain,
 )
@@ -136,3 +138,50 @@ def test_gqa_is_refused():
     kv = torch.zeros(1, 2, 8, 8)
     with pytest.raises(ValueError, match="GQA"):
         flash_attention_bias(q, kv, kv, None, torch.zeros(4, 8, 8))
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("T", [1, 16, 65, FUSED_BIAS_BWD_MAX_LEN, FUSED_BIAS_BWD_MAX_LEN + 1])
+def test_route_edges_match_jax_pallas(T, causal):
+    """Values and all four gradients at the lengths where the CUDA backward
+    changes route (the fused kernel up to 128, the long route at 129),
+    with the last batch row wholly masked (its rows average V uniformly and
+    give no dq, dk or dbias), against jax.grad through the reference's
+    custom_vjp. Interpret-mode Pallas takes each of these shapes (its
+    blocks shrink to a divisor of T)."""
+    q, k, v, bias, g, mask = _inputs(2, 3, T, T, 16, seed=10 + T, fully_masked_row=True)
+    jmask, tmask = jnp.asarray(mask), torch.from_numpy(mask)
+    out, ref, got = _grads(
+        lambda a, b, c, d: j_flash_bias(a, b, c, jmask, d, causal=causal),
+        lambda a, b, c, d: flash_attention_bias(a, b, c, tmask, d, causal=causal),
+        q, k, v, bias, g,
+    )
+    j_out = j_flash_bias(*map(jnp.asarray, (q, k, v)), jmask, jnp.asarray(bias), causal=causal)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(j_out), **FWD_TOL)
+    for name, a, b in zip(("dq", "dk", "dv", "dbias"), got, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), err_msg=name, **GRAD_TOL)
+
+
+@pytest.mark.parametrize("T, S, causal, route", [
+    (1, 1, True, "fused"),
+    (32, 32, False, "fused"),  # T5's encoder
+    (65, 65, True, "fused"),  # T5's decoder
+    (128, 128, True, "fused"),
+    (128, 16, False, "fused"),
+    (129, 129, True, "long"),
+    (16, 129, False, "long"),
+    (512, 512, False, "long"),
+])
+def test_bias_backward_route(T, S, causal, route):
+    """The CUDA bias backward takes the fused kernel while T and S are both
+    at most 128, and the long route past that."""
+    assert bias_backward_route(T, S, causal) == route
+
+
+def test_bias_backward_route_refuses_causal_t_ne_s():
+    """Neither CUDA route takes a causal call with T != S (the bias kernels'
+    causal rule is top-left)."""
+    with pytest.raises(ValueError, match="T == S"):
+        bias_backward_route(20, 40, True)
+    with pytest.raises(ValueError, match="T == S"):
+        bias_backward_route(200, 100, True)

@@ -1,6 +1,7 @@
 // mma.sync m16n8k16 helpers shared by the flash-attention kernels
 // (flash_fwd.cu, flash_bwd.cu, flash_bias_fwd.cu, flash_bias_bwd.cu):
-// bf16 packing, the tensor-core product and the fragment loads.
+// bf16 packing, the tensor-core product and the fragment loads (by hand,
+// and by ldmatrix from shared memory).
 //
 // Fragment layout of mma.m16n8k16 (g = lane / 4, c = lane % 4):
 //   A reg0: row g,   k 2c..2c+1   reg1: row g+8, k 2c..2c+1
@@ -53,6 +54,55 @@ __device__ __forceinline__ void load_a_rows(uint32_t (&f)[D / 16][4],
       f[kk][r] = ok ? *reinterpret_cast<const uint32_t*>(base + row * stride + col) : 0u;
     }
   }
+}
+
+// ldmatrix: four 8 x 8 bf16 matrices from shared memory, lane l giving the
+// address of row l % 8 of matrix l / 8 (16-byte aligned); register i holds
+// matrix i as the mma fragments do (.trans: transposed)
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+
+// The fragments below come from a bf16 tile t_s [rows][LD] in shared memory
+// (LD * 2 bytes a multiple of 16) by one ldmatrix each; `lane` is the
+// thread's lane.
+// A fragment of k-step kk over tile rows row0.. (16 rows; k = tile columns)
+template <int LD>
+__device__ __forceinline__ void ldm_a(uint32_t (&a)[4], const __nv_bfloat16* t_s, int row0, int kk,
+                                      int lane) {
+  ldmatrix_x4(a, t_s + (row0 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + kk * 16 + (lane >> 4) * 8);
+}
+
+// A fragment of the TRANSPOSED tile: A rows = tile columns col0.. (16), A
+// depth k = tile rows kk * 16..
+template <int LD>
+__device__ __forceinline__ void ldm_a_trans(uint32_t (&a)[4], const __nv_bfloat16* t_s, int col0, int kk,
+                                            int lane) {
+  ldmatrix_x4_trans(a, t_s + (kk * 16 + (lane & 7) + (lane >> 4) * 8) * LD + col0 + ((lane >> 3) & 1) * 8);
+}
+
+// B fragments of n-tiles n and n + 1 with k = tile rows kk * 16.. and n =
+// tile columns (8 each): b[0], b[1] for tile n, b[2], b[3] for tile n + 1
+template <int LD>
+__device__ __forceinline__ void ldm_b_rows(uint32_t (&b)[4], const __nv_bfloat16* t_s, int kk, int n,
+                                           int lane) {
+  ldmatrix_x4_trans(b, t_s + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + (n + (lane >> 4)) * 8);
+}
+
+// B fragments of n-tiles n and n + 1 with k = tile columns ks * 16.. and n =
+// tile rows (8 each), laid out as ldm_b_rows'
+template <int LD>
+__device__ __forceinline__ void ldm_b_cols(uint32_t (&b)[4], const __nv_bfloat16* t_s, int ks, int n,
+                                           int lane) {
+  ldmatrix_x4(b, t_s + ((n + (lane >> 4)) * 8 + (lane & 7)) * LD + ks * 16 + ((lane >> 3) & 1) * 8);
 }
 
 // acc[n] (16 x 8 fp32 tiles 2kk and 2kk+1) -> the bf16 A fragment of k-step kk

@@ -387,11 +387,14 @@ flash_attention.launches = 0
 # j <= t, no offset), which agrees with the plain kernel's right-aligned
 # rule only at T == S, the decoder's self-attention; the CUDA kernels
 # therefore take `causal` only at T == S. Kernels: `csrc/flash_bias_fwd.cu`
-# (forward), `csrc/flash_bias_bwd.cu` (dq + dbias, then dk/dv); plain
-# versions `flash_attention_bias_plain` and
-# `flash_attention_bias_backward_plain`, which keep the top-left rule at any
-# shape. The plain backward takes the reference's delta = rowsum(dO * O);
-# the kernels sum delta = sum_j p dp, as the plain variant's kernels do.
+# (forward) and `csrc/flash_bias_bwd.cu`, whose backward has two routes
+# (`bias_backward_route`): up to 128 queries and keys one fused kernel
+# (dq, dk, dv and dbias in one launch), past that the dq + dbias kernels
+# and then the dk/dv kernel. Plain versions `flash_attention_bias_plain`
+# and `flash_attention_bias_backward_plain`, which keep the top-left rule
+# at any shape. The plain backward takes the reference's delta =
+# rowsum(dO * O); the kernels sum delta = sum_j p dp, as the plain
+# variant's kernels do.
 # ---------------------------------------------------------------------------
 
 
@@ -462,6 +465,11 @@ def flash_attention_bias_backward_plain(q, k, v, key_mask, bias, o, m, l, g, cau
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), ds.sum(dim=0).to(bias.dtype)
 
 
+def _check_top_left(T: int, S: int, causal: bool) -> None:
+    if causal and T != S:
+        raise ValueError(f"the bias kernels' causal rule is top-left and needs T == S (got T={T}, S={S})")
+
+
 def _check_bias(q, k, bias, causal):
     """Validate what the bias kernels take beyond `_check_inputs`' operands;
     returns the bias as a contiguous fp32 [H, T, S]."""
@@ -469,10 +477,7 @@ def _check_bias(q, k, bias, causal):
     S = k.shape[2]
     if k.shape[1] != H:
         raise ValueError("flash_attention_bias does not support GQA")
-    if causal and T != S:
-        raise ValueError(
-            f"the bias kernels' causal rule is top-left and needs T == S (got T={T}, S={S})"
-        )
+    _check_top_left(T, S, causal)
     _check_cuda("bias", bias, q.device, torch.float32, 3)
     if tuple(bias.shape) != (H, T, S):
         raise ValueError(f"bias must be [H, T, S] = {(H, T, S)}, got {tuple(bias.shape)}")
@@ -499,12 +504,84 @@ def _flash_bias_forward_cuda(q, k, v, key_mask, bias, causal, sm_scale):
     return out, m, l
 
 
+FUSED_BIAS_BWD_MAX_LEN = 128  # the longest T or S the fused backward kernel takes
+
+
+def bias_backward_route(T: int, S: int, causal: bool) -> str:
+    """The CUDA bias backward's route for T queries and S keys: "fused"
+    (one kernel) when both are at most FUSED_BIAS_BWD_MAX_LEN, else "long"
+    (the dq + dbias kernels, then the dk/dv kernel). Raises ValueError for
+    a causal call with T != S, which neither route takes."""
+    _check_top_left(T, S, causal)
+    return "fused" if max(T, S) <= FUSED_BIAS_BWD_MAX_LEN else "long"
+
+
+# (device index, stream) -> the fused kernel's int32 arrival counters, one a
+# head: zeroed here once, and left zeroed by every launch. Device state of
+# the process, as the loaded kernel libraries are; keyed by stream because
+# launches that share counters must run in order.
+_BIAS_ARRIVALS = {}
+
+
+def _bias_arrivals(device: torch.device, H: int) -> torch.Tensor:
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    buf = _BIAS_ARRIVALS.get(key)
+    if buf is None or buf.numel() < H:
+        buf = torch.zeros(H, dtype=torch.int32, device=device)
+        _BIAS_ARRIVALS[key] = buf
+    return buf
+
+
+def flash_attention_bias_bwd(q, k, v, km, bias, g, m, l, causal, sm_scale):
+    """(dq, dk, dv, dbias fp32 [H, T, S]) by the fused kernel of
+    `csrc/flash_bias_bwd.cu` (T, S <= 128), on operands `backward_operands`
+    and `_check_bias` prepared: one CTA per (batch row, head); the last CTA
+    of each head to finish sums the per-batch ds partials (fp32 scratch of
+    this call, ceil16(T) x ceil16(S) for each (batch row, head)) over the
+    batch in order."""
+    B, H, T, D = q.shape
+    S = k.shape[2]
+    dq = _bhtd_empty(B, H, T, D, q)
+    dk = _bhtd_empty(B, H, S, D, k)
+    dv = _bhtd_empty(B, H, S, D, v)
+    ds_part = torch.empty(B * H * (-(-T // 16) * 16) * (-(-S // 16) * 16), dtype=torch.float32, device=q.device)
+    dbias = torch.empty((H, T, S), dtype=torch.float32, device=q.device)
+    arrivals = _bias_arrivals(q.device, H)
+    flash_attention_bias_bwd.launches += 1
+    _launch(
+        "flash_bias_bwd.cu", "flash_bias_bwd_fused_bf16",
+        [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5
+        + [ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_void_p],
+        (q.data_ptr(), k.data_ptr(), v.data_ptr(), km.data_ptr(), bias.data_ptr(), g.data_ptr(),
+         m.data_ptr(), l.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), ds_part.data_ptr(),
+         dbias.data_ptr(), arrivals.data_ptr(), B, H, T, S, D, _strides(q, k, v, g, dq, dk, dv),
+         int(causal), sm_scale, _stream(q)),
+    )
+    return dq, dk, dv, dbias
+
+
+flash_attention_bias_bwd.launches = 0
+
+
+def flash_attention_bias_bwd_occupancy(T: int, S: int) -> dict:
+    """What a fused backward launch at (T, S) gets on the current card: its
+    threads a CTA, its dynamic shared memory and the CTAs an SM holds."""
+    ctas, threads, smem = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+    _launch(
+        "flash_bias_bwd.cu", "flash_bias_bwd_fused_occupancy",
+        [ctypes.c_int, ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 3,
+        (T, S, ctypes.byref(ctas), ctypes.byref(threads), ctypes.byref(smem)),
+    )
+    return {"ctas_per_sm": ctas.value, "threads": threads.value, "smem_bytes": smem.value}
+
+
 def flash_attention_bias_dq(q, k, v, km, bias, g, m, l, delta, causal, sm_scale):
-    """(dq [B, H, T, D], dbias [H, T, S] fp32) by the dq kernel and the
-    dbias reduce kernel of `csrc/flash_bias_bwd.cu`, on operands
-    `backward_operands` and `_check_bias` prepared; also fills
-    `delta`, which `flash_attention_bias_dkv` reads. The per-batch ds
-    partial [B, H, T, S] fp32 is scratch of this call."""
+    """The long route's first step: (dq [B, H, T, D], dbias [H, T, S]
+    fp32) by the dq kernel and the dbias reduce kernel of
+    `csrc/flash_bias_bwd.cu`, on operands `backward_operands` and
+    `_check_bias` prepared; also fills `delta`, which
+    `flash_attention_bias_dkv` reads. The per-batch ds partial
+    [B, H, T, S] fp32 is scratch of this call."""
     B, H, T, D = q.shape
     S = k.shape[2]
     dq = _bhtd_empty(B, H, T, D, q)
@@ -524,8 +601,9 @@ def flash_attention_bias_dq(q, k, v, km, bias, g, m, l, delta, causal, sm_scale)
 
 
 def flash_attention_bias_dkv(q, k, v, km, bias, g, m, l, delta, causal, sm_scale):
-    """(dk, dv) [B, H, S, D] by the dk/dv kernel of `csrc/flash_bias_bwd.cu`,
-    on the prepared operands and the delta `flash_attention_bias_dq` wrote."""
+    """The long route's second step: (dk, dv) [B, H, S, D] by the dk/dv
+    kernel of `csrc/flash_bias_bwd.cu`, on the prepared operands and the
+    delta `flash_attention_bias_dq` wrote."""
     B, H, T, D = q.shape
     S = k.shape[2]
     dk = _bhtd_empty(B, H, S, D, k)
@@ -548,17 +626,22 @@ flash_attention_bias_dkv.launches = 0
 
 def flash_attention_bias_backward(q, k, v, key_mask, bias, o, m, l, g, causal, sm_scale):
     """(dq, dk, dv, dbias) from the forward's residuals: on CPU tensors
-    `flash_attention_bias_backward_plain`; on CUDA tensors the dq + dbias
-    kernels and the dk/dv kernel (no atomics: the same result run to run),
-    or an exception."""
+    `flash_attention_bias_backward_plain`; on CUDA tensors the kernels of
+    the route `bias_backward_route` picks (no float atomics on either: the
+    same result run to run), or an exception. Neither route gives way to
+    the other."""
     if q.device.type == "cpu":
         return flash_attention_bias_backward_plain(q, k, v, key_mask, bias, o, m, l, g, causal, sm_scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bias runs on cpu or cuda, not {q.device}")
+    route = bias_backward_route(q.shape[2], k.shape[2], causal)
     km, g, delta = backward_operands(q, k, v, key_mask, g, m, l)
     bias32 = _check_bias(q, k, bias, causal)
-    dq, dbias = flash_attention_bias_dq(q, k, v, km, bias32, g, m, l, delta, causal, sm_scale)
-    dk, dv = flash_attention_bias_dkv(q, k, v, km, bias32, g, m, l, delta, causal, sm_scale)
+    if route == "fused":
+        dq, dk, dv, dbias = flash_attention_bias_bwd(q, k, v, km, bias32, g, m, l, causal, sm_scale)
+    else:
+        dq, dbias = flash_attention_bias_dq(q, k, v, km, bias32, g, m, l, delta, causal, sm_scale)
+        dk, dv = flash_attention_bias_dkv(q, k, v, km, bias32, g, m, l, delta, causal, sm_scale)
     return dq, dk, dv, dbias.to(bias.dtype)
 
 
