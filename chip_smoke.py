@@ -5,7 +5,8 @@
 
 Builds the CUDA kernels from `trlx_tpu_torch/csrc` (into build/kernels/)
 and holds each kernel against its plain PyTorch version on the card: the
-flash forward, the flash backward's dq and dk/dv kernels (causal, and
+flash forward, both routes of the flash backward (one fused kernel up
+to 128 queries and keys; the dq and dk/dv kernels past that; causal, and
 T5's non-causal cross-attention with more queries than keys), T5's
 bias-carrying forward and both routes of its backward (one fused kernel
 up to 128 queries and keys; the dq + dbias and dk/dv kernels past that),
@@ -271,6 +272,12 @@ BWD_CASES = {  # name: (B, H, Hkv, T, S, q_offset, unwritten, causal)
     "long": (8, 12, 12, 1024, 1024, 0, False, True),
     "ragged": (4, 12, 12, 50, 100, 50, False, True),  # T < S, S not a multiple of 64
     "t5_cross": (12, 12, 12, T5_DEC_LEN, T5_PROMPT_LEN, 0, False, False),  # not causal, T > S, scale 1
+    "max_fused": (8, 12, 12, 128, 128, 0, False, True),  # the fused kernel's largest shape
+    "gqa_fused": (8, 12, 4, 100, 100, 0, False, True),  # a GQA group of 3 inside one CTA
+    # T > S, causal at the default offset S - T: the first 32 rows attend
+    # no slot (fully masked by causality, not by padding)
+    "causal_t_gt_s": (4, 12, 12, 80, 48, -32, False, True),
+    "just_long": (4, 12, 12, 129, 129, 0, False, True),  # the long route's shortest shape
 }
 
 
@@ -289,39 +296,81 @@ def flash_bwd_inputs(gen, B, H, Hkv, T, S, q_offset, unwritten, causal=True):
     return q, k, v, mask, out, m, l, g
 
 
+def long_route(q, k, v, mask, g, m, l, causal, scale, q_offset):
+    """(dq, dk, dv) by the flash backward's long route (the dq kernel, then
+    the dk/dv kernel) at any length: the route the wrapper takes past 128
+    queries or keys."""
+    from trlx_tpu_torch.ops.flash_attention import backward_operands, flash_attention_dkv, flash_attention_dq
+
+    km, g = backward_operands(q, k, v, mask, g, m, l)
+    dq, delta = flash_attention_dq(q, k, v, km, g, m, l, causal, scale, q_offset)
+    dk, dv = flash_attention_dkv(q, k, v, km, g, m, l, delta, causal, scale, q_offset)
+    return dq, dk, dv
+
+
 def check_flash_bwd(gen) -> dict:
-    """The dq and dk/dv kernels against flash_attention_backward_plain on
-    the same bf16 inputs upcast to fp32: max |error| / max(|ref|, 1) under
-    2e-2 for dq, dk and dv, and for dv of the fully padded batch row alone
-    (every query of it is fully masked, so its dv is the uniform 1/l
-    weights' sum of dO at every slot)."""
+    """Both routes of the flash backward (the fused kernel up to 128
+    queries and keys, the dq and dk/dv kernels past that) against
+    flash_attention_backward_plain on the same bf16 inputs upcast to fp32:
+    max |error| / max(|ref|, 1) under 2e-2 for dq, dk and dv, and for dv
+    of the fully padded batch row alone (every query of it is fully
+    masked, so its dv is the uniform 1/l weights' sum of dO at every
+    slot). Each case runs the route the wrapper picks, and the launch
+    counters must show that route and no other; a case the fused kernel
+    takes also runs the long route, and the fused kernel's results must be
+    bit-identical on a second call."""
     import torch
 
-    from trlx_tpu_torch.ops.flash_attention import flash_attention_backward, flash_attention_backward_plain
+    from trlx_tpu_torch.ops import flash_attention as fa
+    from trlx_tpu_torch.ops.flash_attention import (
+        backward_route,
+        flash_attention_backward,
+        flash_attention_backward_plain,
+    )
 
-    worst = {"rel": 0.0, "dq": 0.0, "dkv": 0.0}
+    def rel(a, b):
+        return ((a.float() - b).abs().max() / b.abs().max().clamp(min=1.0)).item()
+
+    counters = {"fused": fa.flash_attention_bwd, "dq": fa.flash_attention_dq, "dkv": fa.flash_attention_dkv}
+    worst = {"rel": 0.0, "fused": 0.0, "dq": 0.0, "dkv": 0.0}  # max |error| of each kernel's outputs
     for name, (B, H, Hkv, T, S, off, unwritten, causal) in BWD_CASES.items():
         q, k, v, mask, out, m, l, g = flash_bwd_inputs(gen, B, H, Hkv, T, S, off, unwritten, causal)
         scale = 64 ** -0.5 if causal else 1.0
-        got = flash_attention_backward(q, k, v, mask, out, m, l, g, causal, scale, off)
+        route = backward_route(T, S)
+        for fn in counters.values():
+            fn.launches = 0
+        got = {route: flash_attention_backward(q, k, v, mask, out, m, l, g, causal, scale, off)}
         torch.cuda.synchronize()
+        launched = {key: fn.launches for key, fn in counters.items()}
+        want = {"fused": 1, "dq": 0, "dkv": 0} if route == "fused" else {"fused": 0, "dq": 1, "dkv": 1}
+        if launched != want:
+            raise AssertionError(f"{name}: the {route} route launched {launched}, expected {want}")
+        same = None
+        if route == "fused":
+            again = flash_attention_backward(q, k, v, mask, out, m, l, g, causal, scale, off)
+            got["long"] = long_route(q, k, v, mask, g, m, l, causal, scale, off)
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(got["fused"], again))
         ref = flash_attention_backward_plain(
             q.float(), k.float(), v.float(), mask, out.float(), m, l, g.float(), causal, scale, off
         )
-
-        def rel(a, b):
-            return ((a.float() - b).abs().max() / b.abs().max().clamp(min=1.0)).item()
-
-        errs = {key: rel(a, b) for key, a, b in zip(("dq", "dk", "dv"), got, ref)}
-        errs["dv_fully_masked_row"] = rel(got[2][0], ref[2][0])
-        abs_err = {key: (a.float() - b).abs().max().item() for key, a, b in zip(("dq", "dk", "dv"), got, ref)}
-        emit("flash_bwd_check", case=name, shape=[B, H, Hkv, T, S, 64], q_offset=off, causal=causal,
-             rel_err=errs, max_abs_err=abs_err, dv_masked_row_ref_max=ref[2][0].abs().max().item())
-        if not all(e < 2e-2 for e in errs.values()):
+        errs, abs_err = {}, {}
+        for r, res in got.items():
+            errs[r] = {key: rel(a, b) for key, a, b in zip(("dq", "dk", "dv"), res, ref)}
+            errs[r]["dv_fully_masked_row"] = rel(res[2][0], ref[2][0])
+            abs_err[r] = {key: (a.float() - b).abs().max().item() for key, a, b in zip(("dq", "dk", "dv"), res, ref)}
+        emit("flash_bwd_check", case=name, shape=[B, H, Hkv, T, S, 64], q_offset=off, causal=causal, route=route,
+             launches=launched, rel_err=errs, max_abs_err=abs_err, fused_bitwise_same_rerun=same,
+             dv_masked_row_ref_max=ref[2][0].abs().max().item())
+        if not all(e < 2e-2 for r in errs.values() for e in r.values()):
             raise AssertionError(f"flash backward kernels disagree with the plain version on {name}: {errs}")
-        worst["rel"] = max(worst["rel"], *errs.values())
-        worst["dq"] = max(worst["dq"], abs_err["dq"])
-        worst["dkv"] = max(worst["dkv"], abs_err["dk"], abs_err["dv"])
+        if same is False:
+            raise AssertionError(f"the fused flash backward is not bit-identical on a second call on {name}")
+        worst["rel"] = max(worst["rel"], *(e for r in errs.values() for e in r.values()))
+        if "fused" in abs_err:
+            worst["fused"] = max(worst["fused"], *abs_err["fused"].values())
+        worst["dq"] = max(worst["dq"], abs_err["long"]["dq"])
+        worst["dkv"] = max(worst["dkv"], abs_err["long"]["dk"], abs_err["long"]["dv"])
     return worst
 
 
@@ -372,9 +421,9 @@ def bias_long_route(q, k, v, mask, bias, g, m, l, causal):
         flash_attention_bias_dq,
     )
 
-    km, g, delta = backward_operands(q, k, v, mask, g, m, l)
+    km, g = backward_operands(q, k, v, mask, g, m, l)
     bias32 = _check_bias(q, k, bias, causal)
-    dq, dbias = flash_attention_bias_dq(q, k, v, km, bias32, g, m, l, delta, causal, 1.0)
+    dq, dbias, delta = flash_attention_bias_dq(q, k, v, km, bias32, g, m, l, causal, 1.0)
     dk, dv = flash_attention_bias_dkv(q, k, v, km, bias32, g, m, l, delta, causal, 1.0)
     return dq, dk, dv, dbias
 
@@ -977,8 +1026,9 @@ def train_path(seed: int):
     from trlx_tpu_torch.ops import flash_attention as fa
     from trlx_tpu_torch.ops.decode_attention import decode_attention_int8
 
-    counters = {"flash_fwd": fa.flash_attention, "flash_bwd_dq": fa.flash_attention_dq,
-                "flash_bwd_dkv": fa.flash_attention_dkv, "decode": decode_attention_int8}
+    counters = {"flash_fwd": fa.flash_attention, "flash_bwd": fa.flash_attention_bwd,
+                "flash_bwd_dq": fa.flash_attention_dq, "flash_bwd_dkv": fa.flash_attention_dkv,
+                "decode": decode_attention_int8}
     for fn in counters.values():
         fn.launches = 0
     t0 = time.perf_counter()
@@ -992,9 +1042,10 @@ def train_path(seed: int):
     # every sampler call (a rollout a cycle, an eval at each end) prefills
     # through the forward kernel; each experience chunk runs the policy and
     # the full reference copy; each train step one forward and one
-    # backward through every layer
+    # backward through every layer, the backward on the fused route (64
+    # queries and keys)
     expect = {"flash_fwd": L * ((cycles + 2) + 2 * cycles + TRAIN_STEPS),
-              "flash_bwd_dq": L * TRAIN_STEPS, "flash_bwd_dkv": L * TRAIN_STEPS}
+              "flash_bwd": L * TRAIN_STEPS, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
     steps = [(step, st["losses/total_loss"], st["policy/approx_kl"])
              for step, st in trainer.stats_history if "losses/total_loss" in st]
     rewards = [st["reward/mean"] for _, st in trainer.stats_history if "reward/mean" in st]
@@ -1275,13 +1326,15 @@ def build_t5_policy(seed: int, attention_impl: str, compute_dtype="bfloat16"):
 def bias_counters():
     """The launch counters of the attention kernels the T5 paths may run:
     the bias forward, the bias backward's fused kernel and its long route's
-    pair, and the plain flash forward and backward pair."""
+    pair, the plain flash forward, and the plain flash backward's fused
+    kernel and its long route's pair."""
     from trlx_tpu_torch.ops import flash_attention as fa
 
     return {"flash_bias_fwd": fa.flash_attention_bias, "flash_bias_bwd": fa.flash_attention_bias_bwd,
             "flash_bias_bwd_dq": fa.flash_attention_bias_dq,
             "flash_bias_bwd_dkv": fa.flash_attention_bias_dkv, "flash_fwd": fa.flash_attention,
-            "flash_bwd_dq": fa.flash_attention_dq, "flash_bwd_dkv": fa.flash_attention_dkv}
+            "flash_bwd": fa.flash_attention_bwd, "flash_bwd_dq": fa.flash_attention_dq,
+            "flash_bwd_dkv": fa.flash_attention_dkv}
 
 
 def t5_path(seed: int) -> dict:
@@ -1329,7 +1382,8 @@ def t5_path(seed: int) -> dict:
     top = cfg.n_decoder_layer - policy.branch_at
     expect = {"flash_bias_fwd": cfg.n_layer + (cfg.n_layer + cfg.n_decoder_layer + top),
               "flash_fwd": cfg.n_decoder_layer + top, "flash_bias_bwd": 0,
-              "flash_bias_bwd_dq": 0, "flash_bias_bwd_dkv": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+              "flash_bias_bwd_dq": 0, "flash_bias_bwd_dkv": 0, "flash_bwd": 0, "flash_bwd_dq": 0,
+              "flash_bwd_dkv": 0}
     emit("t5_path", launches=launches, expected=expect, generate_launches=gen_launches,
          response_tokens=int(out["response_mask"].sum()), shape=list(dec.shape))
     if launches != expect or gen_launches["flash_bias_fwd"] != cfg.n_layer:
@@ -1389,8 +1443,8 @@ def t5_train_path(seed: int):
     width (random weights from the seed, everything trainable, a full frozen
     reference copy, bf16 compute / fp32 params, the six attention kernels):
     evaluate, two rollout cycles of 48, 32 optimizer steps, evaluate.
-    Gates: finite losses, the launch counts the path implies (the bias
-    backward's fused kernel, and none of its long route), every
+    Gates: finite losses, the launch counts the path implies (both
+    backwards' fused kernels, and none of their long routes), every
     trainable tensor moved (both relative-bias tables and the encoder
     included), the frozen reference did not."""
     import torch
@@ -1411,13 +1465,12 @@ def t5_train_path(seed: int):
     n_gen = chunks + 2  # and an evaluation at each end: each encodes once
     tf = cfg.n_layer + cfg.n_decoder_layer  # bias forwards of one teacher-forced pass
     # each experience chunk runs the policy and the full reference copy;
-    # each train step one forward and one backward through every layer, the
-    # bias backward on the fused route (T5's lengths are at most 128)
+    # each train step one forward and one backward through every layer, both
+    # backwards on the fused route (T5's lengths are at most 128)
     expect = {"flash_bias_fwd": cfg.n_layer * n_gen + 2 * tf * chunks + tf * T5_TRAIN_STEPS,
               "flash_fwd": 2 * cfg.n_decoder_layer * chunks + cfg.n_decoder_layer * T5_TRAIN_STEPS,
               "flash_bias_bwd": tf * T5_TRAIN_STEPS, "flash_bias_bwd_dq": 0, "flash_bias_bwd_dkv": 0,
-              "flash_bwd_dq": cfg.n_decoder_layer * T5_TRAIN_STEPS,
-              "flash_bwd_dkv": cfg.n_decoder_layer * T5_TRAIN_STEPS}
+              "flash_bwd": cfg.n_decoder_layer * T5_TRAIN_STEPS, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
     steps = [(step, st["losses/total_loss"]) for step, st in trainer.stats_history if "losses/total_loss" in st]
     rewards = [st["reward/mean"] for _, st in trainer.stats_history if "reward/mean" in st]
     emit("t5_train_path", wall_s=wall, launches=launches, expected=expect, iter_count=trainer.iter_count,
@@ -1440,79 +1493,121 @@ def t5_train_reference(trainer, seed: int) -> dict:
     )
 
 
-def flash_bwd_work(mask, H, Hkv, T, S, D, q_offset):
-    """Bytes and operations each backward kernel's function needs on this
-    mask, in the way of `flash_work`. A weighed (t, s) pair costs the dq
-    kernel three products (S, dP, dQ) and the dk/dv kernel four (S, dP,
-    dV, dK), 2*D operations each per head; a fully masked row adds its
-    uniform P.dO to dv over all S slots. Reads: q and dO of rows with a
-    weighed pair (dO of every row for dv), K and V of weighed slots, the
-    fp32 m, l, delta and the int32 mask; writes: dq, or dk and dv, in full."""
+def flash_bwd_work(mask, H, Hkv, T, S, D, q_offset, causal=True):
+    """Bytes and operations each backward function needs on this mask, in
+    the way of `flash_work`. A weighed (t, s) pair costs the dq kernel
+    three products (S, dP, dQ), the dk/dv kernel four (S, dP, dV, dK) and
+    the whole backward five (S, dP, dQ, dK, dV), 2*D operations each per
+    head; a fully masked row adds its uniform P.dO to dv over all S slots.
+    Reads: q of rows with a weighed pair, dO of every row (for dv), K and V
+    of weighed slots, the fp32 m and l (and delta, which the long route's
+    dq kernel writes and its dk/dv kernel reads) and the int32 mask;
+    writes: dq, or dk and dv, in full. Returns (dq, dkv, fused), each
+    (bytes, operations): the long route's two steps, and the whole
+    backward the fused kernel computes (each input read once and each
+    output written once; its GQA scratch is the kernel's own choice and
+    not counted)."""
     import torch
 
     slots = torch.arange(S, device="cuda")
     rows = torch.arange(T, device="cuda")[:, None] + q_offset
-    pairs = (rows >= slots[None, :])[None] & (mask[:, None, :] > 0)  # [B, T, S]
+    pairs = (mask[:, None, :] > 0).expand(-1, T, -1)  # [B, T, S]
+    if causal:
+        pairs = pairs & (rows >= slots[None, :])[None]
     n_pairs = int(pairs.sum().item())
     n_weighed = int(pairs.any(dim=1).sum().item())
     rows_with = int(pairs.any(dim=2).sum().item())
     B = mask.shape[0]
     full_rows = B * T - rows_with
-    stats = 3 * 4 * B * H * T + 4 * B * S
+    stats = 2 * 4 * B * H * T + 4 * B * S
+    fused = (2 * D * H * (rows_with + B * T) + 2 * D * Hkv * 2 * n_weighed + 2 * B * H * T * D
+             + 2 * 2 * B * Hkv * S * D + stats, H * (5 * 2 * D * n_pairs + 2 * D * S * full_rows))
+    stats += 4 * B * H * T  # delta
     dq = (2 * D * H * 2 * rows_with + 2 * D * Hkv * 2 * n_weighed + 2 * B * H * T * D + stats,
           H * 3 * 2 * D * n_pairs)
     dkv = (2 * D * H * (rows_with + B * T) + 2 * D * Hkv * 2 * n_weighed + 2 * 2 * B * Hkv * S * D + stats,
            H * (4 * 2 * D * n_pairs + 2 * D * S * full_rows))
-    return dq, dkv
+    return dq, dkv, fused
 
 
-def bwd_kernel_times(gen, launches, errs) -> list:
-    """The dq and dk/dv kernels at the training shape (B32 H12 T=S=64):
-    kernel, plain and library times beside the bound."""
+def bwd_kernel_times(gen, launches, t5_launches, errs) -> list:
+    """The flash backward at the GPT-2 train path's shape (B32 H12 T=S=64,
+    causal) and at T5's cross-attention shape (B12 H12, T=65 queries over
+    S=32 keys, not causal, scale 1): the fused kernel, the long route's
+    pair, the plain backward and SDPA's backward on the same inputs, beside
+    the bounds; then the long route's two steps at T=S=512 (B4, causal),
+    where it is the route the wrapper takes. `launches` and `t5_launches`
+    are the GPT-2 and T5 train paths' counts."""
     import torch
     import torch.nn.functional as F
 
     from trlx_tpu_torch.ops.flash_attention import (
         backward_operands,
         flash_attention_backward_plain,
+        flash_attention_bwd,
+        flash_attention_bwd_occupancy,
         flash_attention_dkv,
         flash_attention_dq,
     )
 
-    B, H, T, D = TRAIN_BATCH, 12, TRAIN_LEN, 64
-    scale = D ** -0.5
-    q, k, v, mask, out, m, l, g = flash_bwd_inputs(gen, B, H, H, T, T, 0, False)
-    km, g2, delta = backward_operands(q, k, v, mask, g, m, l)
-    # the dq kernel writes the delta that the dk/dv kernel reads
-    dq_ms = time_ms(lambda: flash_attention_dq(q, k, v, km, g2, m, l, delta, True, scale, 0))
-    dkv_ms = time_ms(lambda: flash_attention_dkv(q, k, v, km, g2, m, l, delta, True, scale, 0))
-    plain = time_ms(lambda: flash_attention_backward_plain(q, k, v, mask, out, m, l, g, True, scale, 0))
-    # the library yardstick: SDPA's backward alone (dq, dk, dv together) on
-    # the same inputs; its mask keeps one slot open in a fully masked row,
-    # where SDPA would give NaN
-    slots = torch.arange(T, device="cuda")
-    allowed = (slots[:, None] >= slots[None, :])[None, None] & (mask[:, None, None, :] > 0)
-    allowed[..., 0] |= ~allowed.any(dim=-1)
-    lq, lk, lv = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
-    lib_out = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=allowed)
-    lib = time_ms(lambda: torch.autograd.grad(lib_out, (lq, lk, lv), g, retain_graph=True))
-    (dq_bytes, dq_flops), (dkv_bytes, dkv_flops) = flash_bwd_work(mask, H, H, T, T, D, 0)
+    # _dq_kernel and _dkv_kernel, via _flash_backward:314 and :347
+    ref = "trlx_tpu/ops/flash_attention.py:{}".format
+    lib_is = "F.scaled_dot_product_attention backward (dq, dk, dv together)"
+    plain_is = "the whole plain backward (dq, dk, dv)"
     rows = []
-    for name, ms, n_bytes, n_flops, line in (
-        ("flash_bwd_dq", dq_ms, dq_bytes, dq_flops, 192),  # _dq_kernel, via _flash_backward:314
-        ("flash_bwd_dkv", dkv_ms, dkv_bytes, dkv_flops, 231),  # _dkv_kernel, via _flash_backward:347
-    ):
-        bms, by = bound_ms(n_bytes, n_flops)
+
+    def row(name, shape, causal, ms, plain, lib, work, line, err, **extra):
+        bms, by = bound_ms(*work)
         rows.append(dict(
-            name=name, route="cuda", source="trlx_tpu_torch/csrc/flash_bwd.cu",
-            replaces=f"trlx_tpu/ops/flash_attention.py:{line}",
-            launches=launches[name], max_abs_err=errs[name.split("_")[-1]], shape=[B, H, T, T, D],
-            ms=ms, kernel_ms=ms, plain_ms=plain, plain_is="the whole plain backward (dq, dk, dv)",
-            bound_ms=bms, bound_by=by, bound_bytes=n_bytes, bound_flops=n_flops, library_ms=lib,
-            library_is="F.scaled_dot_product_attention backward (dq, dk, dv together)",
+            name=name, route="cuda", source="trlx_tpu_torch/csrc/flash_bwd.cu", replaces=ref(line),
+            launches=extra.pop("launches"), launches_train_path=launches[name.split("/")[0]],
+            launches_t5_train_path=t5_launches[name.split("/")[0]], max_abs_err=err, shape=shape,
+            causal=causal, ms=ms, kernel_ms=ms, plain_ms=plain, plain_is=plain_is, bound_ms=bms, bound_by=by,
+            bound_bytes=work[0], bound_flops=work[1], library_ms=lib, library_is=lib_is, **extra,
         ))
-    for row in rows:
-        emit("kernel_time", **row)
+
+    D = 64
+    for case, (B, H, T, S, causal) in {
+        "train": (TRAIN_BATCH, 12, TRAIN_LEN, TRAIN_LEN, True),
+        "t5_cross": (12, 12, T5_DEC_LEN, T5_PROMPT_LEN, False),
+        "long": (4, 12, 512, 512, True),
+    }.items():
+        q, k, v, mask, out, m, l, g = flash_bwd_inputs(gen, B, H, H, T, S, 0, False, causal)
+        scale = D ** -0.5 if causal else 1.0
+        km, g2 = backward_operands(q, k, v, mask, g, m, l)
+        if case != "long":
+            fused_ms = time_ms(lambda: flash_attention_bwd(q, k, v, km, g2, m, l, causal, scale, 0))
+        # the dq kernel writes the delta that the dk/dv kernel reads
+        _, delta = flash_attention_dq(q, k, v, km, g2, m, l, causal, scale, 0)
+        dq_ms = time_ms(lambda: flash_attention_dq(q, k, v, km, g2, m, l, causal, scale, 0))
+        dkv_ms = time_ms(lambda: flash_attention_dkv(q, k, v, km, g2, m, l, delta, causal, scale, 0))
+        plain = time_ms(lambda: flash_attention_backward_plain(q, k, v, mask, out, m, l, g, causal, scale, 0))
+        # the library yardstick: SDPA's backward alone (dq, dk, dv together)
+        # on the same inputs; its mask keeps one slot open in a fully masked
+        # row, where SDPA would give NaN
+        allowed = (mask[:, None, None, :] > 0).expand(B, 1, T, S).clone()
+        if causal:
+            allowed &= (torch.arange(T, device="cuda")[:, None] >= torch.arange(S, device="cuda")[None, :])
+        allowed[..., 0] |= ~allowed.any(dim=-1)
+        lq, lk, lv = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=allowed, scale=scale)
+        lib = time_ms(lambda: torch.autograd.grad(lib_out, (lq, lk, lv), g, retain_graph=True))
+        work_dq, work_dkv, work_fused = flash_bwd_work(mask, H, H, T, S, D, 0, causal)
+        shape = [B, H, T, S, D]
+        if case != "long":
+            row(f"flash_bwd/{case}", shape, causal, fused_ms, plain, lib, work_fused, 192, errs["fused"],
+                launches=(launches if case == "train" else t5_launches)["flash_bwd"], also_replaces=ref(231),
+                long_route_ms=dq_ms + dkv_ms, long_route_dq_ms=dq_ms, long_route_dkv_ms=dkv_ms,
+                occupancy=flash_attention_bwd_occupancy(T, S))
+        if case != "t5_cross":
+            suffix = "/long" if case == "long" else ""  # at the train shape: the pair the fused kernel replaced
+            row(f"flash_bwd_dq{suffix}", shape, causal, dq_ms, plain, lib, work_dq, 192, errs["dq"],
+                launches=launches["flash_bwd_dq"])
+            row(f"flash_bwd_dkv{suffix}", shape, causal, dkv_ms, plain, lib, work_dkv, 231, errs["dkv"],
+                launches=launches["flash_bwd_dkv"])
+        del lq, lk, lv, lib_out
+    for r in rows:
+        emit("kernel_time", **r)
     return rows
 
 
@@ -1603,7 +1698,7 @@ def bias_kernel_times(gen, launches, path_launches, errs) -> list:
     for case in ("encoder", "decoder", "long"):
         B, H, T, causal, kind = BIAS_CASES[case]
         q, k, v, mask, bias, out, m, l, g = flash_bias_inputs(gen, B, H, T, causal, kind)
-        km, g2, delta = backward_operands(q, k, v, mask, g, m, l)
+        km, g2 = backward_operands(q, k, v, mask, g, m, l)
         bias32 = _check_bias(q, k, bias, causal)
         if case != "long":
             with torch.no_grad():
@@ -1612,7 +1707,8 @@ def bias_kernel_times(gen, launches, path_launches, errs) -> list:
                                                                        with_stats=True))
             fused_ms = time_ms(lambda: flash_attention_bias_bwd(q, k, v, km, bias32, g2, m, l, causal, 1.0))
         # the dq kernel writes the delta that the dk/dv kernel reads
-        dq_ms = time_ms(lambda: flash_attention_bias_dq(q, k, v, km, bias32, g2, m, l, delta, causal, 1.0))
+        delta = flash_attention_bias_dq(q, k, v, km, bias32, g2, m, l, causal, 1.0)[2]
+        dq_ms = time_ms(lambda: flash_attention_bias_dq(q, k, v, km, bias32, g2, m, l, causal, 1.0))
         dkv_ms = time_ms(lambda: flash_attention_bias_dkv(q, k, v, km, bias32, g2, m, l, delta, causal, 1.0))
         bwd_plain = time_ms(lambda: flash_attention_bias_backward_plain(
             q, k, v, mask, bias, out, m, l, g, causal, 1.0))
@@ -1675,10 +1771,11 @@ def profile_phase(name: str, fn, wall_s: float, grad: bool = False, host_ops: bo
     emit("profile", what=name, wall_ms=wall_s * 1e3, device_busy_ms=busy_ms,
          device_idle_share=(1 - busy_ms / (wall_s * 1e3)) if busy_ms else None,
          attention_kernels_ms=share("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
-                                    "decode_int8_kernel", "paged_attention_kernel", "flash_bias_"),
+                                    "flash_bwd_fused_kernel", "decode_int8_kernel", "paged_attention_kernel",
+                                    "flash_bias_"),
          flash_bias_kernels_ms=share("flash_bias_"),
          paged_kernel_ms=share("paged_attention_kernel"),
-         flash_bwd_kernels_ms=share("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"),
+         flash_bwd_kernels_ms=share("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel", "flash_bwd_fused_kernel"),
          matmul_ms=share("gemm", "Gemm", "xmma", "nvjet", "cutlass"),
          top=[dict(kernel=e.key[:90], ms=e.self_device_time_total / 1e3, calls=e.count) for e in top])
 
@@ -1787,6 +1884,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
     from trlx_tpu_torch.ops import _build
+    from trlx_tpu_torch.ops.flash_attention import flash_attention_bwd_occupancy
 
     card = nvidia_smi()
     emit("device", nvidia_smi=card, torch=torch.__version__, cuda=torch.version.cuda,
@@ -1798,11 +1896,15 @@ def main() -> int:
     _build.build()
     log = _build.build_log()
     fused = ptxas_report(log, "flash_bias_bwd_fused_kernel")
+    fused_plain = ptxas_report(log, "flash_bwd_fused_kernel")
     emit("build", seconds=time.perf_counter() - t0,
          ptxas=[ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln],
-         flash_bias_bwd_fused=fused)
-    if len(fused) != 8 or any(f.get("spill_stores", 1) or f.get("spill_loads", 1) for f in fused):
-        raise AssertionError(f"the fused bias backward's 8 instantiations must build without spills: {fused}")
+         flash_bias_bwd_fused=fused, flash_bwd_fused=fused_plain,
+         flash_bwd_fused_occupancy={"train": flash_attention_bwd_occupancy(TRAIN_LEN, TRAIN_LEN),
+                                    "t5_cross": flash_attention_bwd_occupancy(T5_DEC_LEN, T5_PROMPT_LEN)})
+    for what, report in (("bias backward", fused), ("flash backward", fused_plain)):
+        if len(report) != 8 or any(f.get("spill_stores", 1) or f.get("spill_loads", 1) for f in report):
+            raise AssertionError(f"the fused {what}'s 8 instantiations must build without spills: {report}")
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     errs = {"flash": check_flash(gen)["max_abs_err"], "decode": check_decode(gen)["max_abs_err"]}
@@ -1828,7 +1930,7 @@ def main() -> int:
     del trainer, batch
     torch.cuda.empty_cache()
     rows = kernel_times(gen, launches, errs, train_launches)
-    rows += bwd_kernel_times(gen, train_launches, bwd_errs)
+    rows += bwd_kernel_times(gen, train_launches, t5_train_launches, bwd_errs)
     rows += paged_kernel_times(gen, paged_launches, paged_err)
     rows += bias_kernel_times(gen, t5_train_launches, t5_launches, bias_errs)
     print(json.dumps({"kernels": rows}))

@@ -2,7 +2,8 @@
 version, `flash_attention_backward_plain`, behind the autograd Function)
 against the JAX package's Pallas backward (interpret mode): the raw
 `_flash_backward` on shared residuals, and `jax.grad` through
-`flash_attention` against `torch.autograd.grad` through the port's.
+`flash_attention` against `torch.autograd.grad` through the port's, also
+at the lengths where the CUDA backward changes route (`backward_route`).
 
 fp32 inputs from numpy. Tolerance atol = rtol = 1e-4: the gradients are
 sums over up to S terms of O(1) products, taken in a different order by
@@ -17,7 +18,7 @@ import torch
 from trlx_tpu.ops.flash_attention import _flash_backward, _flash_forward
 from trlx_tpu.ops.flash_attention import flash_attention as j_flash
 
-from trlx_tpu_torch.ops.flash_attention import flash_attention, flash_attention_backward_plain
+from trlx_tpu_torch.ops.flash_attention import backward_route, flash_attention, flash_attention_backward_plain
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 
@@ -134,3 +135,46 @@ def test_cross_attention_t_gt_s_backward_matches_jax(path):
         got = torch.autograd.grad((out * torch.from_numpy(g)).sum(), (tq, tk, tv))
     for name, a, b in zip(("dq", "dk", "dv"), got, ref):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), err_msg=name, **TOL)
+
+
+@pytest.mark.parametrize("T", [1, 64, 65, 128, 129])
+@pytest.mark.parametrize("S", [1, 64, 65, 128, 129])
+@pytest.mark.parametrize("causal", [True, False])
+def test_route_edges_match_jax_grad(T, S, causal):
+    """dq, dk and dv at the lengths where the CUDA backward changes route
+    (the fused kernel up to 128 queries and keys, the long route at 129):
+    GQA with 3 query heads a kv head, an explicit q_offset one slot before
+    right alignment (with T >= S the first query row sees no slot), batch
+    row 0 left-padded and batch row 1 wholly masked (its rows average V
+    uniformly and give no dq or dk), torch.autograd against jax.grad
+    through the reference's custom_vjp, at the file's tolerance."""
+    B, H, Hkv, D = 2, 3, 1, 16
+    off = S - T - 1
+    q, k, v, g, mask = _inputs(B, H, Hkv, T, S, D, None, (S // 3, S), seed=T * 1000 + S)
+    jm = jnp.asarray(mask)
+
+    def j_loss(a, b, c):
+        return jnp.sum(j_flash(a, b, c, jm, causal, None, 256, off) * jnp.asarray(g))
+
+    ref = jax.grad(j_loss, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_(True) for x in (q, k, v))
+    out = flash_attention(tq, tk, tv, torch.from_numpy(mask), causal=causal, q_offset=off)
+    got = torch.autograd.grad((out * torch.from_numpy(g)).sum(), (tq, tk, tv))
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), err_msg=name, **TOL)
+
+
+@pytest.mark.parametrize("T, S, route", [
+    (1, 1, "fused"),
+    (64, 64, "fused"),  # GPT-2's train shape
+    (65, 32, "fused"),  # T5's cross-attention
+    (128, 128, "fused"),
+    (128, 16, "fused"),
+    (129, 129, "long"),
+    (16, 129, "long"),
+    (512, 512, "long"),
+])
+def test_backward_route(T, S, route):
+    """The CUDA backward takes the fused kernel while T and S are both at
+    most 128, and the long route's pair past that."""
+    assert backward_route(T, S) == route

@@ -464,15 +464,6 @@ constexpr int FUSED_RED = 4;     // float4 dbias slots a thread of the last CTA 
 // warps of the fused kernel: one per 16-slot key strip, at least four
 __host__ __device__ constexpr int fused_warps(int nk) { return nk > 4 ? nk : 4; }
 
-// 16 bytes global -> shared, asynchronously; zero-filled (nothing read)
-// when `ok` is false
-__device__ __forceinline__ void cp_async16(void* dst_s, const void* src, bool ok) {
-  const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(dst_s));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(ok ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
-
 // dynamic shared memory of the fused kernel for tp = ceil16(T), sp = ceil16(S):
 // q, do [tp][72], k, v [sp][72], p, ds hi, ds lo [tp][sp + 8] (bf16), and
 // the slots' flags [sp] (int); every region starts on a 16-byte boundary

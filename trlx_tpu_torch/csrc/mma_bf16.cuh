@@ -1,7 +1,8 @@
 // mma.sync m16n8k16 helpers shared by the flash-attention kernels
 // (flash_fwd.cu, flash_bwd.cu, flash_bias_fwd.cu, flash_bias_bwd.cu):
-// bf16 packing, the tensor-core product and the fragment loads (by hand,
-// and by ldmatrix from shared memory).
+// bf16 packing, the tensor-core product, the fragment loads (by hand,
+// and by ldmatrix from shared memory) and the cp.async copy into shared
+// memory.
 //
 // Fragment layout of mma.m16n8k16 (g = lane / 4, c = lane % 4):
 //   A reg0: row g,   k 2c..2c+1   reg1: row g+8, k 2c..2c+1
@@ -104,6 +105,15 @@ __device__ __forceinline__ void ldm_b_cols(uint32_t (&b)[4], const __nv_bfloat16
                                            int lane) {
   ldmatrix_x4(b, t_s + ((n + (lane >> 4)) * 8 + (lane & 7)) * LD + ks * 16 + ((lane >> 3) & 1) * 8);
 }
+
+// 16 bytes global -> shared, asynchronously; zero-filled (nothing read)
+// when `ok` is false
+__device__ __forceinline__ void cp_async16(void* dst_s, const void* src, bool ok) {
+  const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(dst_s));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(ok ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
 
 // acc[n] (16 x 8 fp32 tiles 2kk and 2kk+1) -> the bf16 A fragment of k-step kk
 __device__ __forceinline__ void pack_acc(uint32_t (&a)[4], const float (&x0)[4],

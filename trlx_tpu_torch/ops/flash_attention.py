@@ -6,8 +6,10 @@ variant, flash_attention_bias (T5's self-attention; end of this module).
 and their plain PyTorch versions on CPU tensors:
 
 - forward: `csrc/flash_fwd.cu`, plain version `flash_attention_plain`;
-- backward: the dq and dk/dv kernels of `csrc/flash_bwd.cu`, plain
-  version `flash_attention_backward_plain`.
+- backward: `csrc/flash_bwd.cu` in two routes (`backward_route`): up to
+  FUSED_BWD_MAX_LEN queries and keys one fused kernel gives dq, dk and
+  dv in one launch; past that the dq kernel, then the dk/dv kernel.
+  Plain version `flash_attention_backward_plain`.
 
 Both compute the same function:
 
@@ -240,12 +242,11 @@ def _flash_forward_cuda(q, k, v, key_mask, causal, sm_scale, q_offset):
 
 def backward_operands(q, k, v, key_mask, g, m, l):
     """Check the backward kernels' operands and prepare them: returns
-    (int32 key mask, dout in a layout the kernels read, an fp32 [B*H, T]
-    buffer for delta). The reference forms delta = rowsum(dO * O) outside
-    its kernels from the bf16 output; here the dq kernel sums delta =
-    sum_j p dp from the same p and dp that form ds (equal in exact
-    arithmetic, see `csrc/flash_bwd.cu`) and writes it for the dk/dv
-    kernel, so the forward's output is not read."""
+    (int32 key mask, dout in a layout the kernels read). The reference
+    forms delta = rowsum(dO * O) outside its kernels from the bf16
+    output; here the kernels sum delta = sum_j p dp from the same p and
+    dp that form ds (equal in exact arithmetic, see `csrc/flash_bwd.cu`),
+    so the forward's output is not read."""
     km = _check_inputs(q, k, v, key_mask)
     B, H, T, D = q.shape
     _check_cuda("dout", g, q.device, torch.bfloat16, 4)
@@ -257,17 +258,68 @@ def backward_operands(q, k, v, key_mask, g, m, l):
         _check_cuda(name, x, q.device, torch.float32, 3)
         if not x.is_contiguous() or tuple(x.shape) != (B * H, T, 1):
             raise ValueError(f"{name} must be a contiguous fp32 [B*H, T, 1] tensor")
-    delta = torch.empty((B * H, T), dtype=torch.float32, device=q.device)
-    return km, g, delta
+    return km, g
 
 
-def flash_attention_dq(q, k, v, km, g, m, l, delta, causal, sm_scale, q_offset):
-    """dq [B, H, T, D] by the dq kernel of `csrc/flash_bwd.cu`, on the
-    operands `backward_operands` prepared; also fills `delta`, which
-    `flash_attention_dkv` reads."""
+FUSED_BWD_MAX_LEN = 128  # the longest T or S the fused backward kernel takes
+
+
+def backward_route(T: int, S: int) -> str:
+    """The CUDA backward's route for T queries and S keys: "fused" (one
+    kernel for dq, dk and dv) when both are at most FUSED_BWD_MAX_LEN,
+    else "long" (the dq kernel, then the dk/dv kernel)."""
+    return "fused" if max(T, S) <= FUSED_BWD_MAX_LEN else "long"
+
+
+def flash_attention_bwd(q, k, v, km, g, m, l, causal, sm_scale, q_offset):
+    """(dq [B, H, T, D], dk, dv [B, Hkv, S, D]) by the fused kernel of
+    `csrc/flash_bwd.cu` (T, S <= 128), on the operands `backward_operands`
+    prepared: one CTA per (batch row, kv head), walking the GQA group's
+    heads in order. With more than one head a group, dk and dv are summed
+    over it in fp32 scratch of this call (ceil16(S) x 2D for each CTA)."""
     B, H, T, D = q.shape
     Hkv, S = k.shape[1], k.shape[2]
     dq = _bhtd_empty(B, H, T, D, q)
+    dk = _bhtd_empty(B, Hkv, S, D, k)
+    dv = _bhtd_empty(B, Hkv, S, D, v)
+    part = None
+    if H > Hkv:
+        part = torch.empty(B * Hkv * (-(-S // 16) * 16) * 2 * D, dtype=torch.float32, device=q.device)
+    flash_attention_bwd.launches += 1
+    _launch(
+        "flash_bwd.cu", "flash_bwd_fused_bf16",
+        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
+        + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p],
+        (q.data_ptr(), k.data_ptr(), v.data_ptr(), km.data_ptr(), g.data_ptr(), m.data_ptr(),
+         l.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), None if part is None else part.data_ptr(),
+         B, H, Hkv, T, S, D, _strides(q, k, v, g, dq, dk, dv), int(causal), q_offset, sm_scale, _stream(q)),
+    )
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
+def flash_attention_bwd_occupancy(T: int, S: int) -> dict:
+    """What a fused backward launch at (T, S) gets on the current card: its
+    threads a CTA, its dynamic shared memory and the CTAs an SM holds."""
+    ctas, threads, smem = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+    _launch(
+        "flash_bwd.cu", "flash_bwd_fused_occupancy",
+        [ctypes.c_int, ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 3,
+        (T, S, ctypes.byref(ctas), ctypes.byref(threads), ctypes.byref(smem)),
+    )
+    return {"ctas_per_sm": ctas.value, "threads": threads.value, "smem_bytes": smem.value}
+
+
+def flash_attention_dq(q, k, v, km, g, m, l, causal, sm_scale, q_offset):
+    """The long route's first step: (dq [B, H, T, D], delta fp32 [B*H, T])
+    by the dq kernel of `csrc/flash_bwd.cu`, on the operands
+    `backward_operands` prepared; `flash_attention_dkv` reads the delta."""
+    B, H, T, D = q.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    dq = _bhtd_empty(B, H, T, D, q)
+    delta = torch.empty((B * H, T), dtype=torch.float32, device=q.device)
     flash_attention_dq.launches += 1
     _launch(
         "flash_bwd.cu", "flash_bwd_dq_bf16",
@@ -277,13 +329,13 @@ def flash_attention_dq(q, k, v, km, g, m, l, delta, causal, sm_scale, q_offset):
          l.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, H, Hkv, T, S, D,
          _strides(q, k, v, g, dq), int(causal), q_offset, sm_scale, _stream(q)),
     )
-    return dq
+    return dq, delta
 
 
 def flash_attention_dkv(q, k, v, km, g, m, l, delta, causal, sm_scale, q_offset):
-    """(dk, dv) [B, Hkv, S, D] by the dk/dv kernel of `csrc/flash_bwd.cu`,
-    on the operands `backward_operands` prepared and the delta that
-    `flash_attention_dq` wrote."""
+    """The long route's second step: (dk, dv) [B, Hkv, S, D] by the dk/dv
+    kernel of `csrc/flash_bwd.cu`, on the operands `backward_operands`
+    prepared and the delta that `flash_attention_dq` wrote."""
     B, H, T, D = q.shape
     Hkv, S = k.shape[1], k.shape[2]
     dk = _bhtd_empty(B, Hkv, S, D, k)
@@ -306,15 +358,18 @@ flash_attention_dkv.launches = 0
 
 def flash_attention_backward(q, k, v, key_mask, o, m, l, g, causal, sm_scale, q_offset):
     """(dq, dk, dv) from the forward's residuals: on CPU tensors
-    `flash_attention_backward_plain`; on CUDA tensors the dq kernel and
-    the dk/dv kernel (two kernels and no atomics, so the result is the
-    same run to run), or an exception. q/k/v/dout are bf16 there."""
+    `flash_attention_backward_plain`; on CUDA tensors the kernels of the
+    route `backward_route` picks (no atomics on either: the same result
+    run to run), or an exception. Neither route gives way to the other.
+    q/k/v/dout are bf16 there."""
     if q.device.type == "cpu":
         return flash_attention_backward_plain(q, k, v, key_mask, o, m, l, g, causal, sm_scale, q_offset)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cpu or cuda, not {q.device}")
-    km, g, delta = backward_operands(q, k, v, key_mask, g, m, l)
-    dq = flash_attention_dq(q, k, v, km, g, m, l, delta, causal, sm_scale, q_offset)
+    km, g = backward_operands(q, k, v, key_mask, g, m, l)
+    if backward_route(q.shape[2], k.shape[2]) == "fused":
+        return flash_attention_bwd(q, k, v, km, g, m, l, causal, sm_scale, q_offset)
+    dq, delta = flash_attention_dq(q, k, v, km, g, m, l, causal, sm_scale, q_offset)
     dk, dv = flash_attention_dkv(q, k, v, km, g, m, l, delta, causal, sm_scale, q_offset)
     return dq, dk, dv
 
@@ -575,16 +630,17 @@ def flash_attention_bias_bwd_occupancy(T: int, S: int) -> dict:
     return {"ctas_per_sm": ctas.value, "threads": threads.value, "smem_bytes": smem.value}
 
 
-def flash_attention_bias_dq(q, k, v, km, bias, g, m, l, delta, causal, sm_scale):
+def flash_attention_bias_dq(q, k, v, km, bias, g, m, l, causal, sm_scale):
     """The long route's first step: (dq [B, H, T, D], dbias [H, T, S]
-    fp32) by the dq kernel and the dbias reduce kernel of
-    `csrc/flash_bias_bwd.cu`, on operands `backward_operands` and
-    `_check_bias` prepared; also fills `delta`, which
-    `flash_attention_bias_dkv` reads. The per-batch ds partial
-    [B, H, T, S] fp32 is scratch of this call."""
+    fp32, delta fp32 [B*H, T]) by the dq kernel and the dbias reduce
+    kernel of `csrc/flash_bias_bwd.cu`, on operands `backward_operands`
+    and `_check_bias` prepared; `flash_attention_bias_dkv` reads the
+    delta. The per-batch ds partial [B, H, T, S] fp32 is scratch of this
+    call."""
     B, H, T, D = q.shape
     S = k.shape[2]
     dq = _bhtd_empty(B, H, T, D, q)
+    delta = torch.empty((B * H, T), dtype=torch.float32, device=q.device)
     ds_part = torch.empty((B, H, T, S), dtype=torch.float32, device=q.device)
     dbias = torch.empty((H, T, S), dtype=torch.float32, device=q.device)
     flash_attention_bias_dq.launches += 1
@@ -597,7 +653,7 @@ def flash_attention_bias_dq(q, k, v, km, bias, g, m, l, delta, causal, sm_scale)
          dbias.data_ptr(), B, H, T, S, D, _strides(q, k, v, g, dq), int(causal), sm_scale,
          _stream(q)),
     )
-    return dq, dbias
+    return dq, dbias, delta
 
 
 def flash_attention_bias_dkv(q, k, v, km, bias, g, m, l, delta, causal, sm_scale):
@@ -635,12 +691,12 @@ def flash_attention_bias_backward(q, k, v, key_mask, bias, o, m, l, g, causal, s
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bias runs on cpu or cuda, not {q.device}")
     route = bias_backward_route(q.shape[2], k.shape[2], causal)
-    km, g, delta = backward_operands(q, k, v, key_mask, g, m, l)
+    km, g = backward_operands(q, k, v, key_mask, g, m, l)
     bias32 = _check_bias(q, k, bias, causal)
     if route == "fused":
         dq, dk, dv, dbias = flash_attention_bias_bwd(q, k, v, km, bias32, g, m, l, causal, sm_scale)
     else:
-        dq, dbias = flash_attention_bias_dq(q, k, v, km, bias32, g, m, l, delta, causal, sm_scale)
+        dq, dbias, delta = flash_attention_bias_dq(q, k, v, km, bias32, g, m, l, causal, sm_scale)
         dk, dv = flash_attention_bias_dkv(q, k, v, km, bias32, g, m, l, delta, causal, sm_scale)
     return dq, dk, dv, dbias.to(bias.dtype)
 
