@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Drive trlx_tpu_torch's PPO rollout and training paths on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--only fwd]
 
 Builds the CUDA kernels from `trlx_tpu_torch/csrc` (into build/kernels/)
-and holds each kernel against its plain PyTorch version on the card: the
-flash forward, both routes of the flash backward (one fused kernel up
+and holds each kernel against its plain PyTorch version on the card: both
+routes of the flash forward (one CTA per head up to 128 queries and keys;
+64-row query tiles past that), both routes of the flash backward (one fused kernel up
 to 128 queries and keys; the dq and dk/dv kernels past that; causal, and
 T5's non-causal cross-attention with more queries than keys), T5's
 bias-carrying forward and both routes of its backward (one fused kernel
@@ -41,6 +42,9 @@ path ran through its kernels. Then the kernels are timed at the paths'
 shapes beside their bounds, and one rollout, one experience pass, one
 train step and one engine call of each mode are profiled.
 
+`--only fwd` stops after the build, the flash forward's check and its
+kernel_time rows (no path runs, so those rows carry no launches).
+
 Each phase prints one JSON line. The last two lines are the card's name
 and power limit as nvidia-smi reports them, then
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero
@@ -50,6 +54,8 @@ without that line; with no CUDA device the script exits 2 at once.
 from __future__ import annotations
 
 import argparse
+import collections
+import contextlib
 import json
 import math
 import re
@@ -173,18 +179,21 @@ def flash_inputs(gen, B, H, Hkv, T, S, D, q_offset, unwritten=False):
     return q, k, v, mask.to(torch.int32)
 
 
-def flash_work(mask, H, Hkv, T, S, D, q_offset):
-    """Bytes and operations the causal attention function needs on this
-    mask. A query row weighs the unmasked slots of its causal window, so K
-    is needed only for slots inside some row's window; a fully masked row
-    averages V over all S slots, so V is needed in full for the batch rows
-    that hold one and only for the weighed slots elsewhere. q and out are
-    bf16, m and l fp32, the mask int32."""
+def flash_work(mask, H, Hkv, T, S, D, q_offset, causal=True):
+    """Bytes and operations the attention function needs on this mask. A
+    query row weighs the unmasked slots of its causal window (without
+    `causal`: every unmasked slot), so K is needed only for slots inside
+    some row's window; a fully masked row averages V over all S slots, so V
+    is needed in full for the batch rows that hold one and only for the
+    weighed slots elsewhere. q and out are bf16, m and l fp32, the mask
+    int32."""
     import torch
 
     slots = torch.arange(S, device="cuda")
     rows = torch.arange(T, device="cuda")[:, None] + q_offset
-    pairs = (rows >= slots[None, :])[None] & (mask[:, None, :] > 0)  # [B, T, S]
+    pairs = (mask[:, None, :] > 0).expand(-1, T, -1)  # [B, T, S]
+    if causal:
+        pairs = pairs & (rows >= slots[None, :])[None]
     weighed = pairs.any(dim=1)  # [B, S]
     full_rows = ~pairs.any(dim=2)  # [B, T]
     v_slots = torch.where(full_rows.any(dim=1), S, weighed.sum(dim=1))
@@ -229,11 +238,25 @@ def decode_inputs(gen, L, B, H, Hkv, S, D, written):
 # ---------------------------------------------------------------------------
 
 
+def fwd_counters():
+    """The flash forward's launch counters: every launch, and each route's."""
+    from trlx_tpu_torch.ops import flash_attention as fa
+
+    return {"flash_fwd": fa.flash_attention, "flash_fwd_short": fa.flash_attention_fwd_short,
+            "flash_fwd_long": fa.flash_attention_fwd_long}
+
+
 def check_flash(gen) -> dict:
-    """Kernel A against flash_attention_plain on the same bf16 inputs."""
+    """Kernel 1 against flash_attention_plain on the same bf16 inputs: max
+    |error| of out under 2e-2, m and l within 1e-3 relative. Each case runs
+    the route `forward_route` names, and the launch counters must show that
+    route and no other; a case the short kernel takes also runs the long
+    route's kernel on the same inputs, held to the same bars. Returns the
+    worst |error| of each route."""
     import torch
 
-    from trlx_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+    from trlx_tpu_torch.ops import flash_attention as fa
+    from trlx_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain, forward_route
 
     cases = {  # name: (B, H, Hkv, T, S, D, q_offset, unwritten, causal)
         "prefill": (64, 12, 12, PROMPT_LEN, 128, 64, 0, True, True),
@@ -244,24 +267,46 @@ def check_flash(gen) -> dict:
         # T5's cross-attention: not causal, no scale, 65 decoder rows over
         # a 32-slot encoder (the default offset S - T is negative, ignored)
         "t5_cross": (12, 12, 12, T5_DEC_LEN, T5_PROMPT_LEN, 64, 0, False, False),
+        "max_short": (8, 12, 12, 128, 128, 64, 0, False, True),  # the short kernel's largest shape
+        "just_long": (4, 12, 12, 129, 129, 64, 0, False, True),  # the long route's shortest shape
+        "gqa_short": (8, 12, 4, 100, 100, 64, 0, False, True),  # a GQA group of 3 on the short route
+        # T > S, causal at the default offset S - T: the first 32 rows attend
+        # no slot (fully masked by causality, not by padding)
+        "causal_t_gt_s": (4, 12, 12, 80, 48, 64, -32, False, True),
     }
-    worst = 0.0
+    counters = fwd_counters()
+    worst = {"short": 0.0, "long": 0.0}
     for name, (B, H, Hkv, T, S, D, off, unwritten, causal) in cases.items():
         q, k, v, mask = flash_inputs(gen, B, H, Hkv, T, S, D, off, unwritten)
         kw = dict(q_offset=off if unwritten else None, with_stats=True, causal=causal,
                   sm_scale=None if causal else 1.0)
-        out, m, l = flash_attention(q, k, v, mask, **kw)
+        route = forward_route(T, S)
+        for fn in counters.values():
+            fn.launches = 0
+        got = {route: flash_attention(q, k, v, mask, **kw)}
         torch.cuda.synchronize()
+        launched = {key: fn.launches for key, fn in counters.items()}
+        want = {"flash_fwd": 1, "flash_fwd_short": int(route == "short"), "flash_fwd_long": int(route == "long")}
+        if launched != want:
+            raise AssertionError(f"{name}: the {route} route launched {launched}, expected {want}")
+        if route == "short":
+            km = fa._check_inputs(q, k, v, mask)
+            _, scale, q_offset = fa._prepare(q, k, mask, kw["sm_scale"], kw["q_offset"], causal)
+            got["long"] = fa.flash_attention_fwd_long(q, k, v, km, causal, scale, q_offset)
+            torch.cuda.synchronize()
         ref, m_ref, l_ref = flash_attention_plain(q.float(), k.float(), v.float(), mask, **kw)
-        err = (out.float() - ref).abs().max().item()
-        m_rel = ((m - m_ref).abs() / m_ref.abs().clamp(min=1.0)).max().item()
-        l_rel = ((l - l_ref).abs() / l_ref.abs().clamp(min=1.0)).max().item()
-        emit("flash_check", case=name, shape=[B, H, Hkv, T, S, D], causal=causal, max_abs_err=err,
-             m_rel_err=m_rel, l_rel_err=l_rel)
-        if not (err <= 2e-2 and m_rel <= 1e-3 and l_rel <= 1e-3):
-            raise AssertionError(f"flash kernel disagrees with its plain version on {name}")
-        worst = max(worst, err)
-    return {"max_abs_err": worst}
+        errs = {}
+        for r, (out, m, l) in got.items():
+            errs[r] = {"max_abs_err": (out.float() - ref).abs().max().item(),
+                       "m_rel_err": ((m - m_ref).abs() / m_ref.abs().clamp(min=1.0)).max().item(),
+                       "l_rel_err": ((l - l_ref).abs() / l_ref.abs().clamp(min=1.0)).max().item()}
+        emit("flash_check", case=name, shape=[B, H, Hkv, T, S, D], causal=causal, route=route, launches=launched,
+             **errs[route], errs=errs)
+        for r, e in errs.items():
+            if not (e["max_abs_err"] <= 2e-2 and e["m_rel_err"] <= 1e-3 and e["l_rel_err"] <= 1e-3):
+                raise AssertionError(f"flash kernel ({r} route) disagrees with its plain version on {name}: {e}")
+            worst[r] = max(worst[r], e["max_abs_err"])
+    return worst
 
 
 BWD_CASES = {  # name: (B, H, Hkv, T, S, q_offset, unwritten, causal)
@@ -722,14 +767,19 @@ def engine_path(seed: int) -> dict:
         return (a["response_ids"] == b["response_ids"])[real].float().mean().item()
 
     launches, outs = {}, {}
+    fwd = fwd_counters()
     with torch.no_grad():
         for mode, kw in modes.items():
             for impl in ("pallas", "xla"):
-                paged_attention.launches = flash_attention.launches = 0
+                paged_attention.launches = 0
+                for fn in fwd.values():
+                    fn.launches = 0
                 out = run(impl, kw)
                 torch.cuda.synchronize()
                 outs[mode, impl] = out
-                launches[mode, impl] = {"paged": paged_attention.launches, "flash": flash_attention.launches}
+                launches[mode, impl] = {"paged": paged_attention.launches, "flash": flash_attention.launches,
+                                        "flash_short": fwd["flash_fwd_short"].launches,
+                                        "flash_long": fwd["flash_fwd_long"].launches}
                 g = out["gen_stats"]
                 n_pages = 1 + ENGINE["slots"] * -(-(PROMPT_LEN + NEW_TOKENS + (4 if kw else 0)) // ENGINE["page_size"])
                 balance = dict(free_pages=g["free_pages"], pool=n_pages, held_pages=g.get("held_pages", 0),
@@ -745,6 +795,8 @@ def engine_path(seed: int) -> dict:
                 n_flash = launches[mode, impl]["flash"]
                 if n_flash == 0 or n_flash % L:
                     raise AssertionError(f"engine {mode}/{impl}: flash launches {n_flash} are not whole prefills")
+                if (launches[mode, impl]["flash_short"], launches[mode, impl]["flash_long"]) != (n_flash, 0):
+                    raise AssertionError(f"engine {mode}/{impl}: the prefills left the short route: {launches[mode, impl]}")
                 if not bool((out["response_mask"].sum(dim=1) <= budget).all()):
                     raise AssertionError("a row emitted past its budget")
 
@@ -836,7 +888,7 @@ def byte_prompts(tok):
     return ids, mask
 
 
-def main_path(seed: int) -> dict:
+def main_path(seed: int, shapes: dict) -> dict:
     import torch
 
     from trlx_tpu_torch.models.generation import SamplerSettings, generate, make_generate_fn
@@ -867,8 +919,10 @@ def main_path(seed: int) -> dict:
         lp = logprobs_of_labels(out["logits"][:, :-1], seqs[:, 1:])
         return out, lp
 
-    with torch.no_grad():
-        flash_attention.launches = 0
+    fwd = fwd_counters()
+    with forward_shapes(shapes, "rollout"), torch.no_grad():
+        for fn in fwd.values():
+            fn.launches = 0
         decode_attention_int8.launches = 0
         out_g = make_generate_fn(policy.base, greedy)(ids, mask, None)
         out_s = make_generate_fn(policy.base, sampled)(ids, mask, gen)
@@ -878,11 +932,14 @@ def main_path(seed: int) -> dict:
         attn = torch.cat([mask, out_s["response_mask"]], dim=1)
         exp, lp = experience(policy, ref_params, seqs, attn)
         torch.cuda.synchronize()
-        launches = {"flash": flash_attention.launches, "decode": decode_attention_int8.launches}
+        launches = {"flash": flash_attention.launches, "decode": decode_attention_int8.launches,
+                    "flash_short": fwd["flash_fwd_short"].launches, "flash_long": fwd["flash_fwd_long"].launches}
 
     L = policy.cfg.n_layer
     steps = [int(o["response_mask"].sum(dim=1).max().item()) - 1 for o in (out_g, out_s)]
-    expect = {"flash": 2 * L + (L + (L - policy.branch_at)), "decode": L * sum(steps)}
+    # every forward launch on the short route (T, S <= 128), none on the long
+    n_flash = 2 * L + (L + (L - policy.branch_at))
+    expect = {"flash": n_flash, "decode": L * sum(steps), "flash_short": n_flash, "flash_long": 0}
     emit("main_path", launches=launches, expected=expect, decode_steps=steps,
          flash_launches_rollout=rollout_flash)
     if launches != expect:
@@ -1013,7 +1070,7 @@ def train_config(seed: int, attention_impl="pallas", kv_cache_quant="int8_kernel
     )
 
 
-def train_path(seed: int):
+def train_path(seed: int, shapes: dict):
     """`trlx_tpu_torch.train` on the headline workload at GPT-2-small width
     (random weights from the seed, everything trainable, a full frozen
     reference copy, bf16 compute / fp32 params, the flash and int8 decode
@@ -1026,13 +1083,14 @@ def train_path(seed: int):
     from trlx_tpu_torch.ops import flash_attention as fa
     from trlx_tpu_torch.ops.decode_attention import decode_attention_int8
 
-    counters = {"flash_fwd": fa.flash_attention, "flash_bwd": fa.flash_attention_bwd,
+    counters = {**fwd_counters(), "flash_bwd": fa.flash_attention_bwd,
                 "flash_bwd_dq": fa.flash_attention_dq, "flash_bwd_dkv": fa.flash_attention_dkv,
                 "decode": decode_attention_int8}
     for fn in counters.values():
         fn.launches = 0
     t0 = time.perf_counter()
-    trainer = trlx_tpu_torch.train(reward_fn=train_reward_fn, prompts=TRAIN_PROMPTS, config=train_config(seed))
+    with forward_shapes(shapes, "train"):
+        trainer = trlx_tpu_torch.train(reward_fn=train_reward_fn, prompts=TRAIN_PROMPTS, config=train_config(seed))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in counters.items()}
@@ -1042,9 +1100,10 @@ def train_path(seed: int):
     # every sampler call (a rollout a cycle, an eval at each end) prefills
     # through the forward kernel; each experience chunk runs the policy and
     # the full reference copy; each train step one forward and one
-    # backward through every layer, the backward on the fused route (64
-    # queries and keys)
-    expect = {"flash_fwd": L * ((cycles + 2) + 2 * cycles + TRAIN_STEPS),
+    # backward through every layer, the forward on the short route and the
+    # backward on the fused one (T, S <= 128)
+    n_fwd = L * ((cycles + 2) + 2 * cycles + TRAIN_STEPS)
+    expect = {"flash_fwd": n_fwd, "flash_fwd_short": n_fwd, "flash_fwd_long": 0,
               "flash_bwd": L * TRAIN_STEPS, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
     steps = [(step, st["losses/total_loss"], st["policy/approx_kl"])
              for step, st in trainer.stats_history if "losses/total_loss" in st]
@@ -1093,7 +1152,7 @@ def cycle_split(trainer) -> list:
 ENGINE_TRAIN = dict(enabled=True, slots=32, page_size=16, paged_attention_impl="pallas", spec_decode=True, draft_k=4)
 
 
-def train_engine_path(seed: int) -> dict:
+def train_engine_path(seed: int, shapes: dict) -> dict:
     """`trlx_tpu_torch.train` on the headline workload with rollouts (and
     evaluations) through the decode engine: 32 slots, 16-token int8 pages,
     the paged kernel, speculative decoding with draft_k=4 off the full
@@ -1117,10 +1176,14 @@ def train_engine_path(seed: int) -> dict:
     config = train_config(seed)
     config = config.evolve(method=dict(gen_engine=ENGINE_TRAIN))
     paged_attention.launches = 0
+    fwd = fwd_counters()
+    for fn in fwd.values():
+        fn.launches = 0
     TPUBaseTrainer._engine_generate = counted
     try:
         t0 = time.perf_counter()
-        trainer = trlx_tpu_torch.train(reward_fn=train_reward_fn, prompts=TRAIN_PROMPTS, config=config)
+        with forward_shapes(shapes, "train_engine"):
+            trainer = trlx_tpu_torch.train(reward_fn=train_reward_fn, prompts=TRAIN_PROMPTS, config=config)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
@@ -1128,6 +1191,7 @@ def train_engine_path(seed: int) -> dict:
     L = trainer.model.cfg.n_layer
     steps = sum(g["decode_steps"] for g in calls)
     launches = paged_attention.launches
+    fwd_launches = {name: fn.launches for name, fn in fwd.items()}
     keys = ("rollout/engine_occupancy", "rollout/engine_refills", "rollout/engine_decode_steps",
             "rollout/engine_reclaimed_pages", "rollout/spec_accept_rate")
     rollouts = [{k: st[k] for k in keys if k in st} for _, st in trainer.stats_history if "rollout/engine_refills" in st]
@@ -1135,9 +1199,12 @@ def train_engine_path(seed: int) -> dict:
     emit("train_engine_path", wall_s=wall, engine_calls=len(calls), decode_steps=steps, paged_launches=launches,
          expected=L * steps, iter_count=trainer.iter_count, rollout_stats=rollouts, losses=losses,
          oom_truncated=sum(g["oom_truncated"] for g in calls), unserved=sum(g["unserved"] for g in calls),
-         cycle_seconds=cycle_split(trainer))
+         cycle_seconds=cycle_split(trainer), flash_fwd_launches=fwd_launches)
     if launches != L * steps or not calls:
         raise AssertionError(f"paged launches {launches} != {L} x {steps} engine decode steps")
+    if not (fwd_launches["flash_fwd"] > 0 and fwd_launches["flash_fwd_short"] == fwd_launches["flash_fwd"]
+            and fwd_launches["flash_fwd_long"] == 0):
+        raise AssertionError(f"the flash forward left the short route: {fwd_launches}")
     if not rollouts or any(set(r) != set(keys) for r in rollouts):
         raise AssertionError(f"the engine's rollout stats are missing: {rollouts}")
     if any(g["oom_truncated"] or g["unserved"] for g in calls):
@@ -1326,18 +1393,18 @@ def build_t5_policy(seed: int, attention_impl: str, compute_dtype="bfloat16"):
 def bias_counters():
     """The launch counters of the attention kernels the T5 paths may run:
     the bias forward, the bias backward's fused kernel and its long route's
-    pair, the plain flash forward, and the plain flash backward's fused
-    kernel and its long route's pair."""
+    pair, the plain flash forward (every launch, and each route's), and the
+    plain flash backward's fused kernel and its long route's pair."""
     from trlx_tpu_torch.ops import flash_attention as fa
 
     return {"flash_bias_fwd": fa.flash_attention_bias, "flash_bias_bwd": fa.flash_attention_bias_bwd,
             "flash_bias_bwd_dq": fa.flash_attention_bias_dq,
-            "flash_bias_bwd_dkv": fa.flash_attention_bias_dkv, "flash_fwd": fa.flash_attention,
+            "flash_bias_bwd_dkv": fa.flash_attention_bias_dkv, **fwd_counters(),
             "flash_bwd": fa.flash_attention_bwd, "flash_bwd_dq": fa.flash_attention_dq,
             "flash_bwd_dkv": fa.flash_attention_dkv}
 
 
-def t5_path(seed: int) -> dict:
+def t5_path(seed: int, shapes: dict) -> dict:
     """T5-base (random weights from the seed) through `generate_seq2seq`
     (64 byte prompts right-padded to 32, 64 new tokens, greedy) and one
     `forward_train` experience pass over its output, on the kernels
@@ -1367,7 +1434,7 @@ def t5_path(seed: int) -> dict:
     def experience(model, ref_params, dec, dec_mask):
         return model.forward_train(ref_params, ids, mask, dec, dec_mask)
 
-    with torch.no_grad():
+    with forward_shapes(shapes, "t5"), torch.no_grad():
         for fn in counters.values():
             fn.launches = 0
         out = rollout(policy)
@@ -1381,7 +1448,8 @@ def t5_path(seed: int) -> dict:
     cfg = policy.cfg
     top = cfg.n_decoder_layer - policy.branch_at
     expect = {"flash_bias_fwd": cfg.n_layer + (cfg.n_layer + cfg.n_decoder_layer + top),
-              "flash_fwd": cfg.n_decoder_layer + top, "flash_bias_bwd": 0,
+              "flash_fwd": cfg.n_decoder_layer + top, "flash_fwd_short": cfg.n_decoder_layer + top,
+              "flash_fwd_long": 0, "flash_bias_bwd": 0,
               "flash_bias_bwd_dq": 0, "flash_bias_bwd_dkv": 0, "flash_bwd": 0, "flash_bwd_dq": 0,
               "flash_bwd_dkv": 0}
     emit("t5_path", launches=launches, expected=expect, generate_launches=gen_launches,
@@ -1438,7 +1506,7 @@ def t5_path(seed: int) -> dict:
     return launches
 
 
-def t5_train_path(seed: int):
+def t5_train_path(seed: int, shapes: dict):
     """`trlx_tpu_torch.train` with model_arch_type "seq2seq" at T5-base
     width (random weights from the seed, everything trainable, a full frozen
     reference copy, bf16 compute / fp32 params, the six attention kernels):
@@ -1455,7 +1523,8 @@ def t5_train_path(seed: int):
     for fn in counters.values():
         fn.launches = 0
     t0 = time.perf_counter()
-    trainer = trlx_tpu_torch.train(reward_fn=train_reward_fn, prompts=TRAIN_PROMPTS, config=t5_config(seed))
+    with forward_shapes(shapes, "t5_train"):
+        trainer = trlx_tpu_torch.train(reward_fn=train_reward_fn, prompts=TRAIN_PROMPTS, config=t5_config(seed))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in counters.items()}
@@ -1465,10 +1534,12 @@ def t5_train_path(seed: int):
     n_gen = chunks + 2  # and an evaluation at each end: each encodes once
     tf = cfg.n_layer + cfg.n_decoder_layer  # bias forwards of one teacher-forced pass
     # each experience chunk runs the policy and the full reference copy;
-    # each train step one forward and one backward through every layer, both
-    # backwards on the fused route (T5's lengths are at most 128)
+    # each train step one forward and one backward through every layer, the
+    # flash forward on the short route and both backwards on the fused one
+    # (T5's lengths are at most 128)
+    n_cross = 2 * cfg.n_decoder_layer * chunks + cfg.n_decoder_layer * T5_TRAIN_STEPS
     expect = {"flash_bias_fwd": cfg.n_layer * n_gen + 2 * tf * chunks + tf * T5_TRAIN_STEPS,
-              "flash_fwd": 2 * cfg.n_decoder_layer * chunks + cfg.n_decoder_layer * T5_TRAIN_STEPS,
+              "flash_fwd": n_cross, "flash_fwd_short": n_cross, "flash_fwd_long": 0,
               "flash_bias_bwd": tf * T5_TRAIN_STEPS, "flash_bias_bwd_dq": 0, "flash_bias_bwd_dkv": 0,
               "flash_bwd": cfg.n_decoder_layer * T5_TRAIN_STEPS, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
     steps = [(step, st["losses/total_loss"]) for step, st in trainer.stats_history if "losses/total_loss" in st]
@@ -1770,9 +1841,10 @@ def profile_phase(name: str, fn, wall_s: float, grad: bool = False, host_ops: bo
 
     emit("profile", what=name, wall_ms=wall_s * 1e3, device_busy_ms=busy_ms,
          device_idle_share=(1 - busy_ms / (wall_s * 1e3)) if busy_ms else None,
-         attention_kernels_ms=share("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
+         attention_kernels_ms=share("flash_fwd_kernel", "flash_fwd_short_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
                                     "flash_bwd_fused_kernel", "decode_int8_kernel", "paged_attention_kernel",
                                     "flash_bias_"),
+         flash_fwd_kernels_ms=share("flash_fwd_kernel", "flash_fwd_short_kernel"),
          flash_bias_kernels_ms=share("flash_bias_"),
          paged_kernel_ms=share("paged_attention_kernel"),
          flash_bwd_kernels_ms=share("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel", "flash_bwd_fused_kernel"),
@@ -1780,45 +1852,103 @@ def profile_phase(name: str, fn, wall_s: float, grad: bool = False, host_ops: bo
          top=[dict(kernel=e.key[:90], ms=e.self_device_time_total / 1e3, calls=e.count) for e in top])
 
 
-def kernel_times(gen, launches, errs, train_launches) -> list:
-    """Kernel, plain and library times at the rollout path's shapes; each
-    row's launches on the rollout path, and on the train path beside."""
+@contextlib.contextmanager
+def forward_shapes(tallies: dict, path: str):
+    """Counts the flash forward's launches by (route, [B, H, T], S) into
+    tallies[path] while active, through the module's launch helper; the
+    wrappers' own counters are untouched."""
+    from trlx_tpu_torch.ops import flash_attention as fa
+
+    tally = tallies.setdefault(path, collections.Counter())
+    launch = fa._forward_kernel
+
+    def counted(fn_name, q, k, *args):
+        route = "short" if fn_name == "flash_fwd_short_bf16" else "long"
+        tally[route, tuple(q.shape[:3]), k.shape[2]] += 1
+        return launch(fn_name, q, k, *args)
+
+    fa._forward_kernel = counted
+    try:
+        yield tally
+    finally:
+        fa._forward_kernel = launch
+
+
+def fwd_kernel_times(gen, shape_launches, errs) -> list:
+    """Kernel 1 at the shapes the paths launch it at: the rollout prefill
+    (B64 T32 over a 128-slot cache, at its write index) and the same at
+    B32 (the train path's evaluations and the engine's refills on the
+    train-engine path), the rollout path's teacher-forced pass (B64
+    T=S=72), the train path's train steps (B32 T=S=64) and experience
+    passes (B64 T=S=64), and T5's cross-attention in training (B12, T=65
+    over S=32, not causal, scale 1). At each: the route
+    `forward_route` names through the wrapper, the long route's kernel on
+    the same inputs, the plain version and SDPA (its mask from the key and
+    causal masks; a fully masked row gives NaN there, which does not move
+    its time), beside the bound, the short kernel's CTAs an SM, and the
+    launches at that shape on each path (`shape_launches`: path -> the
+    `forward_shapes` tally of its run)."""
     import torch
     import torch.nn.functional as F
+
+    from trlx_tpu_torch.ops import flash_attention as fa
+
+    shapes = {  # name: (B, H, T, S, q_offset, unwritten, causal)
+        "prefill": (PROMPTS, 12, PROMPT_LEN, 128, 0, True, True),
+        "prefill_b32": (TRAIN_BATCH, 12, PROMPT_LEN, 128, 0, True, True),
+        "teacher_forced": (PROMPTS, 12, PROMPT_LEN + NEW_TOKENS, PROMPT_LEN + NEW_TOKENS, 0, False, True),
+        "train": (TRAIN_BATCH, 12, TRAIN_LEN, TRAIN_LEN, 0, False, True),
+        "experience": (TRAIN_ROLLOUTS, 12, TRAIN_LEN, TRAIN_LEN, 0, False, True),
+        "t5_cross": (T5_BATCH, 12, T5_DEC_LEN, T5_PROMPT_LEN, 0, False, False),
+    }
+    rows, D = [], 64
+    with torch.no_grad():
+        for case, (B, H, T, S, off, unwritten, causal) in shapes.items():
+            q, k, v, mask = flash_inputs(gen, B, H, H, T, S, D, off, unwritten)
+            kw = dict(q_offset=off if unwritten else None, with_stats=True, causal=causal,
+                      sm_scale=None if causal else 1.0)
+            km = fa._check_inputs(q, k, v, mask)
+            _, scale, qo = fa._prepare(q, k, mask, kw["sm_scale"], kw["q_offset"], causal)
+            route = fa.forward_route(T, S)
+            allowed = (mask[:, None, None, :] > 0).expand(B, 1, T, S)
+            if causal:
+                allowed = allowed & ((torch.arange(T, device="cuda")[:, None] + qo)
+                                     >= torch.arange(S, device="cuda")[None, :])
+            ms = time_ms(lambda: fa.flash_attention(q, k, v, mask, **kw))
+            long_ms = time_ms(lambda: fa.flash_attention_fwd_long(q, k, v, km, causal, scale, qo))
+            plain = time_ms(lambda: fa.flash_attention_plain(q, k, v, mask, **kw))
+            lib = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=allowed, scale=scale))
+            n_bytes, n_flops = flash_work(mask, H, H, T, S, D, qo, causal)
+            bms, by = bound_ms(n_bytes, n_flops)
+            by_path = {path: tally.get((route, (B, H, T), S), 0) for path, tally in shape_launches.items()}
+            rows.append(dict(
+                name=f"flash_fwd/{case}", route="cuda", source="trlx_tpu_torch/csrc/flash_fwd.cu",
+                replaces="trlx_tpu/ops/flash_attention.py:84",  # _flash_kernel, via _flash_forward:161
+                fwd_route=route, launches=sum(by_path.values()), launches_by_path=by_path,
+                max_abs_err=errs[route], shape=[B, H, T, S, D], causal=causal, ms=ms, kernel_ms=ms,
+                long_route_ms=long_ms, long_route_max_abs_err=errs["long"], plain_ms=plain,
+                plain_is="the plain forward with stats", bound_ms=bms, bound_by=by, bound_bytes=n_bytes,
+                bound_flops=n_flops, library_ms=lib, library_is="F.scaled_dot_product_attention, boolean mask",
+                occupancy=fa.flash_attention_fwd_short_occupancy(T, S, causal, qo) if route == "short" else None,
+            ))
+    for row in rows:
+        emit("kernel_time", **row)
+    return rows
+
+
+def kernel_times(gen, launches, errs, train_launches) -> list:
+    """The int8 decode step's kernel, plain and library times at the rollout
+    path's shape; its launches on the rollout path, and on the train path
+    beside."""
+    import torch
 
     from trlx_tpu_torch.ops.decode_attention import (
         decode_attention_int8,
         decode_attention_int8_plain,
     )
-    from trlx_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
 
     rows = []
     with torch.no_grad():
-        for name, (B, H, T, S, off, unwritten) in {
-            "flash_fwd/prefill": (64, 12, PROMPT_LEN, 128, 0, True),
-            "flash_fwd/teacher_forced": (64, 12, PROMPT_LEN + NEW_TOKENS, PROMPT_LEN + NEW_TOKENS, 0, False),
-        }.items():
-            D = 64
-            q, k, v, mask = flash_inputs(gen, B, H, H, T, S, D, off, unwritten)
-            q_offset = off if unwritten else None
-            qo = S - T if q_offset is None else q_offset
-            slots = torch.arange(S, device="cuda")
-            allowed = ((torch.arange(T, device="cuda")[:, None] + qo) >= slots[None, :])[None, None]
-            allowed = allowed & (mask[:, None, None, :] > 0)
-            ms = time_ms(lambda: flash_attention(q, k, v, mask, q_offset=q_offset, with_stats=True))
-            plain = time_ms(lambda: flash_attention_plain(q, k, v, mask, q_offset=q_offset, with_stats=True))
-            lib = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=allowed))
-            n_bytes, n_flops = flash_work(mask, H, H, T, S, D, qo)
-            bms, by = bound_ms(n_bytes, n_flops)
-            key = name.split("/")[1]
-            rows.append(dict(
-                name=name, route="cuda", source="trlx_tpu_torch/csrc/flash_fwd.cu",
-                replaces="trlx_tpu/ops/flash_attention.py:84",  # _flash_kernel, via _flash_forward:134
-                launches=launches["flash_" + key], launches_train_path=train_launches["flash_fwd"],
-                max_abs_err=errs["flash"],
-                shape=[B, H, T, S, D], ms=ms, kernel_ms=ms, plain_ms=plain,
-                bound_ms=bms, bound_by=by, bound_bytes=n_bytes, bound_flops=n_flops, library_ms=lib,
-            ))
         L, B, H, S, D = 12, 64, 12, 128, 64
         q, ck, cv, ks, vs, mask = decode_inputs(gen, L, B, H, H, S, D, PROMPT_LEN + NEW_TOKENS)
         ms = time_ms(lambda: decode_attention_int8(q, ck, cv, ks, vs[5], mask, 5, D ** -0.5))
@@ -1876,6 +2006,9 @@ def paged_kernel_times(gen, launches, err) -> list:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--only", choices=("fwd",), default=None,
+                        help="fwd: the build, flash_check and the flash forward's kernel_time rows only "
+                             "(a quick check of kernel 1; no path runs, so no launches)")
     args = parser.parse_args()
 
     import torch
@@ -1884,7 +2017,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
     from trlx_tpu_torch.ops import _build
-    from trlx_tpu_torch.ops.flash_attention import flash_attention_bwd_occupancy
+    from trlx_tpu_torch.ops.flash_attention import flash_attention_bwd_occupancy, flash_attention_fwd_short_occupancy
 
     card = nvidia_smi()
     emit("device", nvidia_smi=card, torch=torch.__version__, cuda=torch.version.cuda,
@@ -1897,39 +2030,60 @@ def main() -> int:
     log = _build.build_log()
     fused = ptxas_report(log, "flash_bias_bwd_fused_kernel")
     fused_plain = ptxas_report(log, "flash_bwd_fused_kernel")
+    short_fwd = ptxas_report(log, "flash_fwd_short_kernel")
+    tf_len = PROMPT_LEN + NEW_TOKENS
+    short_occupancy = {"teacher_forced": flash_attention_fwd_short_occupancy(tf_len, tf_len, True, 0),
+                       "prefill": flash_attention_fwd_short_occupancy(PROMPT_LEN, 128, True, 0)}
     emit("build", seconds=time.perf_counter() - t0,
          ptxas=[ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln],
-         flash_bias_bwd_fused=fused, flash_bwd_fused=fused_plain,
+         flash_bias_bwd_fused=fused, flash_bwd_fused=fused_plain, flash_fwd_short=short_fwd,
+         flash_fwd_short_occupancy=short_occupancy,
          flash_bwd_fused_occupancy={"train": flash_attention_bwd_occupancy(TRAIN_LEN, TRAIN_LEN),
                                     "t5_cross": flash_attention_bwd_occupancy(T5_DEC_LEN, T5_PROMPT_LEN)})
-    for what, report in (("bias backward", fused), ("flash backward", fused_plain)):
+    for what, report in (("fused bias backward", fused), ("fused flash backward", fused_plain),
+                         ("short flash forward", short_fwd)):
         if len(report) != 8 or any(f.get("spill_stores", 1) or f.get("spill_loads", 1) for f in report):
-            raise AssertionError(f"the fused {what}'s 8 instantiations must build without spills: {report}")
+            raise AssertionError(f"the {what}'s 8 instantiations must build without spills: {report}")
+    if short_occupancy["teacher_forced"]["ctas_per_sm"] < 3:
+        raise AssertionError(f"the short flash forward must fit three CTAs an SM at T = S = {tf_len}: {short_occupancy}")
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    errs = {"flash": check_flash(gen)["max_abs_err"], "decode": check_decode(gen)["max_abs_err"]}
+    flash_errs = check_flash(gen)
+    if args.only == "fwd":
+        rows = fwd_kernel_times(gen, {}, flash_errs)
+        print(json.dumps({"kernels": rows}))
+        print(card)
+        print(json.dumps({"ok": True, "only": args.only, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
+        }}))
+        return 0
+    errs = {"decode": check_decode(gen)["max_abs_err"]}
     bwd_errs = check_flash_bwd(gen)
     bias_errs = check_flash_bias(gen)
     paged_err = check_paged(gen)["max_abs_err"]
     check_rng(args.seed)
-    launches = main_path(args.seed)
-    trainer, train_launches = train_path(args.seed)
+    shapes = {}  # path -> its gated run's forward launches by shape (forward_shapes)
+    launches = main_path(args.seed, shapes)
+    trainer, train_launches = train_path(args.seed, shapes)
     batch = train_reference(trainer, args.seed)["batch"]
     train_step_profile(trainer, batch)
     del trainer, batch
     torch.cuda.empty_cache()
     engine = engine_path(args.seed)
     paged_launches = {"engine_plain": engine["plain"], "engine_spec": engine["spec"],
-                      "train_engine": train_engine_path(args.seed)["paged"]}
+                      "train_engine": train_engine_path(args.seed, shapes)["paged"]}
     torch.cuda.empty_cache()
-    t5_launches = t5_path(args.seed)
+    t5_launches = t5_path(args.seed, shapes)
     torch.cuda.empty_cache()
-    trainer, t5_train_launches = t5_train_path(args.seed)
+    trainer, t5_train_launches = t5_train_path(args.seed, shapes)
     batch = t5_train_reference(trainer, args.seed)["batch"]
     train_step_profile(trainer, batch, "t5_train_step")
     del trainer, batch
     torch.cuda.empty_cache()
-    rows = kernel_times(gen, launches, errs, train_launches)
+    emit("fwd_shapes", **{path: [[route, list(bht), S, n] for (route, bht, S), n in sorted(tally.items())]
+                          for path, tally in shapes.items()})
+    rows = fwd_kernel_times(gen, shapes, flash_errs)
+    rows += kernel_times(gen, launches, errs, train_launches)
     rows += bwd_kernel_times(gen, train_launches, t5_train_launches, bwd_errs)
     rows += paged_kernel_times(gen, paged_launches, paged_err)
     rows += bias_kernel_times(gen, t5_train_launches, t5_launches, bias_errs)

@@ -115,6 +115,13 @@ __device__ __forceinline__ void cp_async16(void* dst_s, const void* src, bool ok
 
 __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
 
+// close the thread's group of cp.async copies issued since the last one; wait
+// until at most N of its groups are still in flight
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory"); }
+
 // acc[n] (16 x 8 fp32 tiles 2kk and 2kk+1) -> the bf16 A fragment of k-step kk
 __device__ __forceinline__ void pack_acc(uint32_t (&a)[4], const float (&x0)[4],
                                          const float (&x1)[4]) {

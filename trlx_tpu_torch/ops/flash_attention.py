@@ -5,7 +5,10 @@ variant, flash_attention_bias (T5's self-attention; end of this module).
 `flash_attention` runs the hand-written Hopper kernels on CUDA tensors
 and their plain PyTorch versions on CPU tensors:
 
-- forward: `csrc/flash_fwd.cu`, plain version `flash_attention_plain`;
+- forward: `csrc/flash_fwd.cu` in two routes (`forward_route`): up to
+  SHORT_FWD_MAX_LEN queries and keys one CTA per (batch row, head) holds
+  the head's whole K/V; past that 64-row query tiles stream K/V tiles.
+  Plain version `flash_attention_plain`;
 - backward: `csrc/flash_bwd.cu` in two routes (`backward_route`): up to
   FUSED_BWD_MAX_LEN queries and keys one fused kernel gives dq, dk and
   dv in one launch; past that the dq kernel, then the dk/dv kernel.
@@ -221,16 +224,25 @@ def _stream(x: torch.Tensor):
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
-def _flash_forward_cuda(q, k, v, key_mask, causal, sm_scale, q_offset):
-    km = _check_inputs(q, k, v, key_mask)
+SHORT_FWD_MAX_LEN = 128  # the longest T or S the short forward kernel takes
+
+
+def forward_route(T: int, S: int) -> str:
+    """The CUDA forward's route for T queries and S keys: "short" (one CTA
+    per (batch row, head) holding the head's whole K/V) when both are at
+    most SHORT_FWD_MAX_LEN, else "long" (64-row query tiles streaming
+    64-slot K/V tiles)."""
+    return "short" if max(T, S) <= SHORT_FWD_MAX_LEN else "long"
+
+
+def _forward_kernel(fn_name, q, k, v, km, causal, sm_scale, q_offset):
     B, H, T, D = q.shape
     Hkv, S = k.shape[1], k.shape[2]
     out = _bhtd_empty(B, H, T, D, q)
     m = torch.empty((B * H, T, 1), dtype=torch.float32, device=q.device)
     l = torch.empty((B * H, T, 1), dtype=torch.float32, device=q.device)
-    flash_attention.launches += 1
     _launch(
-        "flash_fwd.cu", "flash_fwd_bf16",
+        "flash_fwd.cu", fn_name,
         [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
         + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p],
         (q.data_ptr(), k.data_ptr(), v.data_ptr(), km.data_ptr(), out.data_ptr(),
@@ -238,6 +250,46 @@ def _flash_forward_cuda(q, k, v, key_mask, causal, sm_scale, q_offset):
          int(causal), q_offset, sm_scale, _stream(q)),
     )
     return out, m, l
+
+
+def flash_attention_fwd_short(q, k, v, km, causal, sm_scale, q_offset):
+    """(out, m, l) by the short-route kernel of `csrc/flash_fwd.cu` (T, S
+    <= 128) on operands `_check_inputs` validated: one CTA per (batch row,
+    head), the head's K/V loaded once."""
+    flash_attention_fwd_short.launches += 1
+    return _forward_kernel("flash_fwd_short_bf16", q, k, v, km, causal, sm_scale, q_offset)
+
+
+def flash_attention_fwd_long(q, k, v, km, causal, sm_scale, q_offset):
+    """(out, m, l) by the long-route kernel of `csrc/flash_fwd.cu` (any T and
+    S) on operands `_check_inputs` validated."""
+    flash_attention_fwd_long.launches += 1
+    return _forward_kernel("flash_fwd_bf16", q, k, v, km, causal, sm_scale, q_offset)
+
+
+flash_attention_fwd_short.launches = 0
+flash_attention_fwd_long.launches = 0
+
+
+def flash_attention_fwd_short_occupancy(T: int, S: int, causal: bool, q_offset: int) -> dict:
+    """What a short-route launch at these lengths gets on the current card:
+    its threads a CTA, its dynamic shared memory and the CTAs an SM holds."""
+    ctas, threads, smem = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+    _launch(
+        "flash_fwd.cu", "flash_fwd_short_occupancy",
+        [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 3,
+        (T, S, int(causal), q_offset, ctypes.byref(ctas), ctypes.byref(threads), ctypes.byref(smem)),
+    )
+    return {"ctas_per_sm": ctas.value, "threads": threads.value, "smem_bytes": smem.value}
+
+
+def _flash_forward_cuda(q, k, v, key_mask, causal, sm_scale, q_offset):
+    """The route `forward_route` names; neither gives way to the other."""
+    km = _check_inputs(q, k, v, key_mask)
+    flash_attention.launches += 1
+    if forward_route(q.shape[2], k.shape[2]) == "short":
+        return flash_attention_fwd_short(q, k, v, km, causal, sm_scale, q_offset)
+    return flash_attention_fwd_long(q, k, v, km, causal, sm_scale, q_offset)
 
 
 def backward_operands(q, k, v, key_mask, g, m, l):

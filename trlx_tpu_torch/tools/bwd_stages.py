@@ -1,15 +1,16 @@
-"""Where the fused attention backward kernels spend their time.
+"""Where the fused attention backward kernels and the short-route flash
+forward spend their time.
 
-    python3 -m trlx_tpu_torch.tools.bwd_stages [--kernel bias|plain|all] [--seed N] [--out FILE]
+    python3 -m trlx_tpu_torch.tools.bwd_stages [--kernel bias|plain|fwd|all] [--seed N] [--out FILE]
 
-Builds variants of a fused backward kernel's source that return after
-each of its stages, and one without its register bounds, into
-`build/stages/`, then times each on the card at the shapes of the train
-paths that run it, as `chip_smoke.py` times kernels: median device time
-of one call by CUDA events, the L2 flushed before each. A stage's cost is
-the difference between the cut after it and the cut before it; the cut
-"start" is an empty kernel with the same launch. Each variant's CTAs an
-SM come from the CUDA occupancy API.
+Builds variants of a kernel's source that return after each of its
+stages, and one without its register bounds, into `build/stages/`, then
+times each on the card at the shapes of the paths that run it, as
+`chip_smoke.py` times kernels: median device time of one call by CUDA
+events, the L2 flushed before each. A stage's cost is the difference
+between the cut after it and the cut before it; the cut "start" is an
+empty kernel with the same launch. Each variant's CTAs an SM come from
+the CUDA occupancy API.
 
 - `bias`: `flash_bias_bwd_fused_kernel` of `csrc/flash_bias_bwd.cu`
   (stages: operand loads, the query-major phase, the key-major phase, the
@@ -18,7 +19,12 @@ SM come from the CUDA occupancy API.
 - `plain`: `flash_bwd_fused_kernel` of `csrc/flash_bwd.cu` (stages:
   operand loads, the query-major phase, the key-major phase) at GPT-2's
   train shape (B32 H12 D64, T = S = 64, causal) and T5's cross-attention
-  (B12 H12, T = 65 queries over S = 32 keys, not causal, scale 1).
+  (B12 H12, T = 65 queries over S = 32 keys, not causal, scale 1);
+- `fwd`: `flash_fwd_short_kernel` of `csrc/flash_fwd.cu` (stages: the
+  loads of Q, the mask row, K and V; the scores and softmax with the m
+  and l writes; P V with the output writes) at the rollout path's
+  teacher-forced shape (B64 H12 D64, T = S = 72, causal) and GPT-2's
+  train shape (B32 H12, T = S = 64, causal).
 
 Prints one JSON line per (kernel, shape, variant) and the card's name and
 power limit; `--out` writes the lines too.
@@ -34,9 +40,10 @@ import subprocess
 import sys
 from pathlib import Path
 
-# each variant returns just before the text its stage names (every thread
-# of the CTA, so no barrier waits)
+# each variant runs `cut` (by default a return) just before the text its
+# stage names (every thread of the CTA, so no barrier waits)
 START = "  const int TP = (T + 15) & ~15;\n  const int n_strips"
+RETURN = "  if (true) return;\n"
 KERNELS = {
     "bias": dict(
         source="flash_bias_bwd.cu",
@@ -55,6 +62,16 @@ KERNELS = {
         bounds="__launch_bounds__(NK == 5 ? 192 : (NK > 4 ? 32 * NK : 128), NK <= 4 ? 3 : (NK == 5 ? 2 : 1))",
         shapes={"train": (32, 12, 64, 64, True), "t5_cross": (12, 12, 65, 32, False)},
     ),
+    "fwd": dict(
+        source="flash_fwd.cu",
+        # the loads cut waits for every copy; the softmax cut ends each strip
+        # after its m and l writes and the wait for V
+        stages=(("start", START), ("loads", "  // 3. the strips", "  cp_async_wait_all();\n" + RETURN),
+                ("softmax", "    // 4. O = P V", "    if (true) continue;\n")),
+        extra={},
+        bounds="__launch_bounds__(NK <= 5 ? 192 : 256, NK <= 4 ? 4 : (NK == 5 ? 3 : 2))",
+        shapes={"teacher_forced": (64, 12, 72, 72, True), "train": (32, 12, 64, 64, True)},
+    ),
 }
 
 
@@ -66,7 +83,7 @@ def variants(src: str, kernel: dict) -> dict:
             raise RuntimeError(f"anchor not found once in {kernel['source']}: {old!r}")
         return src.replace(old, new)
 
-    out = {name: patched(anchor, "  if (true) return;\n" + anchor) for name, anchor in kernel["stages"]}
+    out = {name: patched(anchor, (cut[0] if cut else RETURN) + anchor) for name, anchor, *cut in kernel["stages"]}
     out.update({name: patched(old, new) for name, (old, new) in kernel["extra"].items()})
     out["whole"] = src
     out["whole_unbounded_registers"] = patched(kernel["bounds"], "__launch_bounds__(256)")
@@ -112,9 +129,11 @@ def time_ms(fn, reps: int = 30, warmup: int = 3) -> float:
 
 
 def fused_call(kind: str, gen, B, H, T, S, causal):
-    """(the fused kernel's wrapper call on seeded inputs, its occupancy
-    query): `bias` with a right-padded key mask and an fp32 bias, `plain`
-    with a left-padded key mask (at the default causal offset S - T)."""
+    """(the kernel's wrapper call on seeded inputs, its occupancy query):
+    `bias` with a right-padded key mask and an fp32 bias, `plain` with a
+    left-padded key mask (at the default causal offset S - T), `fwd` with
+    the inputs of `chip_smoke.py`'s forward rows (a left-padded key mask,
+    batch row 0 wholly padded)."""
     import torch
 
     from trlx_tpu_torch.ops import flash_attention as fa
@@ -125,6 +144,13 @@ def fused_call(kind: str, gen, B, H, T, S, causal):
     q, g = (randn(B, H, T, 64).to(torch.bfloat16) for _ in range(2))
     k, v = (randn(B, H, S, 64).to(torch.bfloat16) for _ in range(2))
     slots = torch.arange(S, device="cuda")[None, :]
+    if kind == "fwd":
+        pad = torch.randint(0, T // 2 + 1, (B,), generator=gen, device="cuda")
+        pad[0] = T
+        mask = (slots >= S - T + pad[:, None]).to(torch.int32)
+        km = fa._check_inputs(q, k, v, mask)
+        return (lambda: fa.flash_attention_fwd_short(q, k, v, km, causal, 64 ** -0.5, S - T),
+                lambda: fa.flash_attention_fwd_short_occupancy(T, S, causal, S - T))
     if kind == "bias":
         bias = randn(H, T, S)
         length = torch.randint(S // 2, S + 1, (B,), generator=gen, device="cuda")
@@ -145,7 +171,7 @@ def fused_call(kind: str, gen, B, H, T, S, causal):
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--kernel", choices=("bias", "plain", "all"), default="all")
+    parser.add_argument("--kernel", choices=("bias", "plain", "fwd", "all"), default="all")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--out", type=Path, default=None)
     args = parser.parse_args()
@@ -159,7 +185,7 @@ def main() -> int:
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
-    kinds = ("bias", "plain") if args.kernel == "all" else (args.kernel,)
+    kinds = tuple(KERNELS) if args.kernel == "all" else (args.kernel,)
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     lines = []
     load = _build.load
