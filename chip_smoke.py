@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive trlx_tpu_torch's PPO rollout and training paths on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N] [--only fwd]
+    python3 chip_smoke.py [--seed N] [--only fwd|paged]
 
 Builds the CUDA kernels from `trlx_tpu_torch/csrc` (into build/kernels/)
 and holds each kernel against its plain PyTorch version on the card: both
@@ -11,7 +11,9 @@ to 128 queries and keys; the dq and dk/dv kernels past that; causal, and
 T5's non-causal cross-attention with more queries than keys), T5's
 bias-carrying forward and both routes of its backward (one fused kernel
 up to 128 queries and keys; the dq + dbias and dk/dv kernels past that),
-the int8 decode step, the paged decode step; and checks that the per-lane sampler's
+the int8 decode step, both routes of the paged decode step (one CTA per
+lane and kv head holding the lane's whole K/V up to 256 slots; 128-slot
+chunks past that); and checks that the per-lane sampler's
 counter stream is the same on the CPU and the card. Then, at
 GPT-2-small width (12 x 768, vocab 50257, random weights from the seed),
 through the entry points a user calls:
@@ -43,7 +45,8 @@ shapes beside their bounds, and one rollout, one experience pass, one
 train step and one engine call of each mode are profiled.
 
 `--only fwd` stops after the build, the flash forward's check and its
-kernel_time rows (no path runs, so those rows carry no launches).
+kernel_time rows; `--only paged` after the build, the paged check and the
+paged kernel_time rows (no path runs, so those rows carry no launches).
 
 Each phase prints one JSON line. The last two lines are the card's name
 and power limit as nvidia-smi reports them, then
@@ -244,6 +247,14 @@ def fwd_counters():
 
     return {"flash_fwd": fa.flash_attention, "flash_fwd_short": fa.flash_attention_fwd_short,
             "flash_fwd_long": fa.flash_attention_fwd_long}
+
+
+def paged_counters():
+    """The paged step's launch counters: every launch, and each route's."""
+    from trlx_tpu_torch.ops import decode_attention as da
+
+    return {"paged": da.paged_attention, "paged_short": da.paged_attention_short,
+            "paged_long": da.paged_attention_long}
 
 
 def check_flash(gen) -> dict:
@@ -668,15 +679,27 @@ def paged_work(visible, table, H, Hkv, T, PS, quant):
 
 
 def check_paged(gen) -> dict:
-    """The paged kernel against paged_attention_plain on the card, through
+    """The paged kernels against paged_attention_plain on the card, through
     paged_attention_step(impl="pallas") (the write half included): page
     sizes 8, 16 and 128, T 1 and 4, int8 and bf16 pools, GQA groups 1 and
     3, layer 5 of 12, ragged lane depths down to 1, a null page in the
-    middle of a lane's table and a lane_valid=False lane. Every query row
-    here sees some slot, so every row is compared."""
+    middle of a lane's table and a lane_valid=False lane, at the route
+    edge too (256 slots, the short route's widest table, and 272). Each
+    step must launch the route paged_route names (the counters); a case of
+    at most SHORT_PAGED_MAX_SLOTS slots also runs the long kernel on the
+    same pools, and the short kernel again, which must give the same bits;
+    the short kernel must refuse a wider table. Every query row here sees
+    some slot, so every row is compared (rel 2e-2)."""
     import torch
 
-    from trlx_tpu_torch.ops.decode_attention import paged_attention_plain, paged_attention_step
+    from trlx_tpu_torch.ops.decode_attention import (
+        SHORT_PAGED_MAX_SLOTS,
+        paged_attention_long,
+        paged_attention_plain,
+        paged_attention_short,
+        paged_attention_step,
+        paged_route,
+    )
 
     cases = {  # name: (B, T, H, Hkv, PS, MP, quant, depths, nulls)
         "decode_int8_ps16": (8, 1, 12, 12, 16, 5, "int8", [1, 5, 16, 17, 40, 63, 70, 33], [(3, 1)]),
@@ -685,26 +708,61 @@ def check_paged(gen) -> dict:
         "verify_bf16_gqa_ps8": (6, 4, 12, 4, 8, 9, None, [2, 9, 30, 64, 20, 7], [(3, 4)]),
         "verify_int8_gqa_ps128": (4, 4, 12, 4, 128, 2, "int8", [1, 100, 127, 200], [(3, 0)]),
         "decode_int8_ps128": (4, 1, 12, 12, 128, 2, "int8", [3, 129, 250, 60], []),
+        "verify_int8_gqa_ps16_mp16": (6, 4, 12, 4, 16, 16, "int8", [1, 100, 251, 37, 180, 64], [(2, 7)]),
+        "verify_bf16_gqa_ps16_mp16": (4, 4, 12, 4, 16, 16, None, [251, 1, 130, 64], [(0, 6)]),
+        "decode_int8_ps16_mp16": (4, 1, 12, 12, 16, 16, "int8", [255, 1, 140, 64], [(0, 3)]),
+        "verify_int8_gqa_ps16_mp17": (4, 4, 12, 4, 16, 17, "int8", [1, 267, 140, 200], [(2, 4)]),
+        "decode_bf16_ps16_mp17": (4, 1, 12, 12, 16, 17, None, [271, 1, 200, 33], [(0, 9)]),
     }
-    worst = 0.0
+    counters = paged_counters()
+    worst = {"short": 0.0, "long": 0.0}
     for name, (B, T, H, Hkv, PS, MP, quant, depths, nulls) in cases.items():
         q, kn, vn, pools, table, slot_pos, bias, visible = paged_inputs(
             gen, B, T, H, Hkv, PS, MP, quant, depths, nulls=nulls)
         lane_valid = torch.ones(B, dtype=torch.bool, device="cuda")
         lane_valid[1] = False
+        route = paged_route(T, H, Hkv, PS, MP)
+        for fn in counters.values():
+            fn.launches = 0
         out, pools = paged_attention_step(q, kn, vn, pools, 5, table, slot_pos, bias, 64 ** -0.5,
                                           lane_valid=lane_valid, impl="pallas")
         torch.cuda.synchronize()
+        launched = {k: fn.launches for k, fn in counters.items()}
+        want = {"paged": 1, "paged_short": int(route == "short"), "paged_long": int(route == "long")}
+        if launched != want:
+            raise AssertionError(f"{name}: paged_route names {route}, the counters show {launched}")
         ref = paged_attention_plain(q.float(), pools, 5, table, bias, 64 ** -0.5)
         seen = visible.any(dim=-1)[:, :, None, None].expand(B, T, H, 64)
         if not bool(seen.all()):
             raise AssertionError(f"{name}: every query row must see a slot")
-        err = ((out.float() - ref).abs().max() / ref.abs().max().clamp(min=1.0)).item()
-        emit("paged_check", case=name, shape=[B, T, H, Hkv, PS, MP], quant=quant, rel_err=err)
-        if err > 2e-2:
-            raise AssertionError(f"paged kernel disagrees with its plain version on {name}")
-        worst = max(worst, err)
-    return {"max_abs_err": worst}
+
+        def rel(x):
+            return ((x.float() - ref).abs().max() / ref.abs().max().clamp(min=1.0)).item()
+
+        errs = {route: rel(out)}
+        args = (q, pools, 5, table, bias, 64 ** -0.5)
+        repeat_identical = None
+        if MP * PS <= SHORT_PAGED_MAX_SLOTS:
+            errs["long"] = rel(paged_attention_long(*args))
+            again = paged_attention_short(*args)
+            torch.cuda.synchronize()
+            repeat_identical = bool(torch.equal(again, out))
+        else:
+            try:
+                paged_attention_short(*args)
+            except RuntimeError:
+                pass
+            else:
+                raise AssertionError(f"{name}: the short kernel took a table of {MP * PS} slots")
+        emit("paged_check", case=name, shape=[B, T, H, Hkv, PS, MP], quant=quant, route=route, rel_err=errs,
+             short_repeat_identical=repeat_identical)
+        if max(errs.values()) > 2e-2:
+            raise AssertionError(f"paged kernel disagrees with its plain version on {name}: {errs}")
+        if repeat_identical is False:
+            raise AssertionError(f"{name}: the short kernel gave other bits on a second call")
+        for k, e in errs.items():
+            worst[k] = max(worst[k], e)
+    return {"max_abs_err": max(worst.values()), "by_route": worst}
 
 
 def check_rng(seed: int) -> None:
@@ -735,8 +793,9 @@ def engine_path(seed: int) -> dict:
     math (impl="xla") on the card. Gates: per-step (>= 95%) and
     free-running (>= 90%) greedy agreement, the exact pool balance, the
     kernel's acceptance within 5 points of the plain path's,
-    paged launches == n_layer x decode_steps, and flash launches a
-    positive multiple of n_layer (the refills' prefills)."""
+    paged launches == n_layer x decode_steps, every one on the short
+    route, and flash launches a positive multiple of n_layer (the
+    refills' prefills)."""
     import torch
 
     from trlx_tpu_torch.models import gen_engine as ge
@@ -768,16 +827,19 @@ def engine_path(seed: int) -> dict:
 
     launches, outs = {}, {}
     fwd = fwd_counters()
+    paged = paged_counters()
     with torch.no_grad():
         for mode, kw in modes.items():
             for impl in ("pallas", "xla"):
-                paged_attention.launches = 0
-                for fn in fwd.values():
+                for fn in (*fwd.values(), *paged.values()):
                     fn.launches = 0
                 out = run(impl, kw)
                 torch.cuda.synchronize()
                 outs[mode, impl] = out
-                launches[mode, impl] = {"paged": paged_attention.launches, "flash": flash_attention.launches,
+                launches[mode, impl] = {"paged": paged_attention.launches,
+                                        "paged_short": paged["paged_short"].launches,
+                                        "paged_long": paged["paged_long"].launches,
+                                        "flash": flash_attention.launches,
                                         "flash_short": fwd["flash_fwd_short"].launches,
                                         "flash_long": fwd["flash_fwd_long"].launches}
                 g = out["gen_stats"]
@@ -791,6 +853,9 @@ def engine_path(seed: int) -> dict:
                 want = L * g["decode_steps"] if impl == "pallas" else 0
                 if launches[mode, impl]["paged"] != want or g["real_tokens"] != int(out["response_mask"].sum()):
                     raise AssertionError(f"engine {mode}/{impl}: paged launches {launches[mode, impl]} != {want}")
+                if (launches[mode, impl]["paged_short"], launches[mode, impl]["paged_long"]) != (want, 0):
+                    raise AssertionError(f"engine {mode}/{impl}: the paged step left the short route: "
+                                         f"{launches[mode, impl]}")
                 # each refill prefills through the flash forward, once a layer
                 n_flash = launches[mode, impl]["flash"]
                 if n_flash == 0 or n_flash % L:
@@ -857,7 +922,8 @@ def engine_path(seed: int) -> dict:
              occupancy=out["gen_stats"]["occupancy"])
         with torch.no_grad():
             profile_phase(f"engine_{mode}", lambda: run("pallas", kw), wall, host_ops=False)
-    return {mode: launches[mode, "pallas"]["paged"] for mode in modes}
+    return {mode: {route: launches[mode, "pallas"][f"paged_{route}"] for route in ("short", "long")}
+            for mode in modes}
 
 
 def build_policy(seed: int, attention_impl: str, kv_cache_quant, **transformer_kw):
@@ -1157,7 +1223,8 @@ def train_engine_path(seed: int, shapes: dict) -> dict:
     evaluations) through the decode engine: 32 slots, 16-token int8 pages,
     the paged kernel, speculative decoding with draft_k=4 off the full
     frozen reference copy. Gates: paged launches == n_layer x the decode
-    steps of every engine call, the engine's rollout stats, no pool
+    steps of every engine call, every one on the short route, the
+    engine's rollout stats, no pool
     exhaustion, trainable parameters moved and the reference did not."""
     import torch
 
@@ -1175,9 +1242,9 @@ def train_engine_path(seed: int, shapes: dict) -> dict:
 
     config = train_config(seed)
     config = config.evolve(method=dict(gen_engine=ENGINE_TRAIN))
-    paged_attention.launches = 0
     fwd = fwd_counters()
-    for fn in fwd.values():
+    paged = paged_counters()
+    for fn in (*fwd.values(), *paged.values()):
         fn.launches = 0
     TPUBaseTrainer._engine_generate = counted
     try:
@@ -1191,17 +1258,21 @@ def train_engine_path(seed: int, shapes: dict) -> dict:
     L = trainer.model.cfg.n_layer
     steps = sum(g["decode_steps"] for g in calls)
     launches = paged_attention.launches
+    by_route = {route: paged[f"paged_{route}"].launches for route in ("short", "long")}
     fwd_launches = {name: fn.launches for name, fn in fwd.items()}
     keys = ("rollout/engine_occupancy", "rollout/engine_refills", "rollout/engine_decode_steps",
             "rollout/engine_reclaimed_pages", "rollout/spec_accept_rate")
     rollouts = [{k: st[k] for k in keys if k in st} for _, st in trainer.stats_history if "rollout/engine_refills" in st]
     losses = [st["losses/total_loss"] for _, st in trainer.stats_history if "losses/total_loss" in st]
     emit("train_engine_path", wall_s=wall, engine_calls=len(calls), decode_steps=steps, paged_launches=launches,
-         expected=L * steps, iter_count=trainer.iter_count, rollout_stats=rollouts, losses=losses,
+         paged_launches_by_route=by_route, expected=L * steps, iter_count=trainer.iter_count,
+         rollout_stats=rollouts, losses=losses,
          oom_truncated=sum(g["oom_truncated"] for g in calls), unserved=sum(g["unserved"] for g in calls),
          cycle_seconds=cycle_split(trainer), flash_fwd_launches=fwd_launches)
     if launches != L * steps or not calls:
         raise AssertionError(f"paged launches {launches} != {L} x {steps} engine decode steps")
+    if by_route != {"short": launches, "long": 0}:
+        raise AssertionError(f"the paged step left the short route: {by_route}")
     if not (fwd_launches["flash_fwd"] > 0 and fwd_launches["flash_fwd_short"] == fwd_launches["flash_fwd"]
             and fwd_launches["flash_fwd_long"] == 0):
         raise AssertionError(f"the flash forward left the short route: {fwd_launches}")
@@ -1213,7 +1284,7 @@ def train_engine_path(seed: int, shapes: dict) -> dict:
         raise AssertionError(f"expected {TRAIN_STEPS} finite losses, got {losses}")
     check_params_moved(trainer, seed, "train_engine_params")
     del trainer
-    return {"paged": launches}
+    return {"paged": by_route}
 
 
 def train_reference(trainer, seed: int, configs=None, rollouts: int = TRAIN_REFERENCE_ROLLOUTS,
@@ -1843,10 +1914,11 @@ def profile_phase(name: str, fn, wall_s: float, grad: bool = False, host_ops: bo
          device_idle_share=(1 - busy_ms / (wall_s * 1e3)) if busy_ms else None,
          attention_kernels_ms=share("flash_fwd_kernel", "flash_fwd_short_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
                                     "flash_bwd_fused_kernel", "decode_int8_kernel", "paged_attention_kernel",
+                                    "paged_attention_short_kernel",
                                     "flash_bias_"),
          flash_fwd_kernels_ms=share("flash_fwd_kernel", "flash_fwd_short_kernel"),
          flash_bias_kernels_ms=share("flash_bias_"),
-         paged_kernel_ms=share("paged_attention_kernel"),
+         paged_kernel_ms=share("paged_attention_kernel", "paged_attention_short_kernel"),
          flash_bwd_kernels_ms=share("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel", "flash_bwd_fused_kernel"),
          matmul_ms=share("gemm", "Gemm", "xmma", "nvjet", "cutlass"),
          top=[dict(kernel=e.key[:90], ms=e.self_device_time_total / 1e3, calls=e.count) for e in top])
@@ -1968,47 +2040,75 @@ def kernel_times(gen, launches, errs, train_launches) -> list:
     return rows
 
 
-def paged_kernel_times(gen, launches, err) -> list:
-    """The paged kernel at the engine's shapes in the training workload (32
+def paged_kernel_times(gen, launches, errs) -> list:
+    """The paged step at the engine's shapes in the training workload (32
     lanes, 12 heads, 16-token int8 pages, 5 pages a lane): a decode step
     (T 1) and a speculative verify (T 4), on ragged lane depths and each
-    lane's own table, beside its bound and its plain version. No single
-    PyTorch call computes attention over int8 pages with per-row scales,
-    so there is no library time."""
+    lane's own table, through `paged_attention` (the short route there),
+    beside the long kernel on the same inputs, its bound, its CTAs an SM
+    and its plain version; then the long route alone at 32 lanes x 1024
+    slots (PS 16, MP 64, depths 768-1019), which no path runs yet.
+    `launches` is {path: {route: n}}. No single PyTorch call computes
+    attention over int8 pages with per-row scales, so there is no library
+    time."""
     import torch
 
-    from trlx_tpu_torch.ops.decode_attention import paged_attention, paged_attention_plain
+    from trlx_tpu_torch.ops.decode_attention import (
+        paged_attention,
+        paged_attention_long,
+        paged_attention_occupancy,
+        paged_attention_plain,
+        paged_route,
+    )
 
     rows = []
-    B, H, PS, MP = 32, 12, 16, 5
+    B, H = 32, 12
+
+    def row(name, route, T, PS, MP, depths, **extra):
+        q, _, _, pools, table, _, bias, visible = paged_inputs(gen, B, T, H, H, PS, MP, "int8", depths)
+        if paged_route(T, H, H, PS, MP) != route:
+            raise AssertionError(f"{name}: paged_route does not name the {route} route")
+        ms = time_ms(lambda: paged_attention(q, pools, 5, table, bias, 64 ** -0.5))
+        plain = time_ms(lambda: paged_attention_plain(q, pools, 5, table, bias, 64 ** -0.5))
+        if route == "short":
+            extra["long_ms"] = time_ms(lambda: paged_attention_long(q, pools, 5, table, bias, 64 ** -0.5))
+        n_bytes, n_flops = paged_work(visible, table, H, H, T, PS, True)
+        bms, by = bound_ms(n_bytes, n_flops)
+        occupancy = paged_attention_occupancy(route, T, H, H, PS, MP, True)
+        rows.append(dict(
+            name=name, route="cuda", kernel_route=route, source="trlx_tpu_torch/csrc/paged_attention.cu",
+            replaces="trlx_tpu/ops/decode_attention.py:198",  # _paged_kernel, via paged_attention_pallas:268
+            max_abs_err=errs[route], shape=[B, T, H, PS, MP, 64], ms=ms, kernel_ms=ms, plain_ms=plain,
+            bound_ms=bms, bound_by=by, bound_bytes=n_bytes, bound_flops=n_flops, library_ms=None,
+            ctas_per_sm=occupancy["ctas_per_sm"], smem_bytes=occupancy["smem_bytes"], **extra,
+        ))
+
+    by_path = {path: launches.get(path, {"short": 0, "long": 0})
+               for path in ("engine_plain", "engine_spec", "train_engine")}
+    PS, MP = 16, 5
     depths = torch.randint(33, MP * PS - 4, (B,), generator=gen, device="cuda").tolist()
     with torch.no_grad():
         for name, T in (("paged_attention/decode", 1), ("paged_attention/verify", 4)):
-            q, _, _, pools, table, _, bias, visible = paged_inputs(gen, B, T, H, H, PS, MP, "int8", depths)
-            ms = time_ms(lambda: paged_attention(q, pools, 5, table, bias, 64 ** -0.5))
-            plain = time_ms(lambda: paged_attention_plain(q, pools, 5, table, bias, 64 ** -0.5))
-            n_bytes, n_flops = paged_work(visible, table, H, H, T, PS, True)
-            bms, by = bound_ms(n_bytes, n_flops)
-            rows.append(dict(
-                name=name, route="cuda", source="trlx_tpu_torch/csrc/paged_attention.cu",
-                replaces="trlx_tpu/ops/decode_attention.py:198",  # _paged_kernel, via paged_attention_pallas:268
-                launches=launches["engine_plain"] + launches["engine_spec"],
-                launches_engine_path=launches["engine_plain"], launches_engine_spec_path=launches["engine_spec"],
-                launches_train_engine_path=launches["train_engine"], max_abs_err=err,
-                shape=[B, T, H, PS, MP, 64], ms=ms, kernel_ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
-                bound_bytes=n_bytes, bound_flops=n_flops, library_ms=None,
-            ))
-    for row in rows:
-        emit("kernel_time", **row)
+            row(name, "short", T, PS, MP, depths,
+                launches=by_path["engine_plain"]["short"] + by_path["engine_spec"]["short"],
+                launches_engine_path=by_path["engine_plain"], launches_engine_spec_path=by_path["engine_spec"],
+                launches_train_engine_path=by_path["train_engine"])
+        long_depths = torch.randint(768, 1020, (B,), generator=gen, device="cuda").tolist()
+        row("paged_attention_long/decode_1024", "long", 1, 16, 64, long_depths,
+            launches=by_path["engine_plain"]["long"] + by_path["engine_spec"]["long"],
+            launches_train_engine_path=by_path["train_engine"]["long"])
+    for r in rows:
+        emit("kernel_time", **r)
     return rows
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
-    parser.add_argument("--only", choices=("fwd",), default=None,
+    parser.add_argument("--only", choices=("fwd", "paged"), default=None,
                         help="fwd: the build, flash_check and the flash forward's kernel_time rows only "
-                             "(a quick check of kernel 1; no path runs, so no launches)")
+                             "(a quick check of kernel 1); paged: the build, paged_check and the paged "
+                             "kernel_time rows only (kernel 7); no path runs, so no launches")
     args = parser.parse_args()
 
     import torch
@@ -2017,6 +2117,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
     from trlx_tpu_torch.ops import _build
+    from trlx_tpu_torch.ops.decode_attention import paged_attention_occupancy
     from trlx_tpu_torch.ops.flash_attention import flash_attention_bwd_occupancy, flash_attention_fwd_short_occupancy
 
     card = nvidia_smi()
@@ -2031,36 +2132,47 @@ def main() -> int:
     fused = ptxas_report(log, "flash_bias_bwd_fused_kernel")
     fused_plain = ptxas_report(log, "flash_bwd_fused_kernel")
     short_fwd = ptxas_report(log, "flash_fwd_short_kernel")
+    short_paged = ptxas_report(log, "paged_attention_short_kernel")
+    # the engine's decode and verify steps in the training workload: 32
+    # lanes x 12 kv heads, 5 pages of 16 int8 slots
+    paged_occupancy = {"decode": paged_attention_occupancy("short", 1, 12, 12, 16, 5, True),
+                       "verify": paged_attention_occupancy("short", 4, 12, 12, 16, 5, True)}
     tf_len = PROMPT_LEN + NEW_TOKENS
     short_occupancy = {"teacher_forced": flash_attention_fwd_short_occupancy(tf_len, tf_len, True, 0),
                        "prefill": flash_attention_fwd_short_occupancy(PROMPT_LEN, 128, True, 0)}
     emit("build", seconds=time.perf_counter() - t0,
          ptxas=[ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln],
          flash_bias_bwd_fused=fused, flash_bwd_fused=fused_plain, flash_fwd_short=short_fwd,
-         flash_fwd_short_occupancy=short_occupancy,
+         flash_fwd_short_occupancy=short_occupancy, paged_attention_short=short_paged,
+         paged_attention_short_occupancy=paged_occupancy,
          flash_bwd_fused_occupancy={"train": flash_attention_bwd_occupancy(TRAIN_LEN, TRAIN_LEN),
                                     "t5_cross": flash_attention_bwd_occupancy(T5_DEC_LEN, T5_PROMPT_LEN)})
-    for what, report in (("fused bias backward", fused), ("fused flash backward", fused_plain),
-                         ("short flash forward", short_fwd)):
-        if len(report) != 8 or any(f.get("spill_stores", 1) or f.get("spill_loads", 1) for f in report):
-            raise AssertionError(f"the {what}'s 8 instantiations must build without spills: {report}")
+    for what, report, n in (("fused bias backward", fused, 8), ("fused flash backward", fused_plain, 8),
+                            ("short flash forward", short_fwd, 8), ("short paged kernel", short_paged, 10)):
+        if len(report) != n or any(f.get("spill_stores", 1) or f.get("spill_loads", 1) for f in report):
+            raise AssertionError(f"the {what}'s {n} instantiations must build without spills: {report}")
     if short_occupancy["teacher_forced"]["ctas_per_sm"] < 3:
         raise AssertionError(f"the short flash forward must fit three CTAs an SM at T = S = {tf_len}: {short_occupancy}")
+    if paged_occupancy["decode"]["ctas_per_sm"] < 3:
+        raise AssertionError(f"the short paged kernel must fit three CTAs an SM at the decode shape: {paged_occupancy}")
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    flash_errs = check_flash(gen)
-    if args.only == "fwd":
-        rows = fwd_kernel_times(gen, {}, flash_errs)
+    if args.only == "paged":
+        rows = paged_kernel_times(gen, {}, check_paged(gen)["by_route"])
+    elif args.only == "fwd":
+        rows = fwd_kernel_times(gen, {}, check_flash(gen))
+    if args.only is not None:
         print(json.dumps({"kernels": rows}))
         print(card)
         print(json.dumps({"ok": True, "only": args.only, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
         }}))
         return 0
+    flash_errs = check_flash(gen)
     errs = {"decode": check_decode(gen)["max_abs_err"]}
     bwd_errs = check_flash_bwd(gen)
     bias_errs = check_flash_bias(gen)
-    paged_err = check_paged(gen)["max_abs_err"]
+    paged_errs = check_paged(gen)["by_route"]
     check_rng(args.seed)
     shapes = {}  # path -> its gated run's forward launches by shape (forward_shapes)
     launches = main_path(args.seed, shapes)
@@ -2085,7 +2197,7 @@ def main() -> int:
     rows = fwd_kernel_times(gen, shapes, flash_errs)
     rows += kernel_times(gen, launches, errs, train_launches)
     rows += bwd_kernel_times(gen, train_launches, t5_train_launches, bwd_errs)
-    rows += paged_kernel_times(gen, paged_launches, paged_err)
+    rows += paged_kernel_times(gen, paged_launches, paged_errs)
     rows += bias_kernel_times(gen, t5_train_launches, t5_launches, bias_errs)
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -7,9 +7,11 @@ paged pool: it writes the T incoming tokens' K/V into their pages (in
 place), then attends every query over its lane's logical sequence. Its
 `impl="xla"` half gathers the lane's [B, S] view and runs the plain math
 (grouped GQA, folded per-row int8 scales); `impl="pallas"` calls
-`paged_attention`, which runs the hand-written Hopper kernel
-`csrc/paged_attention.cu` on CUDA tensors and `paged_attention_plain` on
-CPU tensors. The contiguous layout always takes the gather half.
+`paged_attention`, which runs a hand-written Hopper kernel of
+`csrc/paged_attention.cu` on CUDA tensors (the route `paged_route` names
+from the table's width: the short kernel up to SHORT_PAGED_MAX_SLOTS
+slots, the long one past that) and `paged_attention_plain` on CPU
+tensors. The contiguous layout always takes the gather half.
 
 Contiguous int8 layout. `decode_attention_int8` runs the hand-written Hopper kernel
 `csrc/decode_int8.cu` on CUDA tensors and `decode_attention_int8_plain`
@@ -135,29 +137,29 @@ def paged_attention_plain(
     return o.reshape(B, T, H, D).to(q.dtype)
 
 
-def paged_attention(
-    q: torch.Tensor,  # [B, T, H, D] bf16
-    pools: Dict[str, torch.Tensor],  # the pools AFTER this step's write
-    layer_ix: int,
-    page_table: torch.Tensor,  # [B, MP] int32
-    attn_bias: torch.Tensor,  # [B, 1, T, MP * PS] fp32
-    sm_scale: float,
-) -> torch.Tensor:
-    """Attention of T queries per lane over that lane's pages of one pool
-    layer (see `paged_attention_plain`). CPU tensors take the plain
-    version; CUDA tensors launch `csrc/paged_attention.cu` or raise: q
-    bf16, D = 64, (H // Hkv) * T <= 32, an int8 pool with its fp32 scales
-    or a bf16 pool without, all operands contiguous.
+SHORT_PAGED_MAX_SLOTS = 256  # the widest page table (MP * PS slots) the short kernel takes
 
-    The kernel skips null pages (table entry 0). For a query row with at
-    least one visible slot (bias 0) that gives the plain version's result:
-    a null page's slots are masked by the bias, and exp(-1e9 - m) is 0.
-    Rows with no visible slot belong only to lanes the engine has retired,
-    whose output it never reads; there the two versions may differ."""
-    if q.device.type == "cpu":
-        return paged_attention_plain(q, pools, layer_ix, page_table, attn_bias, sm_scale)
+
+def paged_route(T: int, H: int, Hkv: int, PS: int, MP: int) -> str:
+    """The CUDA paged kernel's route for T queries of H heads over Hkv kv
+    heads and a page table of MP pages of PS slots: "short" (one CTA per
+    (lane, kv head) loads the lane's whole K/V in one burst and keeps its
+    whole row of scores) when the table's width MP * PS is at most
+    SHORT_PAGED_MAX_SLOTS, else "long" (128-slot chunks with an online
+    softmax). The width is known on the host; how many slots a lane has
+    filled never decides. Raises for a shape neither route takes: a GQA
+    group of (H // Hkv) * T > 32 query rows."""
+    if Hkv < 1 or H % Hkv or T < 1 or (H // Hkv) * T > 32:
+        raise ValueError(f"no paged kernel takes (T, H, Hkv) = {(T, H, Hkv)}: needs (H // Hkv) * T <= 32")
+    return "short" if MP * PS <= SHORT_PAGED_MAX_SLOTS else "long"
+
+
+def _paged_operands(q, pools, layer_ix, page_table, attn_bias) -> None:
+    """Check the paged kernels' operands: q bf16 on a CUDA device, D = 64,
+    an int8 pool with its fp32 scales or a bf16 pool without, all
+    contiguous, 16-byte aligned and on q's device."""
     if q.device.type != "cuda":
-        raise ValueError(f"paged_attention runs on cpu or cuda, not {q.device}")
+        raise ValueError(f"the paged kernels take CUDA tensors, not {q.device}")
     B, T, H, D = q.shape
     L, NP, PS, Hkv, _ = pools["pk"].shape
     MP = page_table.shape[1]
@@ -186,11 +188,25 @@ def paged_attention(
         raise ValueError(f"unsupported (H, Hkv, T, D) = {(H, Hkv, T, D)} for the CUDA kernel")
     if not 0 <= int(layer_ix) < L:
         raise IndexError(f"layer_ix {layer_ix} out of range for {L} layers")
-    out = torch.empty_like(q)
+
+
+def _paged_library():
     from trlx_tpu_torch.ops import _build
 
-    lib = _build.load("paged_attention.cu")
-    fn = lib.paged_attention_bf16
+    return _build.load("paged_attention.cu")
+
+
+def _paged_kernel(fn_name, q, pools, layer_ix, page_table, attn_bias, sm_scale) -> torch.Tensor:
+    """Launch the C entry `fn_name` of `csrc/paged_attention.cu` on checked
+    operands; raise with the CUDA error string if the launch was refused."""
+    _paged_operands(q, pools, layer_ix, page_table, attn_bias)
+    B, T, H, D = q.shape
+    L, NP, PS, Hkv, _ = pools["pk"].shape
+    MP = page_table.shape[1]
+    quant = "pk_scale" in pools
+    out = torch.empty_like(q)
+    lib = _paged_library()
+    fn = getattr(lib, fn_name)
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p]
     pks, pvs = (pools["pk_scale"].data_ptr(), pools["pv_scale"].data_ptr()) if quant else (None, None)
@@ -198,15 +214,85 @@ def paged_attention(
         q.data_ptr(), pools["pk"].data_ptr(), pools["pv"].data_ptr(), pks, pvs,
         page_table.data_ptr(), attn_bias.data_ptr(), out.data_ptr(),
         B, T, H, Hkv, D, NP, PS, MP, int(layer_ix), int(quant), float(sm_scale),
-        torch.cuda.current_stream(dev).cuda_stream,
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
-    paged_attention.launches += 1
     if rc != 0:
         lib.paged_attention_error_string.restype = ctypes.c_char_p
         lib.paged_attention_error_string.argtypes = [ctypes.c_int]
-        raise RuntimeError(
-            f"paged_attention kernel launch failed: {lib.paged_attention_error_string(rc).decode()}"
-        )
+        raise RuntimeError(f"{fn_name} kernel launch failed: {lib.paged_attention_error_string(rc).decode()}")
+    return out
+
+
+def paged_attention_short(q, pools, layer_ix, page_table, attn_bias, sm_scale) -> torch.Tensor:
+    """The paged attention function (`paged_attention_plain`) by the short
+    kernel of `csrc/paged_attention.cu`: CUDA tensors only, MP * PS <=
+    SHORT_PAGED_MAX_SLOTS (wider tables raise)."""
+    out = _paged_kernel("paged_attention_short_bf16", q, pools, layer_ix, page_table, attn_bias, sm_scale)
+    paged_attention_short.launches += 1
+    return out
+
+
+def paged_attention_long(q, pools, layer_ix, page_table, attn_bias, sm_scale) -> torch.Tensor:
+    """The paged attention function by the long kernel of
+    `csrc/paged_attention.cu` (any table width): CUDA tensors only."""
+    out = _paged_kernel("paged_attention_bf16", q, pools, layer_ix, page_table, attn_bias, sm_scale)
+    paged_attention_long.launches += 1
+    return out
+
+
+paged_attention_short.launches = 0
+paged_attention_long.launches = 0
+
+
+def paged_attention_occupancy(route: str, T: int, H: int, Hkv: int, PS: int, MP: int, quant: bool) -> dict:
+    """What a launch of the `route` kernel at this shape gets on the current
+    card: its threads a CTA, its dynamic shared memory and the CTAs an SM
+    holds."""
+    ctas, threads, smem = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+    lib = _paged_library()
+    fn = lib.paged_attention_occupancy
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)] * 3
+    rc = fn(int(route == "short"), T, H, Hkv, PS, MP, int(quant),
+            ctypes.byref(ctas), ctypes.byref(threads), ctypes.byref(smem))
+    if rc != 0:
+        raise RuntimeError(f"paged_attention_occupancy failed with CUDA error {rc}")
+    return {"ctas_per_sm": ctas.value, "threads": threads.value, "smem_bytes": smem.value}
+
+
+def paged_attention(
+    q: torch.Tensor,  # [B, T, H, D] bf16
+    pools: Dict[str, torch.Tensor],  # the pools AFTER this step's write
+    layer_ix: int,
+    page_table: torch.Tensor,  # [B, MP] int32
+    attn_bias: torch.Tensor,  # [B, 1, T, MP * PS] fp32
+    sm_scale: float,
+) -> torch.Tensor:
+    """Attention of T queries per lane over that lane's pages of one pool
+    layer (see `paged_attention_plain`). CPU tensors take the plain
+    version; CUDA tensors launch the kernel of the route `paged_route`
+    names (`paged_attention_short` or `paged_attention_long`) or raise: q
+    bf16, D = 64, (H // Hkv) * T <= 32, an int8 pool with its fp32 scales
+    or a bf16 pool without, all operands contiguous. Neither route gives
+    way to the other.
+
+    Both kernels skip null pages (table entry 0), and the short one also
+    every slot that no query row of the lane sees (bias <= -5e8 on every
+    row). For a query row with at least one visible slot (bias 0) that
+    gives the plain version's result: a masked slot's weight is
+    exp(-1e9 - m) = 0. Rows with no visible slot belong only to lanes the
+    engine has retired, whose output it never reads; there the versions
+    may differ."""
+    if q.device.type == "cpu":
+        return paged_attention_plain(q, pools, layer_ix, page_table, attn_bias, sm_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_attention runs on cpu or cuda, not {q.device}")
+    _, T, H, _ = q.shape
+    _, _, PS, Hkv, _ = pools["pk"].shape
+    route = paged_route(T, H, Hkv, PS, page_table.shape[1])
+    kernel = paged_attention_short if route == "short" else paged_attention_long
+    out = kernel(q, pools, layer_ix, page_table, attn_bias, sm_scale)
+    paged_attention.launches += 1
     return out
 
 

@@ -1,7 +1,7 @@
-"""Where the fused attention backward kernels and the short-route flash
-forward spend their time.
+"""Where the fused attention backward kernels, the short-route flash
+forward and both paged attention kernels spend their time.
 
-    python3 -m trlx_tpu_torch.tools.bwd_stages [--kernel bias|plain|fwd|all] [--seed N] [--out FILE]
+    python3 -m trlx_tpu_torch.tools.bwd_stages [--kernel bias|plain|fwd|paged|all] [--seed N] [--out FILE]
 
 Builds variants of a kernel's source that return after each of its
 stages, and one without its register bounds, into `build/stages/`, then
@@ -24,7 +24,19 @@ the CUDA occupancy API.
   loads of Q, the mask row, K and V; the scores and softmax with the m
   and l writes; P V with the output writes) at the rollout path's
   teacher-forced shape (B64 H12 D64, T = S = 72, causal) and GPT-2's
-  train shape (B32 H12, T = S = 64, causal).
+  train shape (B32 H12, T = S = 64, causal);
+- `paged` (or either half alone, `paged_long` / `paged_short`): both
+  kernels of `csrc/paged_attention.cu` at the engine's shapes in the
+  training workload (32 lanes, H12 D64, 16-token int8 pages, 5 pages a
+  lane, ragged depths 33-75): the decode step (T = 1) and the speculative
+  verify (T = 4). `paged_attention_kernel`, the long route (stages: the
+  query rows into shared memory; the scores of the first 128-slot chunk:
+  table, K rows, scales, bias; the online-softmax update; P V with the
+  output writes); `paged_attention_short_kernel`, the short route
+  (stages: the table, query rows and bias rows; the K and V burst; the
+  scores with their row maxima; the softmax; P V with the output
+  writes). The timed call is the kernel's wrapper on
+  the same inputs for both.
 
 Prints one JSON line per (kernel, shape, variant) and the card's name and
 power limit; `--out` writes the lines too.
@@ -72,7 +84,29 @@ KERNELS = {
         bounds="__launch_bounds__(NK <= 5 ? 192 : 256, NK <= 4 ? 4 : (NK == 5 ? 3 : 2))",
         shapes={"teacher_forced": (64, 12, 72, 72, True), "train": (32, 12, 64, 64, True)},
     ),
+    "paged_long": dict(
+        source="paged_attention.cu",
+        stages=(("start", "  // the group's query rows: row r"),
+                ("q_loaded", "  for (int c0 = 0; c0 < S; c0 += NT) {"),
+                ("scores", "    // online-softmax update:"), ("softmax", "    // P.V: thread (half, d_own)")),
+        extra={},
+        bounds=None,
+        shapes={"decode": (32, 1, 12, 16, 5), "verify": (32, 4, 12, 16, 5)},  # B, T, H, PS, MP
+    ),
+    "paged_short": dict(
+        source="paged_attention.cu",
+        # copies still in flight are waited for before a cut returns
+        stages=(("start", "  // 1. loads that depend on nothing"),
+                ("q_loaded", "  // 2. one burst"),
+                ("kv_loaded", "  // 3. scores once K is in", "  cp_async_wait_all();\n" + RETURN),
+                ("scores", "  // 4. softmax", "  cp_async_wait_all();\n" + RETURN),
+                ("softmax", "  // 5. P.V", "  cp_async_wait_all();\n" + RETURN)),
+        extra={},
+        bounds="__launch_bounds__(SNT, RMAX <= 8 ? 4 : 3)",
+        shapes={"decode": (32, 1, 12, 16, 5), "verify": (32, 4, 12, 16, 5)},
+    ),
 }
+GROUPS = {"paged": ("paged_long", "paged_short")}
 
 
 def variants(src: str, kernel: dict) -> dict:
@@ -86,7 +120,8 @@ def variants(src: str, kernel: dict) -> dict:
     out = {name: patched(anchor, (cut[0] if cut else RETURN) + anchor) for name, anchor, *cut in kernel["stages"]}
     out.update({name: patched(old, new) for name, (old, new) in kernel["extra"].items()})
     out["whole"] = src
-    out["whole_unbounded_registers"] = patched(kernel["bounds"], "__launch_bounds__(256)")
+    if kernel["bounds"] is not None:
+        out["whole_unbounded_registers"] = patched(kernel["bounds"], "__launch_bounds__(256)")
     return out
 
 
@@ -126,6 +161,39 @@ def time_ms(fn, reps: int = 30, warmup: int = 3) -> float:
         events.append((start, end))
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in events)
+
+
+def paged_call(kind: str, gen, B, T, H, PS, MP):
+    """(the paged kernel's wrapper call, its occupancy query) on an int8
+    pool of 12 layers (layer 5 attended) whose lanes hold ragged depths
+    33..MP*PS-5 before the step's T tokens: the first third of a lane (at
+    most PS + 2 slots) left padding, its pages past the depth null, the
+    step's tokens causal among themselves, as the engine lays them out."""
+    import torch
+
+    from trlx_tpu_torch.ops import decode_attention as da
+    from trlx_tpu_torch.ops import paged_kv
+
+    S, D = MP * PS, 64
+    depths = torch.randint(33, S - 4, (B,), generator=gen, device="cuda")
+    pad = torch.clamp(depths // 3, max=PS + 2)
+    pools = paged_kv.init_pool(12, 1 + B * MP, PS, H, D, "int8", torch.bfloat16, "cuda")
+    for name in ("pk", "pv"):
+        pools[name].copy_(torch.randint(-127, 128, pools[name].shape, generator=gen, device="cuda"))
+    for name in ("pk_scale", "pv_scale"):
+        pools[name].copy_(torch.rand(pools[name].shape, generator=gen, device="cuda") * 0.02)
+    table = (1 + torch.arange(B * MP, device="cuda")).reshape(B, MP)
+    table[torch.arange(MP, device="cuda")[None, :] >= ((depths + T + PS - 1) // PS)[:, None]] = 0
+    slots = torch.arange(S, device="cuda")
+    q_slots = depths[:, None] + torch.arange(T, device="cuda")[None, :]
+    visible = (slots[None, None, :] <= q_slots[:, :, None]) & (slots[None, None, :] >= pad[:, None, None])
+    bias = torch.where(visible, 0.0, -1e9)[:, None].float().contiguous()
+    q = torch.randn((B, T, H, D), generator=gen, device="cuda").to(torch.bfloat16)
+    table = table.to(torch.int32).contiguous()
+    route = kind.split("_")[1]
+    fn = da.paged_attention_short if route == "short" else da.paged_attention_long
+    return (lambda: fn(q, pools, 5, table, bias, D ** -0.5),
+            lambda: da.paged_attention_occupancy(route, T, H, H, PS, MP, True))
 
 
 def fused_call(kind: str, gen, B, H, T, S, causal):
@@ -171,7 +239,7 @@ def fused_call(kind: str, gen, B, H, T, S, causal):
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--kernel", choices=("bias", "plain", "fwd", "all"), default="all")
+    parser.add_argument("--kernel", choices=(*KERNELS, *GROUPS, "all"), default="all")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--out", type=Path, default=None)
     args = parser.parse_args()
@@ -185,7 +253,7 @@ def main() -> int:
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
-    kinds = tuple(KERNELS) if args.kernel == "all" else (args.kernel,)
+    kinds = tuple(KERNELS) if args.kernel == "all" else GROUPS.get(args.kernel, (args.kernel,))
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     lines = []
     load = _build.load
@@ -194,11 +262,16 @@ def main() -> int:
             kernel = KERNELS[kind]
             source = kernel["source"]
             libs = build(variants((_build.CSRC / source).read_text(), kernel), _build.BUILD_ROOT.parent / "stages" / kind)
-            for shape, (B, H, T, S, causal) in kernel["shapes"].items():
-                call, occupancy = fused_call(kind, gen, B, H, T, S, causal)
+            for shape, dims in kernel["shapes"].items():
+                if kind.startswith("paged"):  # dims: B, T, H, PS, MP
+                    call, occupancy = paged_call(kind, gen, *dims)
+                    where = dict(dims=[*dims, 64])
+                else:  # dims: B, H, T, S, causal
+                    call, occupancy = fused_call(kind, gen, *dims)
+                    where = dict(dims=[*dims[:4], 64], causal=dims[4])
                 for name, lib in libs.items():
                     _build.load = lambda src, lib=lib, source=source: lib if src == source else load(src)
-                    line = dict(kernel=kind, shape=shape, dims=[B, H, T, S, 64], causal=causal, variant=name,
+                    line = dict(kernel=kind, shape=shape, **where, variant=name,
                                 ms=time_ms(call), occupancy=occupancy(), card=card)
                     lines.append(line)
                     print(json.dumps(line), flush=True)
