@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive trlx_tpu_torch's PPO rollout and training paths on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N] [--only fwd|paged]
+    python3 chip_smoke.py [--seed N] [--only fwd|paged|decode]
 
 Builds the CUDA kernels from `trlx_tpu_torch/csrc` (into build/kernels/)
 and holds each kernel against its plain PyTorch version on the card: both
@@ -11,9 +11,11 @@ to 128 queries and keys; the dq and dk/dv kernels past that; causal, and
 T5's non-causal cross-attention with more queries than keys), T5's
 bias-carrying forward and both routes of its backward (one fused kernel
 up to 128 queries and keys; the dq + dbias and dk/dv kernels past that),
-the int8 decode step, both routes of the paged decode step (one CTA per
-lane and kv head holding the lane's whole K/V up to 256 slots; 128-slot
-chunks past that); and checks that the per-lane sampler's
+both routes of the int8 decode step (one CTA per batch row and kv head
+loading the attendable K/V in one burst up to 256 slots; 128-slot chunks
+past that), both routes of the paged decode step (one CTA per lane and kv
+head holding the lane's whole K/V up to 256 slots; 128-slot chunks past
+that); and checks that the per-lane sampler's
 counter stream is the same on the CPU and the card. Then, at
 GPT-2-small width (12 x 768, vocab 50257, random weights from the seed),
 through the entry points a user calls:
@@ -46,7 +48,9 @@ train step and one engine call of each mode are profiled.
 
 `--only fwd` stops after the build, the flash forward's check and its
 kernel_time rows; `--only paged` after the build, the paged check and the
-paged kernel_time rows (no path runs, so those rows carry no launches).
+paged kernel_time rows; `--only decode` after the build, the int8 decode
+check and its kernel_time rows (no path runs, so those rows carry no
+launches).
 
 Each phase prints one JSON line. The last two lines are the card's name
 and power limit as nvidia-smi reports them, then
@@ -85,6 +89,9 @@ T5_BASE = dict(
 )
 T5_PROMPT_LEN, T5_NEW_TOKENS = 32, 64
 T5_DEC_LEN = T5_NEW_TOKENS + 1  # the decoder start token and the response
+# CTAs an SM the short int8 decode kernel reaches at the rollout shape (48
+# registers a thread, 19,392 B of shared memory; H100): the build gate
+DECODE_SHORT_CTAS = 10
 
 
 _START = time.perf_counter()
@@ -247,6 +254,14 @@ def fwd_counters():
 
     return {"flash_fwd": fa.flash_attention, "flash_fwd_short": fa.flash_attention_fwd_short,
             "flash_fwd_long": fa.flash_attention_fwd_long}
+
+
+def decode_counters():
+    """The int8 decode step's launch counters: every launch, and each route's."""
+    from trlx_tpu_torch.ops import decode_attention as da
+
+    return {"decode": da.decode_attention_int8, "decode_short": da.decode_attention_int8_short,
+            "decode_long": da.decode_attention_int8_long}
 
 
 def paged_counters():
@@ -592,33 +607,89 @@ def check_flash_bias(gen) -> dict:
 
 
 def check_decode(gen) -> dict:
-    """Kernel B against decode_attention_int8_plain on the same inputs."""
+    """Both int8 decode kernels against decode_attention_int8_plain on the
+    same inputs (max abs error 2e-2), every layer of each case: the rollout
+    shape; GQA at S = 200 with a fully masked row; a mask with holes inside
+    its span at S = 131 (rows not a multiple of 16 bytes); GQA with a row
+    attendable only at slot S - 1; S = 256, the short route's edge, with a
+    fully masked row; and S = 384 on the long route. The wrapper must launch
+    the route decode_route names (the counters); each case of at most
+    SHORT_DECODE_MAX_SLOTS slots also runs both route kernels, and every
+    kernel call is made twice and must give the same bits; the short kernel
+    must refuse a longer cache."""
     import torch
 
     from trlx_tpu_torch.ops.decode_attention import (
+        SHORT_DECODE_MAX_SLOTS,
         decode_attention_int8,
+        decode_attention_int8_long,
         decode_attention_int8_plain,
+        decode_attention_int8_short,
+        decode_route,
     )
 
-    worst = 0.0
-    for name, (L, B, H, Hkv, S, D, written) in {
-        "rollout": (12, 64, 12, 12, 128, 64, PROMPT_LEN + NEW_TOKENS),
-        "gqa": (2, 8, 12, 4, 200, 64, 150),
-    }.items():
+    cases = {  # name: (L, B, H, Hkv, S, written)
+        "rollout": (12, 64, 12, 12, 128, PROMPT_LEN + NEW_TOKENS),
+        "gqa": (2, 8, 12, 4, 200, 150),
+        "holes": (2, 16, 12, 12, 131, 120),
+        "last_slot_gqa": (2, 8, 12, 4, 128, 128),
+        "edge_256": (2, 8, 12, 12, 256, 256),
+        "long_384": (2, 8, 12, 4, 384, 300),
+    }
+    counters = decode_counters()
+    kernels = {"short": decode_attention_int8_short, "long": decode_attention_int8_long}
+    worst = {"short": 0.0, "long": 0.0}
+    D = 64
+    for name, (L, B, H, Hkv, S, written) in cases.items():
         q, ck, cv, ks, vs, mask = decode_inputs(gen, L, B, H, Hkv, S, D, written)
-        if name == "gqa":
+        if name in ("gqa", "edge_256"):
             mask[1] = 0  # a fully masked row averages V uniformly over all S
-        errs = []
+        if name == "holes":
+            mask &= (torch.rand(mask.shape, generator=gen, device="cuda") < 0.7).to(torch.int32)
+        if name == "last_slot_gqa":
+            mask[0] = 0
+            mask[0, S - 1] = 1
+        route = decode_route(S)
+        routes = ("short", "long") if S <= SHORT_DECODE_MAX_SLOTS else ("long",)
+        errs = {r: 0.0 for r in routes}
+        identical = True
+        for fn in counters.values():
+            fn.launches = 0
         for ix in range(L):
-            out = decode_attention_int8(q, ck, cv, ks, vs[ix], mask, ix, D ** -0.5)
+            args = (q, ck, cv, ks, vs[ix], mask, ix, D ** -0.5)
+            out = decode_attention_int8(*args)
             torch.cuda.synchronize()
             ref = decode_attention_int8_plain(q.float(), ck, cv, ks, vs[ix], mask, ix, D ** -0.5)
-            errs.append((out.float() - ref.float()).abs().max().item())
-        emit("decode_check", case=name, shape=[L, B, H, Hkv, S, D], max_abs_err=max(errs))
-        if max(errs) > 2e-2:
-            raise AssertionError(f"int8 decode kernel disagrees with its plain version on {name}")
-        worst = max(worst, max(errs))
-    return {"max_abs_err": worst}
+            errs[route] = max(errs[route], (out.float() - ref).abs().max().item())
+            for r in routes:
+                first = kernels[r](*args)
+                again = kernels[r](*args)
+                torch.cuda.synchronize()
+                errs[r] = max(errs[r], (first.float() - ref).abs().max().item())
+                identical &= bool(torch.equal(first, again)) and (r != route or bool(torch.equal(first, out)))
+        launched = {k: fn.launches for k, fn in counters.items()}
+        calls = L * (1 + 2 * len(routes))
+        want = {"decode": L, "decode_short": int(route == "short") * L + (2 * L if "short" in routes else 0),
+                "decode_long": int(route == "long") * L + 2 * L}
+        emit("decode_check", case=name, shape=[L, B, H, Hkv, S, D], route=route, max_abs_err=errs,
+             repeat_identical=identical, launches=launched, kernel_calls=calls,
+             attendable_slots=int((mask > 0).sum().item()), fully_masked_rows=int((mask.sum(dim=1) == 0).sum().item()))
+        if launched != want:
+            raise AssertionError(f"{name}: decode_route names {route}, the counters show {launched} (want {want})")
+        if max(errs.values()) > 2e-2:
+            raise AssertionError(f"int8 decode kernel disagrees with its plain version on {name}: {errs}")
+        if not identical:
+            raise AssertionError(f"{name}: an int8 decode kernel gave other bits on a repeated call")
+        if "short" not in routes:
+            try:
+                decode_attention_int8_short(q, ck, cv, ks, vs[0], mask, 0, D ** -0.5)
+            except RuntimeError:
+                pass
+            else:
+                raise AssertionError(f"{name}: the short decode kernel took a cache of {S} slots")
+        for r, e in errs.items():
+            worst[r] = max(worst[r], e)
+    return {"max_abs_err": max(worst.values()), "by_route": worst}
 
 
 def paged_inputs(gen, B, T, H, Hkv, PS, MP, quant, depths, L=12, nulls=()):
@@ -959,7 +1030,6 @@ def main_path(seed: int, shapes: dict) -> dict:
 
     from trlx_tpu_torch.models.generation import SamplerSettings, generate, make_generate_fn
     from trlx_tpu_torch.ops.common import logprobs_of_labels
-    from trlx_tpu_torch.ops.decode_attention import decode_attention_int8
     from trlx_tpu_torch.ops.flash_attention import flash_attention
     from trlx_tpu_torch.utils.tokenizers import ByteTokenizer
 
@@ -985,11 +1055,10 @@ def main_path(seed: int, shapes: dict) -> dict:
         lp = logprobs_of_labels(out["logits"][:, :-1], seqs[:, 1:])
         return out, lp
 
-    fwd = fwd_counters()
+    fwd, dec = fwd_counters(), decode_counters()
     with forward_shapes(shapes, "rollout"), torch.no_grad():
-        for fn in fwd.values():
+        for fn in (*fwd.values(), *dec.values()):
             fn.launches = 0
-        decode_attention_int8.launches = 0
         out_g = make_generate_fn(policy.base, greedy)(ids, mask, None)
         out_s = make_generate_fn(policy.base, sampled)(ids, mask, gen)
         torch.cuda.synchronize()
@@ -998,14 +1067,16 @@ def main_path(seed: int, shapes: dict) -> dict:
         attn = torch.cat([mask, out_s["response_mask"]], dim=1)
         exp, lp = experience(policy, ref_params, seqs, attn)
         torch.cuda.synchronize()
-        launches = {"flash": flash_attention.launches, "decode": decode_attention_int8.launches,
-                    "flash_short": fwd["flash_fwd_short"].launches, "flash_long": fwd["flash_fwd_long"].launches}
+        launches = {"flash": flash_attention.launches, "flash_short": fwd["flash_fwd_short"].launches,
+                    "flash_long": fwd["flash_fwd_long"].launches, **{k: fn.launches for k, fn in dec.items()}}
 
     L = policy.cfg.n_layer
     steps = [int(o["response_mask"].sum(dim=1).max().item()) - 1 for o in (out_g, out_s)]
-    # every forward launch on the short route (T, S <= 128), none on the long
+    # every forward launch on the short route (T, S <= 128), none on the
+    # long; every decode launch on the short route (a 128-slot cache)
     n_flash = 2 * L + (L + (L - policy.branch_at))
-    expect = {"flash": n_flash, "decode": L * sum(steps), "flash_short": n_flash, "flash_long": 0}
+    expect = {"flash": n_flash, "flash_short": n_flash, "flash_long": 0,
+              "decode": L * sum(steps), "decode_short": L * sum(steps), "decode_long": 0}
     emit("main_path", launches=launches, expected=expect, decode_steps=steps,
          flash_launches_rollout=rollout_flash)
     if launches != expect:
@@ -1101,7 +1172,7 @@ def main_path(seed: int, shapes: dict) -> dict:
     for name, fn in (("rollout", rollout), ("experience", score)):
         profile_phase(name, fn, walls[name])
     return {"flash_prefill": rollout_flash, "flash_teacher_forced": launches["flash"] - rollout_flash,
-            "decode": launches["decode"]}
+            "decode": {"short": launches["decode_short"], "long": launches["decode_long"]}}
 
 
 # bench.py's headline workload (bench.py:39-43, 138-146, 156-182): its
@@ -1147,16 +1218,30 @@ def train_path(seed: int, shapes: dict):
 
     import trlx_tpu_torch
     from trlx_tpu_torch.ops import flash_attention as fa
-    from trlx_tpu_torch.ops.decode_attention import decode_attention_int8
+    from trlx_tpu_torch.trainer import base as trainer_base
 
     counters = {**fwd_counters(), "flash_bwd": fa.flash_attention_bwd,
                 "flash_bwd_dq": fa.flash_attention_dq, "flash_bwd_dkv": fa.flash_attention_dkv,
-                "decode": decode_attention_int8}
+                **decode_counters()}
     for fn in counters.values():
         fn.launches = 0
+    # each sampler call's decode steps: the tokens of its longest row after
+    # the prefill's first
+    generate, decode_steps = trainer_base.generate, []
+
+    def counted(*args, **kwargs):
+        out = generate(*args, **kwargs)
+        decode_steps.append(int(out["response_mask"].sum(dim=1).max().item()) - 1)
+        return out
+
     t0 = time.perf_counter()
-    with forward_shapes(shapes, "train"):
-        trainer = trlx_tpu_torch.train(reward_fn=train_reward_fn, prompts=TRAIN_PROMPTS, config=train_config(seed))
+    trainer_base.generate = counted
+    try:
+        with forward_shapes(shapes, "train"):
+            trainer = trlx_tpu_torch.train(reward_fn=train_reward_fn, prompts=TRAIN_PROMPTS,
+                                           config=train_config(seed))
+    finally:
+        trainer_base.generate = generate
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in counters.items()}
@@ -1167,24 +1252,29 @@ def train_path(seed: int, shapes: dict):
     # through the forward kernel; each experience chunk runs the policy and
     # the full reference copy; each train step one forward and one
     # backward through every layer, the forward on the short route and the
-    # backward on the fused one (T, S <= 128)
+    # backward on the fused one (T, S <= 128); each decode step of every
+    # sampler call one short-route decode launch a layer (a 128-slot cache)
     n_fwd = L * ((cycles + 2) + 2 * cycles + TRAIN_STEPS)
+    n_decode = L * sum(decode_steps)
     expect = {"flash_fwd": n_fwd, "flash_fwd_short": n_fwd, "flash_fwd_long": 0,
-              "flash_bwd": L * TRAIN_STEPS, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+              "flash_bwd": L * TRAIN_STEPS, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+              "decode": n_decode, "decode_short": n_decode, "decode_long": 0}
     steps = [(step, st["losses/total_loss"], st["policy/approx_kl"])
              for step, st in trainer.stats_history if "losses/total_loss" in st]
     rewards = [st["reward/mean"] for _, st in trainer.stats_history if "reward/mean" in st]
     rollout_scores = [st["rollout_scores/mean"] for _, st in trainer.stats_history if "rollout_scores/mean" in st]
     emit("train_path", wall_s=wall, launches=launches, expected=expect, iter_count=trainer.iter_count,
+         sampler_calls=len(decode_steps), decode_steps=decode_steps,
          losses=[x[1] for x in steps], approx_kl=[x[2] for x in steps], eval_reward_mean=rewards,
          rollout_score_mean=rollout_scores, kl_ctl_value=trainer.kl_ctl.value,
          cycle_seconds=cycle_split(trainer))
     if len(steps) != TRAIN_STEPS or not all(math.isfinite(x[1]) for x in steps):
         raise AssertionError(f"expected {TRAIN_STEPS} finite losses, got {[x[1] for x in steps]}")
+    if len(decode_steps) != cycles + 2 or not 0 < n_decode <= L * (cycles + 2) * (TRAIN_NEW_TOKENS - 1):
+        raise AssertionError(f"expected {cycles + 2} sampler calls of at most {TRAIN_NEW_TOKENS - 1} decode steps, "
+                             f"got {decode_steps}")
     if {k: launches[k] for k in expect} != expect:
         raise AssertionError(f"launch counts {launches} != expected {expect}")
-    if not (0 < launches["decode"] <= L * (cycles + 2) * (TRAIN_NEW_TOKENS - 1) and launches["decode"] % L == 0):
-        raise AssertionError(f"decode launches {launches['decode']} are not whole decode steps of {L} layers")
 
     check_params_moved(trainer, seed)
     return trainer, launches
@@ -1913,12 +2003,14 @@ def profile_phase(name: str, fn, wall_s: float, grad: bool = False, host_ops: bo
     emit("profile", what=name, wall_ms=wall_s * 1e3, device_busy_ms=busy_ms,
          device_idle_share=(1 - busy_ms / (wall_s * 1e3)) if busy_ms else None,
          attention_kernels_ms=share("flash_fwd_kernel", "flash_fwd_short_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
-                                    "flash_bwd_fused_kernel", "decode_int8_kernel", "paged_attention_kernel",
+                                    "flash_bwd_fused_kernel", "decode_int8_kernel", "decode_int8_short_kernel",
+                                    "paged_attention_kernel",
                                     "paged_attention_short_kernel",
                                     "flash_bias_"),
          flash_fwd_kernels_ms=share("flash_fwd_kernel", "flash_fwd_short_kernel"),
          flash_bias_kernels_ms=share("flash_bias_"),
          paged_kernel_ms=share("paged_attention_kernel", "paged_attention_short_kernel"),
+         decode_kernel_ms=share("decode_int8_kernel", "decode_int8_short_kernel"),
          flash_bwd_kernels_ms=share("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel", "flash_bwd_fused_kernel"),
          matmul_ms=share("gemm", "Gemm", "xmma", "nvjet", "cutlass"),
          top=[dict(kernel=e.key[:90], ms=e.self_device_time_total / 1e3, calls=e.count) for e in top])
@@ -2008,35 +2100,57 @@ def fwd_kernel_times(gen, shape_launches, errs) -> list:
     return rows
 
 
-def kernel_times(gen, launches, errs, train_launches) -> list:
-    """The int8 decode step's kernel, plain and library times at the rollout
-    path's shape; its launches on the rollout path, and on the train path
-    beside."""
+def decode_kernel_times(gen, launches, errs) -> list:
+    """The int8 decode step at the rollout path's shape (L12 B64 H12, a
+    128-slot cache, 72 slots written, random left pads) and the train
+    path's (64 written): the short kernel, the route both paths take, beside
+    the long kernel on the same inputs, the bound, the short kernel's CTAs
+    an SM and the plain version; then the long route alone at S = 512 (400
+    written), which no path runs. `launches` is {path: {route: n}}. No
+    single PyTorch call computes attention over an int8 cache with folded
+    per-slot and per-channel scales, so there is no library time."""
     import torch
 
     from trlx_tpu_torch.ops.decode_attention import (
-        decode_attention_int8,
+        decode_attention_int8_long,
+        decode_attention_int8_occupancy,
         decode_attention_int8_plain,
+        decode_attention_int8_short,
+        decode_route,
     )
 
     rows = []
-    with torch.no_grad():
-        L, B, H, S, D = 12, 64, 12, 128, 64
-        q, ck, cv, ks, vs, mask = decode_inputs(gen, L, B, H, H, S, D, PROMPT_LEN + NEW_TOKENS)
-        ms = time_ms(lambda: decode_attention_int8(q, ck, cv, ks, vs[5], mask, 5, D ** -0.5))
-        plain = time_ms(lambda: decode_attention_int8_plain(q, ck, cv, ks, vs[5], mask, 5, D ** -0.5))
+    L, B, H, D = 12, 64, 12, 64
+    by_path = {path: launches.get(path, {"short": 0, "long": 0}) for path in ("rollout", "train")}
+
+    def row(name, route, S, written):
+        q, ck, cv, ks, vs, mask = decode_inputs(gen, L, B, H, H, S, D, written)
+        if decode_route(S) != route:
+            raise AssertionError(f"{name}: decode_route does not name the {route} route")
+        args = (q, ck, cv, ks, vs[5], mask, 5, D ** -0.5)
+        kernel = decode_attention_int8_short if route == "short" else decode_attention_int8_long
+        ms = time_ms(lambda: kernel(*args))
+        extra = {"long_ms": time_ms(lambda: decode_attention_int8_long(*args))} if route == "short" else {}
+        plain = time_ms(lambda: decode_attention_int8_plain(*args))
         n_bytes, n_flops = decode_work(mask, H, H, S, D)
         bms, by = bound_ms(n_bytes, n_flops)
+        occupancy = decode_attention_int8_occupancy(route, H, H, S)
         rows.append(dict(
-            name="decode_int8", route="cuda", source="trlx_tpu_torch/csrc/decode_int8.cu",
+            name=name, route="cuda", kernel_route=route, source="trlx_tpu_torch/csrc/decode_int8.cu",
             replaces="trlx_tpu/ops/decode_attention.py:369",  # _decode_kernel, via decode_attention_int8:418
-            launches=launches["decode"], launches_train_path=train_launches["decode"],
-            max_abs_err=errs["decode"], shape=[L, B, H, S, D],
-            ms=ms, kernel_ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
-            bound_bytes=n_bytes, bound_flops=n_flops, library_ms=None,
+            launches=by_path["rollout"][route], launches_train_path=by_path["train"][route],
+            max_abs_err=errs[route], shape=[L, B, H, S, D], written=written, ms=ms, kernel_ms=ms, **extra,
+            plain_ms=plain, bound_ms=bms, bound_by=by, bound_bytes=n_bytes, bound_flops=n_flops,
+            library_ms=None, ctas_per_sm=occupancy["ctas_per_sm"], smem_bytes=occupancy["smem_bytes"],
         ))
-    for row in rows:
-        emit("kernel_time", **row)
+        del q, ck, cv, ks, vs, mask
+
+    with torch.no_grad():
+        row("decode_int8_short/rollout", "short", 128, PROMPT_LEN + NEW_TOKENS)
+        row("decode_int8_short/train", "short", 128, TRAIN_LEN)
+        row("decode_int8/s512", "long", 512, 400)
+    for r in rows:
+        emit("kernel_time", **r)
     return rows
 
 
@@ -2105,10 +2219,11 @@ def paged_kernel_times(gen, launches, errs) -> list:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
-    parser.add_argument("--only", choices=("fwd", "paged"), default=None,
+    parser.add_argument("--only", choices=("fwd", "paged", "decode"), default=None,
                         help="fwd: the build, flash_check and the flash forward's kernel_time rows only "
                              "(a quick check of kernel 1); paged: the build, paged_check and the paged "
-                             "kernel_time rows only (kernel 7); no path runs, so no launches")
+                             "kernel_time rows only (kernel 7); decode: the build, decode_check and the int8 "
+                             "decode kernel_time rows only (kernel 8); no path runs, so no launches")
     args = parser.parse_args()
 
     import torch
@@ -2117,7 +2232,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
     from trlx_tpu_torch.ops import _build
-    from trlx_tpu_torch.ops.decode_attention import paged_attention_occupancy
+    from trlx_tpu_torch.ops.decode_attention import decode_attention_int8_occupancy, paged_attention_occupancy
     from trlx_tpu_torch.ops.flash_attention import flash_attention_bwd_occupancy, flash_attention_fwd_short_occupancy
 
     card = nvidia_smi()
@@ -2133,6 +2248,11 @@ def main() -> int:
     fused_plain = ptxas_report(log, "flash_bwd_fused_kernel")
     short_fwd = ptxas_report(log, "flash_fwd_short_kernel")
     short_paged = ptxas_report(log, "paged_attention_short_kernel")
+    short_decode = ptxas_report(log, "decode_int8_short_kernel")
+    # the int8 decode step at the rollout shape (64 rows x 12 kv heads, a
+    # 128-slot cache) and a GQA group of 3 at the short route's edge
+    decode_occupancy = {"rollout": decode_attention_int8_occupancy("short", 12, 12, 128),
+                        "gqa_256": decode_attention_int8_occupancy("short", 12, 4, 256)}
     # the engine's decode and verify steps in the training workload: 32
     # lanes x 12 kv heads, 5 pages of 16 int8 slots
     paged_occupancy = {"decode": paged_attention_occupancy("short", 1, 12, 12, 16, 5, True),
@@ -2144,23 +2264,30 @@ def main() -> int:
          ptxas=[ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln],
          flash_bias_bwd_fused=fused, flash_bwd_fused=fused_plain, flash_fwd_short=short_fwd,
          flash_fwd_short_occupancy=short_occupancy, paged_attention_short=short_paged,
-         paged_attention_short_occupancy=paged_occupancy,
+         paged_attention_short_occupancy=paged_occupancy, decode_int8_short=short_decode,
+         decode_int8_short_occupancy=decode_occupancy,
          flash_bwd_fused_occupancy={"train": flash_attention_bwd_occupancy(TRAIN_LEN, TRAIN_LEN),
                                     "t5_cross": flash_attention_bwd_occupancy(T5_DEC_LEN, T5_PROMPT_LEN)})
     for what, report, n in (("fused bias backward", fused, 8), ("fused flash backward", fused_plain, 8),
-                            ("short flash forward", short_fwd, 8), ("short paged kernel", short_paged, 10)):
+                            ("short flash forward", short_fwd, 8), ("short paged kernel", short_paged, 10),
+                            ("short int8 decode kernel", short_decode, 2)):
         if len(report) != n or any(f.get("spill_stores", 1) or f.get("spill_loads", 1) for f in report):
             raise AssertionError(f"the {what}'s {n} instantiations must build without spills: {report}")
     if short_occupancy["teacher_forced"]["ctas_per_sm"] < 3:
         raise AssertionError(f"the short flash forward must fit three CTAs an SM at T = S = {tf_len}: {short_occupancy}")
     if paged_occupancy["decode"]["ctas_per_sm"] < 3:
         raise AssertionError(f"the short paged kernel must fit three CTAs an SM at the decode shape: {paged_occupancy}")
+    if decode_occupancy["rollout"]["ctas_per_sm"] < DECODE_SHORT_CTAS:
+        raise AssertionError(f"the short int8 decode kernel must fit {DECODE_SHORT_CTAS} CTAs an SM at the rollout "
+                             f"shape: {decode_occupancy}")
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     if args.only == "paged":
         rows = paged_kernel_times(gen, {}, check_paged(gen)["by_route"])
     elif args.only == "fwd":
         rows = fwd_kernel_times(gen, {}, check_flash(gen))
+    elif args.only == "decode":
+        rows = decode_kernel_times(gen, {}, check_decode(gen)["by_route"])
     if args.only is not None:
         print(json.dumps({"kernels": rows}))
         print(card)
@@ -2169,7 +2296,7 @@ def main() -> int:
         }}))
         return 0
     flash_errs = check_flash(gen)
-    errs = {"decode": check_decode(gen)["max_abs_err"]}
+    decode_errs = check_decode(gen)["by_route"]
     bwd_errs = check_flash_bwd(gen)
     bias_errs = check_flash_bias(gen)
     paged_errs = check_paged(gen)["by_route"]
@@ -2195,7 +2322,8 @@ def main() -> int:
     emit("fwd_shapes", **{path: [[route, list(bht), S, n] for (route, bht, S), n in sorted(tally.items())]
                           for path, tally in shapes.items()})
     rows = fwd_kernel_times(gen, shapes, flash_errs)
-    rows += kernel_times(gen, launches, errs, train_launches)
+    rows += decode_kernel_times(gen, {"rollout": launches["decode"], "train": {
+        "short": train_launches["decode_short"], "long": train_launches["decode_long"]}}, decode_errs)
     rows += bwd_kernel_times(gen, train_launches, t5_train_launches, bwd_errs)
     rows += paged_kernel_times(gen, paged_launches, paged_errs)
     rows += bias_kernel_times(gen, t5_train_launches, t5_launches, bias_errs)

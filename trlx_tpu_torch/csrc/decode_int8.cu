@@ -9,27 +9,36 @@
 // per-channel V scales [B,Hkv,1,D] and key_mask [B,S]:
 //   s[j] = (q . ck[j]) * (k_scale[j] * sm_scale), or -1e30 where key_mask == 0
 //   out  = (sum_j exp(s - m) cv[j]) / max(l, 1e-30) * v_scale
-// with the online softmax (m, l) in fp32, so a fully masked row averages
-// uniformly like the TPU kernel.
+// in fp32, so a fully masked row averages V uniformly over all S like the
+// TPU kernel. Query head h reads kv head h / (H / Hkv).
 //
 // What bounds it on this card: a decode step reads the int8 K and V rows of
 // the layer's attendable slots once and does 4 flops per byte pair, so it is
 // bound by those bytes (plus the small scale and mask rows). Left-pad and
-// not-yet-written slots are masked; their K rows and K scales are skipped,
-// and so are the V rows of slots that take no weight. The design: one
-// CTA per (batch row, kv head) reads the group's rep = H / Hkv query rows once
-// into shared memory and streams that group's K and V rows of layer
-// `layer_ix` straight from the stacked buffer (the layer is an argument, so
-// no per-layer copy exists) with 16-byte loads: in the score pass thread t
-// owns slot t of a 128-slot chunk; in the P.V pass neighbouring threads read
-// neighbouring 16-byte pieces of the same rows. Both dequantisations
-// commute out of the reductions: the K scale folds into the scores and the
-// V scale multiplies the normalised output once. Any S works; the last chunk
-// is masked. A faster version (more bytes in flight per SM) is later work.
+// not-yet-written slots are masked and their K rows are never read.
+//
+// Two routes, chosen by the wrapper from S (decode_route), which the host
+// knows without a sync:
+// - the short route, S <= 256: decode_int8_short_kernel (its note is at the
+//   kernel, below the long route);
+// - the long route, any S: decode_int8_kernel, just below.
+//
+// The long route's design: one CTA per (batch row, kv head) reads the
+// group's rep = H / Hkv query rows once into shared memory and streams that
+// group's K and V rows of layer `layer_ix` straight from the stacked buffer
+// (the layer is an argument, so no per-layer copy exists) with 16-byte
+// loads: in the score pass thread t owns slot t of a 128-slot chunk; in the
+// P.V pass neighbouring threads read neighbouring 16-byte pieces of the same
+// rows. Both dequantisations commute out of the reductions: the K scale
+// folds into the scores and the V scale multiplies the normalised output
+// once. Any S works; the last chunk is masked. K scales and V rows of slots
+// that take no weight are skipped too.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "mma_bf16.cuh"  // cp_async16 / cp_async4, their commit / wait, byte_to_float
 
 namespace {
 
@@ -218,6 +227,341 @@ void launch(const void* q, const int8_t* ck, const int8_t* cv, const float* ks,
       static_cast<__nv_bfloat16*>(out), B, Hkv, S, layer_ix, sm_scale);
 }
 
+// ---------------------------------------------------------------------------
+// The short route, S <= 256: decode_int8_short_kernel.
+//
+// The long kernel makes four dependent device-memory round trips in series:
+// q, then the mask, then the K row under a branch on the mask, then V under
+// a branch on p; int8 goes through the conversion unit, one thread scores a
+// whole 64-channel slot, and the online softmax runs although S <= 128 is
+// one chunk. The short kernel keeps one CTA per (batch row, kv head) and
+// makes two round trips, the second one burst:
+// 1. The group's query rows, the mask row (int32 x S), the layer's K-scale
+//    row (fp32 x S) and the V-scale row (fp32 x D) depend on nothing: one
+//    cp.async group of 16-byte copies (4-byte ones for a row of S not a
+//    multiple of 4), one round trip.
+// 2. After one barrier, one ballot per warp and 32 slots turns the mask into
+//    attendable bits in shared memory; __syncthreads_or flags a row with no
+//    attendable slot, whose V then covers all S (the TPU kernel's uniform
+//    average).
+// 3. One burst of 16-byte cp.async copies: the K rows of every attendable
+//    slot (one commit group), then the V rows of every slot that takes
+//    weight (a second), V not waiting for p. From here on every loop walks
+//    only the span from the first to the last slot that takes weight (in
+//    groups of 8 slots): a rollout's left pad and unwritten tail cost no
+//    copies and no arithmetic. A masked slot inside the span has its copy
+//    issued at the row's base with a source size of 0: zero-filled, nothing
+//    read. Every load that feeds a product is unconditional. The rows of one
+//    (layer, b, kv head) are contiguous in [L,B,Hkv,S,D] and the left pad
+//    and the unwritten tail are runs, so the burst reads contiguous bytes.
+//    Each thread moves its share of q to registers while it is in flight.
+// 4. Scores once K is in: four neighbouring threads share a slot, 16
+//    channels each, and add their parts with two shuffles; int8 becomes fp32
+//    by a byte permute and one add (exact). The K scale and sm_scale fold
+//    into the score.
+// 5. The whole row of scores stays in shared memory (S <= 256 is one tile):
+//    one max (the warps' maxima) and one sum a row, no online rescaling.
+// 6. P.V once V is in: a lane takes 4 channels of every 8th slot (a warp
+//    reads two rows a step, 128 contiguous bytes); its two slot groups
+//    meet by one shuffle and the four warps' partials in shared memory,
+//    summed in warp order (the same bits on every call). The V scale
+//    multiplies the normalised output once.
+// No tensor cores: GPT-2 is MHA (rep = 1), so a CTA has one query row, and
+// an MMA tile of 16 rows would waste 15 of them; the 4 flops per byte pair
+// suit the CUDA cores. Dynamic shared memory is sized by S (about 19 KB at
+// S = 128, rep 1; at most 41 KB at S = 256, rep 3: no opt-in past 48 KB is
+// needed). Registers are bounded so that at least eight CTAs share an SM
+// at rep 1 (the 768 CTAs of the rollout shape fit one wave on 132 SMs) and
+// four at rep 3. Two other forms measured slower on the H100 and were not
+// kept (PERF.md, kernel 8): the burst as one TMA bulk copy per run of slots,
+// and the burst in 32-slot chunks with the scores and P.V of each chunk
+// started as it lands.
+// ---------------------------------------------------------------------------
+
+constexpr int SHORT_SLOTS = 256;  // the longest cache the short kernel takes
+constexpr int SNT = 128;          // threads of a short CTA
+constexpr int SNW = SNT / 32;
+constexpr int HD = 64;            // head width
+constexpr int NPC = HD / 16;      // 16-byte pieces of an int8 row
+
+// Byte offsets of the short kernel's shared arrays, all 16-byte aligned, and
+// their total, for a cache of S slots
+struct ShortSmem {
+  int k, v, q, mask, ks, vs, p, bits, red, part, total;
+};
+
+template <int REP>
+__host__ __device__ __forceinline__ ShortSmem short_smem(int S) {
+  const int SP = (S + 15) & ~15;
+  ShortSmem m;
+  int o = 0;
+  m.k = o;
+  o += SP * HD;
+  m.v = o;
+  o += SP * HD;
+  m.q = o;
+  o += REP * HD * 2;
+  m.mask = o;
+  o += SP * 4;
+  m.ks = o;
+  o += SP * 4;
+  m.vs = o;
+  o += HD * 4;
+  m.p = o;
+  o += REP * SP * 4;
+  m.bits = o;
+  o += SHORT_SLOTS / 8;
+  m.red = o;
+  o += (2 * SNW * REP * 4 + 15) & ~15;
+  m.part = o;
+  o += SNW * REP * HD * 4;
+  m.total = o;
+  return m;
+}
+
+// 16 int8 channels (one 16-byte piece) as floats, by byte permute
+__device__ __forceinline__ void piece_to_float(const uint4& x, float (&f)[16]) {
+  const uint32_t w[4] = {x.x ^ 0x80808080u, x.y ^ 0x80808080u, x.z ^ 0x80808080u, x.w ^ 0x80808080u};
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) f[4 * i + j] = byte_to_float(w[i], j);
+}
+
+template <int REP>
+__global__ void __launch_bounds__(SNT, REP == 1 ? 8 : 4)
+decode_int8_short_kernel(const __nv_bfloat16* __restrict__ q,
+                         const int8_t* __restrict__ ck, const int8_t* __restrict__ cv,
+                         const float* __restrict__ k_scale,
+                         const float* __restrict__ v_scale,
+                         const int* __restrict__ key_mask,
+                         __nv_bfloat16* __restrict__ out,
+                         int B, int Hkv, int S, int layer_ix, float sm_scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int SP = (S + 15) & ~15;
+  const ShortSmem at = short_smem<REP>(S);
+  uint4* k_s = reinterpret_cast<uint4*>(smem + at.k);  // [SP][NPC]
+  uint4* v_s = reinterpret_cast<uint4*>(smem + at.v);  // [SP][NPC]
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem + at.q);  // [REP][HD]
+  int* mask_s = reinterpret_cast<int*>(smem + at.mask);
+  float* ks_s = reinterpret_cast<float*>(smem + at.ks);
+  float* vs_s = reinterpret_cast<float*>(smem + at.vs);
+  float* p_s = reinterpret_cast<float*>(smem + at.p);  // [REP][SP]: s, then p
+  unsigned* bits_s = reinterpret_cast<unsigned*>(smem + at.bits);  // attendable slots, 32 a word
+  float* max_s = reinterpret_cast<float*>(smem + at.red);  // [SNW][REP]
+  float* sum_s = max_s + SNW * REP;  // [SNW][REP]
+  float* part_s = reinterpret_cast<float*>(smem + at.part);  // [SNW][REP][HD]
+
+  const int bk = blockIdx.x;  // b * Hkv + kv head
+  const int b = bk / Hkv;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const long long row0 = (static_cast<long long>(layer_ix) * B * Hkv + bk) * S;  // first slot row
+  const int8_t* kb = ck + row0 * HD;
+  const int8_t* vb = cv + row0 * HD;
+  const float* ksb = k_scale + row0;
+  const int* mb = key_mask + static_cast<long long>(b) * S;
+
+  // 1. trip 1: q rows, the mask row, the K-scale row and the V-scale row
+  for (int x = tid; x < REP * HD / 8; x += SNT)
+    cp_async16(&q_s[8 * x], q + static_cast<long long>(bk) * REP * HD + 8 * x, true);
+  if (S % 4 == 0) {  // both rows start 16-byte aligned (the wrapper aligns the bases)
+    for (int x = tid; x < S / 4; x += SNT) {
+      cp_async16(&mask_s[4 * x], mb + 4 * x, true);
+      cp_async16(&ks_s[4 * x], ksb + 4 * x, true);
+    }
+  } else {
+    for (int x = tid; x < S; x += SNT) {
+      cp_async4(&mask_s[x], mb + x, true);
+      cp_async4(&ks_s[x], ksb + x, true);
+    }
+  }
+  for (int x = tid; x < HD / 4; x += SNT) cp_async16(&vs_s[4 * x], v_scale + static_cast<long long>(bk) * HD + 4 * x, true);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+
+  // 2. the mask ballot: word w of bits_s holds slots 32w .. 32w + 31
+  bool mine = false;
+  for (int w = warp; w < (SP + 31) / 32; w += SNW) {
+    const int j = w * 32 + lane;
+    const unsigned word = __ballot_sync(0xffffffffu, j < S && mask_s[j] > 0);
+    if (lane == 0) bits_s[w] = word;
+    mine |= word != 0u;
+  }
+  const bool any = __syncthreads_or(mine);  // some slot is attendable
+  // the span [lo, hi) from the first to the last slot that takes weight
+  // (every slot < S when none is attendable), widened to whole groups of 8
+  // slots (a warp's step in the scores): every loop below walks it alone
+  int lo = 0, hi = S;
+  if (any) {
+    lo = SP;
+    for (int w = 0; w < (SP + 31) / 32; ++w) {
+      const unsigned word = bits_s[w];
+      if (word != 0u) {
+        lo = min(lo, w * 32 + __ffs(word) - 1);
+        hi = w * 32 + 32 - __clz(word);
+      }
+    }
+  }
+  lo &= ~7;
+  hi = (hi + 7) & ~7;  // <= SP
+
+  // 3. the K/V burst over the span: K of every attendable slot, then V of
+  // every slot that takes weight; the span's other slots zero-filled
+  for (int x = lo * NPC + tid; x < hi * NPC; x += SNT) {
+    const int j = x / NPC;
+    const bool att = (bits_s[j >> 5] >> (j & 31)) & 1u;
+    cp_async16(&k_s[x], kb + (att ? x * 16 : 0), att);
+  }
+  cp_async_commit();
+  for (int x = lo * NPC + tid; x < hi * NPC; x += SNT) {
+    const int j = x / NPC;
+    const bool need = any ? ((bits_s[j >> 5] >> (j & 31)) & 1u) != 0u : j < S;
+    cp_async16(&v_s[x], vb + (need ? x * 16 : 0), need);
+  }
+  cp_async_commit();
+  const int quarter = lane & 3;  // the 16 channels of a slot this thread scores
+  float qreg[REP][16];
+#pragma unroll
+  for (int r = 0; r < REP; ++r) {
+    const uint4* qp = reinterpret_cast<const uint4*>(q_s + r * HD + quarter * 16);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const uint4 x = qp[h];
+      const uint32_t w[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+        qreg[r][8 * h + 2 * i] = f.x;
+        qreg[r][8 * h + 2 * i + 1] = f.y;
+      }
+    }
+  }
+
+  // 4. scores once K is in: threads 4i .. 4i + 3 share a slot, 16 channels
+  // each; s = (q . k) * (k_scale * sm_scale) on an attendable slot, 0 on
+  // every slot < S of a row with none (the uniform average), -inf elsewhere;
+  // each warp's row maxima go to max_s
+  cp_async_wait_group<1>();
+  __syncthreads();
+  float mx[REP];
+#pragma unroll
+  for (int r = 0; r < REP; ++r) mx[r] = neg_infinity();
+  const float masked = any ? neg_infinity() : 0.f;
+  for (int x = lo * NPC + tid; x < hi * NPC; x += SNT) {  // a whole warp takes each step ((hi - lo) * NPC is a multiple of 32)
+    const int j = x / NPC;
+    const bool att = (bits_s[j >> 5] >> (j & 31)) & 1u;
+    float kf[16];
+    piece_to_float(k_s[x], kf);
+    const float scale = ks_s[j] * sm_scale;
+#pragma unroll
+    for (int r = 0; r < REP; ++r) {
+      float dot = 0.f;
+#pragma unroll
+      for (int i = 0; i < 16; ++i) dot += qreg[r][i] * kf[i];
+      dot += __shfl_xor_sync(0xffffffffu, dot, 1);
+      dot += __shfl_xor_sync(0xffffffffu, dot, 2);
+      const float sc = att ? dot * scale : (j < S ? masked : neg_infinity());
+      if (r == quarter) p_s[r * SP + j] = sc;
+      mx[r] = fmaxf(mx[r], sc);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < REP; ++r) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], o));
+    if (lane == 0) max_s[warp * REP + r] = mx[r];
+  }
+
+  // 5. softmax over the whole row: m from the warps' maxima, p = exp(s - m)
+  // in place (0 where s = -inf), each warp's sums to sum_s
+  __syncthreads();
+  float m[REP], l[REP];
+#pragma unroll
+  for (int r = 0; r < REP; ++r) {
+    m[r] = max_s[r];
+#pragma unroll
+    for (int w = 1; w < SNW; ++w) m[r] = fmaxf(m[r], max_s[w * REP + r]);
+    l[r] = 0.f;
+  }
+  for (int j = lo + tid; j < hi; j += SNT) {
+#pragma unroll
+    for (int r = 0; r < REP; ++r) {
+      const float sc = p_s[r * SP + j];
+      const float e = sc == neg_infinity() ? 0.f : __expf(sc - m[r]);
+      p_s[r * SP + j] = e;
+      l[r] += e;
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < REP; ++r) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) l[r] += __shfl_xor_sync(0xffffffffu, l[r], o);
+    if (lane == 0) sum_s[warp * REP + r] = l[r];
+  }
+
+  // 6. P.V once V is in: lane (half, c4) of warp w accumulates channels
+  // 4 c4 .. 4 c4 + 3 over the slots lo + sg, lo + sg + 8, ... of slot group
+  // sg = 2 w + half (two rows a warp step: 128 contiguous bytes); the
+  // halves meet by one shuffle, the warps' partials in shared memory,
+  // summed in warp order
+  cp_async_wait_group<0>();
+  __syncthreads();
+  const int c4 = lane & 15, sg = warp * 2 + (lane >> 4);
+  const unsigned char* v_bytes = reinterpret_cast<const unsigned char*>(v_s);
+  float acc[REP][4];
+#pragma unroll
+  for (int r = 0; r < REP; ++r)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[r][i] = 0.f;
+#pragma unroll 2
+  for (int j = lo + sg; j < hi; j += 2 * SNW) {  // (hi - lo) / 8 steps for every thread
+    const uint32_t w = *reinterpret_cast<const uint32_t*>(v_bytes + j * HD + c4 * 4) ^ 0x80808080u;
+    float vf[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) vf[i] = byte_to_float(w, i);
+#pragma unroll
+    for (int r = 0; r < REP; ++r) {
+      const float p = p_s[r * SP + j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[r][i] += p * vf[i];
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < REP; ++r) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[r][i] += __shfl_xor_sync(0xffffffffu, acc[r][i], 16);
+    if (lane < 16)
+      *reinterpret_cast<float4*>(&part_s[(warp * REP + r) * HD + c4 * 4]) =
+          make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+  }
+  __syncthreads();
+  for (int x = tid; x < REP * HD / 2; x += SNT) {
+    const int r = x / (HD / 2), c = (x % (HD / 2)) * 2;
+    float o0 = 0.f, o1 = 0.f, lsum = 0.f;
+#pragma unroll
+    for (int w = 0; w < SNW; ++w) {
+      const float2 pw = *reinterpret_cast<const float2*>(&part_s[(w * REP + r) * HD + c]);
+      o0 += pw.x;
+      o1 += pw.y;
+      lsum += sum_s[w * REP + r];
+    }
+    const float lm = fmaxf(lsum, 1e-30f);
+    *reinterpret_cast<__nv_bfloat162*>(out + (static_cast<long long>(bk) * REP + r) * HD + c) =
+        __floats2bfloat162_rn(o0 / lm * vs_s[c], o1 / lm * vs_s[c + 1]);
+  }
+}
+
+template <int REP>
+int launch_short(const void* q, const int8_t* ck, const int8_t* cv, const float* ks,
+                 const float* vs, const int* key_mask, void* out, int B, int Hkv,
+                 int S, int layer_ix, float sm_scale, cudaStream_t stream) {
+  decode_int8_short_kernel<REP><<<B * Hkv, SNT, short_smem<REP>(S).total, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), ck, cv, ks, vs, key_mask,
+      static_cast<__nv_bfloat16*>(out), B, Hkv, S, layer_ix, sm_scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // All tensors contiguous. q/out [B,H,D] bf16, ck/cv [L,B,Hkv,S,D] int8,
@@ -238,6 +582,46 @@ extern "C" int decode_int8_bf16(const void* q, const int8_t* ck, const int8_t* c
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The short route: the arguments of decode_int8_bf16, for caches of S <= 256
+// slots. Returns cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue for unsupported arguments (a longer cache included).
+extern "C" int decode_int8_short_bf16(const void* q, const int8_t* ck, const int8_t* cv,
+                                      const float* k_scale, const float* v_scale,
+                                      const int* key_mask, void* out, int B, int H,
+                                      int Hkv, int S, int D, int layer_ix,
+                                      float sm_scale, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D != HD || Hkv < 1 || H % Hkv || B < 1 || S < 1 || S > SHORT_SLOTS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (H / Hkv) {
+    case 1: return launch_short<1>(q, ck, cv, k_scale, v_scale, key_mask, out, B, Hkv, S, layer_ix, sm_scale, st);
+    case 3: return launch_short<3>(q, ck, cv, k_scale, v_scale, key_mask, out, B, Hkv, S, layer_ix, sm_scale, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// What a launch at this shape gets on the current card: CTAs an SM, threads
+// a CTA and dynamic shared memory. `short_route` selects the kernel.
+extern "C" int decode_int8_occupancy(int short_route, int H, int Hkv, int S, int* ctas_per_sm,
+                                     int* threads, int* smem_bytes) {
+  if (Hkv < 1 || H % Hkv || S < 1 || (H / Hkv != 1 && H / Hkv != 3) || (short_route && S > SHORT_SLOTS))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool one = H / Hkv == 1;
+  cudaError_t err;
+  if (short_route) {
+    *threads = SNT;
+    *smem_bytes = one ? short_smem<1>(S).total : short_smem<3>(S).total;
+    err = one ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_per_sm, decode_int8_short_kernel<1>, SNT, *smem_bytes)
+              : cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_per_sm, decode_int8_short_kernel<3>, SNT, *smem_bytes);
+  } else {
+    *threads = NT;
+    *smem_bytes = 0;
+    err = one ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_per_sm, decode_int8_kernel<64, 1>, NT, 0)
+              : cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_per_sm, decode_int8_kernel<64, 3>, NT, 0);
+  }
+  return static_cast<int>(err);
 }
 
 extern "C" const char* decode_int8_error_string(int code) {

@@ -1,8 +1,9 @@
 // mma.sync m16n8k16 helpers shared by the flash-attention kernels
 // (flash_fwd.cu, flash_bwd.cu, flash_bias_fwd.cu, flash_bias_bwd.cu):
 // bf16 packing, the tensor-core product, the fragment loads (by hand,
-// and by ldmatrix from shared memory) and the cp.async copy into shared
-// memory.
+// and by ldmatrix from shared memory); and, for those and the decode
+// kernels (paged_attention.cu, decode_int8.cu), the cp.async copies into
+// shared memory and the int8 -> float conversion by byte permute.
 //
 // Fragment layout of mma.m16n8k16 (g = lane / 4, c = lane % 4):
 //   A reg0: row g,   k 2c..2c+1   reg1: row g+8, k 2c..2c+1
@@ -113,6 +114,13 @@ __device__ __forceinline__ void cp_async16(void* dst_s, const void* src, bool ok
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(ok ? 16 : 0));
 }
 
+// 4 bytes global -> shared, asynchronously; zero-filled (nothing read)
+// when `ok` is false
+__device__ __forceinline__ void cp_async4(void* dst_s, const void* src, bool ok) {
+  const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(dst_s));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src), "r"(ok ? 4 : 0));
+}
+
 __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
 
 // close the thread's group of cp.async copies issued since the last one; wait
@@ -163,6 +171,14 @@ __device__ __forceinline__ void b_from_cols(const __nv_bfloat16* rows_s, int ks,
   const __nv_bfloat16* p = rows_s + (n * 8 + g) * LDS + ks * 16 + c * 2;
   b0 = *reinterpret_cast<const uint32_t*>(p);
   b1 = *reinterpret_cast<const uint32_t*>(p + 8);
+}
+
+// Signed byte i of w as a float, exactly: with b ^ 0x80 = b + 128 in the low
+// mantissa bits of 2^23, the float is 2^23 + 128 + b. `w` has had its bytes'
+// top bits flipped (w ^ 0x80808080). A byte permute and one add, where the
+// conversion unit (static_cast) converts only 16 values a clock an SM.
+__device__ __forceinline__ float byte_to_float(uint32_t flipped, int i) {
+  return __int_as_float(__byte_perm(flipped, 0x4B000000u, 0x7440 + i)) - 8388736.f;
 }
 
 }  // namespace

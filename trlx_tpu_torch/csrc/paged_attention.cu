@@ -51,7 +51,7 @@
 
 #include <type_traits>
 
-#include "mma_bf16.cuh"  // cp_async16 and its commit / wait
+#include "mma_bf16.cuh"  // cp_async16 / cp_async4, their commit / wait, byte_to_float
 
 namespace {
 
@@ -318,20 +318,6 @@ constexpr int SHORT_SLOTS = 256;   // the widest table (MP * PS) the short kerne
 constexpr int SNT = 128;           // threads of a short CTA
 constexpr int SNW = SNT / 32;
 constexpr float SEEN_BIAS = -5e8f; // a slot with bias <= this on every row is not read
-
-// 4 bytes global -> shared, asynchronously; zero-filled (nothing read)
-// when `ok` is false
-__device__ __forceinline__ void cp_async4(void* dst_s, const void* src, bool ok) {
-  const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(dst_s));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src), "r"(ok ? 4 : 0));
-}
-
-// Signed byte i of w as a float, exactly: with b ^ 0x80 = b + 128 in the low
-// mantissa bits of 2^23, the float is 2^23 + 128 + b. `w` has had its bytes'
-// top bits flipped (w ^ 0x80808080).
-__device__ __forceinline__ float byte_to_float(uint32_t flipped, int i) {
-  return __int_as_float(__byte_perm(flipped, 0x4B000000u, 0x7440 + i)) - 8388736.f;
-}
 
 // 16 channels of a K row in shared memory (one 16-byte piece of int8, two
 // of bf16) as floats

@@ -13,9 +13,12 @@ from the table's width: the short kernel up to SHORT_PAGED_MAX_SLOTS
 slots, the long one past that) and `paged_attention_plain` on CPU
 tensors. The contiguous layout always takes the gather half.
 
-Contiguous int8 layout. `decode_attention_int8` runs the hand-written Hopper kernel
-`csrc/decode_int8.cu` on CUDA tensors and `decode_attention_int8_plain`
-on CPU tensors. The function, for one layer `layer_ix` of the cache:
+Contiguous int8 layout. `decode_attention_int8` runs a hand-written Hopper
+kernel of `csrc/decode_int8.cu` on CUDA tensors (the route `decode_route`
+names from the cache length S: the short kernel up to
+SHORT_DECODE_MAX_SLOTS slots, the long one past that) and
+`decode_attention_int8_plain` on CPU tensors. The function, for one layer
+`layer_ix` of the cache:
 
 - q [B, H, D]; ck/cv [L, B, Hkv, S, D] int8 (the full stacked cache — the
   layer is an index, so no per-layer copy is made); k_scale
@@ -326,26 +329,26 @@ def decode_attention_int8_plain(
     return o.reshape(B, H, D).to(q.dtype)
 
 
-def decode_attention_int8(
-    q: torch.Tensor,
-    ck: torch.Tensor,
-    cv: torch.Tensor,
-    k_scale: torch.Tensor,
-    v_scale: torch.Tensor,
-    key_mask: torch.Tensor,
-    layer_ix: int,
-    sm_scale: float,
-) -> torch.Tensor:
-    """One decode step's attention for one layer of the stacked cache
-    (see the module docstring). CPU tensors take the plain version; CUDA
-    tensors launch `csrc/decode_int8.cu` or raise: q bf16, all operands
-    contiguous, D = 64, H // Hkv in {1, 3}."""
-    if q.device.type == "cpu":
-        return decode_attention_int8_plain(
-            q, ck, cv, k_scale, v_scale, key_mask, layer_ix, sm_scale
-        )
+SHORT_DECODE_MAX_SLOTS = 256  # the longest cache (S slots) the short kernel takes
+
+
+def decode_route(S: int) -> str:
+    """The CUDA int8 decode kernel's route for a cache of S slots: "short"
+    (one CTA per (batch row, kv head) loads the attendable K/V in one burst
+    and keeps its whole row of scores) when S is at most
+    SHORT_DECODE_MAX_SLOTS, else "long" (128-slot chunks with an online
+    softmax). S is known on the host; how many slots the mask admits never
+    decides."""
+    return "short" if S <= SHORT_DECODE_MAX_SLOTS else "long"
+
+
+def _decode_operands(q, ck, cv, k_scale, v_scale, key_mask, layer_ix) -> torch.Tensor:
+    """Check the decode kernels' operands: q bf16 on a CUDA device, D = 64,
+    H // Hkv in {1, 3}, the int8 caches and fp32 scales contiguous, 16-byte
+    aligned and on q's device. Returns the key mask as a contiguous,
+    16-byte aligned int32 tensor."""
     if q.device.type != "cuda":
-        raise ValueError(f"decode_attention_int8 runs on cpu or cuda, not {q.device}")
+        raise ValueError(f"the int8 decode kernels take CUDA tensors, not {q.device}")
     L, B, Hkv, S, D = ck.shape
     H = q.shape[1]
     dev = q.device
@@ -371,25 +374,107 @@ def decode_attention_int8(
     if tuple(key_mask.shape) != (B, S) or key_mask.device != dev:
         raise ValueError(f"key_mask must be [B, S] = {(B, S)} on {dev}")
     km = key_mask.to(torch.int32).contiguous()
-    out = torch.empty((B, H, D), dtype=q.dtype, device=dev)
+    return km if km.data_ptr() % 16 == 0 else km.clone()
+
+
+def _decode_library():
     from trlx_tpu_torch.ops import _build
 
-    lib = _build.load("decode_int8.cu")
-    fn = lib.decode_int8_bf16
+    return _build.load("decode_int8.cu")
+
+
+def _decode_kernel(fn_name, q, ck, cv, k_scale, v_scale, key_mask, layer_ix, sm_scale) -> torch.Tensor:
+    """Launch the C entry `fn_name` of `csrc/decode_int8.cu` on checked
+    operands; raise with the CUDA error string if the launch was refused."""
+    km = _decode_operands(q, ck, cv, k_scale, v_scale, key_mask, layer_ix)
+    L, B, Hkv, S, D = ck.shape
+    H = q.shape[1]
+    out = torch.empty((B, H, D), dtype=q.dtype, device=q.device)
+    lib = _decode_library()
+    fn = getattr(lib, fn_name)
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
     rc = fn(
         q.data_ptr(), ck.data_ptr(), cv.data_ptr(), k_scale.data_ptr(),
         v_scale.data_ptr(), km.data_ptr(), out.data_ptr(), B, H, Hkv, S, D,
-        int(layer_ix), float(sm_scale), torch.cuda.current_stream(dev).cuda_stream,
+        int(layer_ix), float(sm_scale), torch.cuda.current_stream(q.device).cuda_stream,
     )
-    decode_attention_int8.launches += 1
     if rc != 0:
         lib.decode_int8_error_string.restype = ctypes.c_char_p
         lib.decode_int8_error_string.argtypes = [ctypes.c_int]
-        raise RuntimeError(
-            f"decode_int8 kernel launch failed: {lib.decode_int8_error_string(rc).decode()}"
+        raise RuntimeError(f"{fn_name} kernel launch failed: {lib.decode_int8_error_string(rc).decode()}")
+    return out
+
+
+def decode_attention_int8_short(q, ck, cv, k_scale, v_scale, key_mask, layer_ix, sm_scale) -> torch.Tensor:
+    """The int8 decode function (`decode_attention_int8_plain`) by the short
+    kernel of `csrc/decode_int8.cu`: CUDA tensors only, S <=
+    SHORT_DECODE_MAX_SLOTS (longer caches raise)."""
+    out = _decode_kernel("decode_int8_short_bf16", q, ck, cv, k_scale, v_scale, key_mask, layer_ix, sm_scale)
+    decode_attention_int8_short.launches += 1
+    return out
+
+
+def decode_attention_int8_long(q, ck, cv, k_scale, v_scale, key_mask, layer_ix, sm_scale) -> torch.Tensor:
+    """The int8 decode function by the long kernel of `csrc/decode_int8.cu`
+    (any S): CUDA tensors only."""
+    out = _decode_kernel("decode_int8_bf16", q, ck, cv, k_scale, v_scale, key_mask, layer_ix, sm_scale)
+    decode_attention_int8_long.launches += 1
+    return out
+
+
+decode_attention_int8_short.launches = 0
+decode_attention_int8_long.launches = 0
+
+
+def decode_attention_int8_occupancy(route: str, H: int, Hkv: int, S: int, device="cuda") -> dict:
+    """What a launch of the `route` kernel for H query heads over Hkv kv
+    heads and a cache of S slots gets on the CUDA `device`: its threads a
+    CTA, its dynamic shared memory and the CTAs an SM holds."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"decode_attention_int8_occupancy queries a CUDA device, not {device}")
+    if not torch.cuda.is_available():
+        raise RuntimeError("decode_attention_int8_occupancy needs a CUDA device; none is available")
+    if route not in ("short", "long"):
+        raise ValueError(f"route must be short/long, got {route!r}")
+    ctas, threads, smem = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+    lib = _decode_library()
+    fn = lib.decode_int8_occupancy
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 3
+    with torch.cuda.device(device):
+        rc = fn(int(route == "short"), H, Hkv, S, ctypes.byref(ctas), ctypes.byref(threads), ctypes.byref(smem))
+    if rc != 0:
+        raise RuntimeError(f"decode_attention_int8_occupancy failed with CUDA error {rc}")
+    return {"ctas_per_sm": ctas.value, "threads": threads.value, "smem_bytes": smem.value}
+
+
+def decode_attention_int8(
+    q: torch.Tensor,
+    ck: torch.Tensor,
+    cv: torch.Tensor,
+    k_scale: torch.Tensor,
+    v_scale: torch.Tensor,
+    key_mask: torch.Tensor,
+    layer_ix: int,
+    sm_scale: float,
+) -> torch.Tensor:
+    """One decode step's attention for one layer of the stacked cache
+    (see the module docstring). CPU tensors take the plain version; CUDA
+    tensors launch the kernel of the route `decode_route` names
+    (`decode_attention_int8_short` or `decode_attention_int8_long`) or
+    raise: q bf16, all operands contiguous, D = 64, H // Hkv in {1, 3}.
+    Neither route gives way to the other."""
+    if q.device.type == "cpu":
+        return decode_attention_int8_plain(
+            q, ck, cv, k_scale, v_scale, key_mask, layer_ix, sm_scale
         )
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_attention_int8 runs on cpu or cuda, not {q.device}")
+    kernel = decode_attention_int8_short if decode_route(ck.shape[3]) == "short" else decode_attention_int8_long
+    out = kernel(q, ck, cv, k_scale, v_scale, key_mask, layer_ix, sm_scale)
+    decode_attention_int8.launches += 1
     return out
 
 

@@ -1,7 +1,8 @@
 """Where the fused attention backward kernels, the short-route flash
-forward and both paged attention kernels spend their time.
+forward and both routes of the paged and int8 decode kernels spend their
+time.
 
-    python3 -m trlx_tpu_torch.tools.bwd_stages [--kernel bias|plain|fwd|paged|all] [--seed N] [--out FILE]
+    python3 -m trlx_tpu_torch.tools.bwd_stages [--kernel bias|plain|fwd|paged|decode|all] [--seed N] [--out FILE]
 
 Builds variants of a kernel's source that return after each of its
 stages, and one without its register bounds, into `build/stages/`, then
@@ -36,7 +37,22 @@ the CUDA occupancy API.
   (stages: the table, query rows and bias rows; the K and V burst; the
   scores with their row maxima; the softmax; P V with the output
   writes). The timed call is the kernel's wrapper on
-  the same inputs for both.
+  the same inputs for both;
+- `decode` (or either half alone, `decode_long` / `decode_short`): both
+  kernels of `csrc/decode_int8.cu` at the rollout path's shape (L12 B64
+  H12 D64, a 128-slot cache, 72 slots written, random left pads of up to
+  35 slots, layer 5 attended). `decode_int8_kernel`, the long route
+  (stages: the query rows into shared memory; the scores of the first
+  128-slot chunk: mask, K rows, K scales; the online-softmax update; P V
+  with the output writes); `decode_int8_short_kernel`, the short route
+  (stages: trip 1, the q, mask, K-scale and V-scale rows; the mask
+  ballot; the K and V burst; the scores with their row maxima; the
+  softmax; P V with the output writes), and three whole-kernel variants
+  whose results are not checked: `burst_issue_only` (every burst copy
+  zero-filled: the burst's issue without its bytes), `burst_none` (no
+  burst: the rest of the kernel without its loads) and `tma_burst` (the
+  burst as one `cp.async.bulk` copy a run of slots, on mbarriers). The
+  timed call is the route's wrapper on the same inputs for both.
 
 Prints one JSON line per (kernel, shape, variant) and the card's name and
 power limit; `--out` writes the lines too.
@@ -56,6 +72,93 @@ from pathlib import Path
 # stage names (every thread of the CTA, so no barrier waits)
 START = "  const int TP = (T + 15) & ~15;\n  const int n_strips"
 RETURN = "  if (true) return;\n"
+DECODE_KEEP = ("  if (S < 0) out[tid] = __float2bfloat16_rn(q_s[0][tid % D] + p_s[0][tid] + l_s[0]);\n"
+               + RETURN)
+# The short decode kernel's K/V burst by the Tensor Memory Accelerator: one
+# thread for K and one for V issue a bulk copy (cp.async.bulk) for each run
+# of consecutive slots that takes weight (split at 32-slot words), each
+# completing on its own mbarrier; the masked slots inside the span are left
+# unwritten (a product with them is discarded or weighed 0).
+DECODE_TMA_HELPERS = r"""__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
+}
+// a wait that never ends traps instead (after about a second)
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  for (int i = 0;; ++i) {
+    uint32_t done;
+    asm volatile("{\n.reg .pred P1;\nmbarrier.try_wait.parity.shared::cta.b64 P1, [%1], %2;\nselp.u32 %0, 1, 0, P1;\n}\n"
+                 : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+    if (i > (1 << 20)) __trap();
+  }
+}
+__device__ __forceinline__ void bulk_g2s(uint32_t dst, const void* src, int bytes, uint32_t bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+               ::"r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+
+"""
+DECODE_TMA_INIT = r"""  const uint32_t kbar = static_cast<uint32_t>(__cvta_generic_to_shared(smem + at.bits + SHORT_SLOTS / 8));
+  const uint32_t vbar = kbar + 8;
+  if (tid == 0) {
+    mbar_init(kbar, 1);
+    mbar_init(vbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+"""
+DECODE_TMA_BURST = r"""  if (tid == 0 || tid == 32) {
+    const bool is_v = tid == 32;
+    const uint32_t bar = is_v ? vbar : kbar;
+    const uint32_t dst0 = static_cast<uint32_t>(__cvta_generic_to_shared(is_v ? v_s : k_s));
+    const int8_t* src0 = is_v ? vb : kb;
+    int total = 0;
+    for (int w = lo >> 5; w <= (hi - 1) >> 5; ++w) {
+      const unsigned bits = (is_v && !any) ? (S >= (w + 1) * 32 ? ~0u : (S <= w * 32 ? 0u : (1u << (S - w * 32)) - 1u))
+                                           : bits_s[w];
+      total += __popc(bits);
+    }
+    mbar_expect_tx(bar, total * HD);
+    for (int w = lo >> 5; w <= (hi - 1) >> 5; ++w) {
+      const unsigned bits = (is_v && !any) ? (S >= (w + 1) * 32 ? ~0u : (S <= w * 32 ? 0u : (1u << (S - w * 32)) - 1u))
+                                           : bits_s[w];
+      unsigned starts = bits & ~(bits << 1), ends = bits & ~(bits >> 1);
+      while (starts != 0u) {
+        const int s0 = __ffs(starts) - 1, e0 = __ffs(ends) - 1;
+        starts &= starts - 1u;
+        ends &= ends - 1u;
+        const int j = w * 32 + s0;
+        bulk_g2s(dst0 + j * HD, src0 + static_cast<long long>(j) * HD, (e0 - s0 + 1) * HD, bar);
+      }
+    }
+  }
+"""
+DECODE_CP_ASYNC_BURST = """  for (int x = lo * NPC + tid; x < hi * NPC; x += SNT) {
+    const int j = x / NPC;
+    const bool att = (bits_s[j >> 5] >> (j & 31)) & 1u;
+    cp_async16(&k_s[x], kb + (att ? x * 16 : 0), att);
+  }
+  cp_async_commit();
+  for (int x = lo * NPC + tid; x < hi * NPC; x += SNT) {
+    const int j = x / NPC;
+    const bool need = any ? ((bits_s[j >> 5] >> (j & 31)) & 1u) != 0u : j < S;
+    cp_async16(&v_s[x], vb + (need ? x * 16 : 0), need);
+  }
+  cp_async_commit();
+"""
+DECODE_TMA = [
+    ("  o += SHORT_SLOTS / 8;\n", "  o += SHORT_SLOTS / 8 + 16;\n"),
+    ("template <int REP>\n__global__ void __launch_bounds__(SNT, REP == 1 ? 8 : 4)",
+     DECODE_TMA_HELPERS + "template <int REP>\n__global__ void __launch_bounds__(SNT, REP == 1 ? 8 : 4)"),
+    ("  for (int x = tid; x < HD / 4; x += SNT) cp_async16(&vs_s[4 * x]",
+     DECODE_TMA_INIT + "  for (int x = tid; x < HD / 4; x += SNT) cp_async16(&vs_s[4 * x]"),
+    (DECODE_CP_ASYNC_BURST, DECODE_TMA_BURST),
+    ("  cp_async_wait_group<1>();\n  __syncthreads();\n  float mx[REP];", "  mbar_wait(kbar, 0);\n  float mx[REP];"),
+    ("  cp_async_wait_group<0>();\n  __syncthreads();\n  const int c4", "  mbar_wait(vbar, 0);\n  __syncthreads();\n  const int c4"),
+]
+
 KERNELS = {
     "bias": dict(
         source="flash_bias_bwd.cu",
@@ -105,20 +208,55 @@ KERNELS = {
         bounds="__launch_bounds__(SNT, RMAX <= 8 ? 4 : 3)",
         shapes={"decode": (32, 1, 12, 16, 5), "verify": (32, 4, 12, 16, 5)},
     ),
+    "decode_long": dict(
+        source="decode_int8.cu",
+        # stores to static shared memory that nothing reads are deleted
+        # with the loads that feed them: each cut keeps them (S is never < 0)
+        stages=(("start", "  for (int i = tid; i < REP * D; i += NT) {\n    q_s[i / D][i % D]"),
+                ("q_loaded", "  for (int c0 = 0; c0 < S; c0 += NT) {", DECODE_KEEP),
+                ("scores", "    // online-softmax update: warp w owns rows", DECODE_KEEP),
+                ("softmax", "    // P.V: thread (sg, piece) accumulates", DECODE_KEEP)),
+        extra={},
+        bounds=None,
+        shapes={"rollout": (64, 12, 128, 72)},  # B, H, S, written
+    ),
+    "decode_short": dict(
+        source="decode_int8.cu",
+        # copies still in flight are waited for before a cut returns
+        stages=(("start", "  // 1. trip 1: q rows"),
+                ("trip1", "  // 2. the mask ballot"),
+                ("mask", "  // 3. the K/V burst"),
+                ("kv_loaded", "  // 4. scores once K is in", "  cp_async_wait_all();\n" + RETURN),
+                ("scores", "  // 5. softmax over the whole row", "  cp_async_wait_all();\n" + RETURN),
+                ("softmax", "  // 6. P.V once V is in", "  cp_async_wait_all();\n" + RETURN)),
+        # burst_issue_only: every burst copy zero-filled, the burst's issue
+        # without its bytes; burst_none: no burst at all (both timing
+        # variants, their results wrong); tma_burst: the burst by bulk copies
+        extra={"burst_issue_only": [("cp_async16(&k_s[x], kb + (att ? x * 16 : 0), att);", "cp_async16(&k_s[x], kb, false);"),
+                                    ("cp_async16(&v_s[x], vb + (need ? x * 16 : 0), need);", "cp_async16(&v_s[x], vb, false);")],
+               "burst_none": (DECODE_CP_ASYNC_BURST, ""),
+               "tma_burst": DECODE_TMA},
+        bounds="__launch_bounds__(SNT, REP == 1 ? 8 : 4)",
+        shapes={"rollout": (64, 12, 128, 72)},
+    ),
 }
-GROUPS = {"paged": ("paged_long", "paged_short")}
+GROUPS = {"paged": ("paged_long", "paged_short"), "decode": ("decode_long", "decode_short")}
 
 
 def variants(src: str, kernel: dict) -> dict:
     """{name: source} for every cut, the whole kernel and the unbounded one."""
 
-    def patched(old: str, new: str) -> str:
-        if src.count(old) != 1:
+    def patched(old: str, new: str, text: str = src) -> str:
+        if text.count(old) != 1:
             raise RuntimeError(f"anchor not found once in {kernel['source']}: {old!r}")
-        return src.replace(old, new)
+        return text.replace(old, new)
 
     out = {name: patched(anchor, (cut[0] if cut else RETURN) + anchor) for name, anchor, *cut in kernel["stages"]}
-    out.update({name: patched(old, new) for name, (old, new) in kernel["extra"].items()})
+    for name, patches in kernel["extra"].items():  # one (old, new) pair, or a list of them
+        text = src
+        for old, new in patches if isinstance(patches, list) else [patches]:
+            text = patched(old, new, text)
+        out[name] = text
     out["whole"] = src
     if kernel["bounds"] is not None:
         out["whole_unbounded_registers"] = patched(kernel["bounds"], "__launch_bounds__(256)")
@@ -196,6 +334,30 @@ def paged_call(kind: str, gen, B, T, H, PS, MP):
             lambda: da.paged_attention_occupancy(route, T, H, H, PS, MP, True))
 
 
+def decode_call(kind: str, gen, B, H, S, written):
+    """(the int8 decode kernel's wrapper call, its occupancy query) on a
+    12-layer int8 cache of S slots (layer 5 attended) whose rows hold
+    `written` slots after a random left pad of fewer than written / 2, as
+    `chip_smoke.py`'s decode rows lay them out."""
+    import torch
+
+    from trlx_tpu_torch.ops import decode_attention as da
+
+    L, D = 12, 64
+    q = torch.randn((B, H, D), generator=gen, device="cuda").to(torch.bfloat16)
+    ck, cv = (torch.randint(-127, 128, (L, B, H, S, D), generator=gen, device="cuda").to(torch.int8)
+              for _ in range(2))
+    ks = torch.rand((L, B, H, 1, S), generator=gen, device="cuda") * 0.02
+    vs = torch.rand((B, H, 1, D), generator=gen, device="cuda") * 0.02
+    pad = torch.randint(0, written // 2, (B,), generator=gen, device="cuda")
+    slots = torch.arange(S, device="cuda")[None, :]
+    mask = ((slots >= pad[:, None]) & (slots < written)).to(torch.int32)
+    route = kind.split("_")[1]
+    fn = da.decode_attention_int8_short if route == "short" else da.decode_attention_int8_long
+    return (lambda: fn(q, ck, cv, ks, vs, mask, 5, D ** -0.5),
+            lambda: da.decode_attention_int8_occupancy(route, H, H, S))
+
+
 def fused_call(kind: str, gen, B, H, T, S, causal):
     """(the kernel's wrapper call on seeded inputs, its occupancy query):
     `bias` with a right-padded key mask and an fp32 bias, `plain` with a
@@ -266,6 +428,9 @@ def main() -> int:
                 if kind.startswith("paged"):  # dims: B, T, H, PS, MP
                     call, occupancy = paged_call(kind, gen, *dims)
                     where = dict(dims=[*dims, 64])
+                elif kind.startswith("decode"):  # dims: B, H, S, written
+                    call, occupancy = decode_call(kind, gen, *dims)
+                    where = dict(dims=[*dims[:3], 64], written=dims[3])
                 else:  # dims: B, H, T, S, causal
                     call, occupancy = fused_call(kind, gen, *dims)
                     where = dict(dims=[*dims[:4], 64], causal=dims[4])
