@@ -18,12 +18,18 @@ from trlx_tpu.ops.flash_attention import NEG_INF as J_NEG_INF
 from trlx_tpu.ops.flash_attention import _flash_bias_backward, _flash_bias_forward
 from trlx_tpu.ops.flash_attention import flash_attention_bias as j_flash_bias
 
+from trlx_tpu_torch.ops import _build
+from trlx_tpu_torch.ops import flash_attention as fa
 from trlx_tpu_torch.ops.flash_attention import (
     FUSED_BIAS_BWD_MAX_LEN,
+    SHORT_BIAS_FWD_MAX_LEN,
     bias_backward_route,
+    bias_forward_route,
     flash_attention_bias,
     flash_attention_bias_backward_plain,
+    flash_attention_bias_plain,
 )
+from trlx_tpu_torch.tools import bwd_stages
 
 FWD_TOL = dict(atol=5e-5, rtol=0)
 GRAD_TOL = dict(atol=1e-4, rtol=0)
@@ -185,3 +191,77 @@ def test_bias_backward_route_refuses_causal_t_ne_s():
         bias_backward_route(20, 40, True)
     with pytest.raises(ValueError, match="T == S"):
         bias_backward_route(200, 100, True)
+
+
+@pytest.mark.parametrize("T, S, route", [
+    (1, 1, "short"),
+    (32, 32, "short"),  # T5's encoder
+    (65, 65, "short"),  # T5's decoder
+    (SHORT_BIAS_FWD_MAX_LEN, SHORT_BIAS_FWD_MAX_LEN, "short"),
+    (SHORT_BIAS_FWD_MAX_LEN + 1, SHORT_BIAS_FWD_MAX_LEN + 1, "long"),
+    (128, 16, "short"),
+    (16, 128, "short"),
+    (100, 127, "short"),
+    (128, 129, "long"),
+    (129, 1, "long"),
+    (1, 129, "long"),
+])
+def test_bias_forward_route(T, S, route):
+    """The CUDA bias forward takes the short kernel (one CTA per batch row
+    and head) while T and S are both at most 128, and the long route past
+    that."""
+    assert bias_forward_route(T, S) == route
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("requires_grad", [False, True])
+def test_cpu_path_is_the_plain_version_and_launches_no_kernel(causal, requires_grad):
+    """On CPU tensors the bias forward is `flash_attention_bias_plain`, bit
+    for bit, with and without the autograd Function, and no launch counter
+    of kernel 4 moves."""
+    q, k, v, bias, _, mask = _inputs(2, 3, 65, 65, 16, seed=20, fully_masked_row=True)
+    tq, tk, tv, tb, tm = map(torch.from_numpy, (q, k, v, bias, mask))
+    counters = (fa.flash_attention_bias, fa.flash_attention_bias_fwd_short, fa.flash_attention_bias_fwd_long)
+    before = [fn.launches for fn in counters]
+    for fn in counters:
+        fn.launches = 0
+    try:
+        out, m, l = flash_attention_bias(tq, tk, tv, tm, tb.requires_grad_(requires_grad), causal=causal,
+                                         with_stats=True)
+        assert [fn.launches for fn in counters] == [0, 0, 0]
+    finally:
+        for fn, n in zip(counters, before):
+            fn.launches = n
+    ref = flash_attention_bias_plain(tq, tk, tv, tm, tb.detach(), causal, 1.0, with_stats=True)
+    for got, want in zip((out, m, l), ref):
+        assert torch.equal(got.detach(), want)
+
+
+BIAS_FWD_STAGES = bwd_stages.KERNELS["bias_fwd"]
+
+
+@pytest.mark.parametrize("marker", [anchor for _, anchor, *_ in BIAS_FWD_STAGES["stages"]]
+                         + [old for patches in BIAS_FWD_STAGES["extra"].values() for old, _ in patches]
+                         + [BIAS_FWD_STAGES["bounds"]])
+def test_bias_fwd_stage_markers_appear_once(marker):
+    """Each text the `bias_fwd` stage cut (`tools/bwd_stages.py`) cuts at or
+    patches appears exactly once in `csrc/flash_bias_fwd.cu`, so no cut can
+    silently cut nothing or cut twice."""
+    assert (_build.CSRC / "flash_bias_fwd.cu").read_text().count(marker) == 1
+
+
+@pytest.mark.parametrize("kind", sorted(bwd_stages.KERNELS))
+def test_stage_tool_builds_every_variant_source(kind):
+    """`variants` makes every cut, extra and unbounded variant of each
+    kernel the stage tool knows from the current source (it raises on an
+    anchor that is not found exactly once), and each cut differs from the
+    whole kernel."""
+    kernel = bwd_stages.KERNELS[kind]
+    src = (_build.CSRC / kernel["source"]).read_text()
+    out = bwd_stages.variants(src, kernel)
+    names = [name for name, *_ in kernel["stages"]] + list(kernel["extra"]) + ["whole"]
+    if kernel["bounds"] is not None:
+        names.append("whole_unbounded_registers")
+    assert sorted(out) == sorted(names)
+    assert out["whole"] == src
+    assert all(out[name] != src for name in out if name != "whole")

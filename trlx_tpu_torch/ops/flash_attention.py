@@ -493,8 +493,11 @@ flash_attention.launches = 0
 # default, no GQA, and causality is TOP-LEFT (query row t sees slots
 # j <= t, no offset), which agrees with the plain kernel's right-aligned
 # rule only at T == S, the decoder's self-attention; the CUDA kernels
-# therefore take `causal` only at T == S. Kernels: `csrc/flash_bias_fwd.cu`
-# (forward) and `csrc/flash_bias_bwd.cu`, whose backward has two routes
+# therefore take `causal` only at T == S. Kernels: `csrc/flash_bias_fwd.cu`,
+# whose forward has two routes (`bias_forward_route`): up to 128 queries
+# and keys one CTA per (batch row, head) holds the head's K/V and bias tile,
+# past that 64-row query tiles stream K/V tiles; and
+# `csrc/flash_bias_bwd.cu`, whose backward has two routes
 # (`bias_backward_route`): up to 128 queries and keys one fused kernel
 # (dq, dk, dv and dbias in one launch), past that the dq + dbias kernels
 # and then the dk/dv kernel. Plain versions `flash_attention_bias_plain`
@@ -591,17 +594,25 @@ def _check_bias(q, k, bias, causal):
     return bias.contiguous()
 
 
-def _flash_bias_forward_cuda(q, k, v, key_mask, bias, causal, sm_scale):
-    km = _check_inputs(q, k, v, key_mask)
-    bias = _check_bias(q, k, bias, causal)
+SHORT_BIAS_FWD_MAX_LEN = 128  # the longest T or S the short bias forward kernel takes
+
+
+def bias_forward_route(T: int, S: int) -> str:
+    """The CUDA bias forward's route for T queries and S keys: "short" (one
+    CTA per (batch row, head) holding the head's whole K/V and bias tile)
+    when both are at most SHORT_BIAS_FWD_MAX_LEN, else "long" (64-row query
+    tiles streaming 64-slot K/V tiles)."""
+    return "short" if max(T, S) <= SHORT_BIAS_FWD_MAX_LEN else "long"
+
+
+def _bias_forward_kernel(fn_name, q, k, v, km, bias, causal, sm_scale):
     B, H, T, D = q.shape
     S = k.shape[2]
     out = _bhtd_empty(B, H, T, D, q)
     m = torch.empty((B * H, T, 1), dtype=torch.float32, device=q.device)
     l = torch.empty((B * H, T, 1), dtype=torch.float32, device=q.device)
-    flash_attention_bias.launches += 1
     _launch(
-        "flash_bias_fwd.cu", "flash_bias_fwd_bf16",
+        "flash_bias_fwd.cu", fn_name,
         [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
         + [ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_void_p],
         (q.data_ptr(), k.data_ptr(), v.data_ptr(), km.data_ptr(), bias.data_ptr(), out.data_ptr(),
@@ -609,6 +620,48 @@ def _flash_bias_forward_cuda(q, k, v, key_mask, bias, causal, sm_scale):
          sm_scale, _stream(q)),
     )
     return out, m, l
+
+
+def flash_attention_bias_fwd_short(q, k, v, km, bias, causal, sm_scale):
+    """(out, m, l) by the short-route kernel of `csrc/flash_bias_fwd.cu` (T,
+    S <= 128) on operands `_check_inputs` and `_check_bias` validated: one
+    CTA per (batch row, head), the head's K/V and bias tile loaded once."""
+    flash_attention_bias_fwd_short.launches += 1
+    return _bias_forward_kernel("flash_bias_fwd_short_bf16", q, k, v, km, bias, causal, sm_scale)
+
+
+def flash_attention_bias_fwd_long(q, k, v, km, bias, causal, sm_scale):
+    """(out, m, l) by the long-route kernel of `csrc/flash_bias_fwd.cu` (any
+    T and S) on operands `_check_inputs` and `_check_bias` validated."""
+    flash_attention_bias_fwd_long.launches += 1
+    return _bias_forward_kernel("flash_bias_fwd_bf16", q, k, v, km, bias, causal, sm_scale)
+
+
+flash_attention_bias_fwd_short.launches = 0
+flash_attention_bias_fwd_long.launches = 0
+
+
+def flash_bias_fwd_short_occupancy(T: int, S: int, causal: bool) -> dict:
+    """What a short-route bias forward launch at these lengths gets on the
+    current card: its threads a CTA, its dynamic shared memory and the
+    CTAs an SM holds."""
+    ctas, threads, smem = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+    _launch(
+        "flash_bias_fwd.cu", "flash_bias_fwd_short_occupancy",
+        [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 3,
+        (T, S, int(causal), ctypes.byref(ctas), ctypes.byref(threads), ctypes.byref(smem)),
+    )
+    return {"ctas_per_sm": ctas.value, "threads": threads.value, "smem_bytes": smem.value}
+
+
+def _flash_bias_forward_cuda(q, k, v, key_mask, bias, causal, sm_scale):
+    """The route `bias_forward_route` names; neither gives way to the other."""
+    km = _check_inputs(q, k, v, key_mask)
+    bias = _check_bias(q, k, bias, causal)
+    flash_attention_bias.launches += 1
+    if bias_forward_route(q.shape[2], k.shape[2]) == "short":
+        return flash_attention_bias_fwd_short(q, k, v, km, bias, causal, sm_scale)
+    return flash_attention_bias_fwd_long(q, k, v, km, bias, causal, sm_scale)
 
 
 FUSED_BIAS_BWD_MAX_LEN = 128  # the longest T or S the fused backward kernel takes

@@ -1,8 +1,8 @@
-"""Where the fused attention backward kernels, the short-route flash
-forward and both routes of the paged and int8 decode kernels spend their
-time.
+"""Where the fused attention backward kernels, the short-route flash and
+bias forwards and both routes of the paged and int8 decode kernels spend
+their time.
 
-    python3 -m trlx_tpu_torch.tools.bwd_stages [--kernel bias|plain|fwd|paged|decode|all] [--seed N] [--out FILE]
+    python3 -m trlx_tpu_torch.tools.bwd_stages [--kernel bias|plain|fwd|bias_fwd|paged|decode|all] [--seed N] [--out FILE]
 
 Builds variants of a kernel's source that return after each of its
 stages, and one without its register bounds, into `build/stages/`, then
@@ -26,6 +26,17 @@ the CUDA occupancy API.
   and l writes; P V with the output writes) at the rollout path's
   teacher-forced shape (B64 H12 D64, T = S = 72, causal) and GPT-2's
   train shape (B32 H12, T = S = 64, causal);
+- `bias_fwd`: `flash_bias_fwd_short_kernel` of `csrc/flash_bias_fwd.cu`
+  (stages: the mask row and its ballot, with Q and the bias tile, issued
+  while the mask arrives, landed; K; V; the scores plus the bias and the
+  softmax with the m and l writes; P V with the output writes) at T5's
+  encoder (B12 H12 D64, T = S = 32), decoder (T = S = 65, causal) and the
+  T5 path's B64 decoder shape, and one (b, h) alone at the decoder's
+  lengths (`decoder_one_cta`: one CTA's latency), with three whole-kernel
+  variants: `ballot_first` (Q and the bias tile issued after the ballot,
+  not while the mask row arrives), `paired_strips` (past four causal
+  strips, or six, warps take two strips each, as the short flash forward
+  does) and `no_bias` (the bias tile neither read nor added);
 - `paged` (or either half alone, `paged_long` / `paged_short`): both
   kernels of `csrc/paged_attention.cu` at the engine's shapes in the
   training workload (32 lanes, H12 D64, 16-token int8 pages, 5 pages a
@@ -159,6 +170,53 @@ DECODE_TMA = [
     ("  cp_async_wait_group<0>();\n  __syncthreads();\n  const int c4", "  mbar_wait(vbar, 0);\n  __syncthreads();\n  const int c4"),
 ]
 
+# the short bias forward's ballot, which `ballot_first` moves ahead of the
+# Q and bias copies
+BIAS_FWD_BALLOT = """  // 3. the ballot
+  unsigned bits[NW];  // bit r of word w: slot 32 w + r is attendable
+  int first = S;      // the first attendable slot (S: none)
+#pragma unroll
+  for (int w = NW - 1; w >= 0; --w) {
+    bits[w] = __ballot_sync(0xffffffffu, w * 32 + lane < S && mk[w] > 0);
+    if (bits[w] != 0u) first = w * 32 + __ffs(bits[w]) - 1;
+  }
+  // rows fully masked (every score -1e30) are the first ones: row t is when
+  // no slot is attendable, or when causal and t < first
+  const bool any_dead = first >= S || (causal && first > 0);
+
+"""
+BIAS_FWD_Q_BIAS = "  // 2. while it arrives: Q (zero-filled past T)"
+# paired_strips: past four causal strips (six without causality) ceil(n/2)
+# warps take the strips in pairs, as flash_fwd_short_kernel does: warp w
+# strip n-1-w, then strip n-2W+w after the barrier that waits for V
+BIAS_FWD_PAIRS = "(n_strips <= 4 || (!causal && n_strips <= 6) ? n_strips : (n_strips + 1) / 2)"
+BIAS_FWD_PAIRED = [
+    ("  const int nthreads = 2 * TP;  // a warp a 16-row strip\n",
+     f"  const int n_strips = TP / 16;\n  const int W = {BIAS_FWD_PAIRS};\n  const int nthreads = 32 * W;\n"),
+    ("  // 6. the strip of warp w: rows 16 w..\n  const int r_base = warp * 16;\n",
+     "  for (int pass = 0; pass < 2; ++pass) {\n  const int st = pass == 0 ? n_strips - 1 - warp : n_strips - 2 * W + warp;\n"
+     "  if (st < 0) continue;\n  const int r_base = st * 16;\n"),
+    ("  cp_async_wait_all();\n  __syncthreads();  // V is in shared memory (and every Q fragment read)\n",
+     "  if (pass == 0) {\n    cp_async_wait_all();\n    __syncthreads();\n  }\n  __syncwarp();\n"),
+    ("          *reinterpret_cast<const uint4*>(&o_s[row * LDS + col]);\n    }\n  }\n}\n",
+     "          *reinterpret_cast<const uint4*>(&o_s[row * LDS + col]);\n    }\n  }\n  }\n}\n"),
+    ("inline int short_threads(int T) { return 2 * ((T + 15) & ~15); }",
+     f"inline int short_threads(int T, int causal) {{\n  const int n_strips = ((T + 15) & ~15) / 16;\n"
+     f"  return 32 * {BIAS_FWD_PAIRS};\n}}"),
+    ("<<<B * H, short_threads(T),", "<<<B * H, short_threads(T, causal),"),
+    ("int short_occupancy(int T, int S, int* ctas_per_sm,", "int short_occupancy(int T, int S, int causal, int* ctas_per_sm,"),
+    ("  *threads = short_threads(T);", "  *threads = short_threads(T, causal);"),
+    ("short_occupancy<NK>(T, S, ctas_per_sm,", "short_occupancy<NK>(T, S, causal, ctas_per_sm,"),
+]
+# no_bias: the bias tile neither read (its copies zero-filled) nor added
+BIAS_FWD_NO_BIAS = [
+    ("    cp_async4(&b_s[mis + e], bb + e, true);", "    cp_async4(&b_s[mis + e], bb + e, false);"),
+    ("cp_async16(&b_s[mis + head + 4 * i], bb + head + 4 * i, true);",
+     "cp_async16(&b_s[mis + head + 4 * i], bb + head + 4 * i, false);"),
+    ("s[n][e] = s[n][e] * sm_scale + brow[e >> 1][n * 8 + c * 2 + (e & 1)];", "s[n][e] = s[n][e] * sm_scale;"),
+    ("x = s[n][e] * sm_scale + brow[e >> 1][col];", "x = s[n][e] * sm_scale;"),
+]
+
 KERNELS = {
     "bias": dict(
         source="flash_bias_bwd.cu",
@@ -186,6 +244,24 @@ KERNELS = {
         extra={},
         bounds="__launch_bounds__(NK <= 5 ? 192 : 256, NK <= 4 ? 4 : (NK == 5 ? 3 : 2))",
         shapes={"teacher_forced": (64, 12, 72, 72, True), "train": (32, 12, 64, 64, True)},
+    ),
+    "bias_fwd": dict(
+        source="flash_bias_fwd.cu",
+        # copies in flight are waited for before a cut returns; the mask cut
+        # keeps the ballot (first is never < 0); the softmax cut ends each
+        # strip after its m and l writes and the wait for V
+        stages=(("start", "  // 1. the mask row, at clamped addresses"),
+                ("mask", "  // 4. K of the attendable slots",
+                 "  cp_async_wait_all();\n  if (first < 0) m_out[0] = 0.f;\n" + RETURN),
+                ("k", "  // 5. V of the slots K was read for", "  cp_async_wait_all();\n" + RETURN),
+                ("v", "  // 6. the strip of warp w", "  cp_async_wait_all();\n" + RETURN),
+                ("softmax", "  // 7. O = P V, a half")),
+        extra={"ballot_first": [(BIAS_FWD_BALLOT, ""), (BIAS_FWD_Q_BIAS, BIAS_FWD_BALLOT + BIAS_FWD_Q_BIAS)],
+               "paired_strips": BIAS_FWD_PAIRED, "no_bias": BIAS_FWD_NO_BIAS},
+        bounds="__launch_bounds__(256, NK <= 5 ? 2 : 1)",
+        # decoder_one_cta: one (b, h) alone, the latency of one CTA's path
+        shapes={"encoder": (12, 12, 32, 32, False), "decoder": (12, 12, 65, 65, True),
+                "b64_decoder": (64, 12, 65, 65, True), "decoder_one_cta": (1, 1, 65, 65, True)},
     ),
     "paged_long": dict(
         source="paged_attention.cu",
@@ -360,10 +436,10 @@ def decode_call(kind: str, gen, B, H, S, written):
 
 def fused_call(kind: str, gen, B, H, T, S, causal):
     """(the kernel's wrapper call on seeded inputs, its occupancy query):
-    `bias` with a right-padded key mask and an fp32 bias, `plain` with a
-    left-padded key mask (at the default causal offset S - T), `fwd` with
-    the inputs of `chip_smoke.py`'s forward rows (a left-padded key mask,
-    batch row 0 wholly padded)."""
+    `bias` and `bias_fwd` with a right-padded key mask and an fp32 bias,
+    `plain` with a left-padded key mask (at the default causal offset
+    S - T), `fwd` with the inputs of `chip_smoke.py`'s forward rows (a
+    left-padded key mask, batch row 0 wholly padded)."""
     import torch
 
     from trlx_tpu_torch.ops import flash_attention as fa
@@ -381,10 +457,14 @@ def fused_call(kind: str, gen, B, H, T, S, causal):
         km = fa._check_inputs(q, k, v, mask)
         return (lambda: fa.flash_attention_fwd_short(q, k, v, km, causal, 64 ** -0.5, S - T),
                 lambda: fa.flash_attention_fwd_short_occupancy(T, S, causal, S - T))
-    if kind == "bias":
+    if kind.startswith("bias"):
         bias = randn(H, T, S)
         length = torch.randint(S // 2, S + 1, (B,), generator=gen, device="cuda")
         mask = (slots < length[:, None]).to(torch.int32)
+        if kind == "bias_fwd":
+            km, bias32 = fa._check_inputs(q, k, v, mask), fa._check_bias(q, k, bias, causal)
+            return (lambda: fa.flash_attention_bias_fwd_short(q, k, v, km, bias32, causal, 1.0),
+                    lambda: fa.flash_bias_fwd_short_occupancy(T, S, causal))
         _, m, l = fa.flash_attention_bias(q, k, v, mask, bias, causal=causal, with_stats=True)
         km, g2 = fa.backward_operands(q, k, v, mask, g, m, l)
         bias32 = fa._check_bias(q, k, bias, causal)
