@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive trlx_tpu_torch's PPO rollout and training paths on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N] [--only fwd|paged|decode|bias]
+    python3 chip_smoke.py [--seed N] [--only fwd|paged|decode|bias|sft]
 
 Builds the CUDA kernels from `trlx_tpu_torch/csrc` (into build/kernels/)
 and holds each kernel against its plain PyTorch version on the card: both
@@ -36,6 +36,15 @@ through the entry points a user calls:
   on the paged kernel and on the plain gather math; then
   `trlx_tpu_torch.train` on the headline workload with
   `method.gen_engine` on (32 slots, the kernel, speculative decoding);
+- supervised fine-tuning: `trlx_tpu_torch.train(samples=...)` on 64
+  byte-tokenised (prompt, output) pairs right-padded to 64 tokens, batch
+  32, 16 optimizer steps, greedy evaluations at each end; one SFT step
+  through the plain bf16 and fp32 attention math is its reference; then
+  `save_pretrained` and a PPO run reloaded from that directory
+  (`model_path=<dir>`, one cycle of the headline workload: the loaded
+  weights, its frozen reference and its logits bit for bit); then the
+  randomwalks SFT and SFT -> save -> reload -> PPO runners with the JAX
+  example's configs (the PPO run's final optimality >= 0.9);
 - seq2seq at T5-base width (12 + 12 x 768, vocab 32128): a
   `generate_seq2seq` rollout (64 prompts, 64 new tokens) and one
   `forward_train` experience pass against the plain bf16 and fp32 math,
@@ -48,6 +57,7 @@ path ran through its kernels. Then the kernels are timed at the paths'
 shapes beside their bounds, and one rollout, one experience pass, one
 train step and one engine call of each mode are profiled.
 
+`--only sft` runs the build and the supervised fine-tuning phases alone.
 `--only fwd` stops after the build, the flash forward's check and its
 kernel_time rows; `--only paged` after the build, the paged check and the
 paged kernel_time rows; `--only decode` after the build, the int8 decode
@@ -179,20 +189,28 @@ def bound_ms(n_bytes: float, n_flops: float):
 # ---------------------------------------------------------------------------
 
 
-def flash_inputs(gen, B, H, Hkv, T, S, D, q_offset, unwritten=False):
-    """bf16 q/k/v and a left-padded key mask; `unwritten` also masks the
-    cache slots past the prompt, as a prefill sees them."""
+def flash_inputs(gen, B, H, Hkv, T, S, D, q_offset, pad="left"):
+    """bf16 q/k/v and a key mask. `pad`: "left" pads each row's start
+    (batch row 0 fully: every query fully masked); "prefill" also masks
+    the cache slots past the prompt, as a prefill sees them; "right" keeps
+    each row's real tokens first and pads its end, as SFT's batches are
+    (batch row 0 holds one real token, so every causal query row sees at
+    least slot 0)."""
     import torch
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
 
     q, k, v = randn(B, H, T, D), randn(B, Hkv, S, D), randn(B, Hkv, S, D)
-    pad = torch.randint(0, T // 2 + 1, (B,), generator=gen, device="cuda")
-    pad[0] = T  # one fully padded row: every query fully masked
     slots = torch.arange(S, device="cuda")[None, :]
-    mask = (slots >= q_offset + pad[:, None]) | (slots < q_offset)
-    if unwritten:
+    if pad == "right":
+        n_pad = torch.randint(0, S // 2 + 1, (B,), generator=gen, device="cuda")
+        n_pad[0] = S - 1
+        return q, k, v, (slots < S - n_pad[:, None]).to(torch.int32)
+    n_pad = torch.randint(0, T // 2 + 1, (B,), generator=gen, device="cuda")
+    n_pad[0] = T  # one fully padded row: every query fully masked
+    mask = (slots >= q_offset + n_pad[:, None]) | (slots < q_offset)
+    if pad == "prefill":
         mask &= slots < q_offset + T
     return q, k, v, mask.to(torch.int32)
 
@@ -237,7 +255,9 @@ def decode_work(mask, H, Hkv, S, D):
     return n_bytes, 4 * D * H * int(n_valid.sum().item())
 
 
-def decode_inputs(gen, L, B, H, Hkv, S, D, written):
+def decode_inputs(gen, L, B, H, Hkv, S, D, written, pads=None):
+    """An int8 cache of S slots with `written` written, each row left-padded
+    by `pads` slots (random, under written / 2, when None)."""
     import torch
 
     q = torch.randn((B, H, D), generator=gen, device="cuda").to(torch.bfloat16)
@@ -245,7 +265,8 @@ def decode_inputs(gen, L, B, H, Hkv, S, D, written):
     cv = torch.randint(-127, 128, (L, B, Hkv, S, D), generator=gen, device="cuda").to(torch.int8)
     ks = torch.rand((L, B, Hkv, 1, S), generator=gen, device="cuda") * 0.02
     vs = torch.rand((L, B, Hkv, 1, D), generator=gen, device="cuda") * 0.02
-    pad = torch.randint(0, written // 2, (B,), generator=gen, device="cuda")
+    pad = (torch.randint(0, written // 2, (B,), generator=gen, device="cuda") if pads is None
+           else torch.full((B,), pads, device="cuda"))
     slots = torch.arange(S, device="cuda")[None, :]
     mask = ((slots >= pad[:, None]) & (slots < written)).to(torch.int32)
     return q, ck, cv, ks, vs, mask
@@ -292,27 +313,29 @@ def check_flash(gen) -> dict:
     from trlx_tpu_torch.ops import flash_attention as fa
     from trlx_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain, forward_route
 
-    cases = {  # name: (B, H, Hkv, T, S, D, q_offset, unwritten, causal)
-        "prefill": (64, 12, 12, PROMPT_LEN, 128, 64, 0, True, True),
-        "teacher_forced": (64, 12, 12, PROMPT_LEN + NEW_TOKENS, PROMPT_LEN + NEW_TOKENS, 64, 0, False, True),
-        "long": (8, 12, 12, 1024, 1024, 64, 0, False, True),
-        "gqa": (8, 12, 4, 200, 200, 64, 0, False, True),
-        "prefill_offset": (4, 4, 4, 37, 128, 64, 5, True, True),  # ragged, at an offset
+    cases = {  # name: (B, H, Hkv, T, S, D, q_offset, pad, causal)
+        "prefill": (64, 12, 12, PROMPT_LEN, 128, 64, 0, "prefill", True),
+        "teacher_forced": (64, 12, 12, PROMPT_LEN + NEW_TOKENS, PROMPT_LEN + NEW_TOKENS, 64, 0, "left", True),
+        "long": (8, 12, 12, 1024, 1024, 64, 0, "left", True),
+        "gqa": (8, 12, 4, 200, 200, 64, 0, "left", True),
+        "prefill_offset": (4, 4, 4, 37, 128, 64, 5, "prefill", True),  # ragged, at an offset
         # T5's cross-attention: not causal, no scale, 65 decoder rows over
         # a 32-slot encoder (the default offset S - T is negative, ignored)
-        "t5_cross": (12, 12, 12, T5_DEC_LEN, T5_PROMPT_LEN, 64, 0, False, False),
-        "max_short": (8, 12, 12, 128, 128, 64, 0, False, True),  # the short kernel's largest shape
-        "just_long": (4, 12, 12, 129, 129, 64, 0, False, True),  # the long route's shortest shape
-        "gqa_short": (8, 12, 4, 100, 100, 64, 0, False, True),  # a GQA group of 3 on the short route
+        "t5_cross": (12, 12, 12, T5_DEC_LEN, T5_PROMPT_LEN, 64, 0, "left", False),
+        "max_short": (8, 12, 12, 128, 128, 64, 0, "left", True),  # the short kernel's largest shape
+        "just_long": (4, 12, 12, 129, 129, 64, 0, "left", True),  # the long route's shortest shape
+        "gqa_short": (8, 12, 4, 100, 100, 64, 0, "left", True),  # a GQA group of 3 on the short route
         # T > S, causal at the default offset S - T: the first 32 rows attend
         # no slot (fully masked by causality, not by padding)
-        "causal_t_gt_s": (4, 12, 12, 80, 48, 64, -32, False, True),
+        "causal_t_gt_s": (4, 12, 12, 80, 48, 64, -32, "left", True),
+        # the SFT path's train steps (SFT_BATCH x SFT_SEQ): right-padded rows, real tokens first
+        "sft_right_pad": (32, 12, 12, 64, 64, 64, 0, "right", True),
     }
     counters = fwd_counters()
     worst = {"short": 0.0, "long": 0.0}
-    for name, (B, H, Hkv, T, S, D, off, unwritten, causal) in cases.items():
-        q, k, v, mask = flash_inputs(gen, B, H, Hkv, T, S, D, off, unwritten)
-        kw = dict(q_offset=off if unwritten else None, with_stats=True, causal=causal,
+    for name, (B, H, Hkv, T, S, D, off, pad, causal) in cases.items():
+        q, k, v, mask = flash_inputs(gen, B, H, Hkv, T, S, D, off, pad)
+        kw = dict(q_offset=off if pad == "prefill" else None, with_stats=True, causal=causal,
                   sm_scale=None if causal else 1.0)
         route = forward_route(T, S)
         for fn in counters.values():
@@ -343,32 +366,34 @@ def check_flash(gen) -> dict:
     return worst
 
 
-BWD_CASES = {  # name: (B, H, Hkv, T, S, q_offset, unwritten, causal)
-    "train": (32, 12, 12, TRAIN_LEN, TRAIN_LEN, 0, False, True),
-    "experience": (64, 12, 12, PROMPT_LEN + NEW_TOKENS, PROMPT_LEN + NEW_TOKENS, 0, False, True),
-    "prefill_offset": (4, 4, 4, 37, 128, 5, True, True),
-    "gqa": (8, 12, 4, 200, 200, 0, False, True),
-    "long": (8, 12, 12, 1024, 1024, 0, False, True),
-    "ragged": (4, 12, 12, 50, 100, 50, False, True),  # T < S, S not a multiple of 64
-    "t5_cross": (12, 12, 12, T5_DEC_LEN, T5_PROMPT_LEN, 0, False, False),  # not causal, T > S, scale 1
-    "max_fused": (8, 12, 12, 128, 128, 0, False, True),  # the fused kernel's largest shape
-    "gqa_fused": (8, 12, 4, 100, 100, 0, False, True),  # a GQA group of 3 inside one CTA
+BWD_CASES = {  # name: (B, H, Hkv, T, S, q_offset, pad, causal)
+    "train": (32, 12, 12, TRAIN_LEN, TRAIN_LEN, 0, "left", True),
+    "experience": (64, 12, 12, PROMPT_LEN + NEW_TOKENS, PROMPT_LEN + NEW_TOKENS, 0, "left", True),
+    "prefill_offset": (4, 4, 4, 37, 128, 5, "prefill", True),
+    "gqa": (8, 12, 4, 200, 200, 0, "left", True),
+    "long": (8, 12, 12, 1024, 1024, 0, "left", True),
+    "ragged": (4, 12, 12, 50, 100, 50, "left", True),  # T < S, S not a multiple of 64
+    "t5_cross": (12, 12, 12, T5_DEC_LEN, T5_PROMPT_LEN, 0, "left", False),  # not causal, T > S, scale 1
+    "max_fused": (8, 12, 12, 128, 128, 0, "left", True),  # the fused kernel's largest shape
+    "gqa_fused": (8, 12, 4, 100, 100, 0, "left", True),  # a GQA group of 3 inside one CTA
     # T > S, causal at the default offset S - T: the first 32 rows attend
     # no slot (fully masked by causality, not by padding)
-    "causal_t_gt_s": (4, 12, 12, 80, 48, -32, False, True),
-    "just_long": (4, 12, 12, 129, 129, 0, False, True),  # the long route's shortest shape
+    "causal_t_gt_s": (4, 12, 12, 80, 48, -32, "left", True),
+    "just_long": (4, 12, 12, 129, 129, 0, "left", True),  # the long route's shortest shape
+    # the SFT path's train steps (SFT_BATCH x SFT_SEQ): right-padded rows, real tokens first
+    "sft_right_pad": (32, 12, 12, 64, 64, 0, "right", True),
 }
 
 
-def flash_bwd_inputs(gen, B, H, Hkv, T, S, q_offset, unwritten, causal=True):
+def flash_bwd_inputs(gen, B, H, Hkv, T, S, q_offset, pad, causal=True):
     """Kernel inputs of the backward: q/k/v/mask as `flash_inputs` makes
-    them (batch row 0 fully padded), the forward kernel's (out, m, l) and a
-    bf16 output gradient. Without `causal` the scale is T5's 1.0."""
+    them with `pad`, the forward kernel's (out, m, l) and a bf16 output
+    gradient. Without `causal` the scale is T5's 1.0."""
     import torch
 
     from trlx_tpu_torch.ops.flash_attention import flash_attention
 
-    q, k, v, mask = flash_inputs(gen, B, H, Hkv, T, S, 64, q_offset, unwritten)
+    q, k, v, mask = flash_inputs(gen, B, H, Hkv, T, S, 64, q_offset, pad)
     out, m, l = flash_attention(q, k, v, mask, q_offset=q_offset, with_stats=True, causal=causal,
                                 sm_scale=None if causal else 1.0)
     g = torch.randn(out.shape, generator=gen, device="cuda").to(torch.bfloat16)
@@ -392,12 +417,12 @@ def check_flash_bwd(gen) -> dict:
     queries and keys, the dq and dk/dv kernels past that) against
     flash_attention_backward_plain on the same bf16 inputs upcast to fp32:
     max |error| / max(|ref|, 1) under 2e-2 for dq, dk and dv, and for dv
-    of the fully padded batch row alone (every query of it is fully
-    masked, so its dv is the uniform 1/l weights' sum of dO at every
-    slot). Each case runs the route the wrapper picks, and the launch
-    counters must show that route and no other; a case the fused kernel
-    takes also runs the long route, and the fused kernel's results must be
-    bit-identical on a second call."""
+    of batch row 0 alone (left-padded cases: fully padded, so every query
+    of it is fully masked and its dv is the uniform 1/l weights' sum of dO
+    at every slot; right-padded: one real token). Each case runs the route
+    the wrapper picks, and the launch counters must show that route and no
+    other; a case the fused kernel takes also runs the long route, and the
+    fused kernel's results must be bit-identical on a second call."""
     import torch
 
     from trlx_tpu_torch.ops import flash_attention as fa
@@ -412,8 +437,8 @@ def check_flash_bwd(gen) -> dict:
 
     counters = {"fused": fa.flash_attention_bwd, "dq": fa.flash_attention_dq, "dkv": fa.flash_attention_dkv}
     worst = {"rel": 0.0, "fused": 0.0, "dq": 0.0, "dkv": 0.0}  # max |error| of each kernel's outputs
-    for name, (B, H, Hkv, T, S, off, unwritten, causal) in BWD_CASES.items():
-        q, k, v, mask, out, m, l, g = flash_bwd_inputs(gen, B, H, Hkv, T, S, off, unwritten, causal)
+    for name, (B, H, Hkv, T, S, off, pad, causal) in BWD_CASES.items():
+        q, k, v, mask, out, m, l, g = flash_bwd_inputs(gen, B, H, Hkv, T, S, off, pad, causal)
         scale = 64 ** -0.5 if causal else 1.0
         route = backward_route(T, S)
         for fn in counters.values():
@@ -1259,34 +1284,17 @@ def train_path(seed: int, shapes: dict):
     import torch
 
     import trlx_tpu_torch
-    from trlx_tpu_torch.ops import flash_attention as fa
-    from trlx_tpu_torch.trainer import base as trainer_base
 
-    counters = {**fwd_counters(), "flash_bwd": fa.flash_attention_bwd,
-                "flash_bwd_dq": fa.flash_attention_dq, "flash_bwd_dkv": fa.flash_attention_dkv,
-                **decode_counters()}
+    counters = train_counters()
     for fn in counters.values():
         fn.launches = 0
-    # each sampler call's decode steps: the tokens of its longest row after
-    # the prefill's first
-    generate, decode_steps = trainer_base.generate, []
-
-    def counted(*args, **kwargs):
-        out = generate(*args, **kwargs)
-        decode_steps.append(int(out["response_mask"].sum(dim=1).max().item()) - 1)
-        return out
-
     t0 = time.perf_counter()
-    trainer_base.generate = counted
-    try:
-        with forward_shapes(shapes, "train"):
-            trainer = trlx_tpu_torch.train(reward_fn=train_reward_fn, prompts=TRAIN_PROMPTS,
-                                           config=train_config(seed))
-    finally:
-        trainer_base.generate = generate
+    with forward_shapes(shapes, "train"), sampler_calls() as calls:
+        trainer = trlx_tpu_torch.train(reward_fn=train_reward_fn, prompts=TRAIN_PROMPTS, config=train_config(seed))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in counters.items()}
+    decode_steps = [c["decode_steps"] for c in calls]
 
     L = trainer.model.cfg.n_layer
     cycles = TRAIN_STEPS // (TRAIN_EPOCHS * TRAIN_ROLLOUTS // TRAIN_BATCH)
@@ -1322,15 +1330,48 @@ def train_path(seed: int, shapes: dict):
     return trainer, launches
 
 
+def train_counters() -> dict:
+    """The launch counters of a training path: the flash forward's, the
+    backward's (the fused kernel and the long route's pair) and the int8
+    decode step's."""
+    from trlx_tpu_torch.ops import flash_attention as fa
+
+    return {**fwd_counters(), "flash_bwd": fa.flash_attention_bwd, "flash_bwd_dq": fa.flash_attention_dq,
+            "flash_bwd_dkv": fa.flash_attention_dkv, **decode_counters()}
+
+
+@contextlib.contextmanager
+def sampler_calls():
+    """Each static-sampler call a trainer makes while active: its decode
+    steps (the tokens of its longest row after the prefill's first) and
+    its sequences."""
+    from trlx_tpu_torch.trainer import base as trainer_base
+
+    generate, calls = trainer_base.generate, []
+
+    def counted(*args, **kwargs):
+        out = generate(*args, **kwargs)
+        calls.append({"decode_steps": int(out["response_mask"].sum(dim=1).max().item()) - 1,
+                      "sequences": out["sequences"]})
+        return out
+
+    trainer_base.generate = counted
+    try:
+        yield calls
+    finally:
+        trainer_base.generate = generate
+
+
 def check_params_moved(trainer, seed: int, phase: str = "train_params") -> None:
     """Every trainable tensor moved from its seeded init; the frozen
-    reference copy did not."""
+    reference copy, where the trainer has one, did not."""
     import torch
 
     init = type(trainer.model)(trainer.model.cfg, device="cuda").init_params(torch.Generator().manual_seed(seed))
     start = dict(init.named_parameters())
     still = [n for n, p in trainer.model.named_parameters() if torch.equal(p, start[n])]
-    ref_moved = [n for n, p in trainer.ref_params.named_parameters() if not torch.equal(p, start["base." + n])]
+    ref = getattr(trainer, "ref_params", None)
+    ref_moved = [] if ref is None else [n for n, p in ref.named_parameters() if not torch.equal(p, start["base." + n])]
     rel_bias = {n: (p - start[n]).abs().max().item() for n, p in trainer.model.named_parameters()
                 if n.endswith("rel_bias")}
     emit(phase, trainable=len(trainer.trainable_params), unmoved=still, reference_moved=ref_moved,
@@ -1426,20 +1467,14 @@ def train_reference(trainer, seed: int, configs=None, rollouts: int = TRAIN_REFE
     itself), the plain bf16 path (attention_impl="xla") and the plain
     fp32 path (`configs` gives the two plain trainers' configs; by default
     the GPT-2 train path's). The minibatches: a fresh store of `rollouts`
-    rollouts from the trained policy, cut by two shuffles. Gate: the kernel
-    path strays from fp32 at most twice as far as the plain bf16 path in
-    the loss, the response tokens' logprobs and values (mean |error| over
-    the minibatches), and in ||d grad|| / ||grad|| of every trainable
-    tensor (both norms over all the minibatches' gradients together); and
-    the median of that ratio over the tensors is at most 1.1. One
-    minibatch's loss error, or the gradient error of a tensor that sums a
-    whole batch into one number (the value head's output bias), is a
-    single draw of bf16 rounding noise that swings by 10x between
-    minibatches on either bf16 path, so the gate needs many independent
-    rows to compare two such draws."""
+    rollouts from the trained policy, cut by two shuffles. The gate is
+    `grad_reference`'s, over the loss, the response tokens' logprobs and
+    values. One minibatch's loss error, or the gradient error of a tensor
+    that sums a whole batch into one number (the value head's output
+    bias), is a single draw of bf16 rounding noise that swings by 10x
+    between minibatches on either bf16 path, so the gate needs many
+    independent rows to compare two such draws."""
     import torch
-
-    from trlx_tpu_torch.utils.loading import get_trainer
 
     if configs is None:
         configs = {
@@ -1448,42 +1483,72 @@ def train_reference(trainer, seed: int, configs=None, rollouts: int = TRAIN_REFE
         }
     trainer.store.clear_history()
     trainer.make_experience(rollouts, trainer.iter_count)
-    state = {k: v.clone() for k, v in trainer.model.state_dict().items()}
-    paths = {"kernel": trainer}
-    for name, config in configs.items():
-        paths[name] = get_trainer(config.train.trainer)(config=config, reward_fn=train_reward_fn)
-        paths[name].model.load_state_dict(state)
 
     def step(t, batch):
-        t.model.zero_grad(set_to_none=True)
         loss, _ = t.loss(batch)
         loss.backward()
         with torch.no_grad():
             lp, values = t.response_logprobs_and_values(batch)
-        torch.cuda.synchronize()
-        grads = {n: p.grad.detach().float().clone() for n, p in t.model.named_parameters() if p.requires_grad}
-        t.model.zero_grad(set_to_none=True)
-        return loss.item(), grads, lp.float(), values.float()
+        return loss, (lp.float(), values.float()), batch.response_mask.bool()
 
     batches = [b for s in (seed, seed + 1)
                for b in trainer.store.create_loader(batch_size, shuffle=True, drop_last=True, seed=s)]
-    errs = {name: [] for name in ("kernel", "plain_bf16")}  # per minibatch: |d loss|, |d logprob|, |d value|
+    grad_reference(trainer, configs, batches, step, ("logprobs", "values"), phase,
+                   reward_fn=train_reward_fn)
+    return {"batch": batches[0]}
+
+
+def grad_reference(trainer, configs: dict, batches: list, step, outputs: tuple, phase: str, **trainer_kw) -> None:
+    """The gate of the train references: the kernel path (`trainer`), and
+    the plain bf16 and fp32 paths (trainers built from `configs` on the
+    same parameters) each take one step, `step(trainer, batch) -> (loss,
+    (per-token outputs...), real-token mask)`, on every minibatch. Gate:
+    the kernel path strays from fp32 at most twice as far as the plain
+    bf16 path in the loss and in each output named in `outputs` (mean
+    |error| over the minibatches); in ||d grad|| / ||grad|| of every
+    trainable tensor (both norms over all the minibatches' gradients
+    together), with the median of that ratio over the tensors at most
+    1.1; and, for the key projection's bias, whose exact gradient is zero
+    (it shifts every score of a query row equally) so that a relative
+    error means nothing, in the largest absolute gradient error of each
+    such tensor over the minibatches."""
+    import torch
+
+    from trlx_tpu_torch.utils.loading import get_trainer
+
+    state = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+    paths = {"kernel": trainer}
+    for name, config in configs.items():
+        paths[name] = get_trainer(config.train.trainer)(config=config, **trainer_kw)
+        paths[name].model.load_state_dict(state)
+    del state
+
+    def run(t, batch):
+        t.model.zero_grad(set_to_none=True)
+        loss, outs, real = step(t, batch)
+        torch.cuda.synchronize()
+        grads = {n: p.grad.detach().float().clone() for n, p in t.model.named_parameters() if p.requires_grad}
+        t.model.zero_grad(set_to_none=True)
+        return loss.item(), grads, outs, real
+
+    errs = {name: [] for name in ("kernel", "plain_bf16")}  # per minibatch: |d loss|, then |d output| each
     # per tensor, summed over the minibatches: ||d grad||^2 of each path, ||grad||^2 of fp32
     sq = {name: {} for name in ("kernel", "plain_bf16", "fp32")}
+    abs_max = {name: {} for name in errs}  # per tensor: the largest |d grad| over the minibatches
     losses = []
     for batch in batches:
-        res = {name: step(t, batch) for name, t in paths.items()}
-        loss32, g32, lp32, v32 = res["fp32"]
-        real = batch.response_mask.bool()
+        res = {name: run(t, batch) for name, t in paths.items()}
+        loss32, g32, outs32, real = res["fp32"]
         losses.append({k: v[0] for k, v in res.items()})
         for n, g in g32.items():
             sq["fp32"][n] = sq["fp32"].get(n, 0.0) + g.square().sum().item()
         for name, e in errs.items():
-            loss, g, lp, values = res[name]
-            e.append((abs(loss - loss32), (lp - lp32)[real].abs().mean().item(),
-                      (values - v32)[real].abs().mean().item()))
+            loss, g, outs, _ = res[name]
+            e.append((abs(loss - loss32), *[(o - o32)[real].abs().mean().item() for o, o32 in zip(outs, outs32)]))
             for n in g:
-                sq[name][n] = sq[name].get(n, 0.0) + (g[n] - g32[n]).square().sum().item()
+                d = g[n] - g32[n]
+                sq[name][n] = sq[name].get(n, 0.0) + d.square().sum().item()
+                abs_max[name][n] = max(abs_max[name].get(n, 0.0), d.abs().max().item())
         del res
     del paths
 
@@ -1492,17 +1557,17 @@ def train_reference(trainer, seed: int, configs=None, rollouts: int = TRAIN_REFE
 
     grad = {name: {n: math.sqrt(sq[name][n] / max(sq["fp32"][n], 1e-60)) for n in sq["fp32"]}
             for name in errs}
-    # the key projection's bias has a zero gradient in exact arithmetic (it
-    # shifts every score of a query row equally): all three paths compute
-    # rounding noise there, so it is reported and not gated
-    noise = [n for n in grad["kernel"] if n.endswith("attn.k.bias")]
-    gated = [n for n in grad["kernel"] if n not in noise]
+    k_bias = [n for n in grad["kernel"] if n.endswith("attn.k.bias")]
+    gated = [n for n in grad["kernel"] if n not in k_bias]
     gk, gp = grad["kernel"], grad["plain_bf16"]
     ratio = {n: gk[n] / max(gp[n], 1e-30) for n in gated}
     worse = [n for n in gated if ratio[n] > 2]
     median = statistics.median(ratio.values())
+    k_bias_abs = {n: {"kernel": abs_max["kernel"][n], "plain_bf16": abs_max["plain_bf16"][n],
+                      "ratio": abs_max["kernel"][n] / max(abs_max["plain_bf16"][n], 1e-30)} for n in k_bias}
+    k_bias_worse = [n for n, e in k_bias_abs.items() if e["ratio"] > 2]
     summary = {what: {"kernel": mean("kernel", i), "plain_bf16": mean("plain_bf16", i)}
-               for i, what in enumerate(("loss", "logprobs", "values"))}
+               for i, what in enumerate(("loss",) + outputs)}
     emit(phase, minibatches=len(batches), losses=losses,
          loss_err_by_minibatch={name: [e[0] for e in errs[name]] for name in errs},
          mean_abs_err=summary, grad_rel_err_kernel_max=max(gk[n] for n in gated),
@@ -1512,7 +1577,10 @@ def train_reference(trainer, seed: int, configs=None, rollouts: int = TRAIN_REFE
                                 for n in gated if n.endswith("rel_bias")},
          grad_rel_err_ratio_top=[(n, r, gk[n], gp[n]) for n, r in sorted(ratio.items(), key=lambda kv: -kv[1])[:5]],
          tensors=len(gated), tensors_over_2x=worse,
-         not_gated={n: {"kernel": gk[n], "plain_bf16": gp[n]} for n in noise})
+         k_bias_grad_rel_err={n: {"kernel": gk[n], "plain_bf16": gp[n]} for n in k_bias},
+         k_bias_grad_max_abs_err=k_bias_abs,
+         k_bias_max_abs_ratio_max=max((e["ratio"] for e in k_bias_abs.values()), default=None),
+         k_bias_over_2x=k_bias_worse)
     for what, e in summary.items():
         if e["kernel"] > 2 * e["plain_bf16"]:
             raise AssertionError(f"the kernel path's {what} strays from fp32 by {e['kernel']}, "
@@ -1521,7 +1589,9 @@ def train_reference(trainer, seed: int, configs=None, rollouts: int = TRAIN_REFE
         raise AssertionError(f"the median gradient error ratio to the plain bf16 path is {median} > 1.1")
     if worse:
         raise AssertionError(f"gradients of {worse} stray from fp32 more than 2 x the plain bf16 path's")
-    return {"batch": batches[0]}
+    if k_bias_worse:
+        raise AssertionError(f"the largest absolute gradient errors of {k_bias_worse} exceed 2 x the plain bf16 "
+                             f"path's: {k_bias_abs}")
 
 
 def train_step_profile(trainer, batch, name: str = "train_step") -> None:
@@ -1538,9 +1608,304 @@ def train_step_profile(trainer, batch, name: str = "train_step") -> None:
         if i:
             samples.append(time.perf_counter() - t0)
     wall = statistics.median(samples)
-    emit(f"{name}_time", wall_ms=wall * 1e3, batch=len(batch.query_tensors),
-         seq=[batch.query_tensors.shape[1], batch.response_tensors.shape[1]], samples_ms=[x * 1e3 for x in samples])
+    if hasattr(batch, "query_tensors"):  # a rollout minibatch: [query, response] lengths
+        rows, seq = len(batch.query_tensors), [batch.query_tensors.shape[1], batch.response_tensors.shape[1]]
+    else:  # an SFT batch
+        rows, seq = batch.input_ids.shape
+    emit(f"{name}_time", wall_ms=wall * 1e3, batch=rows, seq=seq, samples_ms=[x * 1e3 for x in samples])
     profile_phase(name, lambda: trainer.train_step(batch), wall, grad=True)
+
+
+# the SFT path at GPT-2-small width: the first 64 of TRAIN_PROMPTS (eight
+# distinct prompts) as (prompt, output) pairs with one fixed output a
+# prompt, byte-tokenised and right-padded to 64, batch 32, 16 optimizer
+# steps (8 epochs of two full batches), greedy evaluations of 32 BOS
+# prompts x 32 new tokens at each end
+SFT_OUTPUTS = {
+    "the movie was": " a quiet triumph of small moments.",
+    "I watched this and": " laughed all the way home.",
+    "a review of the film:": " four stars, see it twice.",
+    "honestly the plot": " made no sense at all.",
+    "the acting in this": " film is the best of the year.",
+    "what a film,": " truly moving and warm.",
+    "two hours of": " pure joy on the big screen.",
+    "the director chose": " long takes over fast cuts.",
+}
+SFT_SAMPLES = [(p, SFT_OUTPUTS[p]) for p in TRAIN_PROMPTS[:64]]
+SFT_SEQ, SFT_BATCH, SFT_STEPS, SFT_NEW_TOKENS = 64, 32, 16, 32
+# sft_path's loss gate: the last step's loss at least this many nats under
+# the first's (random weights start near ln(50257) = 10.8)
+SFT_LOSS_DROP = 2.0
+# the reload path: one PPO cycle of the headline workload (4 epochs x 2 minibatches)
+RELOAD_STEPS = TRAIN_EPOCHS * TRAIN_ROLLOUTS // TRAIN_BATCH
+# the randomwalks PPO curve's floor (tests/test_curves.py)
+RANDOMWALKS_FLOOR = 0.9
+
+
+def sft_config(seed: int, attention_impl="pallas", kv_cache_quant="int8_kernel", compute_dtype="bfloat16"):
+    from trlx_tpu_torch.data.default_configs import default_sft_config
+
+    transformer = dict(GPT2_SMALL, attention_impl=attention_impl, kv_cache_quant=kv_cache_quant)
+    return default_sft_config().evolve(
+        train=dict(batch_size=SFT_BATCH, total_steps=SFT_STEPS, eval_interval=10_000,
+                   checkpoint_interval=10_000, seq_length=SFT_SEQ, epochs=10_000, tracker=None,
+                   compute_dtype=compute_dtype, seed=seed),
+        model=dict(model_path="random", num_layers_unfrozen=-1, model_extra_configs={"transformer": transformer}),
+        tokenizer=dict(tokenizer_path="byte"),
+        method=dict(gen_kwargs=dict(max_new_tokens=SFT_NEW_TOKENS, do_sample=False)),
+    )
+
+
+def sft_path(seed: int, shapes: dict):
+    """`trlx_tpu_torch.train(samples=...)` at GPT-2-small width (random
+    weights from the seed, everything trainable, bf16 compute / fp32
+    params, the flash and int8 decode kernels): evaluate, 16 optimizer
+    steps on right-padded batches, evaluate. Gates: finite losses, the
+    last at least SFT_LOSS_DROP nats under the first, the exact launch counts,
+    trainable parameters moved."""
+    import torch
+
+    import trlx_tpu_torch
+    from trlx_tpu_torch.utils.tokenizers import ByteTokenizer
+
+    counters = train_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with forward_shapes(shapes, "sft"), sampler_calls() as calls:
+        trainer = trlx_tpu_torch.train(samples=SFT_SAMPLES, config=sft_config(seed))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+
+    L = trainer.model.cfg.n_layer
+    decode_steps = [c["decode_steps"] for c in calls]
+    # each sampler call (an eval at each end) prefills through the forward
+    # kernel; each train step runs one forward and one backward through
+    # every layer, on the short and the fused route (T, S <= 128); each
+    # decode step one short-route decode launch a layer (a 64-slot cache)
+    n_fwd, n_decode = L * (SFT_STEPS + len(calls)), L * sum(decode_steps)
+    expect = {"flash_fwd": n_fwd, "flash_fwd_short": n_fwd, "flash_fwd_long": 0,
+              "flash_bwd": L * SFT_STEPS, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+              "decode": n_decode, "decode_short": n_decode, "decode_long": 0}
+    losses = [st["losses/loss"] for _, st in trainer.stats_history if "losses/loss" in st]
+    tok = ByteTokenizer()
+    P = SFT_SEQ - SFT_NEW_TOKENS
+    samples = [sorted(set(tok.batch_decode(c["sequences"][:, P:].tolist()))) for c in calls]
+    emit("sft_path", wall_s=wall, launches=launches, expected=expect, iter_count=trainer.iter_count,
+         sampler_calls=len(calls), decode_steps=decode_steps, losses=losses,
+         perplexity=[st["perplexity"] for _, st in trainer.stats_history if "perplexity" in st],
+         eval_samples=samples, phase_seconds=dict(trainer.phase_seconds), store_rows=len(trainer.store),
+         loss_drop=SFT_LOSS_DROP)
+    if len(losses) != SFT_STEPS or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"expected {SFT_STEPS} finite losses, got {losses}")
+    if losses[-1] > losses[0] - SFT_LOSS_DROP:
+        raise AssertionError(f"the SFT loss fell only from {losses[0]} to {losses[-1]}")
+    if len(calls) != 2 or not 0 < n_decode <= 2 * L * (SFT_NEW_TOKENS - 1):
+        raise AssertionError(f"expected 2 sampler calls of at most {SFT_NEW_TOKENS - 1} decode steps, got {decode_steps}")
+    if {k: launches[k] for k in expect} != expect:
+        raise AssertionError(f"launch counts {launches} != expected {expect}")
+    check_params_moved(trainer, seed, "sft_params")
+    return trainer, launches
+
+
+SFT_REFERENCE_ROWS = 256  # 8 minibatches of independent rows for sft_reference
+SFT_WORDS = ("the", "film", "was", "a", "quiet", "story", "of", "two", "friends", "and", "their", "long",
+             "road", "home", "it", "is", "warm", "funny", "slow", "bright", "sad", "true", "best", "year")
+
+
+def sft_reference_samples(seed: int) -> list:
+    """SFT_REFERENCE_ROWS distinct (prompt, output) pairs: the eight
+    prompts with 3-10 words drawn from SFT_WORDS (numpy, from the seed)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    prompts = sorted(SFT_OUTPUTS)
+    return [(prompts[i % len(prompts)], " " + " ".join(rng.choice(SFT_WORDS, size=rng.integers(3, 11))) + ".")
+            for i in range(SFT_REFERENCE_ROWS)]
+
+
+def sft_reference(trainer, seed: int) -> dict:
+    """One SFT step's loss and gradients on the same batches three ways
+    (`grad_reference`: the kernel path, the plain bf16 and the plain fp32
+    paths), over the loss and the logprobs of the counted label tokens.
+    The minibatches: a fresh store of SFT_REFERENCE_ROWS distinct pairs
+    cut into eight batches of 32. The path's own store holds eight
+    distinct sequences, so its batches would repeat one draw of bf16
+    rounding noise (as train_reference's docstring says of one
+    minibatch's loss error)."""
+    import torch
+
+    from trlx_tpu_torch.ops.common import logprobs_of_labels
+
+    def step(t, batch):
+        loss, _ = t.loss(batch)
+        loss.backward()
+        batch = batch.map(lambda x: x.to(t.device))
+        labels = batch.labels[:, 1:]
+        real = labels != -100
+        with torch.no_grad():
+            logits = t.model(batch.input_ids, batch.attention_mask)["logits"]
+            lp = logprobs_of_labels(logits[:, :-1], torch.where(real, labels, 0))
+        return loss, (lp.float(),), real
+
+    trainer.make_experience(sft_reference_samples(seed), None, SFT_SEQ)
+    batches = list(trainer.store.create_loader(SFT_BATCH, shuffle=True, seed=seed))
+    grad_reference(trainer, {
+        "plain_bf16": sft_config(seed, attention_impl="xla", kv_cache_quant="int8"),
+        "fp32": sft_config(seed, attention_impl="xla", kv_cache_quant=None, compute_dtype="float32"),
+    }, batches, step, ("logprobs",), "sft_reference")
+    return {"batch": batches[0]}
+
+
+def reload_path(sft_trainer, seed: int, shapes: dict) -> dict:
+    """`save_pretrained` of the SFT trainer into a temporary directory, then
+    `trlx_tpu_torch.train(reward_fn=..., model_path=<dir>)` with the train
+    path's headline config for one cycle. Gates: the loaded base tensors
+    and the frozen reference equal the saved ones bit for bit; one forward
+    of the reloaded policy (right after the load) and of the SFT model on
+    the same batch give bitwise-equal logits; the launch counts (the
+    runtime keys of model_extra_configs reached the loaded model: kernel 1
+    ran); finite losses."""
+    import os
+    import tempfile
+
+    import torch
+
+    import trlx_tpu_torch
+    from trlx_tpu_torch.trainer.base import BASE_WEIGHTS
+    from trlx_tpu_torch.trainer.ppo import TPUPPOTrainer
+
+    batch = next(iter(sft_trainer.store.create_loader(SFT_BATCH))).map(lambda x: x.cuda())
+    with torch.no_grad():
+        sft_logits = sft_trainer.model(batch.input_ids, batch.attention_mask)["logits"]
+    loaded = {}
+    setup = TPUPPOTrainer.setup_model
+
+    def capture(self):
+        setup(self)
+        loaded["state"] = {k: v.detach().clone() for k, v in self.model.base.state_dict().items()}
+        loaded["cfg"] = self.model.cfg
+        with torch.no_grad():
+            loaded["logits"] = self.model.base(batch.input_ids, batch.attention_mask)["logits"]
+
+    counters = train_counters()
+    with tempfile.TemporaryDirectory() as directory:
+        t0 = time.perf_counter()
+        sft_trainer.save_pretrained(directory)
+        save_s = time.perf_counter() - t0
+        saved = torch.load(os.path.join(directory, BASE_WEIGHTS), map_location="cuda", weights_only=True)
+        files = sorted(os.listdir(directory))
+        for fn in counters.values():
+            fn.launches = 0
+        TPUPPOTrainer.setup_model = capture
+        try:
+            t0 = time.perf_counter()
+            with forward_shapes(shapes, "reload"), sampler_calls() as calls:
+                trainer = trlx_tpu_torch.train(reward_fn=train_reward_fn, prompts=TRAIN_PROMPTS, model_path=directory,
+                                               config=train_config(seed).evolve(train=dict(total_steps=RELOAD_STEPS)))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            TPUPPOTrainer.setup_model = setup
+    launches = {name: fn.launches for name, fn in counters.items()}
+    L = trainer.model.cfg.n_layer
+    n_decode = L * sum(c["decode_steps"] for c in calls)
+    # three sampler calls (evals at each end, one rollout), the policy and
+    # the reference copy over the experience chunk, the train steps, and
+    # the forward right after the load
+    n_fwd = L * (len(calls) + 2 + RELOAD_STEPS + 1)
+    expect = {"flash_fwd": n_fwd, "flash_fwd_short": n_fwd, "flash_fwd_long": 0,
+              "flash_bwd": L * RELOAD_STEPS, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+              "decode": n_decode, "decode_short": n_decode, "decode_long": 0}
+    base_unequal = [k for k, v in saved.items() if not torch.equal(loaded["state"][k], v)]
+    ref_unequal = [k for k, v in trainer.ref_params.state_dict().items() if not torch.equal(v, saved[k])]
+    logits_diff = (loaded["logits"].float() - sft_logits.float()).abs().max().item()
+    losses = [st["losses/total_loss"] for _, st in trainer.stats_history if "losses/total_loss" in st]
+    emit("reload", files=files, save_s=save_s, wall_s=wall, tensors=len(saved), base_unequal=base_unequal,
+         reference_unequal=ref_unequal, logits_bitwise_equal=torch.equal(loaded["logits"], sft_logits),
+         logits_max_abs_diff=logits_diff, attention_impl=loaded["cfg"].attention_impl,
+         kv_cache_quant=loaded["cfg"].kv_cache_quant, launches=launches, expected=expect,
+         decode_steps=[c["decode_steps"] for c in calls], losses=losses, iter_count=trainer.iter_count)
+    if base_unequal or ref_unequal or set(saved) != set(loaded["state"]):
+        raise AssertionError(f"loaded tensors {base_unequal} or reference tensors {ref_unequal} differ from the saved")
+    if not torch.equal(loaded["logits"], sft_logits):
+        raise AssertionError(f"the reloaded policy's logits differ from the SFT model's by up to {logits_diff}")
+    if {k: launches[k] for k in expect} != expect:
+        raise AssertionError(f"launch counts {launches} != expected {expect}")
+    if len(losses) != RELOAD_STEPS or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"expected {RELOAD_STEPS} finite losses, got {losses}")
+    return launches
+
+
+def sft_phases(seed: int, shapes: dict) -> dict:
+    """This slice's phases in order: sft_path, sft_reference, the SFT
+    train step's time and profile, reload, randomwalks. Returns the SFT
+    path's launch counts."""
+    import torch
+
+    trainer, launches = sft_path(seed, shapes)
+    batch = sft_reference(trainer, seed)["batch"]
+    train_step_profile(trainer, batch, "sft_train_step")
+    reload_path(trainer, seed, shapes)
+    del trainer, batch
+    torch.cuda.empty_cache()
+    randomwalks_path()
+    return launches
+
+
+def randomwalks_path() -> None:
+    """The port's randomwalks runners on the card with the JAX example's
+    configs: SFT on the gold paths, then the PPO protocol (behaviour
+    cloning, save_pretrained, reload, PPO). Gate: the PPO run's last eval
+    optimality >= RANDOMWALKS_FLOOR, as tests/test_curves.py holds the
+    JAX package's curve."""
+    import tempfile
+
+    import torch
+
+    from trlx_tpu_torch.examples import ppo_randomwalks, sft_randomwalks
+    from trlx_tpu_torch.examples.curves import curve_rows
+
+    def optimality(trainer):
+        return [(step, st["metrics/optimality"]) for step, st in trainer.stats_history if "metrics/optimality" in st]
+
+    with tempfile.TemporaryDirectory() as directory:
+        t0 = time.perf_counter()
+        sft = sft_randomwalks.main({"train.checkpoint_dir": directory + "/sft"})
+        torch.cuda.synchronize()
+        sft_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ppo = ppo_randomwalks.main({"train.checkpoint_dir": directory + "/ppo"})
+        torch.cuda.synchronize()
+        ppo_s = time.perf_counter() - t0
+    sft_curve, ppo_curve = optimality(sft), optimality(ppo)
+    final = round(ppo_curve[-1][1], 4)  # the curves' recorded precision: a float32 mean of 18/20 reads 0.9
+    emit("randomwalks", sft_wall_s=sft_s, sft_steps=sft.iter_count, sft_optimality=sft_curve,
+         sft_final_optimality=sft_curve[-1][1], sft_phase_seconds=dict(sft.phase_seconds),
+         ppo_wall_s=ppo_s, ppo_steps=ppo.iter_count, ppo_phase_seconds=dict(ppo.phase_seconds),
+         ppo_rows=curve_rows(ppo.stats_history, ["reward/mean", "metrics/optimality", "losses/total_loss"]),
+         final_optimality=final, floor=RANDOMWALKS_FLOOR)
+    if final < RANDOMWALKS_FLOOR:
+        raise AssertionError(f"randomwalks PPO final optimality {final} < {RANDOMWALKS_FLOOR}")
+    # where the time goes at this size: one SFT step and one rollout of the
+    # 20 eval prompts, each timed (median of 3) and traced
+    train_step_profile(sft, next(iter(sft.store.create_loader(sft.config.train.batch_size))),
+                       "randomwalks_sft_step")
+    batch = next(iter(ppo.eval_dataloader))
+
+    def rollout():
+        return ppo.generate(batch.input_ids, batch.attention_mask)
+
+    samples = []
+    for i in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rollout()
+        torch.cuda.synchronize()
+        if i:
+            samples.append(time.perf_counter() - t0)
+    profile_phase("randomwalks_rollout", rollout, statistics.median(samples))
 
 
 # examples/ppo_sentiments_t5.py:17-59 at T5-base width: batch 12, chunk 12,
@@ -1836,14 +2201,15 @@ def flash_bwd_work(mask, H, Hkv, T, S, D, q_offset, causal=True):
     return dq, dkv, fused
 
 
-def bwd_kernel_times(gen, launches, t5_launches, errs) -> list:
+def bwd_kernel_times(gen, launches, t5_launches, errs, sft_launches) -> list:
     """The flash backward at the GPT-2 train path's shape (B32 H12 T=S=64,
     causal) and at T5's cross-attention shape (B12 H12, T=65 queries over
     S=32 keys, not causal, scale 1): the fused kernel, the long route's
     pair, the plain backward and SDPA's backward on the same inputs, beside
     the bounds; then the long route's two steps at T=S=512 (B4, causal),
-    where it is the route the wrapper takes. `launches` and `t5_launches`
-    are the GPT-2 and T5 train paths' counts."""
+    where it is the route the wrapper takes. `launches`, `t5_launches` and
+    `sft_launches` are the GPT-2 train, T5 train and SFT paths' counts (the
+    SFT path's steps have the train path's shape)."""
     import torch
     import torch.nn.functional as F
 
@@ -1867,7 +2233,8 @@ def bwd_kernel_times(gen, launches, t5_launches, errs) -> list:
         rows.append(dict(
             name=name, route="cuda", source="trlx_tpu_torch/csrc/flash_bwd.cu", replaces=ref(line),
             launches=extra.pop("launches"), launches_train_path=launches[name.split("/")[0]],
-            launches_t5_train_path=t5_launches[name.split("/")[0]], max_abs_err=err, shape=shape,
+            launches_t5_train_path=t5_launches[name.split("/")[0]],
+            launches_sft_path=sft_launches[name.split("/")[0]], max_abs_err=err, shape=shape,
             causal=causal, ms=ms, kernel_ms=ms, plain_ms=plain, plain_is=plain_is, bound_ms=bms, bound_by=by,
             bound_bytes=work[0], bound_flops=work[1], library_ms=lib, library_is=lib_is, **extra,
         ))
@@ -1878,7 +2245,7 @@ def bwd_kernel_times(gen, launches, t5_launches, errs) -> list:
         "t5_cross": (12, 12, T5_DEC_LEN, T5_PROMPT_LEN, False),
         "long": (4, 12, 512, 512, True),
     }.items():
-        q, k, v, mask, out, m, l, g = flash_bwd_inputs(gen, B, H, H, T, S, 0, False, causal)
+        q, k, v, mask, out, m, l, g = flash_bwd_inputs(gen, B, H, H, T, S, 0, "left", causal)
         scale = D ** -0.5 if causal else 1.0
         km, g2 = backward_operands(q, k, v, mask, g, m, l)
         if case != "long":
@@ -1902,7 +2269,8 @@ def bwd_kernel_times(gen, launches, t5_launches, errs) -> list:
         shape = [B, H, T, S, D]
         if case != "long":
             row(f"flash_bwd/{case}", shape, causal, fused_ms, plain, lib, work_fused, 192, errs["fused"],
-                launches=(launches if case == "train" else t5_launches)["flash_bwd"], also_replaces=ref(231),
+                launches=(launches["flash_bwd"] + sft_launches["flash_bwd"] if case == "train"
+                          else t5_launches["flash_bwd"]), also_replaces=ref(231),
                 long_route_ms=dq_ms + dkv_ms, long_route_dq_ms=dq_ms, long_route_dkv_ms=dkv_ms,
                 occupancy=flash_attention_bwd_occupancy(T, S))
         if case != "t5_cross":
@@ -2146,9 +2514,9 @@ def bias_fwd_shapes(tallies: dict, path: str):
 def fwd_kernel_times(gen, shape_launches, errs) -> list:
     """Kernel 1 at the shapes the paths launch it at: the rollout prefill
     (B64 T32 over a 128-slot cache, at its write index) and the same at
-    B32 (the train path's evaluations and the engine's refills on the
-    train-engine path), the rollout path's teacher-forced pass (B64
-    T=S=72), the train path's train steps (B32 T=S=64) and experience
+    B32 (the train and SFT paths' evaluations and the engine's refills on
+    the train-engine path), the rollout path's teacher-forced pass (B64
+    T=S=72), the train and SFT paths' train steps (B32 T=S=64) and experience
     passes (B64 T=S=64), and T5's cross-attention in training (B12, T=65
     over S=32, not causal, scale 1). At each: the route
     `forward_route` names through the wrapper, the long route's kernel on
@@ -2162,19 +2530,19 @@ def fwd_kernel_times(gen, shape_launches, errs) -> list:
 
     from trlx_tpu_torch.ops import flash_attention as fa
 
-    shapes = {  # name: (B, H, T, S, q_offset, unwritten, causal)
-        "prefill": (PROMPTS, 12, PROMPT_LEN, 128, 0, True, True),
-        "prefill_b32": (TRAIN_BATCH, 12, PROMPT_LEN, 128, 0, True, True),
-        "teacher_forced": (PROMPTS, 12, PROMPT_LEN + NEW_TOKENS, PROMPT_LEN + NEW_TOKENS, 0, False, True),
-        "train": (TRAIN_BATCH, 12, TRAIN_LEN, TRAIN_LEN, 0, False, True),
-        "experience": (TRAIN_ROLLOUTS, 12, TRAIN_LEN, TRAIN_LEN, 0, False, True),
-        "t5_cross": (T5_BATCH, 12, T5_DEC_LEN, T5_PROMPT_LEN, 0, False, False),
+    shapes = {  # name: (B, H, T, S, q_offset, pad, causal)
+        "prefill": (PROMPTS, 12, PROMPT_LEN, 128, 0, "prefill", True),
+        "prefill_b32": (TRAIN_BATCH, 12, PROMPT_LEN, 128, 0, "prefill", True),
+        "teacher_forced": (PROMPTS, 12, PROMPT_LEN + NEW_TOKENS, PROMPT_LEN + NEW_TOKENS, 0, "left", True),
+        "train": (TRAIN_BATCH, 12, TRAIN_LEN, TRAIN_LEN, 0, "left", True),
+        "experience": (TRAIN_ROLLOUTS, 12, TRAIN_LEN, TRAIN_LEN, 0, "left", True),
+        "t5_cross": (T5_BATCH, 12, T5_DEC_LEN, T5_PROMPT_LEN, 0, "left", False),
     }
     rows, D = [], 64
     with torch.no_grad():
-        for case, (B, H, T, S, off, unwritten, causal) in shapes.items():
-            q, k, v, mask = flash_inputs(gen, B, H, H, T, S, D, off, unwritten)
-            kw = dict(q_offset=off if unwritten else None, with_stats=True, causal=causal,
+        for case, (B, H, T, S, off, pad, causal) in shapes.items():
+            q, k, v, mask = flash_inputs(gen, B, H, H, T, S, D, off, pad)
+            kw = dict(q_offset=off if pad == "prefill" else None, with_stats=True, causal=causal,
                       sm_scale=None if causal else 1.0)
             km = fa._check_inputs(q, k, v, mask)
             _, scale, qo = fa._prepare(q, k, mask, kw["sm_scale"], kw["q_offset"], causal)
@@ -2207,8 +2575,9 @@ def fwd_kernel_times(gen, shape_launches, errs) -> list:
 
 def decode_kernel_times(gen, launches, errs) -> list:
     """The int8 decode step at the rollout path's shape (L12 B64 H12, a
-    128-slot cache, 72 slots written, random left pads) and the train
-    path's (64 written): the short kernel, the route both paths take, beside
+    128-slot cache, 72 slots written, random left pads), the train path's
+    (64 written) and the SFT path's evaluations (B32, 64 written after 31
+    pad slots: a BOS prompt): the short kernel, the route the paths take, beside
     the long kernel on the same inputs, the bound, the short kernel's CTAs
     an SM and the plain version; then the long route alone at S = 512 (400
     written), which no path runs. `launches` is {path: {route: n}}. No
@@ -2225,11 +2594,11 @@ def decode_kernel_times(gen, launches, errs) -> list:
     )
 
     rows = []
-    L, B, H, D = 12, 64, 12, 64
-    by_path = {path: launches.get(path, {"short": 0, "long": 0}) for path in ("rollout", "train")}
+    L, H, D = 12, 12, 64
+    by_path = {path: launches.get(path, {"short": 0, "long": 0}) for path in ("rollout", "train", "sft")}
 
-    def row(name, route, S, written):
-        q, ck, cv, ks, vs, mask = decode_inputs(gen, L, B, H, H, S, D, written)
+    def row(name, route, S, written, B=PROMPTS, pads=None):
+        q, ck, cv, ks, vs, mask = decode_inputs(gen, L, B, H, H, S, D, written, pads)
         if decode_route(S) != route:
             raise AssertionError(f"{name}: decode_route does not name the {route} route")
         args = (q, ck, cv, ks, vs[5], mask, 5, D ** -0.5)
@@ -2243,7 +2612,8 @@ def decode_kernel_times(gen, launches, errs) -> list:
         rows.append(dict(
             name=name, route="cuda", kernel_route=route, source="trlx_tpu_torch/csrc/decode_int8.cu",
             replaces="trlx_tpu/ops/decode_attention.py:369",  # _decode_kernel, via decode_attention_int8:418
-            launches=by_path["rollout"][route], launches_train_path=by_path["train"][route],
+            launches=by_path["sft" if name.endswith("/sft") else "rollout"][route],
+            launches_train_path=by_path["train"][route], launches_sft_path=by_path["sft"][route],
             max_abs_err=errs[route], shape=[L, B, H, S, D], written=written, ms=ms, kernel_ms=ms, **extra,
             plain_ms=plain, bound_ms=bms, bound_by=by, bound_bytes=n_bytes, bound_flops=n_flops,
             library_ms=None, ctas_per_sm=occupancy["ctas_per_sm"], smem_bytes=occupancy["smem_bytes"],
@@ -2253,6 +2623,7 @@ def decode_kernel_times(gen, launches, errs) -> list:
     with torch.no_grad():
         row("decode_int8_short/rollout", "short", 128, PROMPT_LEN + NEW_TOKENS)
         row("decode_int8_short/train", "short", 128, TRAIN_LEN)
+        row("decode_int8_short/sft", "short", 128, SFT_SEQ, B=SFT_BATCH, pads=SFT_SEQ - SFT_NEW_TOKENS - 1)
         row("decode_int8/s512", "long", 512, 400)
     for r in rows:
         emit("kernel_time", **r)
@@ -2324,13 +2695,14 @@ def paged_kernel_times(gen, launches, errs) -> list:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
-    parser.add_argument("--only", choices=("fwd", "paged", "decode", "bias"), default=None,
+    parser.add_argument("--only", choices=("fwd", "paged", "decode", "bias", "sft"), default=None,
                         help="fwd: the build, flash_check and the flash forward's kernel_time rows only "
                              "(a quick check of kernel 1); paged: the build, paged_check and the paged "
                              "kernel_time rows only (kernel 7); decode: the build, decode_check and the int8 "
                              "decode kernel_time rows only (kernel 8); bias: the build, flash_bias_check and "
                              "the bias kernels' kernel_time rows only (kernels 4-6); no path runs, so no "
-                             "launches")
+                             "launches; sft: the build and the SFT phases (sft_path, sft_reference, "
+                             "sft_train_step, reload, randomwalks), no kernel_time rows")
     args = parser.parse_args()
 
     import torch
@@ -2410,6 +2782,9 @@ def main() -> int:
         rows = decode_kernel_times(gen, {}, check_decode(gen)["by_route"])
     elif args.only == "bias":
         rows = bias_kernel_times(gen, {}, {}, {}, check_flash_bias(gen))
+    elif args.only == "sft":
+        sft_phases(args.seed, {})
+        rows = []
     if args.only is not None:
         print(json.dumps({"kernels": rows}))
         print(card)
@@ -2431,6 +2806,7 @@ def main() -> int:
     train_step_profile(trainer, batch)
     del trainer, batch
     torch.cuda.empty_cache()
+    sft_launches = sft_phases(args.seed, shapes)
     engine = engine_path(args.seed)
     paged_launches = {"engine_plain": engine["plain"], "engine_spec": engine["spec"],
                       "train_engine": train_engine_path(args.seed, shapes)["paged"]}
@@ -2446,9 +2822,10 @@ def main() -> int:
         emit(phase, **{path: [[route, list(bht), S, n] for (route, bht, S), n in sorted(tally.items())]
                        for path, tally in tallies.items()})
     rows = fwd_kernel_times(gen, shapes, flash_errs)
-    rows += decode_kernel_times(gen, {"rollout": launches["decode"], "train": {
-        "short": train_launches["decode_short"], "long": train_launches["decode_long"]}}, decode_errs)
-    rows += bwd_kernel_times(gen, train_launches, t5_train_launches, bwd_errs)
+    rows += decode_kernel_times(gen, {"rollout": launches["decode"], **{
+        path: {"short": n["decode_short"], "long": n["decode_long"]}
+        for path, n in (("train", train_launches), ("sft", sft_launches))}}, decode_errs)
+    rows += bwd_kernel_times(gen, train_launches, t5_train_launches, bwd_errs, sft_launches)
     rows += paged_kernel_times(gen, paged_launches, paged_errs)
     rows += bias_kernel_times(gen, t5_train_launches, t5_launches, bias_shapes, bias_errs)
     print(json.dumps({"kernels": rows}))

@@ -1,0 +1,125 @@
+"""The port's learning curves (docs/torch_curves/*.jsonl): the contract
+tests/test_curves.py holds the JAX package's curves to (a meta first line
+with task / protocol / hardware / date / reference_protocol and numeric
+final_* metrics, then step-keyed numeric rows in step order) and its
+thresholds: randomwalks SFT final optimality >= 0.95, PPO >= 0.9.
+
+The whole randomwalks protocol takes about 40 s on one CPU thread, so it
+also runs live here: the SFT runner, and the PPO runner's behaviour
+cloning -> save_pretrained -> reload -> PPO, each writing its curve
+through the same writer. The live runs are held to the contract, finite
+losses and a rising eval optimality; the thresholds are the committed
+curves', which were recorded on the card (their meta's hardware)."""
+
+import json
+import math
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parents[2]
+CURVES = REPO / "docs" / "torch_curves"
+THRESHOLDS = {"randomwalks_sft.jsonl": ("final_optimality", 0.95),
+              "randomwalks_ppo.jsonl": ("final_optimality", 0.9)}
+
+
+def _check_contract(path: Path) -> dict:
+    lines = path.read_text().splitlines()
+    meta = json.loads(lines[0])["meta"]
+    for key in ("task", "protocol", "hardware", "date", "reference_protocol"):
+        assert key in meta, f"{path}: meta missing {key!r}"
+    finals = [k for k in meta if k.startswith("final_")]
+    assert finals and all(isinstance(meta[k], (int, float)) for k in finals), path
+    steps = []
+    for line in lines[1:]:
+        rec = json.loads(line)
+        assert "step" in rec and len(rec) > 1, f"{path}: row without metrics"
+        assert all(isinstance(v, (int, float)) for v in rec.values()), f"{path}: non-numeric row value"
+        steps.append(rec["step"])
+    assert steps == sorted(steps), f"{path}: steps not monotonic"
+    return meta
+
+
+@pytest.mark.parametrize("name", sorted(THRESHOLDS))
+def test_committed_curve_contract_and_threshold(name):
+    meta = _check_contract(CURVES / name)
+    key, minimum = THRESHOLDS[name]
+    assert meta[key] >= minimum, f"{name}: {key}={meta[key]} < {minimum}"
+    assert "trlx_tpu_torch/examples/" in meta["task"]
+
+
+def _rows(path: Path, key: str):
+    return [json.loads(line)[key] for line in path.read_text().splitlines()[1:] if key in json.loads(line)]
+
+
+@pytest.fixture
+def one_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def test_sft_runner_live(tmp_path, one_thread):
+    from trlx_tpu_torch.examples import sft_randomwalks
+
+    trainer = sft_randomwalks.main({"train.checkpoint_dir": str(tmp_path / "ckpts")}, device="cpu")
+    meta = sft_randomwalks.record(trainer, str(tmp_path / "sft.jsonl"), device="cpu")
+    assert _check_contract(tmp_path / "sft.jsonl") == meta
+    losses = _rows(tmp_path / "sft.jsonl", "losses/loss")
+    optimality = _rows(tmp_path / "sft.jsonl", "metrics/optimality")
+    assert len(losses) == trainer.iter_count == 100 and all(math.isfinite(x) for x in losses)
+    assert losses[-1] < losses[0] - 2.0
+    assert optimality[-1] >= optimality[0] + 0.5
+
+
+def test_ppo_runner_live(tmp_path, one_thread):
+    """Behaviour cloning, save_pretrained into <checkpoint_dir>/bc_warmup/
+    hf_model, the reload through model_path and 80 PPO steps."""
+    from trlx_tpu_torch.examples import ppo_randomwalks
+
+    trainer = ppo_randomwalks.main({"train.checkpoint_dir": str(tmp_path / "ckpts")}, device="cpu")
+    assert trainer.config.model.model_path == str(tmp_path / "ckpts" / "bc_warmup" / "hf_model")
+    assert (tmp_path / "ckpts" / "bc_warmup" / "hf_model" / "base_weights.pt").exists()
+    meta = ppo_randomwalks.record(trainer, str(tmp_path / "ppo.jsonl"), device="cpu")
+    assert _check_contract(tmp_path / "ppo.jsonl") == meta
+    losses = _rows(tmp_path / "ppo.jsonl", "losses/total_loss")
+    optimality = _rows(tmp_path / "ppo.jsonl", "metrics/optimality")
+    assert len(losses) == trainer.iter_count == 80 and all(math.isfinite(x) for x in losses)
+    assert len(optimality) == 5 and optimality[-1] >= optimality[0] + 0.3
+
+
+def test_ppo_from_jax_clone_matches_reference(tmp_path):
+    """The cross-start check (`scripts/torch_randomwalks_cross_start.py`):
+    the JAX example's behaviour-cloned start at the example's seed,
+    converted into the port's save format, and the JAX trainer's value
+    head; then two PPO cycles (8 steps) of the example's config, greedy in
+    fp32, in the port and in the JAX package's per-step loop. The cloned
+    start ends its walks with EOS, which the PPO parity test's random
+    model never emits. Held: the last rollouts' tokens and masks exactly,
+    their logprobs, values and rewards within 1e-4, the loss stream to
+    rtol 1e-4 and the eval optimality exactly."""
+    import jax
+    import numpy as np
+
+    from scripts import torch_randomwalks_cross_start as cross
+
+    start = cross.clone_start(1000, str(tmp_path / "clone"))
+    hparams = cross.ppo_hparams(1000, str(tmp_path / "ppo"), greedy=True, epochs=2, compute_dtype="float32")
+    ref, j_stats, init = cross.jax_ppo(start["jax"], hparams, fused=False)
+    ours = cross.port_ppo(start["port"], hparams, init)
+    assert ours.iter_count == ref.iter_count == 8
+
+    j_hist = jax.tree_util.tree_map(np.asarray, ref.store.history)
+    hist = ours.store.history
+    assert (hist.response_tensors == ours.tokenizer.eos_token_id).any()
+    for name in ("query_tensors", "response_tensors", "response_mask"):
+        np.testing.assert_array_equal(getattr(hist, name).numpy(), getattr(j_hist, name), err_msg=name)
+    for name in ("logprobs", "values", "rewards"):
+        np.testing.assert_allclose(getattr(hist, name).numpy(), getattr(j_hist, name), atol=1e-4, rtol=0,
+                                   err_msg=name)
+    np.testing.assert_allclose(cross.series(ours.stats_history, "losses/total_loss"),
+                               cross.series(j_stats, "losses/total_loss"), rtol=1e-4, atol=1e-5)
+    optimality = cross.series(ours.stats_history, "metrics/optimality")
+    assert len(optimality) == 2 and optimality == cross.series(j_stats, "metrics/optimality")

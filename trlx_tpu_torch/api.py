@@ -1,9 +1,11 @@
-"""`trlx_tpu_torch.train`: the user entry point (port of trlx_tpu.api.train,
-online branch). The same signature selects the algorithm: `reward_fn`
-gives online PPO; `rewards`/`dataset` (offline RL) and `samples` alone
-(SFT) arrive with the other trainers (ROADMAP queue 6). `device` picks
-where to train: the current CUDA card by default (raising when there is
-none), or "cpu" for the plain paths.
+"""`trlx_tpu_torch.train`: the user entry point (port of trlx_tpu.api.train).
+The same signature selects the algorithm: `reward_fn` gives online PPO,
+`samples` alone supervised fine-tuning. Offline RL (`rewards` or
+`dataset`: ILQL) and the trainers named in the config that the port has
+not reached (GRPO, RFT, DPO) raise, ROADMAP queue 6; resuming from a
+checkpoint raises, ROADMAP queue 4. `device` picks where to train: the
+current CUDA card by default (raising when there is none), or "cpu" for
+the plain paths.
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ import warnings
 from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple, Union
 
 from trlx_tpu_torch.data.configs import TRLConfig
-from trlx_tpu_torch.data.default_configs import default_ppo_config
+from trlx_tpu_torch.data.default_configs import default_ppo_config, default_sft_config
 from trlx_tpu_torch.utils import set_seed
 from trlx_tpu_torch.utils.loading import get_pipeline, get_trainer
 
@@ -32,19 +34,20 @@ def train(
     device=None,
 ):
     """Online RL (PPO) from `reward_fn(samples, prompts, outputs, **metadata)
-    -> list of scalar (or per-token) rewards` and `prompts`. Returns the
-    trainer after `learn()`."""
-    if not reward_fn:
+    -> list of scalar (or per-token) rewards` and `prompts`; supervised
+    fine-tuning from `samples` alone (strings, or alternating prompt /
+    output dialogues). Returns the trainer after `learn()`."""
+    if not reward_fn and (rewards is not None or dataset is not None):
         raise NotImplementedError(
-            "offline RL (rewards/dataset) and SFT (samples) are not ported yet "
-            "(ROADMAP queue 6); pass reward_fn and prompts for online PPO"
+            "offline RL (rewards/dataset: the ILQL trainer) is not ported yet (ROADMAP queue 6: the "
+            "other trainers); pass reward_fn and prompts for online PPO, or samples alone for SFT"
         )
     if config is None:
         warnings.warn(
             "Passing the `config` argument implicitly is depreciated, use or "
             "adapt some from `trlx_tpu_torch/data/default_configs.py` instead"
         )
-        config = default_ppo_config()
+        config = default_ppo_config() if reward_fn else default_sft_config()
     if config.train.resume_from_checkpoint or os.environ.get("TRLX_TPU_RESUME_FROM"):
         raise NotImplementedError("resuming from a checkpoint is not ported yet (ROADMAP queue 4)")
 
@@ -69,12 +72,19 @@ def train(
             f"gen_kwargs['max_new_tokens'] ({config.method.gen_kwargs.get('max_new_tokens', 0)}): "
             "prompts would be truncated to zero tokens"
         )
-    if prompts is None:
-        raise ValueError("`prompts` are required for online training")
-    if eval_prompts is None:
-        eval_prompts = prompts[:batch_size]
     pipeline_cls = get_pipeline(config.train.pipeline)
-    trainer.add_prompt_pipeline(pipeline_cls(prompts, max_prompt_length, trainer.tokenizer))
+    if reward_fn:
+        if prompts is None:
+            raise ValueError("`prompts` are required for online training")
+        if eval_prompts is None:
+            eval_prompts = prompts[:batch_size]
+        trainer.add_prompt_pipeline(pipeline_cls(prompts, max_prompt_length, trainer.tokenizer))
+    else:
+        if samples is None:
+            raise ValueError("Either `samples`, `rewards` or `reward_fn` must be given")
+        if eval_prompts is None:
+            eval_prompts = [trainer.tokenizer.bos_token] * batch_size
+        trainer.make_experience(samples, None, config.train.seq_length)
     trainer.add_eval_pipeline(pipeline_cls(eval_prompts, max_prompt_length, trainer.tokenizer))
     trainer.learn()
     return trainer

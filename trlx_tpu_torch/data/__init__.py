@@ -1,5 +1,6 @@
-"""Typed batches (port of trlx_tpu.data for the PPO path): dataclasses of
-tensors with rectangular, statically padded shapes, and `.replace`."""
+"""Typed batches (port of trlx_tpu.data for the PPO and SFT paths):
+dataclasses of tensors with rectangular, statically padded shapes, and
+`.replace`."""
 
 from __future__ import annotations
 
@@ -50,3 +51,15 @@ class PPORolloutBatch(_Batch):
     advantages: Optional[torch.Tensor] = None
     returns: Optional[torch.Tensor] = None
     norm_n: Optional[torch.Tensor] = None
+
+
+@dataclass
+class SFTBatch(_Batch):
+    """Supervised batch, right-padded; labels use -100 to mask prompt and
+    pad positions."""
+
+    input_ids: torch.Tensor  # [batch, seq] int32
+    attention_mask: torch.Tensor  # [batch, seq] int32
+    labels: torch.Tensor  # [batch, seq] int32, -100 = ignored
+    # the decoder side of seq2seq SFT, which raises in both packages
+    decoder_input_ids: Optional[torch.Tensor] = None

@@ -9,7 +9,7 @@ from trlx_tpu_torch.data.configs import (
     TrainConfig,
     TRLConfig,
 )
-from trlx_tpu_torch.data.method_configs import PPOConfig
+from trlx_tpu_torch.data.method_configs import PPOConfig, SFTConfig
 
 
 def default_ppo_config() -> TRLConfig:
@@ -51,6 +51,35 @@ def default_ppo_config() -> TRLConfig:
             ref_mean=None,
             ref_std=None,
             cliprange_reward=10.0,
+            gen_kwargs=dict(max_new_tokens=40, top_k=0, top_p=1.0, do_sample=True),
+        ),
+    )
+
+
+def default_sft_config() -> TRLConfig:
+    return TRLConfig(
+        train=TrainConfig(
+            seq_length=1024,
+            epochs=100,
+            total_steps=1000,
+            batch_size=8,
+            checkpoint_interval=10000,
+            eval_interval=100,
+            pipeline="PromptPipeline",
+            trainer="TPUSFTTrainer",
+            tracker=None,
+        ),
+        model=ModelConfig(model_path="gpt2", num_layers_unfrozen=-1),
+        tokenizer=TokenizerConfig(tokenizer_path="gpt2", truncation_side="right"),
+        optimizer=OptimizerConfig(
+            name="adamw",
+            kwargs=dict(lr=1.0e-4, betas=(0.9, 0.95), eps=1.0e-8, weight_decay=1.0e-6),
+        ),
+        scheduler=SchedulerConfig(
+            name="cosine_annealing", kwargs=dict(T_max=1e12, eta_min=1.0e-4)
+        ),
+        method=SFTConfig(
+            name="sftconfig",
             gen_kwargs=dict(max_new_tokens=40, top_k=0, top_p=1.0, do_sample=True),
         ),
     )

@@ -1,8 +1,8 @@
 """Method (algorithm) hyperparameter configs and their registry.
 
 A schema-identical copy of trlx_tpu.data.method_configs for the methods
-the port has reached (PPO), so a YAML config loads to the same dict in
-both packages. The loss functions arrive with the training slice.
+the port has reached (PPO, SFT), so a YAML config loads to the same dict
+in both packages. The loss functions live with their trainers.
 """
 
 from __future__ import annotations
@@ -98,3 +98,11 @@ class PPOConfig(MethodConfig):
     gen_engine: dict = field(default_factory=dict)
     exp: dict = field(default_factory=dict)
     fleet: dict = field(default_factory=dict)
+
+
+@dataclass
+@register_method
+class SFTConfig(MethodConfig):
+    """SFT hyperparameters; field for field the reference's SFTConfig."""
+
+    gen_kwargs: dict = field(default_factory=lambda: dict(max_new_tokens=40))

@@ -1,6 +1,7 @@
 """Policy LM + value head with the in-process frozen hydra reference
 branch: the port of trlx_tpu.models.wrappers.CausalLMWithValueHead and
-Seq2SeqLMWithValueHead.
+Seq2SeqLMWithValueHead; and `CausalLM`, the bare policy of SFT. Each
+keeps its LM under `base`, so one base state dict moves between them.
 
 One teacher-forced pass (`forward_train`) yields the policy logits, the
 values and the reference logits: the trunk below `branch_at` is shared,
@@ -33,6 +34,34 @@ from trlx_tpu_torch.models.transformer import (
     extract_branch_params,
     logit_projection,
 )
+
+
+class CausalLM(nn.Module):
+    """The bare causal LM (the SFT policy): no heads, no reference."""
+
+    def __init__(self, cfg: TransformerConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.base = TransformerLM(cfg, device)
+
+    @torch.no_grad()
+    def init_params(self, generator: torch.Generator) -> "CausalLM":
+        self.base.init_params(generator)
+        return self
+
+    def init_heads(self, generator: torch.Generator) -> "CausalLM":
+        return self  # no heads
+
+    def logit_project_fn(self):
+        return logit_projection(self.base)
+
+    def forward(
+        self,
+        input_ids: torch.Tensor,
+        attention_mask: Optional[torch.Tensor] = None,
+        compute_logits: bool = True,
+    ) -> Dict[str, Any]:
+        return self.base(input_ids, attention_mask, compute_logits=compute_logits)
 
 
 class CausalLMWithValueHead(nn.Module):
@@ -77,6 +106,10 @@ class CausalLMWithValueHead(nn.Module):
     @torch.no_grad()
     def init_params(self, generator: torch.Generator) -> "CausalLMWithValueHead":
         self.base.init_params(generator)
+        return self.init_heads(generator)
+
+    @torch.no_grad()
+    def init_heads(self, generator: torch.Generator) -> "CausalLMWithValueHead":
         init_head(self.v_head, generator)
         return self
 
@@ -166,6 +199,10 @@ class Seq2SeqLMWithValueHead(nn.Module):
     @torch.no_grad()
     def init_params(self, generator: torch.Generator) -> "Seq2SeqLMWithValueHead":
         self.base.init_params(generator)
+        return self.init_heads(generator)
+
+    @torch.no_grad()
+    def init_heads(self, generator: torch.Generator) -> "Seq2SeqLMWithValueHead":
         init_head(self.v_head, generator)
         return self
 

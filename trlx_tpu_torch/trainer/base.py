@@ -25,6 +25,11 @@ What the port does differently, and why:
   sampling as in the reference, with one lane group; its speculative
   draft is the frozen reference (the hydra Branch under the policy's
   trunk, or the full copy).
+- Weights. `save_pretrained` writes the reference's native artifact
+  with torch files in place of orbax: `trlx_tpu_config.json` (the same
+  keys and values), the base LM's state dict and every other parameter
+  ("aux", the value head) in a second file. `model_path` loads such a
+  directory, or "random"; HF directories are ROADMAP queue 7.
 - The robustness, transport, fleet, serving and checkpoint tiers are not
   ported yet; each knob that would turn one on raises NotImplementedError
   naming its ROADMAP queue, and `_save_checkpoint` only warns.
@@ -33,6 +38,8 @@ What the port does differently, and why:
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 import time
 from abc import abstractmethod
 from collections import defaultdict
@@ -81,9 +88,24 @@ _RUNTIME_TRANSFORMER_KEYS = frozenset({
 
 LEFT_OUT = "ROADMAP queue 1, item 2: left out of slice 2"
 
+# a save_pretrained directory: the reference's architecture file, and the
+# port's two weight files in place of its orbax `params/` and `aux/`
+NATIVE_CONFIG = "trlx_tpu_config.json"
+BASE_WEIGHTS = "base_weights.pt"
+AUX_WEIGHTS = "aux_weights.pt"
+
 
 def _unported(what: str, where: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet ({where})")
+
+
+def _apply_runtime_overrides(cfg, extra: Dict[str, Any]):
+    """The runtime keys of a `model_extra_configs` sub-dict applied onto a
+    loaded model config (only the fields the config has: seq2seq has no
+    kv_cache_quant)."""
+    names = {f.name for f in dataclasses.fields(cfg)}
+    overrides = {k: v for k, v in extra.items() if k in _RUNTIME_TRANSFORMER_KEYS and k in names}
+    return cfg.replace(**overrides) if overrides else cfg
 
 
 def _enabled(section: Any) -> bool:
@@ -151,6 +173,11 @@ class TPUBaseTrainer(BaseRLTrainer):
         train = config.train
         self.device = resolve_device(device)
         self.seq2seq = config.model.model_arch_type == "seq2seq"
+        # what a save_pretrained directory held: the base state dict (kept
+        # until init_weights), the aux parameters and the model_type
+        self._loaded_base: Optional[Dict[str, torch.Tensor]] = None
+        self._loaded_aux: Optional[Dict[str, torch.Tensor]] = None
+        self.model_type: Optional[str] = None
         self.tokenizer = load_tokenizer(config.tokenizer)
         if train.tracker is not None:
             logger.warning(
@@ -211,41 +238,122 @@ class TPUBaseTrainer(BaseRLTrainer):
     # model setup
     # ------------------------------------------------------------------
 
-    def load_base_model(self) -> TransformerConfig:
-        """The architecture from `model.model_extra_configs["transformer"]`
-        with random weights: `model_path="random"` or architecture keys
-        select it, as in the reference. Loading a checkpoint (HF or the
-        reference's native one) is ROADMAP queues 7 and 4."""
+    def _load_native(self, arch_key: str, config_cls):
+        """The config of the directory `model.model_path` when
+        `save_pretrained` wrote it (None otherwise), its weights into
+        `_loaded_base` / `_loaded_aux`: the dtypes from the train section
+        and the runtime keys of `model_extra_configs[arch_key]` on top (the
+        reference's `finalize`)."""
         mc, train = self.config.model, self.config.train
-        extra = dict((mc.model_extra_configs or {}).get("transformer", {}))
+        path = mc.model_path
+        if not (os.path.isdir(path) and os.path.exists(os.path.join(path, NATIVE_CONFIG))):
+            return None
+        base_fp = os.path.join(path, BASE_WEIGHTS)
+        if not os.path.exists(base_fp):
+            if os.path.isdir(os.path.join(path, "params")):
+                raise ValueError(
+                    f"{path} holds the JAX package's orbax params/, which cannot be read without JAX: "
+                    "save the model with trlx_tpu_torch's save_pretrained"
+                )
+            raise FileNotFoundError(f"{path} has {NATIVE_CONFIG} but no {BASE_WEIGHTS}")
+        with open(os.path.join(path, NATIVE_CONFIG)) as f:
+            meta = json.load(f)
+        if arch_key not in meta:
+            raise ValueError(f"{path}/{NATIVE_CONFIG} holds no {arch_key!r} architecture: {sorted(meta)}")
+        cfg = config_cls(dtype=train.compute_dtype, param_dtype=train.param_dtype, **meta[arch_key])
+        cfg = _apply_runtime_overrides(cfg, (mc.model_extra_configs or {}).get(arch_key, {}))
+        self._loaded_base = torch.load(base_fp, map_location="cpu", weights_only=True)
+        aux_fp = os.path.join(path, AUX_WEIGHTS)
+        if os.path.exists(aux_fp):
+            self._loaded_aux = torch.load(aux_fp, map_location="cpu", weights_only=True)
+        self.model_type = meta.get("model_type", "t5" if arch_key == "seq2seq" else None)
+        return cfg
+
+    def _random_init_arch(self, arch_key: str) -> Dict[str, Any]:
+        """The `model_extra_configs[arch_key]` dict of a random-init model:
+        `model_path="random"` or architecture keys select it, as in the
+        reference; any other path raises."""
+        mc, train = self.config.model, self.config.train
+        extra = dict((mc.model_extra_configs or {}).get(arch_key, {}))
         if mc.model_path != "random" and not set(extra) - _RUNTIME_TRANSFORMER_KEYS:
-            raise _unported(f"loading model_path={mc.model_path!r}", "ROADMAP queues 7 and 4")
+            raise _unported(
+                f"loading model_path={mc.model_path!r} (the port loads 'random' and directories its "
+                "save_pretrained wrote; HF checkpoints)", "ROADMAP queue 7: HF interop",
+            )
+        self.model_type = (mc.model_extra_configs or {}).get(
+            "model_type", "t5" if arch_key == "seq2seq" else None)
         extra.setdefault("vocab_size", getattr(self.tokenizer, "vocab_size", 258))
         extra.setdefault("dtype", train.compute_dtype)
         extra.setdefault("param_dtype", train.param_dtype)
-        cfg = TransformerConfig(**extra)
+        return extra
+
+    def load_base_model(self) -> TransformerConfig:
+        """The architecture that `model.model_path` names: a directory that
+        `save_pretrained` wrote (its weights go to `init_weights`), or
+        `model_extra_configs["transformer"]` with random weights."""
+        cfg = self._load_native("transformer", TransformerConfig)
+        if cfg is None:
+            cfg = TransformerConfig(**self._random_init_arch("transformer"))
         self._check_token_ids(cfg.vocab_size)
         return cfg
 
     def load_seq2seq_base(self) -> Seq2SeqConfig:
-        """The T5 architecture from `model.model_extra_configs["seq2seq"]`
-        with random weights, as the reference's random-init branch of
-        `_load_seq2seq_base`: the vocabulary from the tokenizer when not
-        given, and the decoder start token its pad token (the HF T5
-        convention). Loading a checkpoint is ROADMAP queues 7 and 4."""
-        mc, train = self.config.model, self.config.train
-        extra = dict((mc.model_extra_configs or {}).get("seq2seq", {}))
-        if mc.model_path != "random" and not set(extra) - _RUNTIME_TRANSFORMER_KEYS:
-            raise _unported(f"loading model_path={mc.model_path!r}", "ROADMAP queues 7 and 4")
-        extra.setdefault("vocab_size", getattr(self.tokenizer, "vocab_size", 258))
-        pad = getattr(self.tokenizer, "pad_token_id", None)
-        if pad is not None:
-            extra.setdefault("decoder_start_token_id", int(pad))
-        extra.setdefault("dtype", train.compute_dtype)
-        extra.setdefault("param_dtype", train.param_dtype)
-        cfg = Seq2SeqConfig(**extra)
+        """The T5 architecture, as `load_base_model`: from a saved
+        directory, or `model_extra_configs["seq2seq"]` with random weights,
+        the vocabulary from the tokenizer when not given, and the decoder
+        start token its pad token (the HF T5 convention)."""
+        cfg = self._load_native("seq2seq", Seq2SeqConfig)
+        if cfg is None:
+            extra = self._random_init_arch("seq2seq")
+            pad = getattr(self.tokenizer, "pad_token_id", None)
+            if pad is not None:
+                extra.setdefault("decoder_start_token_id", int(pad))
+            cfg = Seq2SeqConfig(**extra)
         self._check_token_ids(cfg.vocab_size)
         return cfg
+
+    @torch.no_grad()
+    def init_weights(self) -> None:
+        """Fill `self.model`: random weights from train.seed, or the loaded
+        base weights, then fresh heads from train.seed, then the loaded aux
+        parameters the model has (the reference's `init_params(key,
+        base_params)` and `_loaded_aux` update)."""
+        gen = torch.Generator().manual_seed(self.config.train.seed)
+        if self._loaded_base is None:
+            self.model.init_params(gen)
+            return
+        self.model.base.load_state_dict(self._loaded_base)
+        self._loaded_base = None
+        self.model.init_heads(gen)
+        own = self.model.state_dict()
+        aux = {k: v for k, v in (self._loaded_aux or {}).items() if k in own and not k.startswith("base.")}
+        if aux:
+            self.model.load_state_dict(aux, strict=False)
+
+    def save_pretrained(self, directory: Optional[str] = None) -> None:
+        """The deploy artifact (the reference's native branch, torch files
+        for orbax): `trlx_tpu_config.json` with the architecture (no dtypes,
+        no None values) and the model_type, the base LM's state dict in
+        `base_weights.pt`, every other parameter (the value head) in
+        `aux_weights.pt`, and the tokenizer where it can save itself.
+        Default directory: `<train.checkpoint_dir>/hf_model`."""
+        directory = os.path.abspath(directory or os.path.join(self.config.train.checkpoint_dir, "hf_model"))
+        os.makedirs(directory, exist_ok=True)
+        state = {k: v.detach().cpu() for k, v in self.model.state_dict().items()}
+        base = {k[len("base."):]: v for k, v in state.items() if k.startswith("base.")}
+        aux = {k: v for k, v in state.items() if not k.startswith("base.")}
+        torch.save(base, os.path.join(directory, BASE_WEIGHTS))
+        aux_fp = os.path.join(directory, AUX_WEIGHTS)
+        if aux:
+            torch.save(aux, aux_fp)
+        elif os.path.exists(aux_fp):
+            os.remove(aux_fp)  # a stale head from an earlier save
+        arch = {k: v for k, v in dataclasses.asdict(self.model.cfg).items()
+                if k not in ("dtype", "param_dtype") and v is not None}
+        with open(os.path.join(directory, NATIVE_CONFIG), "w") as f:
+            json.dump({"seq2seq" if self.seq2seq else "transformer": arch, "model_type": self.model_type}, f)
+        if hasattr(self.tokenizer, "save_pretrained"):
+            self.tokenizer.save_pretrained(directory)
 
     def _check_token_ids(self, vocab_size: int) -> None:
         """An id >= vocab_size would index past the embedding: fail loudly."""

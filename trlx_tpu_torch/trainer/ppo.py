@@ -74,10 +74,12 @@ class TPUPPOTrainer(TPUOnlineTrainer):
     # -- model -----------------------------------------------------------
 
     def setup_model(self) -> None:
-        """The value-headed policy with random weights from train.seed and
-        its frozen reference: the top branch above n_layer - k (hydra; the
-        decoder's n_decoder_layer - k for seq2seq) for 0 < num_layers_unfrozen
-        k < that depth, else a full frozen copy."""
+        """The value-headed policy, with random weights from train.seed or
+        the weights of a saved directory (fresh heads where it held none),
+        and its frozen reference, taken from those weights: the top branch
+        above n_layer - k (hydra; the decoder's n_decoder_layer - k for
+        seq2seq) for 0 < num_layers_unfrozen k < that depth, else a full
+        frozen copy."""
         k = self.config.model.num_layers_unfrozen
         if self.seq2seq:
             cfg = self.load_seq2seq_base()
@@ -88,7 +90,7 @@ class TPUPPOTrainer(TPUOnlineTrainer):
             cfg = self.load_base_model()
             branch_at = cfg.n_layer - k if k is not None and 0 < k < cfg.n_layer else None
             self.model = CausalLMWithValueHead(cfg, branch_at=branch_at, device=self.device)
-        self.model.init_params(torch.Generator().manual_seed(self.config.train.seed))
+        self.init_weights()
         self.ref_params = self.model.make_ref_params()
 
     # -- loss ------------------------------------------------------------

@@ -9,12 +9,15 @@ from __future__ import annotations
 _ALIASES = {
     "accelerateppotrainer": "tpuppotrainer",
     "nemoppotrainer": "tpuppotrainer",
+    "acceleratesfttrainer": "tpusfttrainer",
+    "nemosfttrainer": "tpusfttrainer",
 }
 
 
 def get_trainer(name: str) -> type:
     import trlx_tpu_torch.trainer as trainer_pkg
-    import trlx_tpu_torch.trainer.ppo  # noqa: F401  (registration side effect)
+    import trlx_tpu_torch.trainer.ppo  # noqa: F401  (registration side effects)
+    import trlx_tpu_torch.trainer.sft  # noqa: F401
 
     key = _ALIASES.get(name.lower(), name.lower())
     if key not in trainer_pkg._TRAINERS:
