@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive trlx_tpu_torch's PPO rollout and training paths on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N] [--only fwd|paged|decode|bias|sft]
+    python3 chip_smoke.py [--seed N] [--only fwd|paged|decode|bias|sft|ppo]
 
 Builds the CUDA kernels from `trlx_tpu_torch/csrc` (into build/kernels/)
 and holds each kernel against its plain PyTorch version on the card: both
@@ -31,6 +31,16 @@ through the entry points a user calls:
   workload (64 rollouts of 32 + 32 tokens, batch 32, 4 PPO epochs, two
   cycles = 16 optimizer steps); one train step through the plain bf16
   and fp32 attention math is its reference;
+- the rest of the PPO surface on that workload: `overlap_path`
+  (`method.overlap_rollouts`: the second cycle's rollout generated with
+  the pre-update weights before the first cycle's steps, scored after
+  them; train_path's launches exactly), `ppo_knobs_path` (the hydra
+  reference and the value branch over the top two blocks,
+  `train.timing_split`, `train.rollout_logging_dir`; exact launches, the
+  value branch's added device time, one train step against the plain bf16
+  and fp32 math) and `stop_path` (GPT-2-small widths over the byte
+  tokenizer's 258 ids, stop sequences: outputs cut and re-tokenised;
+  exact launches, one train step on the cut rows against the same math);
 - the decode engine: `engine_generate` on the hydra policy (64 prompts,
   16 slots, int8 pages, greedy, with and without speculative decoding),
   on the paged kernel and on the plain gather math; then
@@ -57,7 +67,8 @@ path ran through its kernels. Then the kernels are timed at the paths'
 shapes beside their bounds, and one rollout, one experience pass, one
 train step and one engine call of each mode are profiled.
 
-`--only sft` runs the build and the supervised fine-tuning phases alone.
+`--only sft` runs the build and the supervised fine-tuning phases alone;
+`--only ppo` the build, the training path and the three PPO phases above.
 `--only fwd` stops after the build, the flash forward's check and its
 kernel_time rows; `--only paged` after the build, the paged check and the
 paged kernel_time rows; `--only decode` after the build, the int8 decode
@@ -195,7 +206,11 @@ def flash_inputs(gen, B, H, Hkv, T, S, D, q_offset, pad="left"):
     the cache slots past the prompt, as a prefill sees them; "right" keeps
     each row's real tokens first and pads its end, as SFT's batches are
     (batch row 0 holds one real token, so every causal query row sees at
-    least slot 0)."""
+    least slot 0); "both" (T = S, q_offset 0) is a PPO row cut at a stop
+    string: a left-padded prompt in the first half (at least one real
+    token) and a right-padded response in the second, every other row's
+    response wholly padded (batch row 0: one real token and nothing
+    else)."""
     import torch
 
     def randn(*shape):
@@ -203,6 +218,12 @@ def flash_inputs(gen, B, H, Hkv, T, S, D, q_offset, pad="left"):
 
     q, k, v = randn(B, H, T, D), randn(B, Hkv, S, D), randn(B, Hkv, S, D)
     slots = torch.arange(S, device="cuda")[None, :]
+    if pad == "both":
+        left = torch.randint(0, T // 2, (B,), generator=gen, device="cuda")
+        right = torch.randint(0, T // 2 + 1, (B,), generator=gen, device="cuda")
+        right[::2] = T - T // 2
+        left[0] = T // 2 - 1
+        return q, k, v, ((slots >= left[:, None]) & (slots < S - right[:, None])).to(torch.int32)
     if pad == "right":
         n_pad = torch.randint(0, S // 2 + 1, (B,), generator=gen, device="cuda")
         n_pad[0] = S - 1
@@ -330,6 +351,10 @@ def check_flash(gen) -> dict:
         "causal_t_gt_s": (4, 12, 12, 80, 48, 64, -32, "left", True),
         # the SFT path's train steps (SFT_BATCH x SFT_SEQ): right-padded rows, real tokens first
         "sft_right_pad": (32, 12, 12, 64, 64, 64, 0, "right", True),
+        # PPO rows cut at a stop string (stop_path): padded prompts and
+        # padded responses, at the experience pass's and the train step's shapes
+        "ppo_both_pad": (64, 12, 12, TRAIN_LEN, TRAIN_LEN, 64, 0, "both", True),
+        "ppo_both_pad_train": (32, 12, 12, TRAIN_LEN, TRAIN_LEN, 64, 0, "both", True),
     }
     counters = fwd_counters()
     worst = {"short": 0.0, "long": 0.0}
@@ -382,6 +407,8 @@ BWD_CASES = {  # name: (B, H, Hkv, T, S, q_offset, pad, causal)
     "just_long": (4, 12, 12, 129, 129, 0, "left", True),  # the long route's shortest shape
     # the SFT path's train steps (SFT_BATCH x SFT_SEQ): right-padded rows, real tokens first
     "sft_right_pad": (32, 12, 12, 64, 64, 0, "right", True),
+    # the train steps of PPO rows cut at a stop string: padded prompts, padded responses
+    "ppo_both_pad": (32, 12, 12, TRAIN_LEN, TRAIN_LEN, 0, "both", True),
 }
 
 
@@ -419,7 +446,7 @@ def check_flash_bwd(gen) -> dict:
     max |error| / max(|ref|, 1) under 2e-2 for dq, dk and dv, and for dv
     of batch row 0 alone (left-padded cases: fully padded, so every query
     of it is fully masked and its dv is the uniform 1/l weights' sum of dO
-    at every slot; right-padded: one real token). Each case runs the route
+    at every slot; right- and both-padded: one real token). Each case runs the route
     the wrapper picks, and the launch counters must show that route and no
     other; a case the fused kernel takes also runs the long route, and the
     fused kernel's results must be bit-identical on a second call."""
@@ -1281,34 +1308,10 @@ def train_path(seed: int, shapes: dict):
     kernels): evaluate, two rollout cycles, 16 optimizer steps, evaluate.
     Gates: finite losses, the launch counts, trainable parameters moved,
     the frozen reference did not."""
-    import torch
-
-    import trlx_tpu_torch
-
-    counters = train_counters()
-    for fn in counters.values():
-        fn.launches = 0
-    t0 = time.perf_counter()
-    with forward_shapes(shapes, "train"), sampler_calls() as calls:
-        trainer = trlx_tpu_torch.train(reward_fn=train_reward_fn, prompts=TRAIN_PROMPTS, config=train_config(seed))
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in counters.items()}
-    decode_steps = [c["decode_steps"] for c in calls]
-
+    trainer, wall, launches, decode_steps = counted_train(train_config(seed), shapes, "train")
     L = trainer.model.cfg.n_layer
     cycles = TRAIN_STEPS // (TRAIN_EPOCHS * TRAIN_ROLLOUTS // TRAIN_BATCH)
-    # every sampler call (a rollout a cycle, an eval at each end) prefills
-    # through the forward kernel; each experience chunk runs the policy and
-    # the full reference copy; each train step one forward and one
-    # backward through every layer, the forward on the short route and the
-    # backward on the fused one (T, S <= 128); each decode step of every
-    # sampler call one short-route decode launch a layer (a 128-slot cache)
-    n_fwd = L * ((cycles + 2) + 2 * cycles + TRAIN_STEPS)
-    n_decode = L * sum(decode_steps)
-    expect = {"flash_fwd": n_fwd, "flash_fwd_short": n_fwd, "flash_fwd_long": 0,
-              "flash_bwd": L * TRAIN_STEPS, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-              "decode": n_decode, "decode_short": n_decode, "decode_long": 0}
+    expect = train_path_launches(L, cycles, decode_steps)
     steps = [(step, st["losses/total_loss"], st["policy/approx_kl"])
              for step, st in trainer.stats_history if "losses/total_loss" in st]
     rewards = [st["reward/mean"] for _, st in trainer.stats_history if "reward/mean" in st]
@@ -1320,7 +1323,7 @@ def train_path(seed: int, shapes: dict):
          cycle_seconds=cycle_split(trainer))
     if len(steps) != TRAIN_STEPS or not all(math.isfinite(x[1]) for x in steps):
         raise AssertionError(f"expected {TRAIN_STEPS} finite losses, got {[x[1] for x in steps]}")
-    if len(decode_steps) != cycles + 2 or not 0 < n_decode <= L * (cycles + 2) * (TRAIN_NEW_TOKENS - 1):
+    if len(decode_steps) != cycles + 2 or not 0 < expect["decode"] <= L * (cycles + 2) * (TRAIN_NEW_TOKENS - 1):
         raise AssertionError(f"expected {cycles + 2} sampler calls of at most {TRAIN_NEW_TOKENS - 1} decode steps, "
                              f"got {decode_steps}")
     if {k: launches[k] for k in expect} != expect:
@@ -1328,6 +1331,21 @@ def train_path(seed: int, shapes: dict):
 
     check_params_moved(trainer, seed)
     return trainer, launches
+
+
+def train_path_launches(L: int, cycles: int, decode_steps: list) -> dict:
+    """The training kernels' launches on train_path's workload: every
+    sampler call (a rollout a cycle, an eval at each end) prefills through
+    the forward kernel; each experience chunk runs the policy and the full
+    reference copy; each train step one forward and one backward through
+    every layer, the forward on the short route and the backward on the
+    fused one (T, S <= 128); each decode step of every sampler call one
+    short-route decode launch a layer (a 128-slot cache)."""
+    n_fwd = L * ((cycles + 2) + 2 * cycles + TRAIN_STEPS)
+    n_decode = L * sum(decode_steps)
+    return {"flash_fwd": n_fwd, "flash_fwd_short": n_fwd, "flash_fwd_long": 0,
+            "flash_bwd": L * TRAIN_STEPS, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+            "decode": n_decode, "decode_short": n_decode, "decode_long": 0}
 
 
 def train_counters() -> dict:
@@ -1362,22 +1380,40 @@ def sampler_calls():
         trainer_base.generate = generate
 
 
-def check_params_moved(trainer, seed: int, phase: str = "train_params") -> None:
-    """Every trainable tensor moved from its seeded init; the frozen
-    reference copy, where the trainer has one, did not."""
+def check_params_moved(trainer, seed: int, phase: str = "train_params", frozen=()) -> None:
+    """Every trainable tensor moved from its seeded init (a value branch
+    from its copy of the seeded top blocks); the tensors whose names start
+    with one of `frozen`, and the frozen reference (a full copy, or the
+    hydra branch over the top blocks), did not. Without `frozen`, every
+    tensor must be trainable."""
     import torch
 
-    init = type(trainer.model)(trainer.model.cfg, device="cuda").init_params(torch.Generator().manual_seed(seed))
+    model = trainer.model
+    kw = {k: getattr(model, k) for k in ("branch_at", "value_branch_at") if getattr(model, k, None) is not None}
+    init = type(model)(model.cfg, device="cuda", **kw).init_params(torch.Generator().manual_seed(seed))
     start = dict(init.named_parameters())
-    still = [n for n, p in trainer.model.named_parameters() if torch.equal(p, start[n])]
+    params = dict(model.named_parameters())
+    should_freeze = {n for n in params if n.startswith(tuple(frozen))} if frozen else set()
+    still = [n for n, p in params.items() if n not in should_freeze and torch.equal(p, start[n])]
+    frozen_moved = [n for n in should_freeze if not torch.equal(params[n], start[n])]
+    trainable = {n for n, p in params.items() if p.requires_grad}
     ref = getattr(trainer, "ref_params", None)
-    ref_moved = [] if ref is None else [n for n, p in ref.named_parameters() if not torch.equal(p, start["base." + n])]
-    rel_bias = {n: (p - start[n]).abs().max().item() for n, p in trainer.model.named_parameters()
-                if n.endswith("rel_bias")}
-    emit(phase, trainable=len(trainer.trainable_params), unmoved=still, reference_moved=ref_moved,
-         rel_bias_max_abs_move=rel_bias)
-    if still or ref_moved or len(trainer.trainable_params) != len(start):
-        raise AssertionError(f"parameters that did not move: {still}; reference tensors that moved: {ref_moved}")
+    offset = getattr(model, "branch_at", None) or 0  # a hydra reference holds the blocks from branch_at up
+
+    def base_name(n):  # a reference tensor's name in the policy (hydra: block i is block offset + i)
+        parts = n.split(".")
+        if offset and parts[0] == "blocks":
+            parts[1] = str(int(parts[1]) + offset)
+        return "base." + ".".join(parts)
+
+    ref_moved = [] if ref is None else [n for n, p in ref.named_parameters() if not torch.equal(p, start[base_name(n)])]
+    rel_bias = {n: (p - start[n]).abs().max().item() for n, p in params.items() if n.endswith("rel_bias")}
+    emit(phase, trainable=len(trainer.trainable_params), frozen=len(should_freeze), unmoved=still,
+         frozen_moved=frozen_moved, reference_moved=ref_moved, rel_bias_max_abs_move=rel_bias)
+    if still or ref_moved or frozen_moved or trainable != set(params) - should_freeze:
+        raise AssertionError(f"parameters that did not move: {still}; frozen that moved: {frozen_moved}; "
+                             f"reference tensors that moved: {ref_moved}; trainable {len(trainable)} of "
+                             f"{len(params)}, {len(should_freeze)} meant to be frozen")
 
 
 def cycle_split(trainer) -> list:
@@ -1461,7 +1497,7 @@ def train_engine_path(seed: int, shapes: dict) -> dict:
 
 
 def train_reference(trainer, seed: int, configs=None, rollouts: int = TRAIN_REFERENCE_ROLLOUTS,
-                    batch_size: int = TRAIN_BATCH, phase: str = "train_reference") -> dict:
+                    batch_size: int = TRAIN_BATCH, phase: str = "train_reference", must_gate=None) -> dict:
     """One train step's loss and gradients from the same parameters on
     the same minibatches, three ways: the kernel path (the trainer
     itself), the plain bf16 path (attention_impl="xla") and the plain
@@ -1493,12 +1529,13 @@ def train_reference(trainer, seed: int, configs=None, rollouts: int = TRAIN_REFE
 
     batches = [b for s in (seed, seed + 1)
                for b in trainer.store.create_loader(batch_size, shuffle=True, drop_last=True, seed=s)]
-    grad_reference(trainer, configs, batches, step, ("logprobs", "values"), phase,
+    grad_reference(trainer, configs, batches, step, ("logprobs", "values"), phase, must_gate=must_gate,
                    reward_fn=train_reward_fn)
     return {"batch": batches[0]}
 
 
-def grad_reference(trainer, configs: dict, batches: list, step, outputs: tuple, phase: str, **trainer_kw) -> None:
+def grad_reference(trainer, configs: dict, batches: list, step, outputs: tuple, phase: str, must_gate=None,
+                   **trainer_kw) -> None:
     """The gate of the train references: the kernel path (`trainer`), and
     the plain bf16 and fp32 paths (trainers built from `configs` on the
     same parameters) each take one step, `step(trainer, batch) -> (loss,
@@ -1511,7 +1548,9 @@ def grad_reference(trainer, configs: dict, batches: list, step, outputs: tuple, 
     1.1; and, for the key projection's bias, whose exact gradient is zero
     (it shifts every score of a query row equally) so that a relative
     error means nothing, in the largest absolute gradient error of each
-    such tensor over the minibatches."""
+    such tensor over the minibatches. With `must_gate`, the tensors whose
+    names start with it must be among the gated ones (their ratios are
+    printed apart)."""
     import torch
 
     from trlx_tpu_torch.utils.loading import get_trainer
@@ -1544,7 +1583,9 @@ def grad_reference(trainer, configs: dict, batches: list, step, outputs: tuple, 
             sq["fp32"][n] = sq["fp32"].get(n, 0.0) + g.square().sum().item()
         for name, e in errs.items():
             loss, g, outs, _ = res[name]
-            e.append((abs(loss - loss32), *[(o - o32)[real].abs().mean().item() for o, o32 in zip(outs, outs32)]))
+            # a minibatch with no real response token has no output error (NaN, left out of the mean)
+            e.append((abs(loss - loss32), *[(o - o32)[real].abs().mean().item() if real.any() else math.nan
+                                            for o, o32 in zip(outs, outs32)]))
             for n in g:
                 d = g[n] - g32[n]
                 sq[name][n] = sq[name].get(n, 0.0) + d.square().sum().item()
@@ -1553,7 +1594,8 @@ def grad_reference(trainer, configs: dict, batches: list, step, outputs: tuple, 
     del paths
 
     def mean(name, i):
-        return statistics.mean(e[i] for e in errs[name])
+        vals = [e[i] for e in errs[name] if not math.isnan(e[i])]
+        return statistics.mean(vals) if vals else math.nan
 
     grad = {name: {n: math.sqrt(sq[name][n] / max(sq["fp32"][n], 1e-60)) for n in sq["fp32"]}
             for name in errs}
@@ -1580,8 +1622,14 @@ def grad_reference(trainer, configs: dict, batches: list, step, outputs: tuple, 
          k_bias_grad_rel_err={n: {"kernel": gk[n], "plain_bf16": gp[n]} for n in k_bias},
          k_bias_grad_max_abs_err=k_bias_abs,
          k_bias_max_abs_ratio_max=max((e["ratio"] for e in k_bias_abs.values()), default=None),
-         k_bias_over_2x=k_bias_worse)
+         k_bias_over_2x=k_bias_worse,
+         **({} if must_gate is None else {"must_gate": must_gate, "must_gate_ratio": {
+             n: {"kernel": gk[n], "plain_bf16": gp[n], "ratio": ratio[n]} for n in gated if n.startswith(must_gate)}}))
+    if must_gate is not None and not any(n.startswith(must_gate) for n in grad["kernel"]):
+        raise AssertionError(f"no tensor named {must_gate}* was gated")
     for what, e in summary.items():
+        if not (math.isfinite(e["kernel"]) and math.isfinite(e["plain_bf16"])):
+            raise AssertionError(f"no minibatch gave a finite {what} error: {e}")
         if e["kernel"] > 2 * e["plain_bf16"]:
             raise AssertionError(f"the kernel path's {what} strays from fp32 by {e['kernel']}, "
                                  f"more than 2 x plain bf16 ({e['plain_bf16']})")
@@ -1592,6 +1640,359 @@ def grad_reference(trainer, configs: dict, batches: list, step, outputs: tuple, 
     if k_bias_worse:
         raise AssertionError(f"the largest absolute gradient errors of {k_bias_worse} exceed 2 x the plain bf16 "
                              f"path's: {k_bias_abs}")
+
+
+def counted_train(config, shapes: dict, path: str, **train_kw):
+    """`trlx_tpu_torch.train` on the train path's prompts with every
+    training kernel's counter at 0 just before it: (trainer, wall s,
+    launches, the decode steps of each sampler call)."""
+    import torch
+
+    import trlx_tpu_torch
+
+    counters = train_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with forward_shapes(shapes, path), sampler_calls() as calls:
+        trainer = trlx_tpu_torch.train(reward_fn=train_reward_fn, prompts=TRAIN_PROMPTS, config=config, **train_kw)
+    torch.cuda.synchronize()
+    return (trainer, time.perf_counter() - t0, {name: fn.launches for name, fn in counters.items()},
+            [c["decode_steps"] for c in calls])
+
+
+def check_train_losses(trainer) -> list:
+    losses = [st["losses/total_loss"] for _, st in trainer.stats_history if "losses/total_loss" in st]
+    if len(losses) != TRAIN_STEPS or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"expected {TRAIN_STEPS} finite losses, got {losses}")
+    return losses
+
+
+def weights_checksum(module) -> float:
+    """The float64 sum of every parameter: equal for equal weights."""
+    import torch
+
+    return torch.stack([p.detach().double().sum() for p in module.parameters()]).sum().item()
+
+
+def overlap_path(seed: int, shapes: dict, train_split: list):
+    """`train_path`'s workload with `method.overlap_rollouts`, as bench.py's
+    headline sets it (`bench.py:179`), under `train.fused_inner_loop`: the
+    second cycle's rollout is generated before the first cycle's steps,
+    with the weights those steps then change, and scored after them.
+    Gates: 16 finite losses; the launch counts of train_path's expectation
+    (the prefetch moves a sampler call and adds none); the prefetched call
+    ran on the pre-block weights (a checksum), its chunk was scored on the
+    updated ones, and the last cycle prefetched nothing; nothing left in
+    flight and the prompt cursor equal to the chunks trained. Prints its
+    cycle split beside train_path's (`train_split`); no speed is gated."""
+    from trlx_tpu_torch.trainer import base as trainer_base
+    from trlx_tpu_torch.trainer.ppo import TPUPPOTrainer
+
+    events = []
+    generate, hook, exp = (trainer_base.generate, TPUPPOTrainer.pre_optimization_hook,
+                           TPUPPOTrainer.experience_forward)
+
+    def spy_generate(model, *args, **kwargs):
+        out = generate(model, *args, **kwargs)
+        events.append(("gen", weights_checksum(model), out["sequences"]))
+        return out
+
+    def spy_hook(self, will_continue):
+        events.append(("hook", will_continue, weights_checksum(self.model.base)))
+        hook(self, will_continue)
+        events.append(("hook_end",))
+
+    def spy_exp(self, tokens, *args):
+        events.append(("exp", weights_checksum(self.model.base), tokens))
+        return exp(self, tokens, *args)
+
+    config = train_config(seed).evolve(train=dict(fused_inner_loop=True), method=dict(overlap_rollouts=True))
+    TPUPPOTrainer.pre_optimization_hook, TPUPPOTrainer.experience_forward = spy_hook, spy_exp
+    try:
+        with contextlib.ExitStack() as stack:
+            stack.callback(setattr, trainer_base, "generate", generate)
+            trainer_base.generate = spy_generate
+            trainer, wall, launches, decode_steps = counted_train(config, shapes, "overlap")
+    finally:
+        TPUPPOTrainer.pre_optimization_hook, TPUPPOTrainer.experience_forward = hook, exp
+    cycles = TRAIN_STEPS // (TRAIN_EPOCHS * TRAIN_ROLLOUTS // TRAIN_BATCH)
+    # train_path's expectation: the same sampler calls, the second cycle's
+    # rollout moved ahead of the first cycle's steps
+    expect = train_path_launches(trainer.model.cfg.n_layer, cycles, decode_steps)
+    hooks = [i for i, e in enumerate(events) if e[0] == "hook"]
+    ends = [i for i, e in enumerate(events) if e[0] == "hook_end"]
+    gens = [(i, e) for i, e in enumerate(events) if e[0] == "gen"]
+    # evaluations run with no hook around them: the prefetched calls are
+    # the sampler calls between a hook and its end
+    prefetched = [(i, e) for i, e in gens if any(h < i < x for h, x in zip(hooks, ends))]
+    losses = check_train_losses(trainer)
+    split = cycle_split(trainer)
+    emit("overlap_path", wall_s=wall, launches=launches, expected=expect, iter_count=trainer.iter_count,
+         sampler_calls=len(decode_steps), decode_steps=decode_steps, losses=losses,
+         hooks=[events[i][1] for i in hooks], prefetched_calls=len(prefetched),
+         prompt_batches_consumed=trainer._prompt_batches_consumed,
+         cycle_seconds=split, train_path_cycle_seconds=train_split)
+    if {k: launches[k] for k in expect} != expect or len(decode_steps) != cycles + 2:
+        raise AssertionError(f"launch counts {launches} != expected {expect} ({len(decode_steps)} sampler calls)")
+    if [events[i][1] for i in hooks] != [True, False] or len(prefetched) != 1:
+        raise AssertionError(f"expected one prefetch before the first cycle's steps and none before the last: "
+                             f"hooks {[events[i][1] for i in hooks]}, {len(prefetched)} prefetched calls")
+    i, (_, w_gen, seqs) = prefetched[0]
+    pre_block = events[hooks[0]][2]
+    scored = [e for e in events[i + 1:] if e[0] == "exp" and e[2] is seqs]
+    if w_gen != pre_block or w_gen != gens[0][1][1]:
+        raise AssertionError("the prefetched chunk was not generated with the pre-block weights")
+    if len(scored) != 1 or scored[0][1] == pre_block or scored[0][1] != events[hooks[1]][2]:
+        raise AssertionError("the prefetched chunk was not scored (once) with the updated weights")
+    if trainer._prefetched_gen is not None or trainer._prompt_batches_consumed != cycles:
+        raise AssertionError(f"a prefetch was left in flight or the cursor is off: "
+                             f"{trainer._prompt_batches_consumed} chunks pulled, {cycles} trained")
+    del trainer
+    return launches
+
+
+KNOBS_UNFROZEN = 2  # ppo_knobs_path: num_layers_unfrozen and num_value_layers_unfrozen
+
+
+def ppo_knobs_config(seed: int, logging_dir=None, **kw):
+    """The train path's config (GPT-2 small, 50257 ids) with the hydra
+    reference and the value branch over the top two blocks, timing_split
+    and the rollout export into `logging_dir` (none without one)."""
+    return train_config(seed, **kw).evolve(
+        train=dict(timing_split=logging_dir is not None, rollout_logging_dir=logging_dir),
+        model=dict(num_layers_unfrozen=KNOBS_UNFROZEN),
+        method=dict(num_value_layers_unfrozen=KNOBS_UNFROZEN),
+    )
+
+
+def ppo_knobs_path(seed: int, shapes: dict):
+    """`trlx_tpu_torch.train` on the train path's workload at GPT-2 small
+    with the PPO knobs of slice 6 but stop sequences (`stop_path`):
+    num_layers_unfrozen 2 (hydra reference over blocks 10-11),
+    num_value_layers_unfrozen 2 (the value branch re-runs blocks 10-11 from
+    the trunk's capture), train.timing_split and train.rollout_logging_dir;
+    two cycles, 16 steps. Gates: exact launch counts; one export file (the
+    first cycle's; the run ends inside the second) of 64 rows; the timing
+    keys from the second step on; the trainable tensors moved and the
+    frozen trunk and reference did not."""
+    import glob
+    import os
+    import shutil
+    import tempfile
+
+    logs = tempfile.mkdtemp(prefix="rollouts-")
+    try:
+        trainer, wall, launches, decode_steps = counted_train(ppo_knobs_config(seed, logs), shapes, "ppo_knobs")
+        exports = glob.glob(os.path.join(logs, "run-*", "epoch-*.json"))
+        configs = glob.glob(os.path.join(logs, "run-*", "config.json"))
+        rows = []
+        for f in exports:
+            with open(f) as fh:
+                rows.append(len(json.load(fh)))
+    finally:
+        shutil.rmtree(logs, ignore_errors=True)
+    L, K = trainer.model.cfg.n_layer, KNOBS_UNFROZEN
+    cycles = TRAIN_STEPS // (TRAIN_EPOCHS * TRAIN_ROLLOUTS // TRAIN_BATCH)
+    # forward launches: every sampler call's prefill (a rollout a cycle, an
+    # eval at each end) through the L policy blocks; each cycle's experience
+    # pass through the L trunk blocks, the K blocks of the hydra reference
+    # and the K of the value branch; each train step's policy forward
+    # (L + K, the branch included), and two more of them for timing_split's
+    # probe (a warm pass, a timed one) on the one batch shape. Backward:
+    # each step through the trainable blocks alone (the top K of the
+    # policy, the K of the value branch; the frozen trunk below builds no
+    # graph). Decode: a launch a layer for each decode step.
+    n_fwd = L * (cycles + 2) + cycles * (L + 2 * K) + (TRAIN_STEPS + 2) * (L + K)
+    n_bwd = 2 * K * TRAIN_STEPS
+    n_decode = L * sum(decode_steps)
+    expect = {"flash_fwd": n_fwd, "flash_fwd_short": n_fwd, "flash_fwd_long": 0,
+              "flash_bwd": n_bwd, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+              "decode": n_decode, "decode_short": n_decode, "decode_long": 0}
+    losses = check_train_losses(trainer)
+    timed = [step for step, st in trainer.stats_history if "time/forward" in st and "time/backward" in st]
+    split = [(step, st["time/forward"], st["time/backward"]) for step, st in trainer.stats_history
+             if "time/forward" in st]
+    emit("ppo_knobs_path", wall_s=wall, launches=launches, expected=expect, iter_count=trainer.iter_count,
+         sampler_calls=len(decode_steps), decode_steps=decode_steps, losses=losses, export_rows=rows,
+         export_configs=len(configs), timing_split_steps=timed, timing_split_s=split[:3],
+         cycle_seconds=cycle_split(trainer))
+    if {k: launches[k] for k in expect} != expect or len(decode_steps) != cycles + 2:
+        raise AssertionError(f"launch counts {launches} != expected {expect} ({len(decode_steps)} sampler calls)")
+    if rows != [TRAIN_ROLLOUTS] or len(configs) != 1:
+        raise AssertionError(f"expected one export of {TRAIN_ROLLOUTS} rows beside one config.json: {rows}, "
+                             f"{len(configs)} configs")
+    if timed != list(range(2, TRAIN_STEPS + 1)):
+        raise AssertionError(f"time/forward and time/backward must appear from the second step on: {timed}")
+    check_params_moved(trainer, seed, "ppo_knobs_params",
+                       frozen=("base.embed.",) + tuple(f"base.blocks.{i}." for i in range(L - K)))
+    return trainer, launches
+
+
+def ppo_knobs_reference(trainer, seed: int) -> dict:
+    """`train_reference` on the knobs trainer (the hydra branch, the value
+    branch, a frozen trunk), against the plain bf16 and fp32 paths of the
+    same config; `grad_reference` must gate the value branch's tensors."""
+    configs = {
+        "plain_bf16": ppo_knobs_config(seed, attention_impl="xla", kv_cache_quant="int8"),
+        "fp32": ppo_knobs_config(seed, attention_impl="xla", kv_cache_quant=None, compute_dtype="float32"),
+    }
+    return train_reference(trainer, seed, configs, phase="ppo_knobs_reference", must_gate="v_branch.")
+
+
+# stop_path's vocabulary: the byte tokenizer's 258 ids. Stop sequences
+# re-tokenise every output through the tokenizer (the reference's
+# host-scored path), and the byte tokenizer decodes only its 256 byte ids:
+# at GPT-2's 50257 ids random weights sample a byte about once in 200
+# tokens, so the rebuilt responses would hold a token or two in a chunk of
+# 64 rows, and a train step would see almost none.
+# scripts/torch_knobs_gate_diag.py reads the references at both
+# vocabularies.
+STOP_VOCAB = 258
+# two bytes random weights sample once in 258 tokens each: about a fifth of
+# the 32-token outputs hold one (the EOS string appended to a cut output,
+# "<|eos|>", holds neither)
+STOPS = ["t", "n"]
+
+
+def stop_config(seed: int, **kw):
+    """The train path's config at GPT-2-small widths over `STOP_VOCAB` ids."""
+    config = train_config(seed, **kw)
+    transformer = dict(config.model.model_extra_configs["transformer"], vocab_size=STOP_VOCAB)
+    return config.evolve(model=dict(model_extra_configs={"transformer": transformer}))
+
+
+def stop_path(seed: int, shapes: dict):
+    """`trlx_tpu_torch.train` on the train path's workload at GPT-2-small
+    widths over the byte vocabulary (`STOP_VOCAB`) with stop sequences:
+    every output is cut at its first stop string and re-tokenised, and the
+    experience pass runs after the decode on the rebuilt tokens; two
+    cycles, 16 steps. Gates: train_path's exact launch counts (the
+    experience pass moves behind the decode and adds no launch); at least
+    one output cut and none scored still holding a stop string; 16 finite
+    losses; every tensor moved and the frozen reference did not."""
+    from trlx_tpu_torch.trainer.ppo import TPUPPOTrainer
+
+    cut = []
+    retokenize = TPUPPOTrainer._retokenize_outputs
+
+    def spy(self, str_outputs, batch, sequences, N):
+        cut.append(([self.tokenizer.decode(row[-N:]) for row in sequences.cpu().numpy()], list(str_outputs)))
+        return retokenize(self, str_outputs, batch, sequences, N)
+
+    TPUPPOTrainer._retokenize_outputs = spy
+    try:
+        trainer, wall, launches, decode_steps = counted_train(
+            stop_config(seed), shapes, "stop", stop_sequences=STOPS)
+    finally:
+        TPUPPOTrainer._retokenize_outputs = retokenize
+    cycles = TRAIN_STEPS // (TRAIN_EPOCHS * TRAIN_ROLLOUTS // TRAIN_BATCH)
+    expect = train_path_launches(trainer.model.cfg.n_layer, cycles, decode_steps)
+    losses = check_train_losses(trainer)
+    raw = [o for chunk, _ in cut for o in chunk]
+    scored = [o.removesuffix(trainer.tokenizer.eos_token) for _, chunk in cut for o in chunk]
+    n_cut = sum(any(stop in o for stop in STOPS) for o in raw)
+    real_tokens = [st["rollout/real_tokens"] for _, st in trainer.stats_history if "rollout/real_tokens" in st]
+    emit("stop_path", wall_s=wall, launches=launches, expected=expect, iter_count=trainer.iter_count,
+         vocab_size=STOP_VOCAB, stops=STOPS, sampler_calls=len(decode_steps), decode_steps=decode_steps,
+         losses=losses, outputs_cut=n_cut, outputs_scored=len(scored), rollout_real_tokens=real_tokens,
+         cycle_seconds=cycle_split(trainer))
+    if {k: launches[k] for k in expect} != expect or len(decode_steps) != cycles + 2:
+        raise AssertionError(f"launch counts {launches} != expected {expect} ({len(decode_steps)} sampler calls)")
+    if not n_cut or any(stop in o for stop in STOPS for o in scored):
+        raise AssertionError(f"{n_cut} sampled outputs held a stop string; the scored outputs must hold none")
+    check_params_moved(trainer, seed, "stop_params")
+    return trainer, launches
+
+
+def stop_reference(trainer, seed: int) -> dict:
+    """`train_reference` on the stop trainer, against the plain bf16 and
+    fp32 paths of its config: its fresh store is cut at the stop strings,
+    so the train steps' rows hold a left-padded prompt and a right-padded
+    response. Gate, besides `grad_reference`'s: some stored responses were
+    cut short (a padded tail), so the case is not vacuous."""
+    import torch
+
+    configs = {
+        "plain_bf16": stop_config(seed, attention_impl="xla", kv_cache_quant="int8"),
+        "fp32": stop_config(seed, attention_impl="xla", kv_cache_quant=None, compute_dtype="float32"),
+    }
+    out = train_reference(trainer, seed, configs, phase="stop_reference")
+    mask = trainer.store[torch.arange(len(trainer.store), device="cuda")].response_mask.float()
+    short = int((mask[:, -1] == 0).sum().item())
+    emit("stop_reference_mask", rows=mask.shape[0], rows_cut_short=short, real_share=mask.mean().item())
+    if not short:
+        raise AssertionError("no stored response was cut short: the reference saw no right padding")
+    return out
+
+
+def value_branch_cost(trainer) -> None:
+    """The value branch's added device time: one experience pass on 64 of
+    the trainer's stored rollouts and one train-step forward and backward
+    on 32 (no optimizer step), each traced with the branch on and with the
+    value head moved onto the policy's final hidden state."""
+    import torch
+
+    batch = trainer.store[torch.arange(TRAIN_ROLLOUTS, device="cuda")]
+    pad = trainer.generate_settings.pad_token_id
+    P = batch.query_tensors.shape[1]
+    tokens = torch.cat([batch.query_tensors, batch.response_tensors], dim=1)
+    attention_mask = (tokens != pad).to(torch.int32)
+    attention_mask[:, P:] = torch.maximum(attention_mask[:, P:], batch.response_mask.to(torch.int32))
+    minibatch = trainer.store[torch.arange(TRAIN_BATCH, device="cuda")]
+    at = trainer.model.value_branch_at
+
+    def experience():
+        trainer.experience_forward(tokens, attention_mask, batch.response_mask, 0.05)
+
+    def step():
+        loss, _ = trainer.loss(minibatch)
+        loss.backward()
+        trainer.model.zero_grad(set_to_none=True)
+
+    out = {}
+    try:
+        for mode in ("branch", "no_branch"):
+            trainer.model.value_branch_at = at if mode == "branch" else None
+            for name, fn, grad in (("experience", experience, False), ("train_step", step, True)):
+                samples = []
+                for i in range(4):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    with torch.set_grad_enabled(grad):
+                        fn()
+                    torch.cuda.synchronize()
+                    if i:
+                        samples.append(time.perf_counter() - t0)
+                wall = statistics.median(samples)
+                out[f"{name}_{mode}"] = {"wall_ms": wall * 1e3,
+                                         "device_ms": profile_phase(f"{name}_{mode}", fn, wall, grad=grad)}
+    finally:
+        trainer.model.value_branch_at = at
+    emit("value_branch_cost", **out, **{
+        f"{name}_added_device_ms": out[f"{name}_branch"]["device_ms"] - out[f"{name}_no_branch"]["device_ms"]
+        for name in ("experience", "train_step")})
+
+
+def ppo_phases(seed: int, shapes: dict, train_split: list) -> dict:
+    """overlap_path; ppo_knobs_path with the value branch's cost, its
+    reference and one profiled train step; stop_path and its reference:
+    {path: launches}."""
+    import torch
+
+    launches = {"overlap": overlap_path(seed, shapes, train_split)}
+    torch.cuda.empty_cache()
+    trainer, launches["ppo_knobs"] = ppo_knobs_path(seed, shapes)
+    batch = ppo_knobs_reference(trainer, seed)["batch"]
+    value_branch_cost(trainer)
+    train_step_profile(trainer, batch, "ppo_knobs_train_step")
+    del trainer, batch
+    torch.cuda.empty_cache()
+    trainer, launches["stop"] = stop_path(seed, shapes)
+    stop_reference(trainer, seed)
+    del trainer
+    torch.cuda.empty_cache()
+    return launches
 
 
 def train_step_profile(trainer, batch, name: str = "train_step") -> None:
@@ -2201,15 +2602,16 @@ def flash_bwd_work(mask, H, Hkv, T, S, D, q_offset, causal=True):
     return dq, dkv, fused
 
 
-def bwd_kernel_times(gen, launches, t5_launches, errs, sft_launches) -> list:
+def bwd_kernel_times(gen, launches, t5_launches, errs, sft_launches, ppo_launches) -> list:
     """The flash backward at the GPT-2 train path's shape (B32 H12 T=S=64,
     causal) and at T5's cross-attention shape (B12 H12, T=65 queries over
     S=32 keys, not causal, scale 1): the fused kernel, the long route's
     pair, the plain backward and SDPA's backward on the same inputs, beside
     the bounds; then the long route's two steps at T=S=512 (B4, causal),
     where it is the route the wrapper takes. `launches`, `t5_launches` and
-    `sft_launches` are the GPT-2 train, T5 train and SFT paths' counts (the
-    SFT path's steps have the train path's shape)."""
+    `sft_launches` are the GPT-2 train, T5 train and SFT paths' counts,
+    `ppo_launches` {path: counts} the overlap and PPO-knobs paths' (the
+    SFT and those paths' steps have the train path's shape)."""
     import torch
     import torch.nn.functional as F
 
@@ -2234,7 +2636,9 @@ def bwd_kernel_times(gen, launches, t5_launches, errs, sft_launches) -> list:
             name=name, route="cuda", source="trlx_tpu_torch/csrc/flash_bwd.cu", replaces=ref(line),
             launches=extra.pop("launches"), launches_train_path=launches[name.split("/")[0]],
             launches_t5_train_path=t5_launches[name.split("/")[0]],
-            launches_sft_path=sft_launches[name.split("/")[0]], max_abs_err=err, shape=shape,
+            launches_sft_path=sft_launches[name.split("/")[0]],
+            **{f"launches_{path}_path": n[name.split("/")[0]] for path, n in ppo_launches.items()},
+            max_abs_err=err, shape=shape,
             causal=causal, ms=ms, kernel_ms=ms, plain_ms=plain, plain_is=plain_is, bound_ms=bms, bound_by=by,
             bound_bytes=work[0], bound_flops=work[1], library_ms=lib, library_is=lib_is, **extra,
         ))
@@ -2269,7 +2673,8 @@ def bwd_kernel_times(gen, launches, t5_launches, errs, sft_launches) -> list:
         shape = [B, H, T, S, D]
         if case != "long":
             row(f"flash_bwd/{case}", shape, causal, fused_ms, plain, lib, work_fused, 192, errs["fused"],
-                launches=(launches["flash_bwd"] + sft_launches["flash_bwd"] if case == "train"
+                launches=(launches["flash_bwd"] + sft_launches["flash_bwd"]
+                          + sum(n["flash_bwd"] for n in ppo_launches.values()) if case == "train"
                           else t5_launches["flash_bwd"]), also_replaces=ref(231),
                 long_route_ms=dq_ms + dkv_ms, long_route_dq_ms=dq_ms, long_route_dkv_ms=dkv_ms,
                 occupancy=flash_attention_bwd_occupancy(T, S))
@@ -2435,10 +2840,10 @@ def bias_kernel_times(gen, launches, path_launches, shape_launches, errs) -> lis
     return rows
 
 
-def profile_phase(name: str, fn, wall_s: float, grad: bool = False, host_ops: bool = True) -> None:
-    """Device time by kernel over one traced run of `fn` (torch.profiler).
-    The idle share compares the traced device time with the untraced wall
-    time `wall_s` of the same work. `host_ops=False` traces the device
+def profile_phase(name: str, fn, wall_s: float, grad: bool = False, host_ops: bool = True) -> float:
+    """Device time by kernel over one traced run of `fn` (torch.profiler);
+    returns the device's busy ms. The idle share compares the traced
+    device time with the untraced wall time `wall_s` of the same work. `host_ops=False` traces the device
     alone: a run of many thousand host operations (the engine's loop)
     makes a host trace slow to gather and adds nothing to the device sums."""
     import torch
@@ -2476,6 +2881,7 @@ def profile_phase(name: str, fn, wall_s: float, grad: bool = False, host_ops: bo
          flash_bwd_kernels_ms=share("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel", "flash_bwd_fused_kernel"),
          matmul_ms=share("gemm", "Gemm", "xmma", "nvjet", "cutlass"),
          top=[dict(kernel=e.key[:90], ms=e.self_device_time_total / 1e3, calls=e.count) for e in top])
+    return busy_ms
 
 
 @contextlib.contextmanager
@@ -2595,7 +3001,8 @@ def decode_kernel_times(gen, launches, errs) -> list:
 
     rows = []
     L, H, D = 12, 12, 64
-    by_path = {path: launches.get(path, {"short": 0, "long": 0}) for path in ("rollout", "train", "sft")}
+    by_path = {path: launches.get(path, {"short": 0, "long": 0})
+               for path in ("rollout", "train", "sft", "overlap", "ppo_knobs", "stop")}
 
     def row(name, route, S, written, B=PROMPTS, pads=None):
         q, ck, cv, ks, vs, mask = decode_inputs(gen, L, B, H, H, S, D, written, pads)
@@ -2614,6 +3021,8 @@ def decode_kernel_times(gen, launches, errs) -> list:
             replaces="trlx_tpu/ops/decode_attention.py:369",  # _decode_kernel, via decode_attention_int8:418
             launches=by_path["sft" if name.endswith("/sft") else "rollout"][route],
             launches_train_path=by_path["train"][route], launches_sft_path=by_path["sft"][route],
+            launches_overlap_path=by_path["overlap"][route], launches_ppo_knobs_path=by_path["ppo_knobs"][route],
+            launches_stop_path=by_path["stop"][route],
             max_abs_err=errs[route], shape=[L, B, H, S, D], written=written, ms=ms, kernel_ms=ms, **extra,
             plain_ms=plain, bound_ms=bms, bound_by=by, bound_bytes=n_bytes, bound_flops=n_flops,
             library_ms=None, ctas_per_sm=occupancy["ctas_per_sm"], smem_bytes=occupancy["smem_bytes"],
@@ -2695,14 +3104,17 @@ def paged_kernel_times(gen, launches, errs) -> list:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
-    parser.add_argument("--only", choices=("fwd", "paged", "decode", "bias", "sft"), default=None,
+    parser.add_argument("--only", choices=("fwd", "paged", "decode", "bias", "sft", "ppo"), default=None,
                         help="fwd: the build, flash_check and the flash forward's kernel_time rows only "
                              "(a quick check of kernel 1); paged: the build, paged_check and the paged "
                              "kernel_time rows only (kernel 7); decode: the build, decode_check and the int8 "
                              "decode kernel_time rows only (kernel 8); bias: the build, flash_bias_check and "
                              "the bias kernels' kernel_time rows only (kernels 4-6); no path runs, so no "
                              "launches; sft: the build and the SFT phases (sft_path, sft_reference, "
-                             "sft_train_step, reload, randomwalks), no kernel_time rows")
+                             "sft_train_step, reload, randomwalks), no kernel_time rows; ppo: the build, "
+                             "train_path and the slice-6 PPO phases (overlap_path, ppo_knobs_path, "
+                             "value_branch_cost, ppo_knobs_reference, stop_path, stop_reference), no "
+                             "kernel_time rows")
     args = parser.parse_args()
 
     import torch
@@ -2785,6 +3197,13 @@ def main() -> int:
     elif args.only == "sft":
         sft_phases(args.seed, {})
         rows = []
+    elif args.only == "ppo":
+        trainer, _ = train_path(args.seed, {})
+        train_split = cycle_split(trainer)
+        del trainer
+        torch.cuda.empty_cache()
+        ppo_phases(args.seed, {}, train_split)
+        rows = []
     if args.only is not None:
         print(json.dumps({"kernels": rows}))
         print(card)
@@ -2802,10 +3221,12 @@ def main() -> int:
     bias_shapes = {}  # path -> its gated run's bias forward launches by shape (bias_fwd_shapes)
     launches = main_path(args.seed, shapes)
     trainer, train_launches = train_path(args.seed, shapes)
+    train_split = cycle_split(trainer)
     batch = train_reference(trainer, args.seed)["batch"]
     train_step_profile(trainer, batch)
     del trainer, batch
     torch.cuda.empty_cache()
+    ppo_launches = ppo_phases(args.seed, shapes, train_split)
     sft_launches = sft_phases(args.seed, shapes)
     engine = engine_path(args.seed)
     paged_launches = {"engine_plain": engine["plain"], "engine_spec": engine["spec"],
@@ -2824,8 +3245,8 @@ def main() -> int:
     rows = fwd_kernel_times(gen, shapes, flash_errs)
     rows += decode_kernel_times(gen, {"rollout": launches["decode"], **{
         path: {"short": n["decode_short"], "long": n["decode_long"]}
-        for path, n in (("train", train_launches), ("sft", sft_launches))}}, decode_errs)
-    rows += bwd_kernel_times(gen, train_launches, t5_train_launches, bwd_errs, sft_launches)
+        for path, n in (("train", train_launches), ("sft", sft_launches), *ppo_launches.items())}}, decode_errs)
+    rows += bwd_kernel_times(gen, train_launches, t5_train_launches, bwd_errs, sft_launches, ppo_launches)
     rows += paged_kernel_times(gen, paged_launches, paged_errs)
     rows += bias_kernel_times(gen, t5_train_launches, t5_launches, bias_shapes, bias_errs)
     print(json.dumps({"kernels": rows}))

@@ -13,7 +13,7 @@ import torch
 
 REPO = Path(__file__).resolve().parents[2]
 PKG = REPO / "trlx_tpu_torch"
-PORT_FILES = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+PORT_FILES = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "scripts" / "torch_knobs_gate_diag.py"]
 
 
 def _module_names():
@@ -131,7 +131,7 @@ def test_train_raises_without_a_gpu(monkeypatch):
     ("train", dict(memory={"enabled": True})),
     ("train", dict(chaos={"seed": 0})),
     ("train", dict(resume_from_checkpoint="auto")),
-    ("method", dict(overlap_rollouts=True)),
+    ("method", dict(fleet={"enabled": True})),
     ("method", dict(exp={"enabled": True})),
     ("method", dict(gen_engine={"enabled": True, "data_groups": 2})),
     ("model", dict(model_arch_type="seq2seq", model_extra_configs={"seq2seq": dict(
@@ -151,10 +151,20 @@ def test_unported_training_knobs_raise(section, kw):
 
 
 def test_offline_sft_and_stop_sequences_raise():
+    """Offline RL raises, naming its ROADMAP queue. Stop sequences, which
+    raised until the port reached them, now train: each output is cut at
+    the first occurrence of a stop string before it is scored."""
     import trlx_tpu_torch
 
     with pytest.raises(NotImplementedError, match="ROADMAP queue 6"):
         trlx_tpu_torch.train(samples=["a"], rewards=[1.0], config=_tiny_ppo_config(), device="cpu")
-    with pytest.raises(NotImplementedError, match="left out of slice 2"):
-        trlx_tpu_torch.train(reward_fn=lambda **kw: [0.0], prompts=["a", "b"], config=_tiny_ppo_config(),
-                             stop_sequences=["\n"], device="cpu")
+    scored = []
+
+    def reward_fn(outputs, **kw):
+        scored.extend(outputs)
+        return [0.0] * len(outputs)
+
+    trainer = trlx_tpu_torch.train(reward_fn=reward_fn, prompts=["a", "b"], config=_tiny_ppo_config(),
+                                   stop_sequences=["\n"], device="cpu")
+    assert trainer.stop_sequences == ["\n"] and scored
+    assert not any("\n" in o for o in scored)

@@ -36,7 +36,10 @@ def train(
     """Online RL (PPO) from `reward_fn(samples, prompts, outputs, **metadata)
     -> list of scalar (or per-token) rewards` and `prompts`; supervised
     fine-tuning from `samples` alone (strings, or alternating prompt /
-    output dialogues). Returns the trainer after `learn()`."""
+    output dialogues). `stop_sequences` cuts each decoded output at the
+    first occurrence of any of them (PPO then re-tokenises the cut
+    outputs and scores those tokens). Returns the trainer after
+    `learn()`."""
     if not reward_fn and (rewards is not None or dataset is not None):
         raise NotImplementedError(
             "offline RL (rewards/dataset: the ILQL trainer) is not ported yet (ROADMAP queue 6: the "

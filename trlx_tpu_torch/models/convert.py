@@ -25,11 +25,12 @@ def _t(x) -> torch.Tensor:
 
 def lm_state_dict_from_jax(p: Mapping, cfg: TransformerConfig) -> Dict[str, torch.Tensor]:
     """State dict of a `TransformerLM` from a reference `TransformerLM`
-    param tree {embed, blocks, ln_f}."""
-    sd = {"embed.wte": _t(p["embed"]["wte"]), "embed.wpe": _t(p["embed"]["wpe"])}
+    param tree {embed, blocks, ln_f}; without `embed`, of the blocks and
+    final norm alone (a value branch, whose blocks stack only its layers)."""
+    sd = {"embed.wte": _t(p["embed"]["wte"]), "embed.wpe": _t(p["embed"]["wpe"])} if "embed" in p else {}
     blocks = p["blocks"]
     E = cfg.hidden_size
-    for i in range(cfg.n_layer):
+    for i in range(len(blocks["ln_1"]["scale"])):
         pre = f"blocks.{i}."
         for ln in ("ln_1", "ln_2"):
             for leaf, x in blocks[ln].items():
@@ -79,9 +80,9 @@ def t5_state_dict_from_jax(p: Mapping, cfg: Seq2SeqConfig) -> Dict[str, torch.Te
 
 def params_from_jax(tree: Mapping, cfg) -> Dict[str, torch.Tensor]:
     """State dict from a reference param tree: a `CausalLMWithValueHead` or
-    `Seq2SeqLMWithValueHead` `init_params` tree {base, v_head} gives the
-    wrapper's state dict, a bare LM tree a `TransformerLM` or `T5LM` one
-    (by the config's type)."""
+    `Seq2SeqLMWithValueHead` `init_params` tree {base, v_head[, v_branch]}
+    gives the wrapper's state dict, a bare LM tree a `TransformerLM` or
+    `T5LM` one (by the config's type)."""
     lm = t5_state_dict_from_jax if isinstance(cfg, Seq2SeqConfig) else lm_state_dict_from_jax
     if "base" not in tree:
         return lm(tree, cfg)
@@ -89,4 +90,6 @@ def params_from_jax(tree: Mapping, cfg) -> Dict[str, torch.Tensor]:
     for dense in ("fc_in", "fc_out"):
         for leaf, x in tree["v_head"][dense].items():
             sd[f"v_head.{dense}.{leaf}"] = _t(x)
+    if "v_branch" in tree:
+        sd.update({f"v_branch.{k}": v for k, v in lm_state_dict_from_jax(tree["v_branch"], cfg).items()})
     return sd

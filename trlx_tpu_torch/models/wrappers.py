@@ -7,8 +7,10 @@ One teacher-forced pass (`forward_train`) yields the policy logits, the
 values and the reference logits: the trunk below `branch_at` is shared,
 and the frozen top branch re-runs from the hidden state captured there
 (for seq2seq, the top decoder blocks over the shared encoder output).
-The value branch, LoRA and other peft adapters are not ported yet and
-raise.
+With `value_branch_at` (method.num_value_layers_unfrozen) the value head
+reads a trainable copy of the top blocks and the final norm (`v_branch`),
+re-run from the hidden state captured at that fork in the same trunk
+pass. LoRA and other peft adapters are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -64,9 +66,22 @@ class CausalLM(nn.Module):
         return self.base(input_ids, attention_mask, compute_logits=compute_logits)
 
 
+class ValueBranch(nn.Module):
+    """The value branch: a trainable copy of the top blocks and the final
+    norm, fed from the trunk's hidden state at its fork."""
+
+    def __init__(self, blocks, ln_f):
+        super().__init__()
+        self.blocks = nn.ModuleList(blocks)
+        self.ln_f = ln_f
+
+
 class CausalLMWithValueHead(nn.Module):
     """`branch_at` (= n_layer - num_layers_unfrozen) picks where the frozen
-    reference branch forks off; None means a full frozen copy."""
+    reference branch forks off; None means a full frozen copy.
+    `value_branch_at` (= n_layer - num_value_layers_unfrozen) gives the
+    value head its own trainable top blocks from that layer up; None
+    means it reads the policy's final hidden state."""
 
     def __init__(
         self,
@@ -76,32 +91,35 @@ class CausalLMWithValueHead(nn.Module):
         device=None,
     ):
         super().__init__()
-        if value_branch_at is not None:
-            raise NotImplementedError("the value branch is not ported yet")
         self.cfg = cfg
         self.branch_at = branch_at
+        self.value_branch_at = value_branch_at
         self.base = TransformerLM(cfg, device)
         self.v_head = Head(cfg.hidden_size, 1, device=self.base.device)
+        if value_branch_at is not None:
+            self.v_branch = ValueBranch(
+                [copy.deepcopy(b) for b in self.base.blocks[value_branch_at:]], copy.deepcopy(self.base.ln_f)
+            )
 
     @classmethod
     def from_config(cls, config, device=None) -> "CausalLMWithValueHead":
         """Build the policy a TRLConfig describes: the architecture from
         `model.model_extra_configs["transformer"]`, the hydra fork from
-        `model.num_layers_unfrozen`, dtypes from the train section."""
+        `model.num_layers_unfrozen`, the value branch from
+        `method.num_value_layers_unfrozen`, dtypes from the train section."""
         mc = config.model
         if mc.model_arch_type != "causal":
             raise NotImplementedError(f"model_arch_type={mc.model_arch_type!r} is not ported")
         if mc.peft_config is not None:
             raise NotImplementedError("peft adapters are not ported yet")
-        if getattr(config.method, "num_value_layers_unfrozen", 0):
-            raise NotImplementedError("the value branch is not ported yet")
         tdict = dict(mc.model_extra_configs.get("transformer", {}))
         tdict.setdefault("dtype", config.train.compute_dtype)
         tdict.setdefault("param_dtype", config.train.param_dtype)
         cfg = TransformerConfig(**tdict)
         k = mc.num_layers_unfrozen
         branch_at = cfg.n_layer - k if 0 < k < cfg.n_layer else None
-        return cls(cfg, branch_at=branch_at, device=device)
+        return cls(cfg, branch_at=branch_at, value_branch_at=value_branch_fork(cfg.n_layer, config.method),
+                   device=device)
 
     @torch.no_grad()
     def init_params(self, generator: torch.Generator) -> "CausalLMWithValueHead":
@@ -110,7 +128,13 @@ class CausalLMWithValueHead(nn.Module):
 
     @torch.no_grad()
     def init_heads(self, generator: torch.Generator) -> "CausalLMWithValueHead":
+        """A fresh value head, and the value branch copied from the base
+        weights as they now are (the reference's `init_params`)."""
         init_head(self.v_head, generator)
+        if self.value_branch_at is not None:
+            for dst, src in zip(self.v_branch.blocks, self.base.blocks[self.value_branch_at:]):
+                dst.load_state_dict(src.state_dict())
+            self.v_branch.ln_f.load_state_dict(self.base.ln_f.state_dict())
         return self
 
     def make_ref_params(self) -> nn.Module:
@@ -122,14 +146,40 @@ class CausalLMWithValueHead(nn.Module):
     def logit_project_fn(self):
         return logit_projection(self.base)
 
+    def _multi_forward(self, input_ids, attention_mask, compute_logits):
+        """The trunk pass capturing the hydra fork and the value fork (one
+        capture when they coincide)."""
+        points = tuple(sorted({p for p in (self.branch_at, self.value_branch_at) if p is not None}))
+        out = self.base.forward_with_multi_capture(input_ids, attention_mask, points, compute_logits)
+        named = dict(zip(points, out["captures"]))
+        if self.branch_at is not None:
+            out["branch_hidden"] = named[self.branch_at]
+        if self.value_branch_at is not None:
+            out["v_branch_hidden"] = named[self.value_branch_at]
+        return out
+
+    def _values(self, out: Dict[str, Any]) -> torch.Tensor:
+        """The value head on the final hidden state, or on the value
+        branch re-run from its captured fork with the trunk's attention
+        bias and key mask. The capture is not detached: the value loss
+        reaches the trainable trunk below the fork, as in the reference."""
+        if self.value_branch_at is None:
+            return apply_head(self.v_head, out["hidden_states"])[..., 0]
+        h = self.base._run_blocks(self.v_branch.blocks, out["v_branch_hidden"], out["attn_bias"],
+                                  key_mask=out["key_mask"], layer_offset=self.value_branch_at)
+        return apply_head(self.v_head, self.v_branch.ln_f(h))[..., 0]
+
     def forward(
         self,
         input_ids: torch.Tensor,
         attention_mask: Optional[torch.Tensor] = None,
         compute_logits: bool = True,
     ) -> Dict[str, Any]:
-        out = self.base(input_ids, attention_mask, compute_logits=compute_logits)
-        return dict(out, values=apply_head(self.v_head, out["hidden_states"])[..., 0])
+        if self.value_branch_at is None:
+            out = self.base(input_ids, attention_mask, compute_logits=compute_logits)
+        else:
+            out = self._multi_forward(input_ids, attention_mask, compute_logits)
+        return dict(out, values=self._values(out))
 
     def forward_train(
         self,
@@ -143,11 +193,8 @@ class CausalLMWithValueHead(nn.Module):
             out = self.forward(input_ids, attention_mask, compute_logits)
             ref_out = ref_params(input_ids, attention_mask, compute_logits=compute_logits)
         else:
-            out = self.base.forward_with_multi_capture(
-                input_ids, attention_mask, (self.branch_at,), compute_logits
-            )
-            out["branch_hidden"] = out["captures"][0]
-            out["values"] = apply_head(self.v_head, out["hidden_states"])[..., 0]
+            out = self._multi_forward(input_ids, attention_mask, compute_logits)
+            out["values"] = self._values(out)
             if not isinstance(ref_params, Branch):
                 raise TypeError("hydra forward_train needs the Branch from make_ref_params()")
             ref_out = self.base.forward_from_layer(
@@ -163,6 +210,13 @@ class CausalLMWithValueHead(nn.Module):
             ref_logits=ref_out["logits"].detach() if compute_logits else None,
             ref_hidden=ref_out["hidden_states"].detach(),
         )
+
+
+def value_branch_fork(n_layer: int, method) -> Optional[int]:
+    """Where the value branch forks: n_layer - num_value_layers_unfrozen
+    for 0 < that < n_layer, else None (no branch)."""
+    nv = getattr(method, "num_value_layers_unfrozen", 0)
+    return n_layer - nv if nv and 0 < nv < n_layer else None
 
 
 class Seq2SeqLMWithValueHead(nn.Module):

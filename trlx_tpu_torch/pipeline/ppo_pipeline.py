@@ -5,6 +5,9 @@ by a host-drawn permutation."""
 
 from __future__ import annotations
 
+import json
+import os
+import time
 from typing import Optional
 
 import numpy as np
@@ -40,6 +43,29 @@ class PPORolloutStorage(BaseRolloutStore):
 
     def __getitem__(self, ix: int) -> PPORolloutBatch:
         return self.history.map(lambda x: x[ix])
+
+    def export_history(self, location: str, tokenizer=None) -> None:
+        """Dump the rollouts as `<location>/epoch-<time>.json`: per row the
+        query and response tokens, the float fields the store holds, and
+        with a tokenizer the decoded query and response."""
+        os.makedirs(location, exist_ok=True)
+        fpath = os.path.join(location, f"epoch-{str(time.time())}.json")
+        history = self.history.map(lambda x: x.cpu().numpy())
+
+        def exp_to_dict(i: int):
+            d = {"query_tensor": history.query_tensors[i].tolist(),
+                 "response_tensor": history.response_tensors[i].tolist()}
+            for fname in ("logprobs", "values", "rewards", "ref_logprobs", "advantages"):
+                field = getattr(history, fname, None)
+                if field is not None:
+                    d[fname] = field[i].tolist()
+            if tokenizer is not None:
+                d["query"] = tokenizer.decode(d["query_tensor"])
+                d["response"] = tokenizer.decode(d["response_tensor"])
+            return d
+
+        with open(fpath, "w") as f:
+            json.dump([exp_to_dict(i) for i in range(len(self))], f)
 
     def create_loader(
         self, batch_size: int, shuffle: bool = False, drop_last: bool = False, seed: int = 0

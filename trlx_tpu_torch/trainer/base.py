@@ -17,10 +17,29 @@ What the port does differently, and why:
   iter_count). The port accepts the knob and always runs the per-step
   loop over those same permutations, with the per-step loop's cadence of
   evaluation, stats and callbacks; a CUDA graph of the step is its
-  analogue of the fused scan.
-- One process, one device: no mesh, no row padding for sharding, no
-  deferred device->host stats copies (the rollout stats are held until
-  the next train-step flush, as in the reference, but read eagerly).
+  analogue of the fused scan (ROADMAP queue 1, item 14).
+- The rollout prefetch (`method.overlap_rollouts`). The reference
+  generates the next cycle's first chunk with the pre-update weights
+  just before it dispatches the fused block, and scores it (decode,
+  reward, experience pass) with the updated weights when the next cycle
+  starts. The port calls the same hook before the first step of each
+  cycle's run (only under `train.fused_inner_loop`, as the reference
+  prefetches in no other mode), so the stored chunk is the same. What
+  it does not do is overlap: the eager sampler reads a host flag every
+  decode step, so its device work has ended when the hook returns, and
+  the host cannot score the chunk under a block that it is itself still
+  launching step by step. The overlap comes with the captured loops of
+  ROADMAP queue 1, item 14.
+- Deferred stats. The rollout stats are staged with
+  `utils.trackers.DeferredStats` (one stacked copy into pinned memory
+  behind a CUDA event) and logged at the next flush, as in the
+  reference. The train step still reads its loss and stats at once (the
+  per-step loop's NaN guard needs them).
+- `train.timing_split` times a no-grad forward-only `loss` pass once per
+  batch shape (warm, then timed, the device synchronised before each
+  clock read) and logs `time/forward` / `time/backward` from the second
+  step of each batch shape, as the reference's per-step loop does.
+- One process, one device: no mesh and no row padding for sharding.
 - The decode engine (`method.gen_engine`) takes rollout and evaluation
   sampling as in the reference, with one lane group; its speculative
   draft is the frozen reference (the hydra Branch under the policy's
@@ -76,6 +95,7 @@ from trlx_tpu_torch.utils import (
 )
 from trlx_tpu_torch.utils.device import resolve_device
 from trlx_tpu_torch.utils.tokenizers import load_tokenizer
+from trlx_tpu_torch.utils.trackers import DeferredStats
 
 logger = logging.get_logger(__name__)
 
@@ -85,8 +105,6 @@ _RUNTIME_TRANSFORMER_KEYS = frozenset({
     "attention_impl", "kv_cache_quant", "decode_weights_quant",
     "pp_microbatches", "pp_schedule",
 })
-
-LEFT_OUT = "ROADMAP queue 1, item 2: left out of slice 2"
 
 # a save_pretrained directory: the reference's architecture file, and the
 # port's two weight files in place of its orbax `params/` and `aux/`
@@ -106,6 +124,13 @@ def _apply_runtime_overrides(cfg, extra: Dict[str, Any]):
     names = {f.name for f in dataclasses.fields(cfg)}
     overrides = {k: v for k, v in extra.items() if k in _RUNTIME_TRANSFORMER_KEYS and k in names}
     return cfg.replace(**overrides) if overrides else cfg
+
+
+def _batch_shape_key(batch) -> tuple:
+    """The tensor shapes of a batch dataclass: keys the timing-split probe
+    and the first-step gate."""
+    return tuple((f.name, tuple(getattr(batch, f.name).shape)) for f in dataclasses.fields(batch)
+                 if getattr(batch, f.name) is not None)
 
 
 def _enabled(section: Any) -> bool:
@@ -130,18 +155,14 @@ def check_ported(config: TRLConfig) -> None:
         (train.chaos is not None, "train.chaos", "ROADMAP queue 10"),
         (bool(train.resilient_io), "train.resilient_io", "ROADMAP queue 10"),
         (train.profile_dir is not None, "train.profile_dir", "ROADMAP queue 10"),
-        (train.timing_split, "train.timing_split", LEFT_OUT),
         (bool(train.elastic), "train.elastic", "ROADMAP queue 4"),
-        (train.rollout_logging_dir is not None, "train.rollout_logging_dir (rollout export)", LEFT_OUT),
         (_enabled(train.serve), "train.serve", "ROADMAP queue 11"),
         (any(int(v) not in (-1, 1) for v in train.mesh.values()),
          f"train.mesh={train.mesh} (one device only)", "ROADMAP queue 12"),
-        (getattr(method, "overlap_rollouts", False), "method.overlap_rollouts", LEFT_OUT),
         (_enabled(getattr(method, "exp", None)), "method.exp (the experience transport)", "ROADMAP queue 11"),
         (_enabled(getattr(method, "fleet", None)), "method.fleet", "ROADMAP queue 11"),
         (int(dict(getattr(method, "gen_engine", None) or {}).get("data_groups", 1)) > 1,
          "method.gen_engine.data_groups > 1 (engine lane groups)", "ROADMAP queue 12"),
-        (bool(getattr(method, "num_value_layers_unfrozen", 0)), "method.num_value_layers_unfrozen (the value branch)", LEFT_OUT),
         (model.model_arch_type not in ("causal", "seq2seq"),
          f"model.model_arch_type={model.model_arch_type!r}", "ROADMAP queue 7"),
         (model.peft_config is not None, "model.peft_config", "ROADMAP queue 7"),
@@ -168,8 +189,6 @@ class TPUBaseTrainer(BaseRLTrainer):
     ):
         super().__init__(config, reward_fn, metric_fn, stop_sequences)
         check_ported(config)
-        if self.stop_sequences:
-            raise _unported("stop_sequences", LEFT_OUT)
         train = config.train
         self.device = resolve_device(device)
         self.seq2seq = config.model.model_arch_type == "seq2seq"
@@ -233,6 +252,10 @@ class TPUBaseTrainer(BaseRLTrainer):
         # reward), each closed by a device sync; readers reset it at will
         self.phase_seconds: Dict[str, float] = defaultdict(float)
         self._active_phase: Optional[str] = None
+        # train.timing_split: forward-only probe times by batch shape, and
+        # the batch shapes whose step has run once
+        self._measured_forward_times: Dict[tuple, float] = {}
+        self._seen_step_shapes: set = set()
 
     # ------------------------------------------------------------------
     # model setup
@@ -495,12 +518,12 @@ class TPUBaseTrainer(BaseRLTrainer):
         prompt_sizes=None,
         append_eos_token: bool = False,
     ) -> Tuple[List[str], List[str], List[str]]:
-        """Token arrays -> (str_samples, str_prompts, str_outputs), with
-        the EOS string appended to outputs that ended on EOS/pad when
-        asked (stop-sequence trimming is left out of this slice). A seq2seq
-        sample is the decoder sequence alone (its output starts at 0), and
-        its str_sample joins prompt and output with the tokenizer's
-        sep_token."""
+        """Token arrays -> (str_samples, str_prompts, str_outputs): each
+        output cut at the first occurrence of every stop sequence and
+        right-stripped, and, when asked, the EOS string appended to outputs
+        that were cut or ended on EOS/pad. A seq2seq sample is the decoder
+        sequence alone (its output starts at 0), and its str_sample joins
+        prompt and output with the tokenizer's sep_token."""
         if prompt_sizes is None:
             prompt_sizes = [np.shape(p)[-1] for p in prompts]
         str_samples, str_prompts, str_outputs = [], [], []
@@ -513,7 +536,13 @@ class TPUBaseTrainer(BaseRLTrainer):
             output_start = 0 if self.seq2seq else int(prompt_size)
             str_prompt = self.tokenizer.decode(prompt[: int(prompt_size)], skip_special_tokens=True)
             str_output = self.tokenizer.decode(sample[output_start:], skip_special_tokens=True)
-            if append_eos_token and (sample[-1] == eos_id or sample[-1] == pad_id):
+            trimmed = False
+            for stop in self.stop_sequences:
+                stop_ix = str_output.find(stop)
+                if stop_ix >= 0:
+                    str_output = str_output[:stop_ix].rstrip()
+                    trimmed = True
+            if append_eos_token and (trimmed or sample[-1] == eos_id or sample[-1] == pad_id):
                 str_output += eos_token
             str_prompts.append(str_prompt)
             str_outputs.append(str_output)
@@ -683,6 +712,41 @@ class TPUBaseTrainer(BaseRLTrainer):
     def _finish_rollout_stats(self) -> None:
         """Hook: log any stats the rollout phase held back."""
 
+    def _cycle_steps(self) -> int:
+        """The steps of this cycle's inner-epochs x minibatch run, cut at
+        total_steps: the size of the reference's fused block."""
+        n_batches = max(len(self.store) // self.config.train.batch_size, 1)
+        return min(self.n_inner_epochs * n_batches, max(self.total_steps - self.iter_count, 1))
+
+    def pre_optimization_hook(self, will_continue: bool) -> None:
+        """Hook, called before the first step of each cycle where the
+        reference dispatches its fused block (under
+        `train.fused_inner_loop`); `will_continue` is False when the cycle
+        reaches total_steps. PPO prefetches the next rollout chunk here
+        (`method.overlap_rollouts`)."""
+
+    def _abandon_prefetch(self) -> None:
+        """Hook: drop an in-flight prefetch and rewind its data cursor;
+        called when learn() ends or raises."""
+
+    def _measure_forward(self, batch) -> float:
+        """Seconds of a forward-only (no-grad) `loss` pass on `batch`,
+        once per batch shape (`train.timing_split`): a warm pass, then a
+        timed one, the device synchronised before each clock read."""
+        key = _batch_shape_key(batch)
+        if key not in self._measured_forward_times:
+            def forward():
+                with torch.no_grad():
+                    self.loss(batch)
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+
+            forward()
+            t0 = time.perf_counter()
+            forward()
+            self._measured_forward_times[key] = time.perf_counter() - t0
+        return self._measured_forward_times[key]
+
     def _log_stats(self, stats: Dict[str, Any], step: int) -> None:
         self.stats_history.append((step, {k: to_scalar(v) for k, v in stats.items()}))
 
@@ -750,6 +814,9 @@ class TPUBaseTrainer(BaseRLTrainer):
             # a rollout's held-back stats reach the log even when learn()
             # ends right after it
             self._finish_rollout_stats()
+            # a prefetched chunk never trains once learn() exits: its
+            # prompts go back to the stream's cursor
+            self._abandon_prefetch()
 
     def _learn(self):
         logger.info("Starting training")
@@ -759,6 +826,8 @@ class TPUBaseTrainer(BaseRLTrainer):
         train = self.config.train
         clock = Clock()
         for _ in range(train.epochs):
+            if train.fused_inner_loop:
+                self.pre_optimization_hook(self.iter_count + self._cycle_steps() < self.total_steps)
             for _ in range(self.n_inner_epochs):
                 for batch in self.create_train_dataloader():
                     clock.tick()
@@ -769,6 +838,15 @@ class TPUBaseTrainer(BaseRLTrainer):
                         # and logs nothing
                         continue
                     stats["time/step"] = step_time
+                    # the first step of a batch shape is skipped, as in the
+                    # reference (there it holds the step's compile)
+                    shape_key = _batch_shape_key(batch)
+                    if train.timing_split and shape_key in self._seen_step_shapes:
+                        with self._phase("train"):
+                            fwd_time = self._measure_forward(batch)
+                        stats["time/forward"] = fwd_time
+                        stats["time/backward"] = max(step_time - fwd_time, 0.0)
+                    self._seen_step_shapes.add(shape_key)
                     stats["learning_rate_group_0"] = float(self.schedule(self.iter_count))
                     self.iter_count += 1
                     if self.iter_count % train.checkpoint_interval == 0 or self.iter_count >= self.total_steps:
@@ -795,8 +873,10 @@ class TPUBaseTrainer(BaseRLTrainer):
 
 class TPUOnlineTrainer(TPUBaseTrainer):
     """The online experience core: the prompt stream and its cursor, the
-    chunked rollout loop with one-chunk lookahead generation, the reward
-    running moments and the rollout accounting. Subclasses provide
+    chunked rollout loop with one-chunk lookahead generation, the
+    cross-cycle prefetch (`method.overlap_rollouts`), the reward running
+    moments, the rollout accounting and the rollout export
+    (`train.rollout_logging_dir`). Subclasses provide
     `_score_and_assemble`, `loss` and `setup_model`."""
 
     def __init__(self, config, **kwargs):
@@ -807,8 +887,16 @@ class TPUOnlineTrainer(TPUBaseTrainer):
         self.ref_std = getattr(config.method, "ref_std", None)
         # prompt chunks pulled off the (deterministically shuffled) stream
         self._prompt_batches_consumed = 0
-        # rollout stats held until the next flush: (stats, step, meta)
-        self._pending_rollout: List[Tuple[Dict[str, Any], int, Any]] = []
+        # rollout stats staged until the next flush: (stats, step, meta)
+        self._deferred_rollout = DeferredStats()
+        # the next cycle's first chunk (batch, generate() output, seconds),
+        # generated before the current cycle's steps, and the cursor to
+        # rewind to if it never trains
+        self._prefetched_gen: Optional[Tuple[PromptBatch, Dict[str, Any], float]] = None
+        self._prefetch_cursor_start: Optional[int] = None
+        self.log_rollouts = config.train.rollout_logging_dir is not None
+        if self.log_rollouts:
+            self.setup_rollout_logging(config)
         # phase_seconds as each rollout cycle began: a cycle's split is the
         # difference of two marks (the last one against phase_seconds)
         self.phase_marks: List[Dict[str, float]] = []
@@ -836,7 +924,9 @@ class TPUOnlineTrainer(TPUBaseTrainer):
         """Collect `num_rollouts` rollouts into the store. Generation of
         chunk i+1 is issued before chunk i is scored, as in the reference
         (there it overlaps the host's scoring with the device's sampling;
-        the port's eager sampler runs it in order)."""
+        the port's eager sampler runs it in order). The first chunk is the
+        prefetched one when `pre_optimization_hook` generated it: it is
+        scored now, with the weights the last cycle's steps left."""
         logger.info("Collecting rollouts")
         self.phase_marks.append(dict(self.phase_seconds))
         self._finish_rollout_stats()
@@ -844,19 +934,18 @@ class TPUOnlineTrainer(TPUBaseTrainer):
         n_collected = 0
         accumulated: List[Dict[str, Any]] = []
 
-        def pull():
-            batch = self._next_prompt_batch()
-            t0 = time.time()
-            gen = self.generate(batch.input_ids, batch.attention_mask)
-            return batch, gen, time.time() - t0
-
-        next_batch, next_gen, next_gen_time = pull()
+        if self._prefetched_gen is not None:
+            next_batch, next_gen, next_gen_time = self._prefetched_gen
+            self._prefetched_gen = None
+            self._prefetch_cursor_start = None
+        else:
+            next_batch, next_gen, next_gen_time = self._pull_and_generate()
         chunk_rows = len(next_batch.input_ids)
         while n_collected < num_rollouts:
             stats: Dict[str, Any] = {"time/rollout_generate": next_gen_time}
             batch, gen_out = next_batch, next_gen
             if n_collected + chunk_rows < num_rollouts:
-                next_batch, next_gen, next_gen_time = pull()
+                next_batch, next_gen, next_gen_time = self._pull_and_generate()
             with self._phase("experience"):
                 rollout_batch, rows = self._score_and_assemble(batch, gen_out, stats, iter_count, clock)
             accumulated.append(stats)
@@ -864,7 +953,59 @@ class TPUOnlineTrainer(TPUBaseTrainer):
             n_collected += rows
             logger.info("[rollout %d / %d]", n_collected, num_rollouts)
         agg = {k: sum(xs[k] for xs in accumulated) / len(accumulated) for k in accumulated[-1]}
-        self._pending_rollout.append((agg, iter_count, self._rollout_stage_meta()))
+        # one stacked device->host copy for every tensor stat, read at the
+        # next flush
+        self._deferred_rollout.stage(agg, step=iter_count, meta=self._rollout_stage_meta())
+
+    def _pull_and_generate(self) -> Tuple[PromptBatch, Dict[str, Any], float]:
+        """The next prompt chunk, its generate() output and the seconds it
+        took."""
+        batch = self._next_prompt_batch()
+        t0 = time.time()
+        gen = self.generate(batch.input_ids, batch.attention_mask)
+        return batch, gen, time.time() - t0
+
+    # -- the cross-cycle prefetch (method.overlap_rollouts) ---------------
+
+    def pre_optimization_hook(self, will_continue: bool) -> None:
+        """Generate the next cycle's first chunk now, with the weights the
+        cycle's steps are about to change. `make_experience` scores it
+        with the updated weights, so its stored logprobs belong to the
+        policy that trains on them; its samples are one update stale,
+        which the clipped surrogate absorbs. Nothing is prefetched for a
+        cycle that will not run (`will_continue` False)."""
+        if not getattr(self.config.method, "overlap_rollouts", False) or not will_continue:
+            return
+        if self._prefetched_gen is not None or not hasattr(self, "prompt_iterator"):
+            return
+        cursor0 = self._prompt_batches_consumed
+        self._prefetched_gen = self._pull_and_generate()
+        self._prefetch_cursor_start = cursor0
+
+    def _abandon_prefetch(self) -> None:
+        """Drop an in-flight prefetched chunk and rewind the prompt cursor
+        to before it: its rollouts never train."""
+        if self._prefetched_gen is None:
+            return
+        self._prefetched_gen = None
+        self._prompt_batches_consumed = self._prefetch_cursor_start
+        self._prefetch_cursor_start = None
+
+    # -- the rollout export (train.rollout_logging_dir) -------------------
+
+    def setup_rollout_logging(self, config) -> None:
+        """A fresh `run-<uuid>` directory under train.rollout_logging_dir
+        (which must exist) with the run's config.json; each cycle's store
+        is exported there before it is cleared."""
+        import uuid
+
+        if not os.path.isdir(config.train.rollout_logging_dir):
+            raise FileNotFoundError(f"train.rollout_logging_dir={config.train.rollout_logging_dir!r} is not a directory")
+        self.run_id = f"run-{uuid.uuid4()}"
+        self.rollout_logging_dir = os.path.join(config.train.rollout_logging_dir, self.run_id)
+        os.mkdir(self.rollout_logging_dir)
+        with open(os.path.join(self.rollout_logging_dir, "config.json"), "w") as f:
+            f.write(json.dumps(config.to_dict(), indent=2))
 
     def _update_reward_moments(self, scores: np.ndarray, scores_mask: np.ndarray, stats):
         """Fold one chunk's scores into the running reward moments and pick
@@ -927,11 +1068,11 @@ class TPUOnlineTrainer(TPUBaseTrainer):
         stats["rollout/truncation_rate"] = float((full_rows & ~hit_eos).mean()) if len(full_rows) else 0.0
 
     def _finish_rollout_stats(self) -> None:
-        for stats, step, meta in self._pending_rollout:
+        """Log the deferred rollout stats. Idempotent."""
+        for stats, step, meta in self._deferred_rollout.flush():
             if meta is not None:
                 stats["kl_coef"] = float(meta)
             self._log_stats(stats, step=step)
-        self._pending_rollout = []
 
     # -- the prompt stream ----------------------------------------------
 
@@ -984,5 +1125,7 @@ class TPUOnlineTrainer(TPUBaseTrainer):
         self._finish_rollout_stats()
 
     def post_epoch_callback(self) -> None:
+        if self.log_rollouts:
+            self.store.export_history(self.rollout_logging_dir, self.tokenizer)
         self.store.clear_history()
         self.make_experience(self.config.method.num_rollouts, self.iter_count)

@@ -23,7 +23,7 @@ from trlx_tpu_torch.data import PPORolloutBatch, PromptBatch
 from trlx_tpu_torch.data.method_configs import PPOConfig
 from trlx_tpu_torch.models.seq2seq import t5_logit_projection
 from trlx_tpu_torch.models.transformer import logit_projection
-from trlx_tpu_torch.models.wrappers import CausalLMWithValueHead, Seq2SeqLMWithValueHead
+from trlx_tpu_torch.models.wrappers import CausalLMWithValueHead, Seq2SeqLMWithValueHead, value_branch_fork
 from trlx_tpu_torch.ops.common import chunked_logprobs, logprobs_of_labels
 from trlx_tpu_torch.ops.ppo import gae_advantages_and_returns, ppo_loss
 from trlx_tpu_torch.trainer import register_trainer
@@ -89,7 +89,9 @@ class TPUPPOTrainer(TPUOnlineTrainer):
         else:
             cfg = self.load_base_model()
             branch_at = cfg.n_layer - k if k is not None and 0 < k < cfg.n_layer else None
-            self.model = CausalLMWithValueHead(cfg, branch_at=branch_at, device=self.device)
+            self.model = CausalLMWithValueHead(cfg, branch_at=branch_at,
+                                               value_branch_at=value_branch_fork(cfg.n_layer, self.config.method),
+                                               device=self.device)
         self.init_weights()
         self.ref_params = self.model.make_ref_params()
 
@@ -255,27 +257,48 @@ class TPUPPOTrainer(TPUOnlineTrainer):
             rewards = rewards + padded
         return batch.replace(rewards=rewards * mask)
 
+    def _experience(self, batch: PromptBatch, sequences, prompt_mask, response_mask):
+        """The teacher-forced experience forward of one chunk's tokens:
+        (KL-only rollout batch, KL stats)."""
+        if self.seq2seq:
+            enc_ids = torch.as_tensor(batch.input_ids, device=self.device)
+            return self.experience_forward_seq2seq(enc_ids, prompt_mask, sequences, response_mask, self.kl_ctl.value)
+        attention_mask = torch.cat([prompt_mask, response_mask], dim=1).to(torch.int32)
+        return self.experience_forward(sequences, attention_mask, response_mask, self.kl_ctl.value)
+
+    def _retokenize_outputs(self, str_outputs, batch: PromptBatch, sequences: torch.Tensor, N: int):
+        """The response tokens rebuilt from the stop-trimmed outputs (the
+        reference's host-scored path): each output re-tokenised without
+        specials and cut to N, right-padded; the sequences re-joined from
+        the prompt (seq2seq: the decoder start token). Returns (response_ids,
+        response_mask, sequences) on the device."""
+        outputs = self.tokenizer(str_outputs, add_special_tokens=False)["input_ids"]
+        response_ids = np.full((len(outputs), N), self.generate_settings.pad_token_id, np.int64)
+        response_mask = np.zeros((len(outputs), N), np.int32)
+        for i, o in enumerate(outputs):
+            o = o[:N]
+            response_ids[i, : len(o)] = o
+            response_mask[i, : len(o)] = 1
+        ids = torch.as_tensor(response_ids, dtype=sequences.dtype, device=self.device)
+        head = sequences[:, :1] if self.seq2seq else torch.as_tensor(batch.input_ids, device=self.device)
+        return ids, torch.as_tensor(response_mask, device=self.device), torch.cat([head.to(ids.dtype), ids], dim=1)
+
     def _score_and_assemble(self, batch: PromptBatch, gen_out, stats: Dict[str, Any],
                             iter_count: int, clock: Clock):
         """One rollout chunk: the teacher-forced experience forward on the
         sampler's device tensors, decode + reward_fn on the host, reward
         clipping, the running moments and scaling, score injection and the
-        chunk's stats. Returns (rollout batch, rows)."""
+        chunk's stats. Returns (rollout batch, rows). With stop sequences
+        the decode trims the outputs, so the experience forward runs after
+        it, on the response tokens re-tokenised from the trimmed outputs
+        (the reference turns its device fast path off there)."""
         method = self.config.method
         sequences = gen_out["sequences"]
-        response_mask = gen_out["response_mask"]
+        response_ids, response_mask = gen_out["response_ids"], gen_out["response_mask"]
         N = response_mask.shape[1]
         P = batch.input_ids.shape[1]
-        if self.seq2seq:
-            enc_ids = torch.as_tensor(batch.input_ids, device=self.device)
-            pre_batch, kl_stats = self.experience_forward_seq2seq(
-                enc_ids, gen_out["prompt_mask"], sequences, response_mask, self.kl_ctl.value
-            )
-        else:
-            attention_mask = torch.cat([gen_out["prompt_mask"], response_mask], dim=1).to(torch.int32)
-            pre_batch, kl_stats = self.experience_forward(
-                sequences, attention_mask, response_mask, self.kl_ctl.value
-            )
+        if not self.stop_sequences:
+            pre_batch, kl_stats = self._experience(batch, sequences, gen_out["prompt_mask"], response_mask)
 
         seq_np = sequences.cpu().numpy()
         str_samples, str_prompts, str_outputs = self.decode(
@@ -287,6 +310,9 @@ class TPUPPOTrainer(TPUOnlineTrainer):
             tokenizer=self.tokenizer, **(batch.metadata or {}),
         )
         stats["time/rollout_score"] = time() - t0
+        if self.stop_sequences:
+            response_ids, response_mask, sequences = self._retokenize_outputs(str_outputs, batch, sequences, N)
+            pre_batch, kl_stats = self._experience(batch, sequences, gen_out["prompt_mask"], response_mask)
 
         scores_list = [np.atleast_1d(np.asarray(s, np.float32)) for s in all_scores]
         S = max(len(s) for s in scores_list)
@@ -314,7 +340,7 @@ class TPUPPOTrainer(TPUOnlineTrainer):
             scale_div,
         )
         self._rollout_accounting_stats(
-            gen_out["response_ids"].cpu().numpy(), response_mask.cpu().numpy(),
+            response_ids.cpu().numpy(), response_mask.cpu().numpy(),
             self.generate_settings.eos_token_id, stats, gen_out.get("gen_stats"),
         )
         stats["time/rollout_time"] = clock.tick()
@@ -323,13 +349,12 @@ class TPUPPOTrainer(TPUOnlineTrainer):
         return rollout_batch, len(seq_np)
 
     def _finish_rollout_stats(self) -> None:
-        """Log the held rollout stats; they carry the mean KL that the
-        controller update consumes."""
-        for stats, step, kl_ctl_value in self._pending_rollout:
+        """Log the deferred rollout stats; they carry the mean KL that the
+        controller update consumes. Idempotent."""
+        for stats, step, kl_ctl_value in self._deferred_rollout.flush():
             stats["kl_ctl_value"] = kl_ctl_value
+            self.mean_kl = stats["policy/sqrt_kl"] ** 2
             self._log_stats(stats, step=step)
-            self.mean_kl = self.stats_history[-1][1]["policy/sqrt_kl"] ** 2
-        self._pending_rollout = []
 
     def post_backward_callback(self) -> None:
         super().post_backward_callback()
