@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Drive trlx_tpu_torch's PPO rollout and training paths on one NVIDIA GPU.
+"""Drive trlx_tpu_torch's rollout and training paths on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N] [--only fwd|paged|decode|bias|sft|ppo]
+    python3 chip_smoke.py [--seed N] [--only fwd|paged|decode|bias|sft|ppo|ilql|rft]
 
 Builds the CUDA kernels from `trlx_tpu_torch/csrc` (into build/kernels/)
 and holds each kernel against its plain PyTorch version on the card: both
@@ -60,7 +60,20 @@ through the entry points a user calls:
   `forward_train` experience pass against the plain bf16 and fp32 math,
   then `trlx_tpu_torch.train` with model_arch_type "seq2seq" and the
   settings of examples/ppo_sentiments_t5.py (two cycles of 48 rollouts,
-  32 optimizer steps) and one train step against the same references.
+  32 optimizer steps) and one train step against the same references;
+- offline ILQL: `trlx_tpu_torch.train(samples=..., rewards=...)` on 64
+  byte dialogues of 32 + 32 tokens at GPT-2-small width (16 steps of
+  batch 32, evaluations sweeping beta over [0, 1] through the logits
+  processor; the Polyak sync checked to fp32 rounding, a beta = 0
+  evaluation against the processor-free sampler, one step and one
+  processor decode step against the plain bf16 and fp32 math), and at
+  T5-base width (8 steps of batch 12, greedy beta-swept evaluations, one
+  step against the same references); then the randomwalks ILQL runner
+  with the JAX example's config (final optimality at beta 100 >= 0.9);
+- RFT: `train.trainer="TPURFTTrainer"` at GPT-2-small widths over the
+  byte vocabulary (16 prompts x 4 generations a round, 8 steps; each
+  selection recomputed from the printed scores; one step against the
+  same references), then the randomwalks RFT runner (>= 0.85).
 
 Launch counters, zeroed before each path and read after it, show each
 path ran through its kernels. Then the kernels are timed at the paths'
@@ -68,7 +81,8 @@ shapes beside their bounds, and one rollout, one experience pass, one
 train step and one engine call of each mode are profiled.
 
 `--only sft` runs the build and the supervised fine-tuning phases alone;
-`--only ppo` the build, the training path and the three PPO phases above.
+`--only ppo` the build, the training path and the three PPO phases above;
+`--only ilql` and `--only rft` the build and the ILQL or RFT phases.
 `--only fwd` stops after the build, the flash forward's check and its
 kernel_time rows; `--only paged` after the build, the paged check and the
 paged kernel_time rows; `--only decode` after the build, the int8 decode
@@ -87,6 +101,7 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import dataclasses
 import json
 import math
 import re
@@ -514,6 +529,7 @@ BIAS_CASES = {  # name: (B, H, T = S, causal, mask kind)
     "b64_encoder": (64, 12, T5_PROMPT_LEN, False, "right_pad"),  # the T5 path's encoder
     "long": (4, 12, 512, False, "right_pad"),
     "ragged": (4, 12, 100, True, "masked_row"),
+    "ilql_decoder": (12, 12, 33, True, "pad_tail"),  # T5 ILQL's decoder: the start token + 32
 }
 
 
@@ -1360,24 +1376,29 @@ def train_counters() -> dict:
 
 @contextlib.contextmanager
 def sampler_calls():
-    """Each static-sampler call a trainer makes while active: its decode
-    steps (the tokens of its longest row after the prefill's first) and
-    its sequences."""
+    """Each sampler call a trainer makes while active (the static causal
+    sampler's and `generate_seq2seq`'s): its decode steps (the tokens of
+    its longest row after the prefill's first) and its sequences."""
     from trlx_tpu_torch.trainer import base as trainer_base
 
-    generate, calls = trainer_base.generate, []
+    calls, samplers = [], {name: getattr(trainer_base, name) for name in ("generate", "generate_seq2seq")}
 
-    def counted(*args, **kwargs):
-        out = generate(*args, **kwargs)
-        calls.append({"decode_steps": int(out["response_mask"].sum(dim=1).max().item()) - 1,
-                      "sequences": out["sequences"]})
-        return out
+    def counted(sampler):
+        def fn(*args, **kwargs):
+            out = sampler(*args, **kwargs)
+            calls.append({"decode_steps": int(out["response_mask"].sum(dim=1).max().item()) - 1,
+                          "sequences": out["sequences"]})
+            return out
 
-    trainer_base.generate = counted
+        return fn
+
+    for name, sampler in samplers.items():
+        setattr(trainer_base, name, counted(sampler))
     try:
         yield calls
     finally:
-        trainer_base.generate = generate
+        for name, sampler in samplers.items():
+            setattr(trainer_base, name, sampler)
 
 
 def check_params_moved(trainer, seed: int, phase: str = "train_params", frozen=()) -> None:
@@ -2501,7 +2522,8 @@ def t5_path(seed: int, shapes: dict, bias_shapes: dict) -> dict:
             walls[name] = statistics.median(samples)
             emit(f"{name}_time", wall_s=walls[name], samples_s=samples, batch=B, prompt_len=T5_PROMPT_LEN,
                  decoder_len=T, new_tokens=int(out["response_mask"].sum()))
-            profile_phase(name, fn, walls[name])
+            # the rollout's 64 decode steps: the host trace is slow to gather and adds nothing to the device sums
+            profile_phase(name, fn, walls[name], host_ops=name != "t5_rollout")
     return launches
 
 
@@ -2565,6 +2587,569 @@ def t5_train_reference(trainer, seed: int) -> dict:
     )
 
 
+# ---------------------------------------------------------------------------
+# offline ILQL (causal and T5) and RFT
+# ---------------------------------------------------------------------------
+
+# ilql_path: 64 byte dialogues of a 32-token prompt and a 32-token output
+# (31 letters and the EOS) with seeded rewards, batch 32, 16 optimizer
+# steps, the Polyak sync every 5 steps (checked at each pass's end: once,
+# at step 10), evaluations at steps 0, 8 and 16 sweeping beta over [0, 1]
+# on 32 prompts, 32 sampled new tokens, top_k 20
+ILQL_ROWS, ILQL_BATCH, ILQL_STEPS, ILQL_SEQ, ILQL_NEW_TOKENS = 64, 32, 16, 64, 32
+ILQL_BETAS = [0, 1]
+ILQL_REFERENCE_ROWS = 256  # 8 minibatches of independent rows for ilql_reference
+# ilql_t5_path: T5-base, 24 dialogues (batch 12: encoder 32 tokens, decoder
+# the start token + 32), 8 steps, greedy evaluations at each end at beta 0
+# and 1, 16 new tokens
+ILQL_T5_ROWS, ILQL_T5_BATCH, ILQL_T5_STEPS, ILQL_T5_NEW_TOKENS = 24, 12, 8, 16
+ILQL_T5_REFERENCE_ROWS = 96
+# rft_path: GPT-2-small widths over the byte vocabulary (its samples are
+# decoded to strings and re-tokenised), 16 prompts x 4 generations, a new
+# sampling round every 2 epochs, batch 32, 32 new tokens, 8 steps
+RFT_PROMPTS = [f"{TRAIN_PROMPTS[i % 8]} ({i})" for i in range(16)]
+RFT_GENERATIONS, RFT_IMPROVE_STEPS, RFT_STEPS = 4, 2, 8
+# the randomwalks curves' floors (tests/test_curves.py)
+RANDOMWALKS_ILQL_FLOOR, RANDOMWALKS_RFT_FLOOR = 0.9, 0.85
+ILQL_LOSS_TERMS = ("loss_q", "loss_v", "loss_cql", "loss_awac")
+
+
+def ilql_dialogues(seed: int, n: int):
+    """`n` (prompt, output) byte strings, a 32-letter prompt and a 31-letter
+    output each (the EOS makes it 32 tokens), and a normal reward each,
+    from numpy's generator at `seed`."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz     "))
+    samples = [("".join(rng.choice(letters, 32)), "".join(rng.choice(letters, 31))) for _ in range(n)]
+    return samples, rng.normal(size=n).tolist()
+
+
+def ilql_config(seed: int, attention_impl="pallas", kv_cache_quant="int8_kernel", compute_dtype="bfloat16"):
+    from trlx_tpu_torch.data.default_configs import default_ilql_config
+
+    transformer = dict(GPT2_SMALL, attention_impl=attention_impl, kv_cache_quant=kv_cache_quant)
+    return default_ilql_config().evolve(
+        train=dict(batch_size=ILQL_BATCH, total_steps=ILQL_STEPS, eval_interval=ILQL_STEPS // 2,
+                   checkpoint_interval=10_000, seq_length=ILQL_SEQ, epochs=10_000, tracker=None,
+                   compute_dtype=compute_dtype, seed=seed),
+        model=dict(model_path="random", num_layers_unfrozen=-1, model_extra_configs={"transformer": transformer}),
+        tokenizer=dict(tokenizer_path="byte"),
+        method=dict(two_qs=True, steps_for_target_q_sync=5,
+                    gen_kwargs=dict(max_new_tokens=ILQL_NEW_TOKENS, top_k=20, beta=ILQL_BETAS, do_sample=True)),
+    )
+
+
+def ilql_t5_config(seed: int, attention_impl="pallas", compute_dtype="bfloat16"):
+    """T5-base on random weights over the byte tokenizer (right padding),
+    the decoder starting from the BOS as in `t5_config`."""
+    from trlx_tpu_torch.data.default_configs import default_ilql_config
+    from trlx_tpu_torch.utils.tokenizers import ByteTokenizer
+
+    seq2seq = dict(T5_BASE, attention_impl=attention_impl, decoder_start_token_id=ByteTokenizer().bos_token_id)
+    return default_ilql_config().evolve(
+        train=dict(batch_size=ILQL_T5_BATCH, total_steps=ILQL_T5_STEPS, eval_interval=10_000,
+                   checkpoint_interval=10_000, seq_length=ILQL_SEQ, epochs=10_000, tracker=None,
+                   compute_dtype=compute_dtype, seed=seed),
+        model=dict(model_path="random", model_arch_type="seq2seq", num_layers_unfrozen=-1,
+                   model_extra_configs={"seq2seq": seq2seq}),
+        tokenizer=dict(tokenizer_path="byte", padding_side="right", truncation_side="right"),
+        method=dict(two_qs=True, steps_for_target_q_sync=4,
+                    gen_kwargs=dict(max_new_tokens=ILQL_T5_NEW_TOKENS, beta=ILQL_BETAS, do_sample=False)),
+    )
+
+
+@contextlib.contextmanager
+def sync_spy(record: list):
+    """Each pass-end callback of an ILQL trainer while active: the heads
+    just before and after it, checked at once. A sync (the step count a
+    multiple of steps_for_target_q_sync) must leave target = alpha * q +
+    (1 - alpha) * target_before to fp32 rounding (recomputed in float64);
+    any other call must leave the targets bit for bit. `record` gets one
+    entry a call."""
+    import torch
+
+    from trlx_tpu_torch.trainer.ilql import TPUILQLTrainer
+
+    callback = TPUILQLTrainer.post_backward_callback
+
+    def checked(self):
+        heads = self.model.heads
+        before = [[p.detach().clone() for p in t.parameters()] for t in heads.target_q_heads]
+        online = [[p.detach().clone() for p in q.parameters()] for q in heads.q_heads]
+        callback(self)
+        method = self.config.method
+        synced = self.iter_count % method.steps_for_target_q_sync == 0
+        a = method.alpha
+        worst = 0.0
+        for t, t0, q0 in zip(heads.target_q_heads, before, online):
+            for p, pt, pq in zip(t.parameters(), t0, q0):
+                if not synced:
+                    if not torch.equal(p, pt):
+                        raise AssertionError(f"the target heads moved without a sync at step {self.iter_count}")
+                    continue
+                want = a * pq.double() + (1.0 - a) * pt.double()
+                bound = 3 * 2.0 ** -24 * (a * pq.double().abs() + (1.0 - a) * pt.double().abs()) + 1e-30
+                worst = max(worst, ((p.double() - want).abs() / bound).max().item())
+        record.append({"step": self.iter_count, "synced": synced, "worst_err_over_fp32_rounding": worst})
+        if worst > 1:
+            raise AssertionError(f"the sync at step {self.iter_count} strays {worst} x past fp32 rounding")
+
+    TPUILQLTrainer.post_backward_callback = checked
+    try:
+        yield record
+    finally:
+        TPUILQLTrainer.post_backward_callback = callback
+
+
+def check_ilql_params(trainer, seed: int, start_targets: list, phase: str) -> None:
+    """Every online tensor moved from its seeded init and is trainable; the
+    target heads are not trainable, started as copies of the online heads'
+    init, and now hold what the last checked callback left (`start_targets`:
+    their values then)."""
+    import torch
+
+    model = trainer.model
+    init = type(model)(model.cfg, two_qs=model.two_qs, alpha=model.alpha, device="cuda").init_params(
+        torch.Generator().manual_seed(seed))
+    start = dict(init.named_parameters())
+    params = dict(model.named_parameters())
+    targets = {n for n in params if n.startswith("heads.target_q_heads.")}
+    still = [n for n, p in params.items() if n not in targets and torch.equal(p, start[n])]
+    wrong_trainable = sorted({n for n, p in params.items() if p.requires_grad} ^ (set(params) - targets))
+    not_copies = [n for n in targets if not torch.equal(start[n], start[n.replace("target_q_heads", "q_heads")])]
+    final = [p for t in model.heads.target_q_heads for p in t.parameters()]
+    moved_after = [i for i, (p, s) in enumerate(zip(final, start_targets)) if not torch.equal(p, s)]
+    emit(phase, trainable=len(trainer.trainable_params), target_tensors=len(targets), unmoved=still,
+         wrong_trainable=wrong_trainable, targets_not_init_copies=not_copies, targets_moved_after_last_check=moved_after)
+    if still or wrong_trainable or not_copies or moved_after:
+        raise AssertionError(f"online tensors that did not move: {still}; trainable set off by {wrong_trainable}; "
+                             f"{not_copies} not init copies; targets moved after the last check: {moved_after}")
+
+
+def ilql_train(config, shapes: dict, path: str, samples, rewards, eval_prompts, counters: dict, bias_shapes=None):
+    """`trlx_tpu_torch.train(samples=..., rewards=...)` with every counter
+    of `counters` at 0 just before it and the pass-end callbacks checked:
+    (trainer, wall s, launches, the decode steps of each sampler call, the
+    callback records, the targets as the last callback left them)."""
+    import torch
+
+    import trlx_tpu_torch
+
+    for fn in counters.values():
+        fn.launches = 0
+    records = []
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(forward_shapes(shapes, path))
+        if bias_shapes is not None:
+            stack.enter_context(bias_fwd_shapes(bias_shapes, path))
+        calls = stack.enter_context(sampler_calls())
+        stack.enter_context(sync_spy(records))
+        trainer = trlx_tpu_torch.train(samples=samples, rewards=rewards, eval_prompts=eval_prompts, config=config)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    targets = [p.detach().clone() for t in trainer.model.heads.target_q_heads for p in t.parameters()]
+    return trainer, wall, launches, [c["decode_steps"] for c in calls], records, targets
+
+
+def ilql_losses(trainer, steps: int) -> list:
+    losses = [{k: st[f"losses/{k}"] for k in ("loss",) + ILQL_LOSS_TERMS}
+              for _, st in trainer.stats_history if "losses/loss" in st]
+    if len(losses) != steps or not all(math.isfinite(v) for x in losses for v in x.values()):
+        raise AssertionError(f"expected {steps} finite ILQL losses, got {losses}")
+    return losses
+
+
+def ilql_path(seed: int, shapes: dict):
+    """`trlx_tpu_torch.train(samples=..., rewards=...)` at GPT-2-small width
+    (random weights from the seed, bf16 compute / fp32 params, two Q heads
+    of 512 -> 50257, the flash, flash-backward and int8 decode kernels):
+    evaluate, 16 optimizer steps, evaluate at 8 and 16, each evaluation
+    sampling with the advantage shaping at beta 0 and 1. Gates: the exact
+    launch counts, finite losses, every online tensor moved, the Polyak
+    sync exact and the targets otherwise unchanged (`sync_spy`), and a
+    beta = 0 evaluation equal, token for token, to the sampler with no
+    processor from the same generator state. Then one train step's time,
+    profile and peak memory, and the processor's share of an evaluation's
+    device time."""
+    import torch
+
+    from trlx_tpu_torch.models.generation import generate
+
+    samples, rewards = ilql_dialogues(seed, ILQL_ROWS)
+    eval_prompts = [p for p, _ in samples[:ILQL_BATCH]]
+    trainer, wall, launches, decode_steps, syncs, targets = ilql_train(
+        ilql_config(seed), shapes, "ilql", samples, rewards, eval_prompts, train_counters())
+    L = trainer.model.cfg.n_layer
+    # each sampler call (3 evaluations x 2 betas) prefills through the
+    # forward kernel; each train step runs one forward and one backward
+    # through every layer (T = S = 64: the short and the fused route); each
+    # decode step one short-route decode launch a layer (a 128-slot cache)
+    n_fwd, n_decode = L * (ILQL_STEPS + len(decode_steps)), L * sum(decode_steps)
+    expect = {"flash_fwd": n_fwd, "flash_fwd_short": n_fwd, "flash_fwd_long": 0,
+              "flash_bwd": L * ILQL_STEPS, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+              "decode": n_decode, "decode_short": n_decode, "decode_long": 0}
+    losses = ilql_losses(trainer, ILQL_STEPS)
+    sweeps = {k: v for _, st in trainer.stats_history for k, v in st.items() if k.startswith("time/generate")}
+    emit("ilql_path", wall_s=wall, launches=launches, expected=expect, iter_count=trainer.iter_count,
+         sampler_calls=len(decode_steps), decode_steps=decode_steps, losses=losses, syncs=syncs,
+         store_rows=len(trainer.store), actions_width=trainer.store.actions_width,
+         phase_seconds=dict(trainer.phase_seconds), eval_generate_s=sweeps)
+    if len(decode_steps) != 3 * len(ILQL_BETAS) or not 0 < n_decode <= L * len(decode_steps) * (ILQL_NEW_TOKENS - 1):
+        raise AssertionError(f"expected {3 * len(ILQL_BETAS)} sampler calls, got {decode_steps}")
+    if {k: launches[k] for k in expect} != expect:
+        raise AssertionError(f"launch counts {launches} != expected {expect}")
+    if not any(r["synced"] for r in syncs):
+        raise AssertionError(f"no Polyak sync ran: {syncs}")
+    check_ilql_params(trainer, seed, targets, "ilql_params")
+
+    # beta = 0 against the processor-free sampler, from one generator state
+    batch = next(iter(trainer.eval_dataloader))
+    ids, mask = batch.input_ids.cuda(), batch.attention_mask.cuda().to(torch.int32)
+    state = trainer.generator.get_state()
+    shaped = trainer.generate_eval(ids, mask, beta=0)["sequences"]
+    trainer.generator.set_state(state)
+    plain = generate(trainer.model.base, ids, mask, trainer.generator, trainer.generate_settings)["sequences"]
+    same = (shaped == plain).float().mean().item()
+    emit("ilql_beta0", tokens_equal_share=same, shape=list(shaped.shape))
+    if not torch.equal(shaped, plain):
+        raise AssertionError(f"a beta = 0 evaluation differs from the processor-free sampler ({same:.4%} equal)")
+
+    # one train step: time, profile and the peak memory above the weights
+    step_batch = next(iter(trainer.store.create_loader(ILQL_BATCH, shuffle=True, drop_last=True, seed=seed)))
+    train_step_profile(trainer, step_batch, "ilql_train_step")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    trainer.train_step(step_batch)
+    torch.cuda.synchronize()
+    B, A, V = step_batch.actions_ixs.shape + (trainer.model.cfg.vocab_size,)
+    emit("ilql_train_step_memory", peak_above_start_bytes=torch.cuda.max_memory_allocated() - base,
+         q_tensor_bytes=B * A * V * 4, q_tensor_shape=[B, A, V],
+         note="fp32 [B, A, V]: the logits at the actions, two online and two target Q heads, their log-softmaxes")
+
+    # the processor's cost in an evaluation: the same call with and without it
+    times, prof = {}, {}
+    for name, fn in (("ilql_eval_processor", lambda: trainer.generate_eval(ids, mask, beta=1)),
+                     ("ilql_eval_no_processor",
+                      lambda: generate(trainer.model.base, ids, mask, trainer.generator, trainer.generate_settings))):
+        fn()
+        samples_s = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            samples_s.append(time.perf_counter() - t0)
+        times[name] = statistics.median(samples_s)
+        prof[name] = {}
+        profile_phase(name, fn, times[name], host_ops=False, out=prof[name])
+    added = prof["ilql_eval_processor"]["device_busy_ms"] - prof["ilql_eval_no_processor"]["device_busy_ms"]
+    emit("ilql_processor_cost", wall_ms={k: v * 1e3 for k, v in times.items()}, processor_added_device_ms=added,
+         processor_share_of_eval_device=added / prof["ilql_eval_processor"]["device_busy_ms"],
+         decode_kernel_ms=prof["ilql_eval_processor"]["decode_kernel_ms"],
+         decode_kernel_share_of_eval_device=(prof["ilql_eval_processor"]["decode_kernel_ms"]
+                                             / prof["ilql_eval_processor"]["device_busy_ms"]))
+    return trainer, launches
+
+
+def ilql_grad_reference(trainer, configs: dict, store, batch_size: int, seed: int, phase: str) -> None:
+    """`grad_reference` over the ILQL loss, its four terms (as outputs) and
+    the gradient of every trainable tensor, on `store`'s batches (one
+    shuffle, the ragged tail dropped)."""
+    import torch
+
+    def step(t, batch):
+        loss, stats = t.loss(batch)
+        loss.backward()
+        terms = tuple(stats[f"losses/{k}"].detach().float() for k in ILQL_LOSS_TERMS)
+        return loss, terms, torch.ones((), dtype=torch.bool, device="cuda")
+
+    batches = list(store.create_loader(batch_size, shuffle=True, drop_last=True, seed=seed))
+    grad_reference(trainer, configs, batches, step, ILQL_LOSS_TERMS, phase, must_gate="heads.")
+
+
+def ilql_reference(trainer, seed: int) -> None:
+    """The ILQL train step on the kernels against the plain bf16 and fp32
+    paths (`ilql_grad_reference`) on a fresh store of ILQL_REFERENCE_ROWS
+    dialogues; then the shaped logits of one processor decode step (beta
+    1, the int8 cache and kernel 8 on the kernel path) on each path, after
+    a prefill whose token every path takes from the kernel path's: the
+    kernel path's mean |error| from fp32 at most twice plain bf16's."""
+    import torch
+
+    from trlx_tpu_torch.models.generation import SamplerSettings, generate
+    from trlx_tpu_torch.trainer.ilql import make_experience
+    from trlx_tpu_torch.utils.loading import get_trainer
+
+    configs = {"plain_bf16": ilql_config(seed, attention_impl="xla", kv_cache_quant="int8"),
+               "fp32": ilql_config(seed, attention_impl="xla", kv_cache_quant=None, compute_dtype="float32")}
+    samples, rewards = ilql_dialogues(seed + 1, ILQL_REFERENCE_ROWS)
+    store = make_experience(samples, rewards, trainer.tokenizer, ILQL_SEQ, verbose=False)
+    ilql_grad_reference(trainer, configs, store, ILQL_BATCH, seed, "ilql_reference")
+
+    batch = next(iter(trainer.eval_dataloader))
+    ids, mask = batch.input_ids.cuda(), batch.attention_mask.cuda().to(torch.int32)
+    greedy = dataclasses.replace(trainer.generate_settings, max_new_tokens=2, do_sample=False, top_k=0)
+    state = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+
+    def decode_step(t, forced):
+        seen = []
+        proc = t.generation_logits_processor(beta=1.0)
+
+        def p(h, logits):
+            shaped = proc(h, logits)
+            seen.append(shaped.float())
+            if forced is None or len(seen) > 1:
+                return shaped
+            return torch.full_like(shaped, float("-inf")).scatter_(1, forced[:, None], 0.0)
+
+        out = generate(t.model.base, ids, mask, None, greedy, logits_processor=p)
+        return seen[1], out["response_ids"][:, 0]
+
+    shaped, first = decode_step(trainer, None)
+    res = {"kernel": shaped}
+    for name, config in configs.items():
+        t = get_trainer(config.train.trainer)(config=config)
+        t.model.load_state_dict(state)
+        res[name], _ = decode_step(t, first)
+        del t
+    err = {name: (res[name] - res["fp32"]).abs().mean().item() for name in ("kernel", "plain_bf16")}
+    emit("ilql_processor_reference", mean_abs_err_vs_fp32=err, shape=list(shaped.shape),
+         argmax_agreement_vs_fp32={name: (res[name].argmax(-1) == res["fp32"].argmax(-1)).float().mean().item()
+                                   for name in ("kernel", "plain_bf16")})
+    if not torch.isfinite(shaped).all() or err["kernel"] > 2 * err["plain_bf16"]:
+        raise AssertionError(f"the processor step's shaped logits stray from fp32 by {err['kernel']}, more than "
+                             f"2 x plain bf16 ({err['plain_bf16']})")
+
+
+def ilql_t5_path(seed: int, shapes: dict, bias_shapes: dict):
+    """Seq2seq ILQL at T5-base width (random weights from the seed, bf16
+    compute / fp32 params, two Q heads of 512 -> 32128, the six attention
+    kernels): 24 dialogues, 8 optimizer steps of batch 12 (encoder 32
+    tokens, decoder 33: the start token and 32), greedy evaluations at
+    each end at beta 0 and 1 (16 new tokens). Gates: the exact launch
+    counts of kernels 4, 5+6 (fused), 1 and 2+3 and none of the long
+    routes, finite losses, every online tensor moved, the sync exact; then
+    the gradient gate of `t5_train_reference` on a fresh store."""
+    import torch
+
+    from trlx_tpu_torch.trainer.ilql import make_experience_seq2seq
+
+    samples, rewards = ilql_dialogues(seed, ILQL_T5_ROWS)
+    eval_prompts = [p for p, _ in samples[:ILQL_T5_BATCH]]
+    trainer, wall, launches, decode_steps, syncs, targets = ilql_train(
+        ilql_t5_config(seed), shapes, "ilql_t5", samples, rewards, eval_prompts, bias_counters(), bias_shapes)
+    cfg = trainer.model.cfg
+    tf = cfg.n_layer + cfg.n_decoder_layer  # bias forwards (and backwards) of one teacher-forced pass
+    n_gen = len(decode_steps)  # each sampler call encodes once
+    n_bias = tf * ILQL_T5_STEPS + cfg.n_layer * n_gen
+    expect = {"flash_bias_fwd": n_bias, "flash_bias_fwd_short": n_bias, "flash_bias_fwd_long": 0,
+              "flash_fwd": cfg.n_decoder_layer * ILQL_T5_STEPS, "flash_fwd_short": cfg.n_decoder_layer * ILQL_T5_STEPS,
+              "flash_fwd_long": 0, "flash_bias_bwd": tf * ILQL_T5_STEPS, "flash_bias_bwd_dq": 0,
+              "flash_bias_bwd_dkv": 0, "flash_bwd": cfg.n_decoder_layer * ILQL_T5_STEPS, "flash_bwd_dq": 0,
+              "flash_bwd_dkv": 0}
+    losses = ilql_losses(trainer, ILQL_T5_STEPS)
+    emit("ilql_t5_path", wall_s=wall, launches=launches, expected=expect, iter_count=trainer.iter_count,
+         sampler_calls=n_gen, losses=losses, syncs=syncs, decoder_width=trainer.store.dec_width,
+         encoder_width=trainer.store.enc_width, phase_seconds=dict(trainer.phase_seconds))
+    if n_gen != 2 * len(ILQL_BETAS) or trainer.store.dec_width != 33:
+        raise AssertionError(f"expected {2 * len(ILQL_BETAS)} sampler calls and 33 decoder rows, got {n_gen} and "
+                             f"{trainer.store.dec_width}")
+    if launches != expect:
+        raise AssertionError(f"launch counts {launches} != expected {expect}")
+    if not any(r["synced"] for r in syncs):
+        raise AssertionError(f"no Polyak sync ran: {syncs}")
+    check_ilql_params(trainer, seed, targets, "ilql_t5_params")
+    configs = {"plain_bf16": ilql_t5_config(seed, attention_impl="xla"),
+               "fp32": ilql_t5_config(seed, attention_impl="xla", compute_dtype="float32")}
+    samples, rewards = ilql_dialogues(seed + 1, ILQL_T5_REFERENCE_ROWS)
+    store = make_experience_seq2seq(samples, rewards, trainer.tokenizer, ILQL_SEQ, verbose=False,
+                                    decoder_start_token_id=cfg.decoder_start_token_id)
+    ilql_grad_reference(trainer, configs, store, ILQL_T5_BATCH, seed, "ilql_t5_reference")
+    del trainer
+    torch.cuda.empty_cache()
+    return launches
+
+
+def rft_config(seed: int, attention_impl="pallas", kv_cache_quant="int8_kernel", compute_dtype="bfloat16"):
+    from trlx_tpu_torch.data.configs import TRLConfig
+    from trlx_tpu_torch.data.default_configs import default_sft_config
+
+    transformer = dict(GPT2_SMALL, vocab_size=STOP_VOCAB, attention_impl=attention_impl,
+                       kv_cache_quant=kv_cache_quant)
+    config = default_sft_config().to_dict()
+    config["train"].update(batch_size=TRAIN_BATCH, total_steps=RFT_STEPS, eval_interval=10_000,
+                           checkpoint_interval=10_000, seq_length=TRAIN_LEN, epochs=10_000, tracker=None,
+                           trainer="TPURFTTrainer", compute_dtype=compute_dtype, seed=seed)
+    config["model"].update(model_path="random", num_layers_unfrozen=-1,
+                           model_extra_configs={"transformer": transformer})
+    config["tokenizer"].update(tokenizer_path="byte")
+    config["method"] = dict(name="rftconfig", n_generations_per_prompt=RFT_GENERATIONS,
+                            n_improve_steps=RFT_IMPROVE_STEPS, start_percentile=0.7, end_percentile=0.95,
+                            gen_kwargs=dict(max_new_tokens=TRAIN_NEW_TOKENS, top_k=0, top_p=1.0, do_sample=True))
+    return TRLConfig.from_dict(config)
+
+
+def host_selection(per_prompt: dict, percentile: float) -> int:
+    """The number of distinct (prompt, output) pairs a selection keeps,
+    recomputed here from the scores: per prompt, the `percentile`
+    quantile, raised to 1e-3 over the minimum and capped at the maximum."""
+    import numpy as np
+
+    kept = set()
+    for prompt, rows in per_prompt.items():
+        scores = [s for _, s in rows]
+        thr = min(max(float(np.quantile(np.asarray(scores), percentile)), min(scores) + 1e-3), max(scores))
+        kept.update((prompt, o) for o, s in rows if s >= thr)
+    return len(kept)
+
+
+def rft_path(seed: int, shapes: dict):
+    """`trlx_tpu_torch.train(reward_fn=..., prompts=...)` with
+    train.trainer TPURFTTrainer at GPT-2-small widths over the byte
+    vocabulary: 16 prompts x 4 sampled generations every 2 epochs, scored,
+    thresholded per prompt, deduplicated and wrap-padded into batches of 32
+    (full-sequence LM loss), 8 optimizer steps, evaluations at each end.
+    Gates: the exact launch counts of kernels 1, 8 and 2+3, finite losses,
+    every tensor moved, and each selection's size equal to the one
+    recomputed here from the printed scores; then the gradient gate on
+    eight batches of 32 through the RFT loss."""
+    import torch
+
+    import trlx_tpu_torch
+    from trlx_tpu_torch.ops.common import logprobs_of_labels
+    from trlx_tpu_torch.pipeline.offline_pipeline import DialogStore, tokenize_dialogue
+    from trlx_tpu_torch.trainer.rft import TPURFTTrainer
+
+    rounds = []
+    make_experience = TPURFTTrainer.make_experience
+
+    def spy(self, *args, **kwargs):
+        make_experience(self, *args, **kwargs)
+        method = self.config.method
+        delta = (method.end_percentile - method.start_percentile) / method.n_improve_steps
+        percentile = method.start_percentile + delta * (self.epoch_count % method.n_improve_steps)
+        logged = self.stats_history[-1][1]["len_samples_selected"]
+        pool = {p: [(x["output"], x["score"]) for x in xs] for p, xs in self.generations_per_prompt.items()}
+        rounds.append({"epoch": self.epoch_count, "percentile": percentile, "selected": int(logged),
+                       "host_selected": host_selection(pool, percentile), "store_rows": len(self.store),
+                       "scores": {p: [s for _, s in rows] for p, rows in pool.items()}})
+
+    counters = train_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    TPURFTTrainer.make_experience = spy
+    try:
+        t0 = time.perf_counter()
+        with forward_shapes(shapes, "rft"), sampler_calls() as calls:
+            trainer = trlx_tpu_torch.train(reward_fn=train_reward_fn, prompts=RFT_PROMPTS, config=rft_config(seed))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        TPURFTTrainer.make_experience = make_experience
+    launches = {name: fn.launches for name, fn in counters.items()}
+    L = trainer.model.cfg.n_layer
+    decode_steps = [c["decode_steps"] for c in calls]
+    n_fwd, n_decode = L * (RFT_STEPS + len(calls)), L * sum(decode_steps)
+    expect = {"flash_fwd": n_fwd, "flash_fwd_short": n_fwd, "flash_fwd_long": 0,
+              "flash_bwd": L * RFT_STEPS, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+              "decode": n_decode, "decode_short": n_decode, "decode_long": 0}
+    losses = [st["losses/loss"] for _, st in trainer.stats_history if "losses/loss" in st]
+    sampling_rounds = sum(1 for r in rounds if r["epoch"] % RFT_IMPROVE_STEPS == 0)
+    emit("rft_path", wall_s=wall, launches=launches, expected=expect, iter_count=trainer.iter_count,
+         sampler_calls=len(calls), decode_steps=decode_steps, losses=losses, rounds=rounds,
+         phase_seconds=dict(trainer.phase_seconds))
+    if len(losses) != RFT_STEPS or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"expected {RFT_STEPS} finite losses, got {losses}")
+    if len(calls) != 2 + RFT_GENERATIONS * sampling_rounds or sampling_rounds < 2:
+        raise AssertionError(f"{len(calls)} sampler calls for {sampling_rounds} sampling rounds")
+    if {k: launches[k] for k in expect} != expect:
+        raise AssertionError(f"launch counts {launches} != expected {expect}")
+    if any(r["selected"] != r["host_selected"] or r["store_rows"] % TRAIN_BATCH for r in rounds):
+        raise AssertionError(f"a selection differs from the host's recomputation: {rounds}")
+    check_params_moved(trainer, seed, "rft_params")
+
+    def step(t, batch):
+        loss, _ = t.loss(batch)
+        loss.backward()
+        b = batch.map(lambda x: x.to(t.device))
+        labels = torch.where(b.attention_mask > 0, b.input_ids, -100)[:, 1:]
+        real = labels != -100
+        with torch.no_grad():
+            logits = t.model(b.input_ids, b.attention_mask)["logits"]
+            lp = logprobs_of_labels(logits[:, :-1], torch.where(real, labels, 0))
+        return loss, (lp.float(),), real
+
+    dialogs = [tokenize_dialogue(list(p), trainer.tokenizer, TRAIN_LEN) for p in sft_reference_samples(seed)]
+    store = DialogStore(dialogs, trainer.tokenizer, max_length=TRAIN_LEN)
+    grad_reference(trainer, {"plain_bf16": rft_config(seed, attention_impl="xla", kv_cache_quant="int8"),
+                             "fp32": rft_config(seed, attention_impl="xla", kv_cache_quant=None,
+                                                compute_dtype="float32")},
+                   list(store.create_loader(TRAIN_BATCH, shuffle=True, seed=seed)), step, ("logprobs",),
+                   "rft_reference", reward_fn=train_reward_fn)
+    del trainer
+    torch.cuda.empty_cache()
+    return launches
+
+
+def randomwalks_offline(which: str) -> None:
+    """The port's randomwalks ILQL or RFT runner on the card with the JAX
+    example's config (RFT after its behaviour cloning). Gate: the last
+    evaluation's optimality (ILQL: at beta 100) at least the JAX curve's
+    floor in tests/test_curves.py."""
+    import tempfile
+
+    import torch
+
+    from trlx_tpu_torch.examples import ilql_randomwalks, rft_randomwalks
+    from trlx_tpu_torch.examples.curves import curve_rows
+
+    runner, key, floor = {
+        "ilql": (ilql_randomwalks, "metrics/optimality@beta=100", RANDOMWALKS_ILQL_FLOOR),
+        "rft": (rft_randomwalks, "metrics/optimality", RANDOMWALKS_RFT_FLOOR),
+    }[which]
+    with tempfile.TemporaryDirectory() as directory:
+        t0 = time.perf_counter()
+        trainer = runner.main({"train.checkpoint_dir": directory})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    curve = [(step, st[key]) for step, st in trainer.stats_history if key in st]
+    final = round(curve[-1][1], 4)  # the curves' recorded precision
+    emit(f"randomwalks_{which}", wall_s=wall, steps=trainer.iter_count, final_key=key, final=final, floor=floor,
+         phase_seconds=dict(trainer.phase_seconds),
+         rows=curve_rows(trainer.stats_history, ["metrics/optimality", "losses/loss", "len_samples_selected"]))
+    if final < floor:
+        raise AssertionError(f"randomwalks {which} final {key} {final} < {floor}")
+    train_step_profile(trainer, next(iter(trainer.store.create_loader(trainer.config.train.batch_size))),
+                       f"randomwalks_{which}_step")
+
+
+def ilql_phases(seed: int, shapes: dict, bias_shapes: dict) -> dict:
+    """ilql_path and its reference, ilql_t5_path and its reference, the
+    randomwalks ILQL runner: {path: launches}."""
+    import torch
+
+    trainer, launches = ilql_path(seed, shapes)
+    ilql_reference(trainer, seed)
+    del trainer
+    torch.cuda.empty_cache()
+    t5 = ilql_t5_path(seed, shapes, bias_shapes)
+    randomwalks_offline("ilql")
+    return {"ilql": launches, "ilql_t5": t5}
+
+
+def rft_phases(seed: int, shapes: dict) -> dict:
+    """rft_path (its gradient gate included) and the randomwalks RFT
+    runner: {path: launches}."""
+    launches = rft_path(seed, shapes)
+    randomwalks_offline("rft")
+    return {"rft": launches}
+
+
 def flash_bwd_work(mask, H, Hkv, T, S, D, q_offset, causal=True):
     """Bytes and operations each backward function needs on this mask, in
     the way of `flash_work`. A weighed (t, s) pair costs the dq kernel
@@ -2602,7 +3187,7 @@ def flash_bwd_work(mask, H, Hkv, T, S, D, q_offset, causal=True):
     return dq, dkv, fused
 
 
-def bwd_kernel_times(gen, launches, t5_launches, errs, sft_launches, ppo_launches) -> list:
+def bwd_kernel_times(gen, launches, t5_launches, errs, sft_launches, ppo_launches, ilql_t5_launches) -> list:
     """The flash backward at the GPT-2 train path's shape (B32 H12 T=S=64,
     causal) and at T5's cross-attention shape (B12 H12, T=65 queries over
     S=32 keys, not causal, scale 1): the fused kernel, the long route's
@@ -2610,8 +3195,10 @@ def bwd_kernel_times(gen, launches, t5_launches, errs, sft_launches, ppo_launche
     the bounds; then the long route's two steps at T=S=512 (B4, causal),
     where it is the route the wrapper takes. `launches`, `t5_launches` and
     `sft_launches` are the GPT-2 train, T5 train and SFT paths' counts,
-    `ppo_launches` {path: counts} the overlap and PPO-knobs paths' (the
-    SFT and those paths' steps have the train path's shape)."""
+    `ppo_launches` {path: counts} the overlap, PPO-knobs, stop, ILQL and
+    RFT paths' (the SFT and those paths' steps have the train path's
+    shape), `ilql_t5_launches` the T5 ILQL path's (its cross-attention
+    backward: T = 33 queries over S = 32 keys)."""
     import torch
     import torch.nn.functional as F
 
@@ -2636,6 +3223,7 @@ def bwd_kernel_times(gen, launches, t5_launches, errs, sft_launches, ppo_launche
             name=name, route="cuda", source="trlx_tpu_torch/csrc/flash_bwd.cu", replaces=ref(line),
             launches=extra.pop("launches"), launches_train_path=launches[name.split("/")[0]],
             launches_t5_train_path=t5_launches[name.split("/")[0]],
+            launches_ilql_t5_path=ilql_t5_launches[name.split("/")[0]],
             launches_sft_path=sft_launches[name.split("/")[0]],
             **{f"launches_{path}_path": n[name.split("/")[0]] for path, n in ppo_launches.items()},
             max_abs_err=err, shape=shape,
@@ -2675,7 +3263,7 @@ def bwd_kernel_times(gen, launches, t5_launches, errs, sft_launches, ppo_launche
             row(f"flash_bwd/{case}", shape, causal, fused_ms, plain, lib, work_fused, 192, errs["fused"],
                 launches=(launches["flash_bwd"] + sft_launches["flash_bwd"]
                           + sum(n["flash_bwd"] for n in ppo_launches.values()) if case == "train"
-                          else t5_launches["flash_bwd"]), also_replaces=ref(231),
+                          else t5_launches["flash_bwd"] + ilql_t5_launches["flash_bwd"]), also_replaces=ref(231),
                 long_route_ms=dq_ms + dkv_ms, long_route_dq_ms=dq_ms, long_route_dkv_ms=dkv_ms,
                 occupancy=flash_attention_bwd_occupancy(T, S))
         if case != "t5_cross":
@@ -2733,7 +3321,7 @@ def flash_bias_work(mask, H, T, S, D, causal):
     return fwd, dq, dkv, fused
 
 
-def bias_kernel_times(gen, launches, path_launches, shape_launches, errs) -> list:
+def bias_kernel_times(gen, launches, path_launches, shape_launches, errs, ilql_t5_launches) -> list:
     """The bias kernels at the T5 paths' shapes (H12: the encoder's B12
     T = S = 32, not causal; the decoder's B12 T = S = 65, causal; the T5
     path's B64 encoder and decoder). The forward at all four: the route
@@ -2741,11 +3329,13 @@ def bias_kernel_times(gen, launches, path_launches, shape_launches, errs) -> lis
     long route's kernel on the same inputs, the plain and library times
     beside the bound, the short kernel's CTAs an SM, and
     its launches at that shape on each path (`shape_launches`: path -> the
-    `bias_fwd_shapes` tally of its run). The fused backward at the first
+    `bias_fwd_shapes` tally of its run); and at T5 ILQL's decoder (B12
+    T = S = 33, causal). The fused backward at the first
     two, with the long route's pair timed on the same inputs beside it;
     then the long route's two steps at T = S = 512 (B4), where it is the
-    route the wrapper takes. `launches` and `path_launches` are the T5
-    train path's and the T5 path's counters. The library call is
+    route the wrapper takes. `launches`, `path_launches` and `ilql_t5_launches` are
+    the T5 train path's, the T5 path's and the T5 ILQL path's counters (the
+    backward rows count both training paths). The library call is
     F.scaled_dot_product_attention with the additive float mask (the bias
     plus the key and causal masks, in bf16 as SDPA takes it), scale 1; its
     backward yields dq, dk, dv and the mask's gradient."""
@@ -2776,7 +3366,8 @@ def bias_kernel_times(gen, launches, path_launches, shape_launches, errs) -> lis
         bms, by = bound_ms(*work)
         r = dict(
             name=f"{name}/{case}", route="cuda", source=f"trlx_tpu_torch/csrc/{src}", replaces=ref(line),
-            launches=launches.get(name, 0), launches_t5_path=path_launches.get(name, 0), max_abs_err=err,
+            launches=launches.get(name, 0) + ilql_t5_launches.get(name, 0), launches_t5_path=path_launches.get(name, 0),
+            launches_ilql_t5_path=ilql_t5_launches.get(name, 0), max_abs_err=err,
             shape=shape, causal=causal, ms=ms, kernel_ms=ms, plain_ms=plain, plain_is=plain_is,
             bound_ms=bms, bound_by=by, bound_bytes=work[0], bound_flops=work[1], library_ms=lib,
             library_is=library_is,
@@ -2785,7 +3376,7 @@ def bias_kernel_times(gen, launches, path_launches, shape_launches, errs) -> lis
         rows.append(r)
 
     lib_bwd_is = "F.scaled_dot_product_attention backward (dq, dk, dv, dmask together)"
-    for case in ("encoder", "decoder", "b64_encoder", "b64", "long"):
+    for case in ("encoder", "decoder", "b64_encoder", "b64", "ilql_decoder", "long"):
         B, H, T, causal, kind = BIAS_CASES[case]
         q, k, v, mask, bias, out, m, l, g = flash_bias_inputs(gen, B, H, T, causal, kind)
         km, g2 = backward_operands(q, k, v, mask, g, m, l)
@@ -2811,7 +3402,7 @@ def bias_kernel_times(gen, launches, path_launches, shape_launches, errs) -> lis
                 launches=sum(by_path.values()), launches_by_path=by_path, long_route_ms=long_ms,
                 long_route_max_abs_err=errs["fwd_long"],
                 occupancy=flash_bias_fwd_short_occupancy(T, T, causal) if route == "short" else None)
-        if case.startswith("b64"):
+        if case.startswith("b64") or case == "ilql_decoder":
             continue
         if case != "long":
             fused_ms = time_ms(lambda: flash_attention_bias_bwd(q, k, v, km, bias32, g2, m, l, causal, 1.0))
@@ -2840,9 +3431,11 @@ def bias_kernel_times(gen, launches, path_launches, shape_launches, errs) -> lis
     return rows
 
 
-def profile_phase(name: str, fn, wall_s: float, grad: bool = False, host_ops: bool = True) -> float:
+def profile_phase(name: str, fn, wall_s: float, grad: bool = False, host_ops: bool = True,
+                  out: dict = None) -> float:
     """Device time by kernel over one traced run of `fn` (torch.profiler);
-    returns the device's busy ms. The idle share compares the traced
+    returns the device's busy ms (and puts the printed sums into `out`
+    when given). The idle share compares the traced
     device time with the untraced wall time `wall_s` of the same work. `host_ops=False` traces the device
     alone: a run of many thousand host operations (the engine's loop)
     makes a host trace slow to gather and adds nothing to the device sums."""
@@ -2867,20 +3460,24 @@ def profile_phase(name: str, fn, wall_s: float, grad: bool = False, host_ops: bo
     def share(*words):
         return sum(e.self_device_time_total for e in kernels if any(w in e.key for w in words)) / 1e3
 
-    emit("profile", what=name, wall_ms=wall_s * 1e3, device_busy_ms=busy_ms,
-         device_idle_share=(1 - busy_ms / (wall_s * 1e3)) if busy_ms else None,
-         attention_kernels_ms=share("flash_fwd_kernel", "flash_fwd_short_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
-                                    "flash_bwd_fused_kernel", "decode_int8_kernel", "decode_int8_short_kernel",
-                                    "paged_attention_kernel",
-                                    "paged_attention_short_kernel",
-                                    "flash_bias_"),
-         flash_fwd_kernels_ms=share("flash_fwd_kernel", "flash_fwd_short_kernel"),
-         flash_bias_kernels_ms=share("flash_bias_"),
-         paged_kernel_ms=share("paged_attention_kernel", "paged_attention_short_kernel"),
-         decode_kernel_ms=share("decode_int8_kernel", "decode_int8_short_kernel"),
-         flash_bwd_kernels_ms=share("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel", "flash_bwd_fused_kernel"),
-         matmul_ms=share("gemm", "Gemm", "xmma", "nvjet", "cutlass"),
-         top=[dict(kernel=e.key[:90], ms=e.self_device_time_total / 1e3, calls=e.count) for e in top])
+    sums = dict(
+        wall_ms=wall_s * 1e3, device_busy_ms=busy_ms,
+        device_idle_share=(1 - busy_ms / (wall_s * 1e3)) if busy_ms else None,
+        attention_kernels_ms=share("flash_fwd_kernel", "flash_fwd_short_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
+                                   "flash_bwd_fused_kernel", "decode_int8_kernel", "decode_int8_short_kernel",
+                                   "paged_attention_kernel",
+                                   "paged_attention_short_kernel",
+                                   "flash_bias_"),
+        flash_fwd_kernels_ms=share("flash_fwd_kernel", "flash_fwd_short_kernel"),
+        flash_bias_kernels_ms=share("flash_bias_"),
+        paged_kernel_ms=share("paged_attention_kernel", "paged_attention_short_kernel"),
+        decode_kernel_ms=share("decode_int8_kernel", "decode_int8_short_kernel"),
+        flash_bwd_kernels_ms=share("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel", "flash_bwd_fused_kernel"),
+        matmul_ms=share("gemm", "Gemm", "xmma", "nvjet", "cutlass"),
+        top=[dict(kernel=e.key[:90], ms=e.self_device_time_total / 1e3, calls=e.count) for e in top])
+    emit("profile", what=name, **sums)
+    if out is not None:
+        out.update(sums)
     return busy_ms
 
 
@@ -2943,6 +3540,9 @@ def fwd_kernel_times(gen, shape_launches, errs) -> list:
         "train": (TRAIN_BATCH, 12, TRAIN_LEN, TRAIN_LEN, 0, "left", True),
         "experience": (TRAIN_ROLLOUTS, 12, TRAIN_LEN, TRAIN_LEN, 0, "left", True),
         "t5_cross": (T5_BATCH, 12, T5_DEC_LEN, T5_PROMPT_LEN, 0, "left", False),
+        # RFT's sampling prefill (16 prompts) and T5 ILQL's cross-attention in training
+        "prefill_b16": (len(RFT_PROMPTS), 12, PROMPT_LEN, 128, 0, "prefill", True),
+        "t5_ilql_cross": (ILQL_T5_BATCH, 12, 33, T5_PROMPT_LEN, 0, "left", False),
     }
     rows, D = [], 64
     with torch.no_grad():
@@ -3002,7 +3602,7 @@ def decode_kernel_times(gen, launches, errs) -> list:
     rows = []
     L, H, D = 12, 12, 64
     by_path = {path: launches.get(path, {"short": 0, "long": 0})
-               for path in ("rollout", "train", "sft", "overlap", "ppo_knobs", "stop")}
+               for path in ("rollout", "train", "sft", "overlap", "ppo_knobs", "stop", "ilql", "rft")}
 
     def row(name, route, S, written, B=PROMPTS, pads=None):
         q, ck, cv, ks, vs, mask = decode_inputs(gen, L, B, H, H, S, D, written, pads)
@@ -3022,7 +3622,8 @@ def decode_kernel_times(gen, launches, errs) -> list:
             launches=by_path["sft" if name.endswith("/sft") else "rollout"][route],
             launches_train_path=by_path["train"][route], launches_sft_path=by_path["sft"][route],
             launches_overlap_path=by_path["overlap"][route], launches_ppo_knobs_path=by_path["ppo_knobs"][route],
-            launches_stop_path=by_path["stop"][route],
+            launches_stop_path=by_path["stop"][route], launches_ilql_path=by_path["ilql"][route],
+            launches_rft_path=by_path["rft"][route],
             max_abs_err=errs[route], shape=[L, B, H, S, D], written=written, ms=ms, kernel_ms=ms, **extra,
             plain_ms=plain, bound_ms=bms, bound_by=by, bound_bytes=n_bytes, bound_flops=n_flops,
             library_ms=None, ctas_per_sm=occupancy["ctas_per_sm"], smem_bytes=occupancy["smem_bytes"],
@@ -3104,7 +3705,7 @@ def paged_kernel_times(gen, launches, errs) -> list:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
-    parser.add_argument("--only", choices=("fwd", "paged", "decode", "bias", "sft", "ppo"), default=None,
+    parser.add_argument("--only", choices=("fwd", "paged", "decode", "bias", "sft", "ppo", "ilql", "rft"), default=None,
                         help="fwd: the build, flash_check and the flash forward's kernel_time rows only "
                              "(a quick check of kernel 1); paged: the build, paged_check and the paged "
                              "kernel_time rows only (kernel 7); decode: the build, decode_check and the int8 "
@@ -3114,7 +3715,8 @@ def main() -> int:
                              "sft_train_step, reload, randomwalks), no kernel_time rows; ppo: the build, "
                              "train_path and the slice-6 PPO phases (overlap_path, ppo_knobs_path, "
                              "value_branch_cost, ppo_knobs_reference, stop_path, stop_reference), no "
-                             "kernel_time rows")
+                             "kernel_time rows; ilql: the build, ilql_path, ilql_reference, ilql_t5_path and the "
+                             "randomwalks ILQL runner; rft: the build, rft_path and the randomwalks RFT runner")
     args = parser.parse_args()
 
     import torch
@@ -3204,6 +3806,12 @@ def main() -> int:
         torch.cuda.empty_cache()
         ppo_phases(args.seed, {}, train_split)
         rows = []
+    elif args.only == "ilql":
+        ilql_phases(args.seed, {}, {})
+        rows = []
+    elif args.only == "rft":
+        rft_phases(args.seed, {})
+        rows = []
     if args.only is not None:
         print(json.dumps({"kernels": rows}))
         print(card)
@@ -3239,16 +3847,23 @@ def main() -> int:
     train_step_profile(trainer, batch, "t5_train_step")
     del trainer, batch
     torch.cuda.empty_cache()
+    offline = ilql_phases(args.seed, shapes, bias_shapes)
+    torch.cuda.empty_cache()
+    offline.update(rft_phases(args.seed, shapes))
+    torch.cuda.empty_cache()
     for phase, tallies in (("fwd_shapes", shapes), ("bias_fwd_shapes", bias_shapes)):
         emit(phase, **{path: [[route, list(bht), S, n] for (route, bht, S), n in sorted(tally.items())]
                        for path, tally in tallies.items()})
     rows = fwd_kernel_times(gen, shapes, flash_errs)
     rows += decode_kernel_times(gen, {"rollout": launches["decode"], **{
         path: {"short": n["decode_short"], "long": n["decode_long"]}
-        for path, n in (("train", train_launches), ("sft", sft_launches), *ppo_launches.items())}}, decode_errs)
-    rows += bwd_kernel_times(gen, train_launches, t5_train_launches, bwd_errs, sft_launches, ppo_launches)
+        for path, n in (("train", train_launches), ("sft", sft_launches), *ppo_launches.items(),
+                        ("ilql", offline["ilql"]), ("rft", offline["rft"]))}}, decode_errs)
+    rows += bwd_kernel_times(gen, train_launches, t5_train_launches, bwd_errs, sft_launches,
+                             {**ppo_launches, "ilql": offline["ilql"], "rft": offline["rft"]}, offline["ilql_t5"])
     rows += paged_kernel_times(gen, paged_launches, paged_errs)
-    rows += bias_kernel_times(gen, t5_train_launches, t5_launches, bias_shapes, bias_errs)
+    rows += bias_kernel_times(gen, t5_train_launches, t5_launches, bias_shapes, bias_errs, offline["ilql_t5"])
+    emit("run", wall_s=time.perf_counter() - _START)
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

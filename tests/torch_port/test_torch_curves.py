@@ -2,12 +2,13 @@
 tests/test_curves.py holds the JAX package's curves to (a meta first line
 with task / protocol / hardware / date / reference_protocol and numeric
 final_* metrics, then step-keyed numeric rows in step order) and its
-thresholds: randomwalks SFT final optimality >= 0.95, PPO >= 0.9.
+thresholds: randomwalks SFT final optimality >= 0.95, PPO >= 0.9, ILQL
+>= 0.9 at beta = 100, RFT >= 0.85.
 
 The whole randomwalks protocol takes about 40 s on one CPU thread, so it
 also runs live here: the SFT runner, and the PPO runner's behaviour
 cloning -> save_pretrained -> reload -> PPO, each writing its curve
-through the same writer. The live runs are held to the contract, finite
+through the same writer; the ILQL and RFT runners run cut short. The live runs are held to the contract, finite
 losses and a rising eval optimality; the thresholds are the committed
 curves', which were recorded on the card (their meta's hardware)."""
 
@@ -21,7 +22,9 @@ import torch
 REPO = Path(__file__).resolve().parents[2]
 CURVES = REPO / "docs" / "torch_curves"
 THRESHOLDS = {"randomwalks_sft.jsonl": ("final_optimality", 0.95),
-              "randomwalks_ppo.jsonl": ("final_optimality", 0.9)}
+              "randomwalks_ppo.jsonl": ("final_optimality", 0.9),
+              "randomwalks_ilql.jsonl": ("final_optimality@beta=100", 0.9),
+              "randomwalks_rft.jsonl": ("final_optimality", 0.85)}
 
 
 def _check_contract(path: Path) -> dict:
@@ -88,6 +91,37 @@ def test_ppo_runner_live(tmp_path, one_thread):
     optimality = _rows(tmp_path / "ppo.jsonl", "metrics/optimality")
     assert len(losses) == trainer.iter_count == 80 and all(math.isfinite(x) for x in losses)
     assert len(optimality) == 5 and optimality[-1] >= optimality[0] + 0.3
+
+
+def test_ilql_runner_live_short(tmp_path, one_thread):
+    """The ILQL runner, cut to 32 steps: every evaluation sweeps beta over
+    [0, 1, 100], and the meta holds a final optimality at each."""
+    from trlx_tpu_torch.examples import ilql_randomwalks
+
+    trainer = ilql_randomwalks.main({"train.checkpoint_dir": str(tmp_path / "ckpts"), "train.total_steps": 32},
+                                    device="cpu")
+    meta = ilql_randomwalks.record(trainer, str(tmp_path / "ilql.jsonl"), device="cpu")
+    assert _check_contract(tmp_path / "ilql.jsonl") == meta
+    assert {f"final_optimality@beta={b}" for b in (0, 1, 100)} <= set(meta)
+    losses = _rows(tmp_path / "ilql.jsonl", "losses/loss")
+    assert len(losses) == trainer.iter_count == 32 and all(math.isfinite(x) for x in losses)
+    assert losses[-1] < losses[0]
+    assert len(_rows(tmp_path / "ilql.jsonl", "metrics/optimality@beta=100")) == 3  # steps 0, 16, 32
+
+
+def test_rft_runner_live_short(tmp_path, one_thread):
+    """The RFT runner after its behaviour cloning, cut to 8 steps: the
+    selection rounds are logged and the curve keeps the contract."""
+    from trlx_tpu_torch.examples import rft_randomwalks
+
+    trainer = rft_randomwalks.main({"train.checkpoint_dir": str(tmp_path / "ckpts"), "train.total_steps": 8,
+                                    "train.eval_interval": 8}, device="cpu")
+    assert trainer.config.model.model_path == str(tmp_path / "ckpts" / "bc_warmup" / "hf_model")
+    meta = rft_randomwalks.record(trainer, str(tmp_path / "rft.jsonl"), device="cpu")
+    assert _check_contract(tmp_path / "rft.jsonl") == meta
+    selected = _rows(tmp_path / "rft.jsonl", "len_samples_selected")
+    assert selected and all(n > 0 for n in selected)
+    assert len(_rows(tmp_path / "rft.jsonl", "losses/loss")) == trainer.iter_count == 8
 
 
 def test_ppo_from_jax_clone_matches_reference(tmp_path):

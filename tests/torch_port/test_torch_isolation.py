@@ -151,13 +151,24 @@ def test_unported_training_knobs_raise(section, kw):
 
 
 def test_offline_sft_and_stop_sequences_raise():
-    """Offline RL raises, naming its ROADMAP queue. Stop sequences, which
-    raised until the port reached them, now train: each output is cut at
-    the first occurrence of a stop string before it is scored."""
+    """Offline RL through the trainers the port has not reached (DPO,
+    GRPO) raises, naming their ROADMAP queue; ILQL, which raised until the
+    port reached it, now trains. Stop sequences, which raised
+    until the port reached them, now train too: each output is cut at the
+    first occurrence of a stop string before it is scored."""
     import trlx_tpu_torch
+    from trlx_tpu_torch.data.default_configs import default_ilql_config
 
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 6"):
-        trlx_tpu_torch.train(samples=["a"], rewards=[1.0], config=_tiny_ppo_config(), device="cpu")
+    for name in ("TPUDPOTrainer", "TPUGRPOTrainer"):
+        with pytest.raises(ValueError, match="ROADMAP queue 6"):
+            trlx_tpu_torch.train(samples=["a"], rewards=[1.0], config=_tiny_ppo_config(train={"trainer": name}),
+                                 device="cpu")
+    tiny = _tiny_ppo_config().to_dict()
+    ilql = trlx_tpu_torch.train(samples=[("a", "b"), ("c", "d")], rewards=[1.0, 0.0], device="cpu",
+                                config=default_ilql_config().evolve(
+                                    train=dict(batch_size=2, total_steps=1, seq_length=8), model=tiny["model"],
+                                    tokenizer=tiny["tokenizer"], method=dict(gen_kwargs=dict(max_new_tokens=2))))
+    assert ilql.iter_count == 1
     scored = []
 
     def reward_fn(outputs, **kw):

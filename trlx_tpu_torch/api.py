@@ -1,11 +1,11 @@
 """`trlx_tpu_torch.train`: the user entry point (port of trlx_tpu.api.train).
-The same signature selects the algorithm: `reward_fn` gives online PPO,
-`samples` alone supervised fine-tuning. Offline RL (`rewards` or
-`dataset`: ILQL) and the trainers named in the config that the port has
-not reached (GRPO, RFT, DPO) raise, ROADMAP queue 6; resuming from a
-checkpoint raises, ROADMAP queue 4. `device` picks where to train: the
-current CUDA card by default (raising when there is none), or "cpu" for
-the plain paths.
+The same signature selects the algorithm: `reward_fn` gives online PPO
+(or RFT, with `train.trainer="TPURFTTrainer"`), `samples` with `rewards`
+(or `dataset`, a (samples, rewards) pair) offline ILQL, `samples` alone
+supervised fine-tuning. The trainers the port has not reached (GRPO,
+DPO) raise, ROADMAP queue 1 item 6; resuming from a checkpoint raises,
+ROADMAP queue 4. `device` picks where to train: the current CUDA card by
+default (raising when there is none), or "cpu" for the plain paths.
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ import warnings
 from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple, Union
 
 from trlx_tpu_torch.data.configs import TRLConfig
-from trlx_tpu_torch.data.default_configs import default_ppo_config, default_sft_config
+from trlx_tpu_torch.data.default_configs import default_ilql_config, default_ppo_config, default_sft_config
 from trlx_tpu_torch.utils import set_seed
 from trlx_tpu_torch.utils.loading import get_pipeline, get_trainer
 
@@ -33,24 +33,31 @@ def train(
     stop_sequences: Optional[List[str]] = None,
     device=None,
 ):
-    """Online RL (PPO) from `reward_fn(samples, prompts, outputs, **metadata)
-    -> list of scalar (or per-token) rewards` and `prompts`; supervised
-    fine-tuning from `samples` alone (strings, or alternating prompt /
-    output dialogues). `stop_sequences` cuts each decoded output at the
-    first occurrence of any of them (PPO then re-tokenises the cut
+    """Online RL (PPO, or RFT by the config's trainer) from
+    `reward_fn(samples, prompts, outputs, **metadata) -> list of scalar (or
+    per-token) rewards` and `prompts`; offline ILQL from `samples` and one
+    scalar reward each (`rewards`, or `dataset=(samples, rewards)`);
+    supervised fine-tuning from `samples` alone (strings, or alternating
+    prompt / output dialogues). `stop_sequences` cuts each decoded output
+    at the first occurrence of any of them (PPO then re-tokenises the cut
     outputs and scores those tokens). Returns the trainer after
     `learn()`."""
-    if not reward_fn and (rewards is not None or dataset is not None):
-        raise NotImplementedError(
-            "offline RL (rewards/dataset: the ILQL trainer) is not ported yet (ROADMAP queue 6: the "
-            "other trainers); pass reward_fn and prompts for online PPO, or samples alone for SFT"
-        )
+    if dataset is not None:
+        # split before the implicit config, so that a dataset selects ILQL
+        # as `rewards` does
+        warnings.warn("the `dataset` argument is being depreciated, split it into `samples` and `rewards` instead")
+        samples, rewards = dataset
     if config is None:
         warnings.warn(
             "Passing the `config` argument implicitly is depreciated, use or "
             "adapt some from `trlx_tpu_torch/data/default_configs.py` instead"
         )
-        config = default_ppo_config() if reward_fn else default_sft_config()
+        if reward_fn:
+            config = default_ppo_config()
+        elif rewards:
+            config = default_ilql_config()
+        else:
+            config = default_sft_config()
     if config.train.resume_from_checkpoint or os.environ.get("TRLX_TPU_RESUME_FROM"):
         raise NotImplementedError("resuming from a checkpoint is not ported yet (ROADMAP queue 4)")
 
@@ -82,6 +89,12 @@ def train(
         if eval_prompts is None:
             eval_prompts = prompts[:batch_size]
         trainer.add_prompt_pipeline(pipeline_cls(prompts, max_prompt_length, trainer.tokenizer))
+    elif rewards is not None:
+        if samples is None:
+            raise ValueError("`samples` are required alongside `rewards`")
+        if eval_prompts is None:
+            eval_prompts = [trainer.tokenizer.bos_token] * batch_size
+        trainer.make_experience(samples, rewards, config.train.seq_length)
     else:
         if samples is None:
             raise ValueError("Either `samples`, `rewards` or `reward_fn` must be given")

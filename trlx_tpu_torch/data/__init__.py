@@ -1,4 +1,4 @@
-"""Typed batches (port of trlx_tpu.data for the PPO and SFT paths):
+"""Typed batches (port of trlx_tpu.data for the PPO, SFT, ILQL and RFT paths):
 dataclasses of tensors with rectangular, statically padded shapes, and
 `.replace`."""
 
@@ -63,3 +63,31 @@ class SFTBatch(_Batch):
     labels: torch.Tensor  # [batch, seq] int32, -100 = ignored
     # the decoder side of seq2seq SFT, which raises in both packages
     decoder_input_ids: Optional[torch.Tensor] = None
+
+
+@dataclass
+class ILQLBatch(_Batch):
+    """Batched ILQL experience, every field right-padded to the store's
+    dataset-wide widths; the gather indices pad by repeating their last
+    real entry."""
+
+    input_ids: torch.Tensor  # [batch, seq] int32
+    attention_mask: torch.Tensor  # [batch, seq] int32
+    rewards: torch.Tensor  # [batch, n_actions] f32
+    states_ixs: torch.Tensor  # [batch, n_states] int32
+    actions_ixs: torch.Tensor  # [batch, n_actions] int32
+    dones: torch.Tensor  # [batch, n_states] int32
+
+
+@dataclass
+class ILQLSeq2SeqBatch(_Batch):
+    """ILQL batch for encoder-decoder models: the indices run over the
+    decoder rows, which start with the decoder start token."""
+
+    input_ids: torch.Tensor  # [batch, enc_seq] int32
+    attention_mask: torch.Tensor  # [batch, enc_seq] int32
+    decoder_input_ids: torch.Tensor  # [batch, dec_seq] int32
+    rewards: torch.Tensor  # [batch, n_actions] f32
+    states_ixs: torch.Tensor  # [batch, n_states] int32
+    actions_ixs: torch.Tensor  # [batch, n_actions] int32
+    dones: torch.Tensor  # [batch, n_states] int32

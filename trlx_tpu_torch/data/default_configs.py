@@ -9,7 +9,7 @@ from trlx_tpu_torch.data.configs import (
     TrainConfig,
     TRLConfig,
 )
-from trlx_tpu_torch.data.method_configs import PPOConfig, SFTConfig
+from trlx_tpu_torch.data.method_configs import ILQLConfig, PPOConfig, SFTConfig
 
 
 def default_ppo_config() -> TRLConfig:
@@ -81,5 +81,42 @@ def default_sft_config() -> TRLConfig:
         method=SFTConfig(
             name="sftconfig",
             gen_kwargs=dict(max_new_tokens=40, top_k=0, top_p=1.0, do_sample=True),
+        ),
+    )
+
+
+def default_ilql_config() -> TRLConfig:
+    return TRLConfig(
+        train=TrainConfig(
+            seq_length=64,
+            batch_size=128,
+            epochs=100,
+            total_steps=1000,
+            checkpoint_interval=1000,
+            eval_interval=100,
+            pipeline="PromptPipeline",
+            trainer="TPUILQLTrainer",
+            tracker=None,
+        ),
+        model=ModelConfig(model_path="gpt2", num_layers_unfrozen=-1),
+        tokenizer=TokenizerConfig(tokenizer_path="gpt2", truncation_side="right"),
+        optimizer=OptimizerConfig(
+            name="adamw",
+            kwargs=dict(lr=5.0e-5, betas=(0.9, 0.95), eps=1.0e-8, weight_decay=1.0e-6),
+        ),
+        scheduler=SchedulerConfig(
+            name="cosine_annealing", kwargs=dict(T_max=1e12, eta_min=5.0e-5)
+        ),
+        method=ILQLConfig(
+            name="ilqlconfig",
+            tau=0.7,
+            gamma=0.99,
+            cql_scale=0.1,
+            awac_scale=1.0,
+            alpha=0.001,
+            beta=0.0,
+            steps_for_target_q_sync=5,
+            two_qs=True,
+            gen_kwargs=dict(max_new_tokens=56, top_k=20, beta=1.0, temperature=1.0),
         ),
     )

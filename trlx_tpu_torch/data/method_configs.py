@@ -1,7 +1,7 @@
 """Method (algorithm) hyperparameter configs and their registry.
 
 A schema-identical copy of trlx_tpu.data.method_configs for the methods
-the port has reached (PPO, SFT), so a YAML config loads to the same dict
+the port has reached (PPO, SFT, ILQL, RFT), so a YAML config loads to the same dict
 in both packages. The loss functions live with their trainers.
 """
 
@@ -106,3 +106,34 @@ class SFTConfig(MethodConfig):
     """SFT hyperparameters; field for field the reference's SFTConfig."""
 
     gen_kwargs: dict = field(default_factory=lambda: dict(max_new_tokens=40))
+
+
+@dataclass
+@register_method
+class ILQLConfig(MethodConfig):
+    """ILQL hyperparameters; field for field the reference's ILQLConfig.
+    `gen_kwargs["beta"]` (a scalar, or a list that evaluation sweeps) is
+    the advantage-shaping weight of the sampler's logits processor."""
+
+    tau: float = 0.7
+    gamma: float = 0.99
+    cql_scale: float = 0.1
+    awac_scale: float = 1.0
+    alpha: float = 0.001
+    beta: float = 0.0
+    steps_for_target_q_sync: int = 5
+    two_qs: bool = True
+    gen_kwargs: dict = field(default_factory=lambda: dict(max_new_tokens=56, top_k=20, beta=1.0))
+
+
+@dataclass
+@register_method
+class RFTConfig(MethodConfig):
+    """Rejection-sampling fine-tuning; field for field the reference's
+    RFTConfig."""
+
+    gen_kwargs: dict = field(default_factory=lambda: dict(max_new_tokens=40))
+    start_percentile: float = 0.7
+    end_percentile: float = 0.95
+    n_improve_steps: int = 4
+    n_generations_per_prompt: int = 32

@@ -9,7 +9,7 @@ import os
 import platform
 import subprocess
 import time
-from typing import Any, Dict, Iterable, List, Optional, Tuple
+from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -41,16 +41,20 @@ def curve_rows(stats_history: Iterable[Tuple[int, Dict[str, float]]], keys: List
 
 
 def write_curve(path: str, rows: List[Dict[str, Any]], task: str, protocol: str, hw: str, reference: str,
-                final_key: str = "metrics/optimality", extra_meta: Optional[Dict[str, Any]] = None) -> Dict:
+                final_key: Union[str, Sequence[str]] = "metrics/optimality",
+                extra_meta: Optional[Dict[str, Any]] = None) -> Dict:
     """Write the curve; the meta's final_<metric> is the last row holding
-    `final_key`, `reference_protocol` the curve it is held against.
-    Returns the meta."""
-    finals = [r[final_key] for r in rows if final_key in r]
-    if not finals:
-        raise ValueError(f"no row holds {final_key!r}")
+    `final_key` (one final_* for each of several keys, e.g. the sweep
+    variants `metrics/optimality@beta=100`), `reference_protocol` the curve
+    it is held against. Returns the meta."""
+    finals = {}
+    for key in [final_key] if isinstance(final_key, str) else final_key:
+        values = [r[key] for r in rows if key in r]
+        if not values:
+            raise ValueError(f"no row holds {key!r}")
+        finals["final_" + key.split("/")[-1]] = values[-1]
     meta = {"task": task, "protocol": protocol, "hardware": hw, "date": time.strftime("%Y-%m-%d"),
-            "final_" + final_key.split("/")[-1]: finals[-1],
-            "reference_protocol": reference, **(extra_meta or {})}
+            **finals, "reference_protocol": reference, **(extra_meta or {})}
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "w") as f:
         f.write(json.dumps({"meta": meta}) + "\n")

@@ -78,18 +78,39 @@ def t5_state_dict_from_jax(p: Mapping, cfg: Seq2SeqConfig) -> Dict[str, torch.Te
     return sd
 
 
+def head_state_dict_from_jax(head: Mapping, prefix: str) -> Dict[str, torch.Tensor]:
+    """A `Head`'s entries from a reference head tree {fc_in, fc_out}, each
+    {kernel, bias} (the same layouts)."""
+    return {f"{prefix}.{dense}.{leaf}": _t(x) for dense in ("fc_in", "fc_out") for leaf, x in head[dense].items()}
+
+
+def ilql_heads_state_dict_from_jax(heads: Mapping, prefix: str = "heads") -> Dict[str, torch.Tensor]:
+    """An `ILQLHeads`' entries from the reference's {"q_heads": [..],
+    "target_q_heads": [..], "v_head"} tree; a list that went through orbax
+    comes back as {"0": .., "1": ..} and is read in index order."""
+    sd = head_state_dict_from_jax(heads["v_head"], f"{prefix}.v_head")
+    for group in ("q_heads", "target_q_heads"):
+        items = heads[group]
+        if isinstance(items, Mapping):
+            items = [items[k] for k in sorted(items, key=int)]
+        for i, head in enumerate(items):
+            sd.update(head_state_dict_from_jax(head, f"{prefix}.{group}.{i}"))
+    return sd
+
+
 def params_from_jax(tree: Mapping, cfg) -> Dict[str, torch.Tensor]:
     """State dict from a reference param tree: a `CausalLMWithValueHead` or
-    `Seq2SeqLMWithValueHead` `init_params` tree {base, v_head[, v_branch]}
-    gives the wrapper's state dict, a bare LM tree a `TransformerLM` or
-    `T5LM` one (by the config's type)."""
+    `Seq2SeqLMWithValueHead` `init_params` tree {base, v_head[, v_branch]},
+    or an ILQL wrapper's {base, heads}, gives the wrapper's state dict, a
+    bare LM tree a `TransformerLM` or `T5LM` one (by the config's type)."""
     lm = t5_state_dict_from_jax if isinstance(cfg, Seq2SeqConfig) else lm_state_dict_from_jax
     if "base" not in tree:
         return lm(tree, cfg)
     sd = {f"base.{k}": v for k, v in lm(tree["base"], cfg).items()}
-    for dense in ("fc_in", "fc_out"):
-        for leaf, x in tree["v_head"][dense].items():
-            sd[f"v_head.{dense}.{leaf}"] = _t(x)
+    if "heads" in tree:
+        sd.update(ilql_heads_state_dict_from_jax(tree["heads"]))
+    if "v_head" in tree:
+        sd.update(head_state_dict_from_jax(tree["v_head"], "v_head"))
     if "v_branch" in tree:
         sd.update({f"v_branch.{k}": v for k, v in lm_state_dict_from_jax(tree["v_branch"], cfg).items()})
     return sd

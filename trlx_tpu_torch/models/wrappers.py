@@ -11,6 +11,12 @@ With `value_branch_at` (method.num_value_layers_unfrozen) the value head
 reads a trainable copy of the top blocks and the final norm (`v_branch`),
 re-run from the hidden state captured at that fork in the same trunk
 pass. LoRA and other peft adapters are not ported yet and raise.
+
+`CausalLMWithILQLHeads` and `Seq2SeqLMWithILQLHeads` carry ILQL's head
+group over the (decoder's) final hidden states: their forward gathers the
+hidden rows at the actions and states before any head or the vocabulary
+projection runs, and `make_logits_processor(beta)` is the sampler's
+advantage shaping.
 """
 
 from __future__ import annotations
@@ -21,7 +27,15 @@ from typing import Any, Dict, Optional
 import torch
 from torch import nn
 
-from trlx_tpu_torch.models.heads import Head, apply_head, init_head
+from trlx_tpu_torch.models.heads import (
+    Head,
+    ILQLHeads,
+    apply_head,
+    apply_ilql_heads,
+    init_head,
+    init_ilql_heads,
+    sync_target_q_heads,
+)
 from trlx_tpu_torch.models.seq2seq import (
     Seq2SeqConfig,
     T5Branch,
@@ -320,3 +334,100 @@ class Seq2SeqLMWithValueHead(nn.Module):
             ref_logits=ref_out["logits"].detach() if compute_logits else None,
             ref_hidden=ref_out["hidden_states"].detach(),
         )
+
+
+class _ILQLHeadsMixin:
+    """What the two ILQL wrappers share: the heads' init, the Polyak sync
+    and the sampler's logits processor."""
+
+    @torch.no_grad()
+    def init_params(self, generator: torch.Generator):
+        self.base.init_params(generator)
+        return self.init_heads(generator)
+
+    @torch.no_grad()
+    def init_heads(self, generator: torch.Generator):
+        init_ilql_heads(self.heads, generator)
+        return self
+
+    def sync_target(self, alpha: Optional[float] = None):
+        """target <- alpha * q + (1 - alpha) * target (`alpha` defaults to
+        the method's)."""
+        sync_target_q_heads(self.heads, self.alpha if alpha is None else alpha)
+        return self
+
+    def _at_actions(self, hidden, states_ixs, actions_ixs):
+        """(logits at the actions, (qs, target_qs, vs)): the hidden rows are
+        gathered, then projected, so the vocabulary product is [B, A, V]."""
+        from trlx_tpu_torch.ops.common import batched_index_select
+
+        qvs = apply_ilql_heads(self.heads, hidden, states_ixs, actions_ixs)
+        h_at = batched_index_select(hidden, actions_ixs, dim=1)
+        return self.logit_project_fn()(h_at), qvs
+
+    def make_logits_processor(self, beta: float):
+        """`(hidden_last, logits_last) -> log_softmax(logits) + beta * (min
+        target Q - V)` over [B, E] and [B, V], with the heads as they are
+        when it is called."""
+        from trlx_tpu_torch.ops.ilql import ilql_shape_logits
+
+        heads = self.heads
+
+        def processor(hidden_last: torch.Tensor, logits_last: torch.Tensor) -> torch.Tensor:
+            qs = [apply_head(h, hidden_last) for h in heads.target_q_heads]
+            return ilql_shape_logits(logits_last, qs, apply_head(heads.v_head, hidden_last), beta)
+
+        return processor
+
+
+class CausalLMWithILQLHeads(_ILQLHeadsMixin, nn.Module):
+    """Causal LM + ILQL heads (v, q, frozen target q)."""
+
+    def __init__(self, cfg: TransformerConfig, two_qs: bool = True, alpha: float = 0.001, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.two_qs = two_qs
+        self.alpha = alpha
+        self.base = TransformerLM(cfg, device)
+        self.heads = ILQLHeads(cfg.hidden_size, cfg.vocab_size, two_qs, device=self.base.device)
+
+    def logit_project_fn(self):
+        return logit_projection(self.base)
+
+    def forward(
+        self,
+        input_ids: torch.Tensor,
+        attention_mask: Optional[torch.Tensor],
+        states_ixs: torch.Tensor,
+        actions_ixs: torch.Tensor,
+    ):
+        """(logits_at_actions, (qs, target_qs, vs)): what `ilql_loss` takes."""
+        out = self.base(input_ids, attention_mask, compute_logits=False)
+        return self._at_actions(out["hidden_states"], states_ixs, actions_ixs)
+
+
+class Seq2SeqLMWithILQLHeads(_ILQLHeadsMixin, nn.Module):
+    """Encoder-decoder LM + ILQL heads over the decoder's hidden states;
+    the indices run over decoder positions."""
+
+    def __init__(self, cfg: Seq2SeqConfig, two_qs: bool = True, alpha: float = 0.001, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.two_qs = two_qs
+        self.alpha = alpha
+        self.base = T5LM(cfg, device)
+        self.heads = ILQLHeads(cfg.d_model, cfg.vocab_size, two_qs, device=self.base.device)
+
+    def logit_project_fn(self):
+        return t5_logit_projection(self.base, self.cfg)
+
+    def forward(
+        self,
+        input_ids: torch.Tensor,
+        attention_mask: torch.Tensor,
+        decoder_input_ids: torch.Tensor,
+        states_ixs: torch.Tensor,
+        actions_ixs: torch.Tensor,
+    ):
+        out = self.base(input_ids, attention_mask, decoder_input_ids, compute_logits=False)
+        return self._at_actions(out["hidden_states"], states_ixs, actions_ixs)

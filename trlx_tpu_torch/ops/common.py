@@ -1,6 +1,6 @@
 """Shared numeric primitives (port of trlx_tpu.ops.common): masked means,
-logprobs (whole and chunked from hidden states), whitening, masked tensor
-stats, running moments and stat-dict flattening.
+logprobs (whole and chunked from hidden states), whitening, row gathers,
+masked tensor stats, running moments and stat-dict flattening.
 
 Single-process: the reference's `axis_name` reductions (psum inside
 shard_map) have no counterpart until the port grows a mesh.
@@ -81,6 +81,15 @@ def topk_mask(xs: torch.Tensor, k: int) -> torch.Tensor:
         return xs
     kth = torch.topk(xs, k, dim=-1).values[..., -1:]
     return torch.where(xs < kth, torch.full_like(xs, float("-inf")), xs)
+
+
+def batched_index_select(x: torch.Tensor, idxs: torch.Tensor, dim: int = 1) -> torch.Tensor:
+    """Rows of x [batch, seq, hidden] (or [batch, seq]) at idxs [batch, n]
+    along `dim`."""
+    idxs = idxs.long()
+    if x.dim() == idxs.dim() + 1:
+        idxs = idxs.unsqueeze(-1).expand(*idxs.shape, x.shape[-1])
+    return torch.gather(x, dim, idxs)
 
 
 def get_tensor_stats(xs: torch.Tensor, mask: torch.Tensor, n) -> Dict[str, torch.Tensor]:

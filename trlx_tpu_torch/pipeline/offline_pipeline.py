@@ -1,9 +1,10 @@
-"""Prompt pipeline and the SFT dialogue store (port of
+"""Prompt pipeline, the SFT dialogue store and the ILQL stores (port of
 trlx_tpu.pipeline.offline_pipeline: PromptPipeline, tokenize_dialogue,
-DialogStore; the ILQL stores arrive with their trainer, ROADMAP queue 6).
-Prompt collation left-pads to the fixed `max_prompt_length`, so every
-rollout chunk has one shape; dialogue collation right-pads to the store's
-`max_length`."""
+DialogStore, ILQLRolloutStorage, ILQLSeq2SeqRolloutStorage). Prompt
+collation left-pads to the fixed `max_prompt_length`, so every rollout
+chunk has one shape; dialogue collation right-pads to the store's
+`max_length`; the ILQL stores right-pad every field to its dataset-wide
+width."""
 
 from __future__ import annotations
 
@@ -12,7 +13,7 @@ from typing import Any, Dict, Iterable, List, Optional, Tuple, Union
 
 import torch
 
-from trlx_tpu_torch.data import PromptBatch, SFTBatch
+from trlx_tpu_torch.data import ILQLBatch, ILQLSeq2SeqBatch, PromptBatch, SFTBatch
 from trlx_tpu_torch.pipeline import BasePipeline, BaseRolloutStore, DataLoader, register_datapipeline
 
 
@@ -93,12 +94,15 @@ def _pad_left(seqs: List[List[int]], width: int, fill) -> Tuple[List[List[int]],
     return out, masks
 
 
-def _pad_right(seqs: List[List[int]], width: int, fill) -> Tuple[List[List[int]], List[List[int]]]:
+def _pad_right(seqs: List[List], width: int, fill, repeat_last: bool = False) -> Tuple[List[List], List[List[int]]]:
+    """Right-pad (and cut) to `width` with `fill`, or with each row's last
+    entry (`repeat_last`)."""
     out, masks = [], []
     for s in seqs:
         s = list(s)[:width]
         n = width - len(s)
-        out.append(s + [fill] * n)
+        pad_val = (s[-1] if s else 0) if repeat_last else fill
+        out.append(s + [pad_val] * n)
         masks.append([1] * len(s) + [0] * n)
     return out, masks
 
@@ -202,3 +206,90 @@ class DialogStore(BaseRolloutStore):
         """Batches in the order `epoch_shuffle_order(len, seed)` gives when
         shuffled; the last batch is short when the store does not divide."""
         return DataLoader(self, batch_size, collate_fn=self.collate, shuffle=shuffle, seed=seed)
+
+
+def _ilql_index_fields(elems: List[dict], actions_width: int, states_width: int) -> Dict[str, torch.Tensor]:
+    """The rewards, gather indices and dones of an ILQL batch. The indices
+    pad by REPEATING each row's last real index (not 0): a repeated
+    terminal state is inert under the dones mask, while index 0 would
+    gather unrelated positions into the loss."""
+    rewards, _ = _pad_right([e["rewards"] for e in elems], actions_width, 0.0)
+    actions, _ = _pad_right([e["actions_ixs"] for e in elems], actions_width, None, repeat_last=True)
+    states, _ = _pad_right([e["states_ixs"] for e in elems], states_width, None, repeat_last=True)
+    dones, _ = _pad_right([e["dones"] for e in elems], states_width, 0)
+    return dict(
+        rewards=torch.tensor(rewards, dtype=torch.float32),
+        states_ixs=torch.tensor(states, dtype=torch.int32),
+        actions_ixs=torch.tensor(actions, dtype=torch.int32),
+        dones=torch.tensor(dones, dtype=torch.int32),
+    )
+
+
+class _ILQLStore(BaseRolloutStore):
+    """Offline ILQL data, built once: per-sample lists under `fields`,
+    collated to dataset-wide static widths."""
+
+    def __init__(self, **fields):
+        super().__init__()
+        self.fields = fields
+        self.history = fields["input_ids"]
+        self.actions_width = max(len(x) for x in fields["actions_ixs"])
+        self.states_width = max(len(x) for x in fields["states_ixs"])
+
+    def push(self, exps):
+        raise NotImplementedError("ILQL storage is built once from offline data")
+
+    def __getitem__(self, ix: int) -> Dict[str, Any]:
+        return {k: v[ix] for k, v in self.fields.items()}
+
+    def __len__(self) -> int:
+        return len(self.history)
+
+    def create_loader(self, batch_size: int, shuffle: bool = True, drop_last: bool = True,
+                      seed: int = 0) -> DataLoader:
+        """Batches in the order `epoch_shuffle_order(len, seed)` gives when
+        shuffled, the ragged tail dropped by default."""
+        return DataLoader(self, batch_size, collate_fn=self.collate, shuffle=shuffle, drop_last=drop_last,
+                          seed=seed)
+
+
+class ILQLRolloutStorage(_ILQLStore):
+    """Offline ILQL dataset for causal models: token ids, the return on the
+    final action, and the state / action indices into the sequence."""
+
+    def __init__(self, input_ids, attention_mask, rewards, states_ixs, actions_ixs, dones):
+        super().__init__(input_ids=input_ids, attention_mask=attention_mask, rewards=rewards,
+                         states_ixs=states_ixs, actions_ixs=actions_ixs, dones=dones)
+        self.seq_width = max(len(x) for x in input_ids)
+
+    def collate(self, elems: List[dict]) -> ILQLBatch:
+        ids, _ = _pad_right([e["input_ids"] for e in elems], self.seq_width, 0)
+        mask, _ = _pad_right([e["attention_mask"] for e in elems], self.seq_width, 0)
+        return ILQLBatch(
+            input_ids=torch.tensor(ids, dtype=torch.int32),
+            attention_mask=torch.tensor(mask, dtype=torch.int32),
+            **_ilql_index_fields(elems, self.actions_width, self.states_width),
+        )
+
+
+class ILQLSeq2SeqRolloutStorage(_ILQLStore):
+    """Offline ILQL dataset for encoder-decoder models: the encoder prompt,
+    the decoder rows ([decoder start] ++ output) and indices over decoder
+    positions."""
+
+    def __init__(self, input_ids, attention_mask, decoder_input_ids, rewards, states_ixs, actions_ixs, dones):
+        super().__init__(input_ids=input_ids, attention_mask=attention_mask, decoder_input_ids=decoder_input_ids,
+                         rewards=rewards, states_ixs=states_ixs, actions_ixs=actions_ixs, dones=dones)
+        self.enc_width = max(len(x) for x in input_ids)
+        self.dec_width = max(len(x) for x in decoder_input_ids)
+
+    def collate(self, elems: List[dict]) -> ILQLSeq2SeqBatch:
+        ids, _ = _pad_right([e["input_ids"] for e in elems], self.enc_width, 0)
+        mask, _ = _pad_right([e["attention_mask"] for e in elems], self.enc_width, 0)
+        dec, _ = _pad_right([e["decoder_input_ids"] for e in elems], self.dec_width, 0)
+        return ILQLSeq2SeqBatch(
+            input_ids=torch.tensor(ids, dtype=torch.int32),
+            attention_mask=torch.tensor(mask, dtype=torch.int32),
+            decoder_input_ids=torch.tensor(dec, dtype=torch.int32),
+            **_ilql_index_fields(elems, self.actions_width, self.states_width),
+        )

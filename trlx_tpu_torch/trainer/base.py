@@ -1,7 +1,8 @@
-"""Trainer base: model/optimizer setup, generation, evaluation and the
-per-step `learn()` loop (port of the parts of trlx_tpu.trainer.base that
-online PPO runs: `TPUBaseTrainer` and the `TPUOnlineTrainer` experience
-core).
+"""Trainer base: model/optimizer setup, generation (with the logits
+processor hook that ILQL's evaluations sample through), evaluation and
+the per-step `learn()` loop (port of the parts of trlx_tpu.trainer.base
+that the PPO, SFT, ILQL and RFT trainers run: `TPUBaseTrainer` and the
+`TPUOnlineTrainer` experience core).
 
 What the port does differently, and why:
 - Freezing. The reference masks the optimizer's UPDATES of frozen leaves
@@ -57,6 +58,7 @@ What the port does differently, and why:
 from __future__ import annotations
 
 import dataclasses
+import inspect
 import json
 import os
 import time
@@ -210,6 +212,7 @@ class TPUBaseTrainer(BaseRLTrainer):
         # the same generate() seam; off by default
         self._engine_cfg = GenEngineConfig.from_dict(getattr(config.method, "gen_engine", None))
         self._engine_fns: Dict[Tuple, Callable] = {}
+        self._warned_engine_fallback = False
 
         self.setup_model()
         self.freeze_parameters()
@@ -428,20 +431,38 @@ class TPUBaseTrainer(BaseRLTrainer):
     # generation
     # ------------------------------------------------------------------
 
+    def generation_logits_processor(self, **kwargs) -> Optional[Callable]:
+        """The sampler's logits hook `(hidden_last, logits_last) -> logits`,
+        or None. A subclass declares the kwargs it consumes (ILQL's `beta`):
+        `generate` passes those through, one scalar per call, and rejects
+        names that neither it nor `SamplerSettings` declares."""
+        return None
+
     def generate(self, input_ids, attention_mask=None, settings=None, **kwargs):
         """Sample continuations of left-padded prompts with the policy.
-        kwargs override SamplerSettings fields; HF generate kwargs the
-        sampler does not implement are dropped with a warning; anything
-        else is an error. Returns generate()'s dict plus `prompt_mask`."""
+        kwargs override SamplerSettings fields or reach the logits
+        processor (`generation_logits_processor`'s parameters, each a
+        scalar); HF generate kwargs the sampler does not implement are
+        dropped with a warning; anything else is an error. A logits
+        processor keeps the call on the static sampler (the decode engine
+        has no hook for it). Returns generate()'s dict plus `prompt_mask`."""
         settings = settings or self.generate_experience_settings
         fields = {f.name for f in dataclasses.fields(SamplerSettings)}
+        proc_fields = {name for name, p in inspect.signature(self.generation_logits_processor).parameters.items()
+                       if p.kind not in (inspect.Parameter.VAR_KEYWORD, inspect.Parameter.VAR_POSITIONAL)}
         dropped = set(kwargs) & HF_GEN_KWARGS_UNIMPLEMENTED
         if dropped:
             logger.warning("generate(): ignoring HF gen_kwargs this sampler does not implement: %s",
                            sorted(dropped))
-        unknown = set(kwargs) - fields - HF_GEN_KWARGS_UNIMPLEMENTED
+        unknown = set(kwargs) - fields - proc_fields - HF_GEN_KWARGS_UNIMPLEMENTED
         if unknown:
-            raise TypeError(f"generate() got kwargs {sorted(unknown)} that SamplerSettings does not accept")
+            raise TypeError(f"generate() got kwargs {sorted(unknown)} that neither SamplerSettings nor "
+                            f"{type(self).__name__}.generation_logits_processor accepts")
+        for k in set(kwargs) & proc_fields:
+            if not (kwargs[k] is None or np.isscalar(kwargs[k])):
+                raise TypeError(f"generate() kwarg {k}={kwargs[k]!r} must be a scalar: swept values are "
+                                "passed one per call, not as a list")
+        processor = self.generation_logits_processor(**{k: v for k, v in kwargs.items() if k in proc_fields})
         kwargs = {k: v for k, v in kwargs.items() if k in fields}
         if kwargs:
             settings = dataclasses.replace(settings, **kwargs)
@@ -450,11 +471,16 @@ class TPUBaseTrainer(BaseRLTrainer):
                 else torch.as_tensor(attention_mask, device=self.device)).to(torch.int32)
         with self._phase("generate"):
             if self.seq2seq:
-                out = generate_seq2seq(self.model.base, ids, mask, self.generator, settings)
+                out = generate_seq2seq(self.model.base, ids, mask, self.generator, settings,
+                                       logits_processor=processor)
             elif self._engine_cfg.enabled and self._engine_eligible():
                 out = self._engine_generate(ids, mask, settings)
             else:
-                out = generate(self.model.base, ids, mask, self.generator, settings)
+                if self._engine_cfg.enabled and not self._warned_engine_fallback:
+                    self._warned_engine_fallback = True
+                    logger.warning("method.gen_engine.enabled, but this run is outside the engine's envelope "
+                                   "(a causal LM without a logits processor): sampling on the static sampler")
+                out = generate(self.model.base, ids, mask, self.generator, settings, logits_processor=processor)
         return dict(out, prompt_mask=mask)
 
     def generate_eval(self, input_ids, attention_mask=None, **kwargs):
@@ -464,10 +490,12 @@ class TPUBaseTrainer(BaseRLTrainer):
 
     def _engine_eligible(self) -> bool:
         """The engine's envelope: a causal LM (never seq2seq, whose rollouts
-        take `generate_seq2seq`) without prompt or prefix adapters (the port
-        has no logits processor on this path, and one data group by
-        `check_ported`)."""
-        return not self.seq2seq and self.config.model.peft_config is None
+        take `generate_seq2seq`) without prompt or prefix adapters and
+        without a logits processor (the engine's step has no hook for it;
+        ILQL's advantage shaping would be lost), and one data group by
+        `check_ported`."""
+        return (not self.seq2seq and self.config.model.peft_config is None
+                and self.generation_logits_processor() is None)
 
     def _engine_spec(self, batch: int):
         """The engine spec for a call's batch width. With speculative

@@ -11,19 +11,24 @@ _ALIASES = {
     "nemoppotrainer": "tpuppotrainer",
     "acceleratesfttrainer": "tpusfttrainer",
     "nemosfttrainer": "tpusfttrainer",
+    "accelerateilqltrainer": "tpuilqltrainer",
+    "nemoilqltrainer": "tpuilqltrainer",
+    "acceleraterfttrainer": "tpurfttrainer",
 }
 
 
 def get_trainer(name: str) -> type:
     import trlx_tpu_torch.trainer as trainer_pkg
+    import trlx_tpu_torch.trainer.ilql  # noqa: F401
     import trlx_tpu_torch.trainer.ppo  # noqa: F401  (registration side effects)
+    import trlx_tpu_torch.trainer.rft  # noqa: F401
     import trlx_tpu_torch.trainer.sft  # noqa: F401
 
     key = _ALIASES.get(name.lower(), name.lower())
     if key not in trainer_pkg._TRAINERS:
         raise ValueError(
             f"Unknown trainer {name!r}; the port has {sorted(trainer_pkg._TRAINERS)} "
-            "(the other trainers are ROADMAP queue 6)"
+            "(GRPO and DPO are ROADMAP queue 6)"
         )
     return trainer_pkg._TRAINERS[key]
 
