@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive trlx_tpu_torch's rollout and training paths on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N] [--only fwd|paged|decode|bias|sft|ppo|ilql|rft]
+    python3 chip_smoke.py [--seed N] [--only fwd|paged|decode|bias|sft|ppo|ilql|rft|grpo|dpo]
 
 Builds the CUDA kernels from `trlx_tpu_torch/csrc` (into build/kernels/)
 and holds each kernel against its plain PyTorch version on the card: both
@@ -73,7 +73,18 @@ through the entry points a user calls:
 - RFT: `train.trainer="TPURFTTrainer"` at GPT-2-small widths over the
   byte vocabulary (16 prompts x 4 generations a round, 8 steps; each
   selection recomputed from the printed scores; one step against the
-  same references), then the randomwalks RFT runner (>= 0.85).
+  same references), then the randomwalks RFT runner (>= 0.85);
+- GRPO: `train.trainer="TPUGRPOTrainer"` at GPT-2-small widths over the
+  byte vocabulary (two cycles of 8 prompts x 8 samples, 16 steps, a full
+  frozen reference; the stored advantages recomputed from the printed
+  scores, the reference bit for bit the initial policy, the
+  advantage-weighted logprob change > 0; one step against the same
+  references), and one cycle through the decode engine;
+- DPO: `train(samples=[(prompt, chosen, rejected), ...])` with
+  `train.trainer="TPUDPOTrainer"` at GPT-2-small width (64 separable
+  pairs, 16 steps of 32 pairs stacked into 64-row forwards; the final
+  accuracy > 0.9, the margin grew, the reference frozen; one step on 256
+  pairs against the same references).
 
 Launch counters, zeroed before each path and read after it, show each
 path ran through its kernels. Then the kernels are timed at the paths'
@@ -82,7 +93,8 @@ train step and one engine call of each mode are profiled.
 
 `--only sft` runs the build and the supervised fine-tuning phases alone;
 `--only ppo` the build, the training path and the three PPO phases above;
-`--only ilql` and `--only rft` the build and the ILQL or RFT phases.
+`--only ilql`, `--only rft`, `--only grpo` and `--only dpo` the build and
+the ILQL, RFT, GRPO or DPO phases.
 `--only fwd` stops after the build, the flash forward's check and its
 kernel_time rows; `--only paged` after the build, the paged check and the
 paged kernel_time rows; `--only decode` after the build, the int8 decode
@@ -152,6 +164,24 @@ def nvidia_smi() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     )
     return res.stdout.strip().splitlines()[0]
+
+
+def timed(fn, reps: int = 3, warmup: bool = True) -> tuple:
+    """Wall seconds of `reps` synchronised calls of `fn` (after one
+    warm-up call unless `warmup` is off): (their median, the samples, the
+    last call's result)."""
+    import torch
+
+    if warmup:
+        fn()
+    samples = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        samples.append(time.perf_counter() - t0)
+    return statistics.median(samples), samples, out
 
 
 def time_ms(fn, reps: int = 30, warmup: int = 3) -> float:
@@ -370,6 +400,9 @@ def check_flash(gen) -> dict:
         # padded responses, at the experience pass's and the train step's shapes
         "ppo_both_pad": (64, 12, 12, TRAIN_LEN, TRAIN_LEN, 64, 0, "both", True),
         "ppo_both_pad_train": (32, 12, 12, TRAIN_LEN, TRAIN_LEN, 64, 0, "both", True),
+        # DPO's step (dpo_path): the chosen and rejected rows of 32 pairs
+        # stacked, right-padded, through the policy and the reference
+        "dpo_right_pad": (64, 12, 12, TRAIN_LEN, TRAIN_LEN, 64, 0, "right", True),
     }
     counters = fwd_counters()
     worst = {"short": 0.0, "long": 0.0}
@@ -424,6 +457,8 @@ BWD_CASES = {  # name: (B, H, Hkv, T, S, q_offset, pad, causal)
     "sft_right_pad": (32, 12, 12, 64, 64, 0, "right", True),
     # the train steps of PPO rows cut at a stop string: padded prompts, padded responses
     "ppo_both_pad": (32, 12, 12, TRAIN_LEN, TRAIN_LEN, 0, "both", True),
+    # DPO's step: 32 pairs' chosen and rejected rows stacked, right-padded
+    "dpo_right_pad": (64, 12, 12, TRAIN_LEN, TRAIN_LEN, 0, "right", True),
 }
 
 
@@ -464,7 +499,9 @@ def check_flash_bwd(gen) -> dict:
     at every slot; right- and both-padded: one real token). Each case runs the route
     the wrapper picks, and the launch counters must show that route and no
     other; a case the fused kernel takes also runs the long route, and the
-    fused kernel's results must be bit-identical on a second call."""
+    fused kernel's results must be bit-identical on a second call. Returns
+    the worst max |error| of each kernel, and under "by_case" each case's
+    own (the largest over its kernels' dq, dk and dv)."""
     import torch
 
     from trlx_tpu_torch.ops import flash_attention as fa
@@ -478,7 +515,7 @@ def check_flash_bwd(gen) -> dict:
         return ((a.float() - b).abs().max() / b.abs().max().clamp(min=1.0)).item()
 
     counters = {"fused": fa.flash_attention_bwd, "dq": fa.flash_attention_dq, "dkv": fa.flash_attention_dkv}
-    worst = {"rel": 0.0, "fused": 0.0, "dq": 0.0, "dkv": 0.0}  # max |error| of each kernel's outputs
+    worst = {"rel": 0.0, "fused": 0.0, "dq": 0.0, "dkv": 0.0, "by_case": {}}  # max |error| of each kernel's outputs
     for name, (B, H, Hkv, T, S, off, pad, causal) in BWD_CASES.items():
         q, k, v, mask, out, m, l, g = flash_bwd_inputs(gen, B, H, Hkv, T, S, off, pad, causal)
         scale = 64 ** -0.5 if causal else 1.0
@@ -517,6 +554,7 @@ def check_flash_bwd(gen) -> dict:
             worst["fused"] = max(worst["fused"], *abs_err["fused"].values())
         worst["dq"] = max(worst["dq"], abs_err["long"]["dq"])
         worst["dkv"] = max(worst["dkv"], abs_err["long"]["dk"], abs_err["long"]["dv"])
+        worst["by_case"][name] = {r: max(e.values()) for r, e in abs_err.items()}
     return worst
 
 
@@ -1089,15 +1127,8 @@ def engine_path(seed: int) -> dict:
     # wall time (median of 3 after the gated run) and one traced run, for
     # each mode on the kernel path
     for mode, kw in modes.items():
-        samples = []
         with torch.no_grad():
-            for _ in range(3):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                out = run("pallas", kw)
-                torch.cuda.synchronize()
-                samples.append(time.perf_counter() - t0)
-        wall = statistics.median(samples)
+            wall, samples, out = timed(lambda: run("pallas", kw), warmup=False)
         emit("engine_time", mode=mode, wall_s=wall, samples_s=samples, real_tokens=out["gen_stats"]["real_tokens"],
              tokens_per_s=out["gen_stats"]["real_tokens"] / wall, decode_steps=out["gen_stats"]["decode_steps"],
              occupancy=out["gen_stats"]["occupancy"])
@@ -1266,15 +1297,7 @@ def main_path(seed: int, shapes: dict) -> dict:
     walls, outs = {}, {}
     with torch.no_grad():
         for name, fn in (("rollout", rollout), ("experience", score)):
-            fn()
-            samples = []
-            for _ in range(3):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                outs[name] = fn()
-                torch.cuda.synchronize()
-                samples.append(time.perf_counter() - t0)
-            walls[name] = statistics.median(samples)
+            walls[name], _, outs[name] = timed(fn)
     new_tokens = int(outs["rollout"]["response_mask"].sum().item())
     emit("rollout_time", rollout_s=walls["rollout"], new_tokens=new_tokens,
          tokens_per_s=new_tokens / walls["rollout"], experience_s=walls["experience"],
@@ -1349,7 +1372,7 @@ def train_path(seed: int, shapes: dict):
     return trainer, launches
 
 
-def train_path_launches(L: int, cycles: int, decode_steps: list) -> dict:
+def train_path_launches(L: int, cycles: int, decode_steps: list, steps: int = TRAIN_STEPS) -> dict:
     """The training kernels' launches on train_path's workload: every
     sampler call (a rollout a cycle, an eval at each end) prefills through
     the forward kernel; each experience chunk runs the policy and the full
@@ -1357,10 +1380,10 @@ def train_path_launches(L: int, cycles: int, decode_steps: list) -> dict:
     every layer, the forward on the short route and the backward on the
     fused one (T, S <= 128); each decode step of every sampler call one
     short-route decode launch a layer (a 128-slot cache)."""
-    n_fwd = L * ((cycles + 2) + 2 * cycles + TRAIN_STEPS)
+    n_fwd = L * ((cycles + 2) + 2 * cycles + steps)
     n_decode = L * sum(decode_steps)
     return {"flash_fwd": n_fwd, "flash_fwd_short": n_fwd, "flash_fwd_long": 0,
-            "flash_bwd": L * TRAIN_STEPS, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+            "flash_bwd": L * steps, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
             "decode": n_decode, "decode_short": n_decode, "decode_long": 0}
 
 
@@ -1976,16 +1999,8 @@ def value_branch_cost(trainer) -> None:
         for mode in ("branch", "no_branch"):
             trainer.model.value_branch_at = at if mode == "branch" else None
             for name, fn, grad in (("experience", experience, False), ("train_step", step, True)):
-                samples = []
-                for i in range(4):
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                    with torch.set_grad_enabled(grad):
-                        fn()
-                    torch.cuda.synchronize()
-                    if i:
-                        samples.append(time.perf_counter() - t0)
-                wall = statistics.median(samples)
+                with torch.set_grad_enabled(grad):
+                    wall, _, _ = timed(fn)
                 out[f"{name}_{mode}"] = {"wall_ms": wall * 1e3,
                                          "device_ms": profile_phase(f"{name}_{mode}", fn, wall, grad=grad)}
     finally:
@@ -2019,19 +2034,11 @@ def ppo_phases(seed: int, shapes: dict, train_split: list) -> dict:
 def train_step_profile(trainer, batch, name: str = "train_step") -> None:
     """Wall time of one optimizer step (median of 3 after a warm-up) and
     one traced step: device busy and idle share, the largest kernels."""
-    import torch
-
-    samples = []
-    for i in range(4):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        trainer.train_step(batch)
-        torch.cuda.synchronize()
-        if i:
-            samples.append(time.perf_counter() - t0)
-    wall = statistics.median(samples)
+    wall, samples, _ = timed(lambda: trainer.train_step(batch))
     if hasattr(batch, "query_tensors"):  # a rollout minibatch: [query, response] lengths
         rows, seq = len(batch.query_tensors), [batch.query_tensors.shape[1], batch.response_tensors.shape[1]]
+    elif hasattr(batch, "chosen_ids"):  # a DPO batch: the chosen and rejected rows, stacked
+        rows, seq = 2 * batch.chosen_ids.shape[0], batch.chosen_ids.shape[1]
     else:  # an SFT batch
         rows, seq = batch.input_ids.shape
     emit(f"{name}_time", wall_ms=wall * 1e3, batch=rows, seq=seq, samples_ms=[x * 1e3 for x in samples])
@@ -2319,15 +2326,7 @@ def randomwalks_path() -> None:
     def rollout():
         return ppo.generate(batch.input_ids, batch.attention_mask)
 
-    samples = []
-    for i in range(4):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        rollout()
-        torch.cuda.synchronize()
-        if i:
-            samples.append(time.perf_counter() - t0)
-    profile_phase("randomwalks_rollout", rollout, statistics.median(samples))
+    profile_phase("randomwalks_rollout", rollout, timed(rollout)[0])
 
 
 # examples/ppo_sentiments_t5.py:17-59 at T5-base width: batch 12, chunk 12,
@@ -2511,15 +2510,7 @@ def t5_path(seed: int, shapes: dict, bias_shapes: dict) -> dict:
     with torch.no_grad():
         for name, fn in (("t5_rollout", lambda: rollout(policy)),
                          ("t5_experience", lambda: experience(policy, ref, dec, dec_mask))):
-            fn()
-            samples = []
-            for _ in range(3):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                fn()
-                torch.cuda.synchronize()
-                samples.append(time.perf_counter() - t0)
-            walls[name] = statistics.median(samples)
+            walls[name], samples, _ = timed(fn)
             emit(f"{name}_time", wall_s=walls[name], samples_s=samples, batch=B, prompt_len=T5_PROMPT_LEN,
                  decoder_len=T, new_tokens=int(out["response_mask"].sum()))
             # the rollout's 64 decode steps: the host trace is slow to gather and adds nothing to the device sums
@@ -2836,15 +2827,7 @@ def ilql_path(seed: int, shapes: dict):
     for name, fn in (("ilql_eval_processor", lambda: trainer.generate_eval(ids, mask, beta=1)),
                      ("ilql_eval_no_processor",
                       lambda: generate(trainer.model.base, ids, mask, trainer.generator, trainer.generate_settings))):
-        fn()
-        samples_s = []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            samples_s.append(time.perf_counter() - t0)
-        times[name] = statistics.median(samples_s)
+        times[name] = timed(fn)[0]
         prof[name] = {}
         profile_phase(name, fn, times[name], host_ops=False, out=prof[name])
     added = prof["ilql_eval_processor"]["device_busy_ms"] - prof["ilql_eval_no_processor"]["device_busy_ms"]
@@ -3150,6 +3133,561 @@ def rft_phases(seed: int, shapes: dict) -> dict:
     return {"rft": launches}
 
 
+# grpo_path: GPT-2-small widths over the byte vocabulary (the reward reads
+# the decoded strings, and the byte tokenizer drops every id >= 256), 32
+# distinct prompts; a chunk is 8 prompts x group_size 8 = 64 sampled rows
+# of 32 + 32 tokens, one chunk a cycle, 4 GRPO epochs of batch 32, two
+# cycles = 16 optimizer steps (grpo_engine_path: one cycle)
+GRPO_PROMPTS = [f"{TRAIN_PROMPTS[i % 8]} [{i}]" for i in range(32)]
+GRPO_GROUP, GRPO_CHUNK_PROMPTS, GRPO_EPOCHS = 8, 8, 4
+GRPO_ROLLOUTS = GRPO_GROUP * GRPO_CHUNK_PROMPTS
+GRPO_CYCLE_STEPS = GRPO_EPOCHS * GRPO_ROLLOUTS // TRAIN_BATCH
+GRPO_STEPS = 2 * GRPO_CYCLE_STEPS
+GRPO_REFERENCE_ROLLOUTS = 256  # 8 minibatches of independent rows for grpo_reference
+# the share of groups whose rewards are all equal (zero advantage), at most
+GRPO_DEGENERATE_MAX = 0.5
+# dpo_path: GPT-2 small at full width, 64 distinct seeded pairs of a varied
+# prompt, a run of one letter (chosen) and a run of another (rejected),
+# right-padded to 64, batch 32 (64 stacked rows a forward), beta 0.5, 16
+# steps at lr 1e-6 (at 1e-4 the first step alone moved every margin to ~190
+# and the loss to 0.0 in fp32), one sampled evaluation of 32 prompts x 32
+# tokens at each end; dpo_reference on 256 such pairs
+DPO_PAIRS, DPO_REFERENCE_PAIRS, DPO_STEPS, DPO_BETA, DPO_LR = 64, 256, 16, 0.5, 1e-6
+DPO_ACCURACY_MIN = 0.9
+
+
+def grpo_reward_fn(record: list = None):
+    """A reward that varies within a group: a quarter of the number of
+    distinct lowercase letters in the output (at most 6.5, inside the
+    reward clip). Every call's scores are appended to `record`."""
+
+    def reward(samples, prompts, outputs, **kw):
+        scores = [0.25 * len({c for c in o if "a" <= c <= "z"}) for o in outputs]
+        if record is not None:
+            record.append(scores)
+        return scores
+
+    return reward
+
+
+def grpo_config(seed: int, attention_impl="pallas", kv_cache_quant="int8_kernel", compute_dtype="bfloat16", **method):
+    from trlx_tpu_torch.data.default_configs import default_grpo_config
+
+    transformer = dict(GPT2_SMALL, vocab_size=STOP_VOCAB, attention_impl=attention_impl, kv_cache_quant=kv_cache_quant)
+    return default_grpo_config().evolve(
+        train=dict(batch_size=TRAIN_BATCH, total_steps=GRPO_STEPS, eval_interval=10_000,
+                   checkpoint_interval=10_000, seq_length=TRAIN_LEN, epochs=10_000, tracker=None,
+                   compute_dtype=compute_dtype, seed=seed),
+        model=dict(model_path="random", num_layers_unfrozen=-1, model_extra_configs={"transformer": transformer}),
+        tokenizer=dict(tokenizer_path="byte"),
+        method=dict(dict(num_rollouts=GRPO_ROLLOUTS, chunk_size=GRPO_ROLLOUTS, group_size=GRPO_GROUP,
+                         grpo_epochs=GRPO_EPOCHS,
+                         gen_kwargs=dict(max_new_tokens=TRAIN_NEW_TOKENS, top_k=0, top_p=1.0, do_sample=True)),
+                    **method),
+    )
+
+
+def host_group_advantages(scores) -> "np.ndarray":
+    """The group z-scores recomputed here in float64: (r - mean) / (std +
+    1e-6) with the population std, exactly 0 for a group whose std <= 1e-6."""
+    import numpy as np
+
+    g = np.asarray(scores, np.float64).reshape(-1, GRPO_GROUP)
+    centered = g - g.mean(axis=1, keepdims=True)
+    std = np.sqrt((centered ** 2).mean(axis=1, keepdims=True))
+    return np.where(std > 1e-6, centered / (std + 1e-6), 0.0).reshape(-1)
+
+
+def check_grpo_store(history, scores, phase: str) -> dict:
+    """The stored advantages against `host_group_advantages` of the chunk's
+    recorded scores (atol 1e-6, degenerate groups exactly 0), and each
+    group's rows one prompt. Returns the groups' figures."""
+    import numpy as np
+
+    want = host_group_advantages(scores)
+    got = history.advantages.double().cpu().numpy()
+    degenerate = np.asarray(scores, np.float64).reshape(-1, GRPO_GROUP).std(axis=1) <= 1e-6
+    q = history.query_tensors.cpu().numpy().reshape(-1, GRPO_GROUP, history.query_tensors.shape[1])
+    figures = dict(rows=len(got), max_abs_err=float(np.abs(got - want).max()), groups=len(degenerate),
+                   degenerate_groups=int(degenerate.sum()), degenerate_share=float(degenerate.mean()),
+                   group_reward_std_mean=float(np.asarray(scores).reshape(-1, GRPO_GROUP).std(axis=1).mean()))
+    emit(phase, **figures)
+    if not np.allclose(got, want, rtol=0, atol=1e-6):
+        raise AssertionError(f"stored advantages differ from the host's z-scores by {figures['max_abs_err']}")
+    if np.any(got.reshape(-1, GRPO_GROUP)[degenerate] != 0):
+        raise AssertionError("a degenerate group's advantages are not exactly 0")
+    if not (q == q[:, :1]).all():
+        raise AssertionError("a group's rows do not share one prompt")
+    if figures["degenerate_share"] >= GRPO_DEGENERATE_MAX:
+        raise AssertionError(f"{figures['degenerate_share']:.2%} of the groups are degenerate "
+                             f"(>= {GRPO_DEGENERATE_MAX:.0%}): the reward does not vary within a group")
+    return figures
+
+
+def grpo_response_logprobs(model, batch, pad: int):
+    """The policy's logprobs of a GRPO batch's response tokens, as its loss
+    computes them (no graph)."""
+    import torch
+
+    from trlx_tpu_torch.ops.common import logprobs_of_labels
+
+    P, N = batch.query_tensors.shape[1], batch.response_tensors.shape[1]
+    tokens = torch.cat([batch.query_tensors, batch.response_tensors], dim=1)
+    mask = (tokens != pad).to(torch.int32)
+    mask[:, P:] = torch.maximum(mask[:, P:], batch.response_mask.to(torch.int32))
+    with torch.no_grad():
+        hidden = model(tokens, mask, compute_logits=False)["hidden_states"][:, P - 1:P + N - 1]
+        return logprobs_of_labels(model.logit_project_fn()(hidden), tokens[:, P:])
+
+
+def learning_signal(model, batch, pad: int) -> float:
+    """sum over rows of advantage x (new - stored response logprob sum):
+    positive when the steps moved the policy toward the rows its group
+    ranked above their mean."""
+    new = grpo_response_logprobs(model, batch, pad)
+    mask = batch.response_mask.float()
+    return (batch.advantages.double() * ((new - batch.logprobs) * mask).sum(dim=1).double()).sum().item()
+
+
+def grpo_experience_cost(trainer, batch, seed: int) -> None:
+    """One GRPO experience pass (the policy and the full reference copy
+    over 64 rollouts) against PPO's hydra pass at the same widths and rows
+    (`forward_train` with the frozen top two blocks and the value head):
+    wall time, device time and idle share of each."""
+    import torch
+
+    from trlx_tpu_torch.models.wrappers import CausalLMWithValueHead
+
+    pad = trainer.generate_settings.pad_token_id
+    P = batch.query_tensors.shape[1]
+    tokens = torch.cat([batch.query_tensors, batch.response_tensors], dim=1)
+    mask = (tokens != pad).to(torch.int32)
+    mask[:, P:] = torch.maximum(mask[:, P:], batch.response_mask.to(torch.int32))
+    cfg = trainer.model.cfg
+    hydra = CausalLMWithValueHead(cfg, branch_at=cfg.n_layer - KNOBS_UNFROZEN, device="cuda").init_params(
+        torch.Generator().manual_seed(seed))
+    branch = hydra.make_ref_params()
+    out = {}
+    for name, fn in (("grpo_experience", lambda: trainer.experience_forward(tokens, mask, batch.response_mask)),
+                     ("ppo_hydra_experience", lambda: hydra.forward_train(branch, tokens, mask, compute_logits=True)),
+                     ("policy_forward_only", lambda: trainer.model(tokens, mask, compute_logits=True))):
+        with torch.no_grad():
+            wall = timed(fn)[0]
+            out[name] = {"wall_ms": wall * 1e3, "device_ms": profile_phase(name, fn, wall)}
+    emit("grpo_experience_cost", rows=tokens.shape[0], seq=tokens.shape[1], vocab=cfg.vocab_size, **out,
+         full_reference_over_hydra_device=out["grpo_experience"]["device_ms"] / out["ppo_hydra_experience"]["device_ms"])
+    del hydra, branch
+
+
+def grpo_path(seed: int, shapes: dict):
+    """`trlx_tpu_torch.train(reward_fn=..., prompts=...)` with
+    train.trainer TPUGRPOTrainer at GPT-2-small widths over the byte
+    vocabulary (random weights from the seed, bf16 compute / fp32 params,
+    a full frozen reference copy, the flash and int8 decode kernels):
+    evaluate, two cycles of one 64-row chunk (8 prompts x 8), 16 optimizer
+    steps, evaluate. Gates: train_path's exact launch counts (two forwards
+    an experience chunk: the policy and the reference); each chunk's
+    prompts the next 8 of the stream's order, each tiled 8 times; the
+    stored advantages equal to the host's z-scores of the recorded scores;
+    finite losses; every tensor moved and the reference bit for bit the
+    initial policy (its checksum too); the first cycle's advantage-weighted
+    logprob change after that cycle's steps > 0. Then the experience
+    pass's cost against PPO's hydra pass, and one train step's profile."""
+    import torch
+
+    import trlx_tpu_torch
+    from trlx_tpu_torch.models.wrappers import CausalLM
+    from trlx_tpu_torch.pipeline import epoch_shuffle_order
+    from trlx_tpu_torch.trainer.grpo import TPUGRPOTrainer
+
+    record, chunks, snap = [], [], {}
+    next_batch, post_epoch = TPUGRPOTrainer._next_prompt_batch, TPUGRPOTrainer.post_epoch_callback
+
+    def batch_spy(self):
+        batch = next_batch(self)
+        chunks.append((self._prompt_batches_consumed, batch.input_ids.clone()))
+        return batch
+
+    def epoch_spy(self):
+        if not snap:  # the first cycle's store and the weights its steps left
+            snap["store"] = self.store.history.map(lambda x: x.clone())
+            snap["state"] = {k: v.clone() for k, v in self.model.base.state_dict().items()}
+        return post_epoch(self)
+
+    counters = train_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    TPUGRPOTrainer._next_prompt_batch, TPUGRPOTrainer.post_epoch_callback = batch_spy, epoch_spy
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start_bytes = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        with forward_shapes(shapes, "grpo"), sampler_calls() as calls:
+            trainer = trlx_tpu_torch.train(reward_fn=grpo_reward_fn(record), prompts=GRPO_PROMPTS,
+                                           config=grpo_config(seed))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - start_bytes
+    finally:
+        TPUGRPOTrainer._next_prompt_batch, TPUGRPOTrainer.post_epoch_callback = next_batch, post_epoch
+    launches = {name: fn.launches for name, fn in counters.items()}
+    L = trainer.model.cfg.n_layer
+    decode_steps = [c["decode_steps"] for c in calls]
+    expect = train_path_launches(L, 2, decode_steps, GRPO_STEPS)
+    losses = [st["losses/total_loss"] for _, st in trainer.stats_history if "losses/total_loss" in st]
+    grpo_stats = [{k: st[k] for k in ("grpo/group_reward_std", "grpo/zero_adv_groups", "rollout_scores/mean",
+                                      "policy/sqrt_kl")} for _, st in trainer.stats_history if "grpo/zero_adv_groups" in st]
+    rollout_scores = [s for s in record if len(s) == GRPO_ROLLOUTS]
+    tok = trainer.tokenizer
+    order = epoch_shuffle_order(len(GRPO_PROMPTS), trainer.config.train.seed)
+    prompts_ok = []
+    for i, (cursor, ids) in enumerate(chunks):
+        texts = tok.batch_decode(ids.tolist())
+        want = [GRPO_PROMPTS[j] for j in order[GRPO_CHUNK_PROMPTS * i:GRPO_CHUNK_PROMPTS * (i + 1)]]
+        prompts_ok.append(cursor == i + 1 and texts == [p for p in want for _ in range(GRPO_GROUP)])
+    emit("grpo_path", wall_s=wall, launches=launches, expected=expect, iter_count=trainer.iter_count,
+         sampler_calls=len(calls), decode_steps=decode_steps, losses=losses, grpo_stats=grpo_stats,
+         chunks=len(chunks), chunk_prompts_in_stream_order=prompts_ok, cycle_seconds=cycle_split(trainer),
+         peak_memory_above_start_bytes=peak, lr=trainer.config.optimizer.kwargs["lr"])
+    if len(losses) != GRPO_STEPS or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"expected {GRPO_STEPS} finite losses, got {losses}")
+    if len(calls) != 4 or {k: launches[k] for k in expect} != expect:
+        raise AssertionError(f"launch counts {launches} != expected {expect} ({len(calls)} sampler calls)")
+    if len(chunks) != 2 or not all(prompts_ok):
+        raise AssertionError(f"the chunks' prompts are not the stream's next 8, each tiled 8 times: {prompts_ok}")
+    if len(rollout_scores) != 2:
+        raise AssertionError(f"expected 2 rollout reward calls of {GRPO_ROLLOUTS} rows, got {len(rollout_scores)}")
+    check_grpo_store(snap["store"], rollout_scores[0], "grpo_store_cycle_1")
+    check_grpo_store(trainer.store.history, rollout_scores[1], "grpo_store_cycle_2")
+    check_params_moved(trainer, seed, "grpo_params")
+    fresh = CausalLM(trainer.model.cfg, device="cuda").init_params(torch.Generator().manual_seed(seed))
+    checksums = {"reference": weights_checksum(trainer.ref_params), "initial_policy": weights_checksum(fresh.base),
+                 "policy": weights_checksum(trainer.model.base)}
+    after_cycle_1 = CausalLM(trainer.model.cfg, device="cuda")
+    after_cycle_1.base.load_state_dict(snap.pop("state"))
+    pad = trainer.generate_settings.pad_token_id
+    signal = {"cycle_1": learning_signal(after_cycle_1, snap["store"], pad),
+              "cycle_2": learning_signal(trainer.model, trainer.store.history, pad)}
+    emit("grpo_learning_signal", weights_checksum=checksums, advantage_weighted_logprob_change=signal)
+    del fresh, after_cycle_1
+    if checksums["reference"] != checksums["initial_policy"]:
+        raise AssertionError(f"the reference's checksum moved: {checksums}")
+    if not signal["cycle_1"] > 0:
+        raise AssertionError(f"the first cycle's advantage-weighted logprob change is {signal['cycle_1']} <= 0")
+
+    batch = trainer.store[torch.arange(GRPO_ROLLOUTS, device="cuda")]
+    grpo_experience_cost(trainer, batch, seed)
+    train_step_profile(trainer, trainer.store[torch.arange(TRAIN_BATCH, device="cuda")], "grpo_train_step")
+    return trainer, launches
+
+
+def engine_schedule(lengths: list, slots: int) -> tuple:
+    """(refill events, decode steps) of the engine's lane schedule without
+    speculative decoding, replayed on the host from each queued row's
+    response length: while a lane is free and rows are queued, one refill
+    event prefills the next rows into every free lane (its first token
+    comes from the prefill); each decode step gives every live lane one
+    token; a lane frees when its row has all its tokens. A row of one token
+    never takes a decode step."""
+    left = [0] * slots  # decode steps each lane still owes its row
+    queued, refills, steps = list(lengths), 0, 0
+    while True:
+        active, free = any(left), [i for i, n in enumerate(left) if n == 0]
+        if not active and not (free and queued):
+            return refills, steps
+        if free and queued:
+            refills += 1
+            for i in free[:len(queued)]:
+                left[i] = queued.pop(0) - 1
+            if not active and not any(left):
+                continue
+        left = [max(n - 1, 0) for n in left]
+        steps += 1
+
+
+def grpo_engine_path(seed: int, shapes: dict) -> dict:
+    """grpo_path's workload for one cycle (8 steps) with rollouts and
+    evaluations through the decode engine: 32 slots, 16-token int8 pages,
+    the paged kernel, no speculative decoding. Gates: each engine call's
+    prefills (counted by the temporary caches they make) and decode steps
+    equal `engine_schedule`'s replay of its lane schedule from the rows'
+    response lengths; the paged launches == n_layer x the decode steps,
+    all on the short route; the flash forward's == n_layer x (the
+    prefills + the chunk's two experience forwards + the steps), the
+    backward's == n_layer x the steps, no int8 decode launch; the stored
+    advantages against the host's z-scores; finite losses. Then the
+    engine's real tokens/s and its idle share on one rollout chunk."""
+    import torch
+
+    import trlx_tpu_torch
+    from trlx_tpu_torch.models.transformer import TransformerLM
+    from trlx_tpu_torch.trainer.base import TPUBaseTrainer
+
+    record, engine_calls, prefills, schedule = [], [], [], []
+    engine_generate, init_cache = TPUBaseTrainer._engine_generate, TransformerLM.init_cache
+
+    def counted(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = len(prefills)
+        out = engine_generate(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        engine_calls.append((time.perf_counter() - t0, out["gen_stats"]))
+        lengths = out["response_mask"].sum(dim=1).tolist()
+        schedule.append({"prefills": len(prefills) - n, "decode_steps": out["gen_stats"]["decode_steps"],
+                         "replayed": engine_schedule(lengths, min(ENGINE_TRAIN["slots"], len(lengths)))})
+        return out
+
+    def cache_spy(self, *args, **kwargs):  # one temporary cache a prefill
+        prefills.append(args[0])
+        return init_cache(self, *args, **kwargs)
+
+    counters = {**train_counters(), **paged_counters()}
+    for fn in counters.values():
+        fn.launches = 0
+    config = grpo_config(seed, gen_engine=dict(ENGINE_TRAIN, spec_decode=False)).evolve(
+        train=dict(total_steps=GRPO_CYCLE_STEPS))
+    TPUBaseTrainer._engine_generate, TransformerLM.init_cache = counted, cache_spy
+    try:
+        t0 = time.perf_counter()
+        with forward_shapes(shapes, "grpo_engine"):
+            trainer = trlx_tpu_torch.train(reward_fn=grpo_reward_fn(record), prompts=GRPO_PROMPTS, config=config)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        TPUBaseTrainer._engine_generate, TransformerLM.init_cache = engine_generate, init_cache
+    launches = {name: fn.launches for name, fn in counters.items()}
+    L = trainer.model.cfg.n_layer
+    steps = sum(g["decode_steps"] for _, g in engine_calls)
+    n_fwd = L * (len(prefills) + 2 + GRPO_CYCLE_STEPS)
+    expect = {"flash_fwd": n_fwd, "flash_fwd_short": n_fwd, "flash_fwd_long": 0,
+              "flash_bwd": L * GRPO_CYCLE_STEPS, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+              "decode": 0, "decode_short": 0, "decode_long": 0,
+              "paged": L * steps, "paged_short": L * steps, "paged_long": 0}
+    losses = [st["losses/total_loss"] for _, st in trainer.stats_history if "losses/total_loss" in st]
+    tokens_per_s = [g["real_tokens"] / s for s, g in engine_calls]
+    emit("grpo_engine_path", wall_s=wall, launches=launches, expected=expect, iter_count=trainer.iter_count,
+         engine_calls=len(engine_calls), prefills=len(prefills), decode_steps=steps, schedule=schedule, losses=losses,
+         engine_seconds=[s for s, _ in engine_calls], engine_real_tokens=[g["real_tokens"] for _, g in engine_calls],
+         engine_real_tokens_per_s=tokens_per_s, cycle_seconds=cycle_split(trainer),
+         oom_truncated=sum(g["oom_truncated"] for _, g in engine_calls),
+         unserved=sum(g["unserved"] for _, g in engine_calls))
+    if len(losses) != GRPO_CYCLE_STEPS or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"expected {GRPO_CYCLE_STEPS} finite losses, got {losses}")
+    if len(engine_calls) != 3 or {k: launches[k] for k in expect} != expect:
+        raise AssertionError(f"launch counts {launches} != expected {expect} ({len(engine_calls)} engine calls)")
+    if any((c["prefills"], c["decode_steps"]) != tuple(c["replayed"]) for c in schedule):
+        raise AssertionError(f"the engine's prefills and decode steps differ from its lane schedule's: {schedule}")
+    if any(g["oom_truncated"] or g["unserved"] for _, g in engine_calls):
+        raise AssertionError("the engine's page pool ran out")
+    rollout_scores = [s for s in record if len(s) == GRPO_ROLLOUTS]
+    check_grpo_store(trainer.store.history, rollout_scores[-1], "grpo_engine_store")
+
+    # the engine alone on one rollout chunk: real tokens/s and idle share
+    batch = trainer._next_prompt_batch()
+    ids, mask = batch.input_ids.cuda(), batch.attention_mask.cuda()
+    real = []
+
+    def rollout():
+        real.append(trainer.generate(ids, mask)["gen_stats"]["real_tokens"])
+
+    wall_chunk = timed(rollout, reps=2)[0]
+    busy = profile_phase("grpo_engine_rollout", rollout, wall_chunk, host_ops=False)
+    emit("grpo_engine_rollout", wall_ms=wall_chunk * 1e3, real_tokens=real[-1],
+         real_tokens_per_s=real[-1] / wall_chunk, device_busy_ms=busy, device_idle_share=1 - busy / (wall_chunk * 1e3))
+    del trainer
+    torch.cuda.empty_cache()
+    return launches
+
+
+def grpo_reference(trainer, seed: int) -> None:
+    """`grad_reference` over the GRPO loss: a fresh store of
+    GRPO_REFERENCE_ROLLOUTS rollouts from the trained policy (its
+    advantages from its own groups' scores), cut by two shuffles into
+    minibatches of 32, one step three ways (the kernel path, the plain bf16
+    and fp32 paths). Outputs: the response tokens' logprobs and the loss's
+    two terms (`policy_loss`, `kl_loss`)."""
+    import torch
+
+    trainer.store.clear_history()
+    trainer.make_experience(GRPO_REFERENCE_ROLLOUTS, trainer.iter_count)
+    pad = trainer.generate_settings.pad_token_id
+
+    def step(t, batch):
+        loss, stats = t.loss(batch)
+        loss.backward()
+        real = batch.response_mask.bool()
+        lp = grpo_response_logprobs(t.model, batch, pad)
+        terms = [stats[k].detach().float().expand(real.shape) for k in ("losses/policy_loss", "losses/kl_loss")]
+        return loss, (lp.float(), *terms), real
+
+    batches = [b for s in (seed, seed + 1)
+               for b in trainer.store.create_loader(TRAIN_BATCH, shuffle=True, drop_last=True, seed=s)]
+    grad_reference(trainer, {"plain_bf16": grpo_config(seed, attention_impl="xla", kv_cache_quant="int8"),
+                             "fp32": grpo_config(seed, attention_impl="xla", kv_cache_quant=None,
+                                                 compute_dtype="float32")},
+                   batches, step, ("logprobs", "policy_loss", "kl_loss"), "grpo_reference",
+                   reward_fn=grpo_reward_fn())
+
+
+def dpo_pairs(seed: int, n: int, flip_share: float = 0.0) -> list:
+    """`n` distinct (prompt, chosen, rejected) byte triples, separable as
+    tests/test_dpo.py's set: a varied prompt, then a run of one letter
+    (chosen) or of another (rejected), 16-48 long (cut at 64 tokens). A
+    `flip_share` of the pairs (drawn from the seed) swap the two."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    pairs = []
+    for i in range(n):
+        words = " ".join(rng.choice(SFT_WORDS, size=rng.integers(1, 4)))
+        prompt = f"{TRAIN_PROMPTS[i % 8]} {words} ({i}):"
+        chosen, rejected = " " + "a" * int(rng.integers(16, 49)), " " + "z" * int(rng.integers(16, 49))
+        pairs.append((prompt, rejected, chosen) if rng.random() < flip_share else (prompt, chosen, rejected))
+    return pairs
+
+
+def dpo_config(seed: int, attention_impl="pallas", kv_cache_quant="int8_kernel", compute_dtype="bfloat16"):
+    from trlx_tpu_torch.data.default_configs import default_dpo_config
+
+    transformer = dict(GPT2_SMALL, attention_impl=attention_impl, kv_cache_quant=kv_cache_quant)
+    return default_dpo_config().evolve(
+        train=dict(batch_size=TRAIN_BATCH, total_steps=DPO_STEPS, eval_interval=10_000,
+                   checkpoint_interval=10_000, seq_length=TRAIN_LEN, epochs=10_000, tracker=None,
+                   compute_dtype=compute_dtype, seed=seed),
+        model=dict(model_path="random", num_layers_unfrozen=-1, model_extra_configs={"transformer": transformer}),
+        tokenizer=dict(tokenizer_path="byte"),
+        optimizer=dict(kwargs=dict(lr=DPO_LR)),
+        scheduler=dict(kwargs=dict(eta_min=DPO_LR)),
+        method=dict(beta=DPO_BETA, gen_kwargs=dict(max_new_tokens=TRAIN_NEW_TOKENS, top_k=0, top_p=1.0,
+                                                    do_sample=True)),
+    )
+
+
+def dpo_path(seed: int, shapes: dict):
+    """`trlx_tpu_torch.train(samples=[(prompt, chosen, rejected), ...])`
+    with train.trainer TPUDPOTrainer at GPT-2-small width (vocab 50257,
+    random weights from the seed, bf16 compute / fp32 params, a full frozen
+    reference copy): a sampled evaluation of 32 prompts x 32 tokens, 16
+    steps of 32 pairs (each one stacked policy forward of 64 rows and one
+    reference forward of the same rows), the evaluation again. Gates, the
+    JAX package's DPO acceptance on the card: the last logged accuracy >
+    0.9 and the last margin above the first; the reference bit for bit the
+    initial policy; every tensor moved; the exact launch counts. Then one
+    step's time, profile and peak memory."""
+    import torch
+
+    import trlx_tpu_torch
+
+    pairs = dpo_pairs(seed, DPO_PAIRS)
+    counters = train_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with forward_shapes(shapes, "dpo"), sampler_calls() as calls:
+        trainer = trlx_tpu_torch.train(samples=pairs, eval_prompts=[p for p, _, _ in pairs[:TRAIN_BATCH]],
+                                       config=dpo_config(seed))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    L = trainer.model.cfg.n_layer
+    decode_steps = [c["decode_steps"] for c in calls]
+    # each sampler call prefills through the forward kernel; each step runs
+    # the stacked policy forward and the reference forward (64 rows, T = S =
+    # 64: the short route) and one fused backward
+    n_fwd, n_decode = L * (len(calls) + 2 * DPO_STEPS), L * sum(decode_steps)
+    expect = {"flash_fwd": n_fwd, "flash_fwd_short": n_fwd, "flash_fwd_long": 0,
+              "flash_bwd": L * DPO_STEPS, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+              "decode": n_decode, "decode_short": n_decode, "decode_long": 0}
+    stream = {k: [st[k] for _, st in trainer.stats_history if k in st]
+              for k in ("losses/total_loss", "dpo/accuracy", "dpo/margin", "dpo/chosen_reward",
+                        "dpo/rejected_reward")}
+    emit("dpo_path", wall_s=wall, launches=launches, expected=expect, iter_count=trainer.iter_count,
+         sampler_calls=len(calls), decode_steps=decode_steps, store_rows=len(trainer.store),
+         seq_width=trainer.store.seq_width, lr=DPO_LR, beta=DPO_BETA, phase_seconds=dict(trainer.phase_seconds),
+         **{k.replace("/", "_"): v for k, v in stream.items()})
+    losses, accs, margins = stream["losses/total_loss"], stream["dpo/accuracy"], stream["dpo/margin"]
+    if len(losses) != DPO_STEPS or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"expected {DPO_STEPS} finite losses, got {losses}")
+    if len(calls) != 2 or {k: launches[k] for k in expect} != expect:
+        raise AssertionError(f"launch counts {launches} != expected {expect} ({len(calls)} sampler calls)")
+    if trainer.store.seq_width != TRAIN_LEN:
+        raise AssertionError(f"the pairs' width is {trainer.store.seq_width}, not {TRAIN_LEN}")
+    if not accs[-1] > DPO_ACCURACY_MIN or not margins[-1] > margins[0]:
+        raise AssertionError(f"DPO did not separate the pairs: accuracy {accs}, margin {margins}")
+    check_params_moved(trainer, seed, "dpo_params")
+
+    batch = next(iter(trainer.store.create_loader(TRAIN_BATCH, seed=seed)))
+    train_step_profile(trainer, batch, "dpo_train_step")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    trainer.train_step(batch)
+    torch.cuda.synchronize()
+    rows, T, V = 2 * TRAIN_BATCH, trainer.store.seq_width, trainer.model.cfg.vocab_size
+    emit("dpo_train_step_memory", peak_above_start_bytes=torch.cuda.max_memory_allocated() - base,
+         logits_bytes_each=rows * (T - 1) * V * 4, logits_shape=[rows, T - 1, V],
+         note="fp32 logits of the stacked rows: the policy's (kept for the backward) and the reference's")
+    return trainer, launches
+
+
+def dpo_reference(trainer, seed: int) -> None:
+    """`grad_reference` over the DPO loss on DPO_REFERENCE_PAIRS distinct
+    pairs (DPO's loss is one number a pair, so one batch's loss error is a
+    single draw of rounding noise): 8 batches of 32, one step three ways.
+    Half the pairs are swapped: the trained policy ranks dpo_path's order
+    so far apart that those pairs' sigmoid is flat, and the swapped ones
+    carry the gradient. Outputs: each pair's margin."""
+    import torch
+
+    from trlx_tpu_torch.pipeline.dpo_pipeline import DPOPairStorage
+
+    beta = trainer.config.method.beta
+
+    def step(t, batch):
+        loss, _ = t.loss(batch)
+        loss.backward()
+        b = batch.map(lambda x: x.to(t.device))
+        with torch.no_grad():
+            lp, ref = t.sequence_logprobs(torch.cat([b.chosen_ids, b.rejected_ids]),
+                                          torch.cat([b.chosen_attention_mask, b.rejected_attention_mask]),
+                                          torch.cat([b.chosen_response_mask, b.rejected_response_mask]))
+        n = b.chosen_ids.shape[0]
+        margin = beta * ((lp[:n] - ref[:n]) - (lp[n:] - ref[n:]))
+        return loss, (margin.float(),), torch.ones_like(margin, dtype=torch.bool)
+
+    store = DPOPairStorage(dpo_pairs(seed + 1, DPO_REFERENCE_PAIRS, flip_share=0.5), trainer.tokenizer,
+                           max_length=TRAIN_LEN)
+    grad_reference(trainer, {"plain_bf16": dpo_config(seed, attention_impl="xla", kv_cache_quant="int8"),
+                             "fp32": dpo_config(seed, attention_impl="xla", kv_cache_quant=None,
+                                                compute_dtype="float32")},
+                   list(store.create_loader(TRAIN_BATCH, shuffle=True, seed=seed)), step, ("margin",),
+                   "dpo_reference")
+
+
+def grpo_phases(seed: int, shapes: dict) -> dict:
+    """grpo_path and its reference, grpo_engine_path: {path: launches}."""
+    import torch
+
+    trainer, launches = grpo_path(seed, shapes)
+    grpo_reference(trainer, seed)
+    del trainer
+    torch.cuda.empty_cache()
+    return {"grpo": launches, "grpo_engine": grpo_engine_path(seed, shapes)}
+
+
+def dpo_phases(seed: int, shapes: dict) -> dict:
+    """dpo_path and its reference: {path: launches}."""
+    import torch
+
+    trainer, launches = dpo_path(seed, shapes)
+    dpo_reference(trainer, seed)
+    del trainer
+    torch.cuda.empty_cache()
+    return {"dpo": launches}
+
+
 def flash_bwd_work(mask, H, Hkv, T, S, D, q_offset, causal=True):
     """Bytes and operations each backward function needs on this mask, in
     the way of `flash_work`. A weighed (t, s) pair costs the dq kernel
@@ -3187,7 +3725,8 @@ def flash_bwd_work(mask, H, Hkv, T, S, D, q_offset, causal=True):
     return dq, dkv, fused
 
 
-def bwd_kernel_times(gen, launches, t5_launches, errs, sft_launches, ppo_launches, ilql_t5_launches) -> list:
+def bwd_kernel_times(gen, launches, t5_launches, errs, sft_launches, ppo_launches, ilql_t5_launches,
+                     dpo_launches) -> list:
     """The flash backward at the GPT-2 train path's shape (B32 H12 T=S=64,
     causal) and at T5's cross-attention shape (B12 H12, T=65 queries over
     S=32 keys, not causal, scale 1): the fused kernel, the long route's
@@ -3195,10 +3734,12 @@ def bwd_kernel_times(gen, launches, t5_launches, errs, sft_launches, ppo_launche
     the bounds; then the long route's two steps at T=S=512 (B4, causal),
     where it is the route the wrapper takes. `launches`, `t5_launches` and
     `sft_launches` are the GPT-2 train, T5 train and SFT paths' counts,
-    `ppo_launches` {path: counts} the overlap, PPO-knobs, stop, ILQL and
-    RFT paths' (the SFT and those paths' steps have the train path's
-    shape), `ilql_t5_launches` the T5 ILQL path's (its cross-attention
-    backward: T = 33 queries over S = 32 keys)."""
+    `ppo_launches` {path: counts} the overlap, PPO-knobs, stop, ILQL, RFT
+    and the two GRPO paths' (the SFT and those paths' steps have the train
+    path's shape), `ilql_t5_launches` the T5 ILQL path's (its
+    cross-attention backward: T = 33 queries over S = 32 keys),
+    `dpo_launches` the DPO path's, whose steps stack 64 rows (the fused
+    kernel at B64, its own row)."""
     import torch
     import torch.nn.functional as F
 
@@ -3225,6 +3766,7 @@ def bwd_kernel_times(gen, launches, t5_launches, errs, sft_launches, ppo_launche
             launches_t5_train_path=t5_launches[name.split("/")[0]],
             launches_ilql_t5_path=ilql_t5_launches[name.split("/")[0]],
             launches_sft_path=sft_launches[name.split("/")[0]],
+            launches_dpo_path=dpo_launches[name.split("/")[0]],
             **{f"launches_{path}_path": n[name.split("/")[0]] for path, n in ppo_launches.items()},
             max_abs_err=err, shape=shape,
             causal=causal, ms=ms, kernel_ms=ms, plain_ms=plain, plain_is=plain_is, bound_ms=bms, bound_by=by,
@@ -3232,12 +3774,14 @@ def bwd_kernel_times(gen, launches, t5_launches, errs, sft_launches, ppo_launche
         ))
 
     D = 64
-    for case, (B, H, T, S, causal) in {
-        "train": (TRAIN_BATCH, 12, TRAIN_LEN, TRAIN_LEN, True),
-        "t5_cross": (12, 12, T5_DEC_LEN, T5_PROMPT_LEN, False),
-        "long": (4, 12, 512, 512, True),
+    for case, (B, H, T, S, pad, causal) in {
+        "train": (TRAIN_BATCH, 12, TRAIN_LEN, TRAIN_LEN, "left", True),
+        # DPO's stacked step: right-padded rows, checked as BWD_CASES' dpo_right_pad
+        "dpo": (2 * TRAIN_BATCH, 12, TRAIN_LEN, TRAIN_LEN, "right", True),
+        "t5_cross": (12, 12, T5_DEC_LEN, T5_PROMPT_LEN, "left", False),
+        "long": (4, 12, 512, 512, "left", True),
     }.items():
-        q, k, v, mask, out, m, l, g = flash_bwd_inputs(gen, B, H, H, T, S, 0, "left", causal)
+        q, k, v, mask, out, m, l, g = flash_bwd_inputs(gen, B, H, H, T, S, 0, pad, causal)
         scale = D ** -0.5 if causal else 1.0
         km, g2 = backward_operands(q, k, v, mask, g, m, l)
         if case != "long":
@@ -3260,13 +3804,16 @@ def bwd_kernel_times(gen, launches, t5_launches, errs, sft_launches, ppo_launche
         work_dq, work_dkv, work_fused = flash_bwd_work(mask, H, H, T, S, D, 0, causal)
         shape = [B, H, T, S, D]
         if case != "long":
-            row(f"flash_bwd/{case}", shape, causal, fused_ms, plain, lib, work_fused, 192, errs["fused"],
-                launches=(launches["flash_bwd"] + sft_launches["flash_bwd"]
-                          + sum(n["flash_bwd"] for n in ppo_launches.values()) if case == "train"
-                          else t5_launches["flash_bwd"] + ilql_t5_launches["flash_bwd"]), also_replaces=ref(231),
+            err = errs["by_case"]["dpo_right_pad"]["fused"] if case == "dpo" else errs["fused"]
+            row(f"flash_bwd/{case}", shape, causal, fused_ms, plain, lib, work_fused, 192, err,
+                launches={"train": launches["flash_bwd"] + sft_launches["flash_bwd"]
+                          + sum(n["flash_bwd"] for n in ppo_launches.values()),
+                          "dpo": dpo_launches["flash_bwd"],
+                          "t5_cross": t5_launches["flash_bwd"] + ilql_t5_launches["flash_bwd"]}[case],
+                also_replaces=ref(231),
                 long_route_ms=dq_ms + dkv_ms, long_route_dq_ms=dq_ms, long_route_dkv_ms=dkv_ms,
                 occupancy=flash_attention_bwd_occupancy(T, S))
-        if case != "t5_cross":
+        if case in ("train", "long"):
             suffix = "/long" if case == "long" else ""  # at the train shape: the pair the fused kernel replaced
             row(f"flash_bwd_dq{suffix}", shape, causal, dq_ms, plain, lib, work_dq, 192, errs["dq"],
                 launches=launches["flash_bwd_dq"])
@@ -3602,7 +4149,8 @@ def decode_kernel_times(gen, launches, errs) -> list:
     rows = []
     L, H, D = 12, 12, 64
     by_path = {path: launches.get(path, {"short": 0, "long": 0})
-               for path in ("rollout", "train", "sft", "overlap", "ppo_knobs", "stop", "ilql", "rft")}
+               for path in ("rollout", "train", "sft", "overlap", "ppo_knobs", "stop", "ilql", "rft", "grpo",
+                            "grpo_engine", "dpo")}
 
     def row(name, route, S, written, B=PROMPTS, pads=None):
         q, ck, cv, ks, vs, mask = decode_inputs(gen, L, B, H, H, S, D, written, pads)
@@ -3623,7 +4171,8 @@ def decode_kernel_times(gen, launches, errs) -> list:
             launches_train_path=by_path["train"][route], launches_sft_path=by_path["sft"][route],
             launches_overlap_path=by_path["overlap"][route], launches_ppo_knobs_path=by_path["ppo_knobs"][route],
             launches_stop_path=by_path["stop"][route], launches_ilql_path=by_path["ilql"][route],
-            launches_rft_path=by_path["rft"][route],
+            launches_rft_path=by_path["rft"][route], launches_grpo_path=by_path["grpo"][route],
+            launches_grpo_engine_path=by_path["grpo_engine"][route], launches_dpo_path=by_path["dpo"][route],
             max_abs_err=errs[route], shape=[L, B, H, S, D], written=written, ms=ms, kernel_ms=ms, **extra,
             plain_ms=plain, bound_ms=bms, bound_by=by, bound_bytes=n_bytes, bound_flops=n_flops,
             library_ms=None, ctas_per_sm=occupancy["ctas_per_sm"], smem_bytes=occupancy["smem_bytes"],
@@ -3684,7 +4233,7 @@ def paged_kernel_times(gen, launches, errs) -> list:
         ))
 
     by_path = {path: launches.get(path, {"short": 0, "long": 0})
-               for path in ("engine_plain", "engine_spec", "train_engine")}
+               for path in ("engine_plain", "engine_spec", "train_engine", "grpo_engine")}
     PS, MP = 16, 5
     depths = torch.randint(33, MP * PS - 4, (B,), generator=gen, device="cuda").tolist()
     with torch.no_grad():
@@ -3692,11 +4241,12 @@ def paged_kernel_times(gen, launches, errs) -> list:
             row(name, "short", T, PS, MP, depths,
                 launches=by_path["engine_plain"]["short"] + by_path["engine_spec"]["short"],
                 launches_engine_path=by_path["engine_plain"], launches_engine_spec_path=by_path["engine_spec"],
-                launches_train_engine_path=by_path["train_engine"])
+                launches_train_engine_path=by_path["train_engine"], launches_grpo_engine_path=by_path["grpo_engine"])
         long_depths = torch.randint(768, 1020, (B,), generator=gen, device="cuda").tolist()
         row("paged_attention_long/decode_1024", "long", 1, 16, 64, long_depths,
             launches=by_path["engine_plain"]["long"] + by_path["engine_spec"]["long"],
-            launches_train_engine_path=by_path["train_engine"]["long"])
+            launches_train_engine_path=by_path["train_engine"]["long"],
+            launches_grpo_engine_path=by_path["grpo_engine"]["long"])
     for r in rows:
         emit("kernel_time", **r)
     return rows
@@ -3705,7 +4255,8 @@ def paged_kernel_times(gen, launches, errs) -> list:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
-    parser.add_argument("--only", choices=("fwd", "paged", "decode", "bias", "sft", "ppo", "ilql", "rft"), default=None,
+    parser.add_argument("--only", choices=("fwd", "paged", "decode", "bias", "sft", "ppo", "ilql", "rft", "grpo", "dpo"),
+                        default=None,
                         help="fwd: the build, flash_check and the flash forward's kernel_time rows only "
                              "(a quick check of kernel 1); paged: the build, paged_check and the paged "
                              "kernel_time rows only (kernel 7); decode: the build, decode_check and the int8 "
@@ -3716,7 +4267,9 @@ def main() -> int:
                              "train_path and the slice-6 PPO phases (overlap_path, ppo_knobs_path, "
                              "value_branch_cost, ppo_knobs_reference, stop_path, stop_reference), no "
                              "kernel_time rows; ilql: the build, ilql_path, ilql_reference, ilql_t5_path and the "
-                             "randomwalks ILQL runner; rft: the build, rft_path and the randomwalks RFT runner")
+                             "randomwalks ILQL runner; rft: the build, rft_path and the randomwalks RFT runner; "
+                             "grpo: the build, grpo_path, grpo_reference and grpo_engine_path; dpo: the build, "
+                             "dpo_path and dpo_reference")
     args = parser.parse_args()
 
     import torch
@@ -3812,6 +4365,12 @@ def main() -> int:
     elif args.only == "rft":
         rft_phases(args.seed, {})
         rows = []
+    elif args.only == "grpo":
+        grpo_phases(args.seed, {})
+        rows = []
+    elif args.only == "dpo":
+        dpo_phases(args.seed, {})
+        rows = []
     if args.only is not None:
         print(json.dumps({"kernels": rows}))
         print(card)
@@ -3851,6 +4410,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     offline.update(rft_phases(args.seed, shapes))
     torch.cuda.empty_cache()
+    offline.update(grpo_phases(args.seed, shapes))
+    offline.update(dpo_phases(args.seed, shapes))
     for phase, tallies in (("fwd_shapes", shapes), ("bias_fwd_shapes", bias_shapes)):
         emit(phase, **{path: [[route, list(bht), S, n] for (route, bht, S), n in sorted(tally.items())]
                        for path, tally in tallies.items()})
@@ -3858,9 +4419,12 @@ def main() -> int:
     rows += decode_kernel_times(gen, {"rollout": launches["decode"], **{
         path: {"short": n["decode_short"], "long": n["decode_long"]}
         for path, n in (("train", train_launches), ("sft", sft_launches), *ppo_launches.items(),
-                        ("ilql", offline["ilql"]), ("rft", offline["rft"]))}}, decode_errs)
+                        *((path, offline[path]) for path in ("ilql", "rft", "grpo", "grpo_engine", "dpo")))}},
+        decode_errs)
     rows += bwd_kernel_times(gen, train_launches, t5_train_launches, bwd_errs, sft_launches,
-                             {**ppo_launches, "ilql": offline["ilql"], "rft": offline["rft"]}, offline["ilql_t5"])
+                             {**ppo_launches, **{path: offline[path] for path in ("ilql", "rft", "grpo", "grpo_engine")}},
+                             offline["ilql_t5"], offline["dpo"])
+    paged_launches["grpo_engine"] = {route: offline["grpo_engine"][f"paged_{route}"] for route in ("short", "long")}
     rows += paged_kernel_times(gen, paged_launches, paged_errs)
     rows += bias_kernel_times(gen, t5_train_launches, t5_launches, bias_shapes, bias_errs, offline["ilql_t5"])
     emit("run", wall_s=time.perf_counter() - _START)

@@ -151,19 +151,33 @@ def test_unported_training_knobs_raise(section, kw):
 
 
 def test_offline_sft_and_stop_sequences_raise():
-    """Offline RL through the trainers the port has not reached (DPO,
-    GRPO) raises, naming their ROADMAP queue; ILQL, which raised until the
-    port reached it, now trains. Stop sequences, which raised
-    until the port reached them, now train too: each output is cut at the
-    first occurrence of a stop string before it is scored."""
+    """The offline branch's misuses raise: DPO given `rewards` names the
+    preference ordering, and GRPO and DPO on a seq2seq model raise
+    NotImplementedError (causal only, as in the reference); the trainer
+    names themselves, which raised until the port reached them, resolve
+    (test_torch_grpo.py, test_torch_dpo.py). ILQL, which raised until the
+    port reached it, now trains. Stop sequences, which raised until the
+    port reached them, now train too: each output is cut at the first
+    occurrence of a stop string before it is scored."""
     import trlx_tpu_torch
-    from trlx_tpu_torch.data.default_configs import default_ilql_config
+    from trlx_tpu_torch.data.default_configs import default_dpo_config, default_grpo_config, default_ilql_config
 
-    for name in ("TPUDPOTrainer", "TPUGRPOTrainer"):
-        with pytest.raises(ValueError, match="ROADMAP queue 6"):
-            trlx_tpu_torch.train(samples=["a"], rewards=[1.0], config=_tiny_ppo_config(train={"trainer": name}),
-                                 device="cpu")
     tiny = _tiny_ppo_config().to_dict()
+    dpo = default_dpo_config().evolve(train=dict(batch_size=2, total_steps=1, seq_length=8), model=tiny["model"],
+                                      tokenizer=tiny["tokenizer"], method=dict(gen_kwargs=dict(max_new_tokens=2)))
+    with pytest.raises(ValueError, match="preference ordering"):
+        trlx_tpu_torch.train(samples=[("a", "b", "c")], rewards=[1.0], config=dpo, device="cpu")
+    seq2seq = dict(model_arch_type="seq2seq", model_extra_configs={"seq2seq": dict(
+        d_model=16, n_layer=1, n_head=2, d_kv=8, d_ff=32)})
+    grpo = default_grpo_config().evolve(train=dict(batch_size=2, total_steps=1, seq_length=8), model=tiny["model"],
+                                        tokenizer=tiny["tokenizer"],
+                                        method=dict(num_rollouts=2, chunk_size=2, group_size=2,
+                                                    gen_kwargs=dict(max_new_tokens=2)))
+    with pytest.raises(NotImplementedError, match="seq2seq DPO"):
+        trlx_tpu_torch.train(samples=[("a", "b", "c")], config=dpo.evolve(model=seq2seq), device="cpu")
+    with pytest.raises(NotImplementedError, match="seq2seq GRPO"):
+        trlx_tpu_torch.train(reward_fn=lambda **kw: [0.0], prompts=["a"], config=grpo.evolve(model=seq2seq),
+                             device="cpu")
     ilql = trlx_tpu_torch.train(samples=[("a", "b"), ("c", "d")], rewards=[1.0, 0.0], device="cpu",
                                 config=default_ilql_config().evolve(
                                     train=dict(batch_size=2, total_steps=1, seq_length=8), model=tiny["model"],

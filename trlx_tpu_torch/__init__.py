@@ -7,7 +7,9 @@ prompts=..., config=...)`: the left-padded KV-cache prefill and sampled
 decode over an int8 cache (or the paged decode engine), the
 teacher-forced experience pass (policy logits, values, frozen hydra
 reference logits), the KL-penalised rewards, GAE, and the clipped PPO
-steps under AdamW; supervised fine-tuning, `train(samples=...)`; and
+steps under AdamW; GRPO and RFT on the same prompts-and-reward contract;
+supervised fine-tuning, `train(samples=...)`, and DPO on (prompt, chosen,
+rejected) triples; offline ILQL, `train(samples=..., rewards=...)`; and
 `save_pretrained` with the reload through `model_path=<dir>`. Its
 attention kernels are hand-written CUDA C++ (`csrc/`: flash forward and
 backward, T5's bias-carrying pair, int8 decode, paged decode), built on

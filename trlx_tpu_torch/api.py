@@ -1,10 +1,10 @@
 """`trlx_tpu_torch.train`: the user entry point (port of trlx_tpu.api.train).
 The same signature selects the algorithm: `reward_fn` gives online PPO
-(or RFT, with `train.trainer="TPURFTTrainer"`), `samples` with `rewards`
-(or `dataset`, a (samples, rewards) pair) offline ILQL, `samples` alone
-supervised fine-tuning. The trainers the port has not reached (GRPO,
-DPO) raise, ROADMAP queue 1 item 6; resuming from a checkpoint raises,
-ROADMAP queue 4. `device` picks where to train: the current CUDA card by
+(or RFT with `train.trainer="TPURFTTrainer"`, GRPO with
+"TPUGRPOTrainer"), `samples` with `rewards` (or `dataset`, a (samples,
+rewards) pair) offline ILQL, `samples` alone supervised fine-tuning (or
+DPO with "TPUDPOTrainer", the samples (prompt, chosen, rejected)
+triples). Resuming from a checkpoint raises, ROADMAP queue 4. `device` picks where to train: the current CUDA card by
 default (raising when there is none), or "cpu" for the plain paths.
 """
 
@@ -33,12 +33,13 @@ def train(
     stop_sequences: Optional[List[str]] = None,
     device=None,
 ):
-    """Online RL (PPO, or RFT by the config's trainer) from
+    """Online RL (PPO, or RFT or GRPO by the config's trainer) from
     `reward_fn(samples, prompts, outputs, **metadata) -> list of scalar (or
     per-token) rewards` and `prompts`; offline ILQL from `samples` and one
     scalar reward each (`rewards`, or `dataset=(samples, rewards)`);
     supervised fine-tuning from `samples` alone (strings, or alternating
-    prompt / output dialogues). `stop_sequences` cuts each decoded output
+    prompt / output dialogues), or DPO by the config's trainer (`samples`
+    as (prompt, chosen, rejected) triples). `stop_sequences` cuts each decoded output
     at the first occurrence of any of them (PPO then re-tokenises the cut
     outputs and scores those tokens). Returns the trainer after
     `learn()`."""

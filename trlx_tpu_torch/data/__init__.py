@@ -1,4 +1,5 @@
-"""Typed batches (port of trlx_tpu.data for the PPO, SFT, ILQL and RFT paths):
+"""Typed batches (port of trlx_tpu.data for the PPO, GRPO, SFT, ILQL, RFT and
+DPO paths):
 dataclasses of tensors with rectangular, statically padded shapes, and
 `.replace`."""
 
@@ -51,6 +52,39 @@ class PPORolloutBatch(_Batch):
     advantages: Optional[torch.Tensor] = None
     returns: Optional[torch.Tensor] = None
     norm_n: Optional[torch.Tensor] = None
+
+
+@dataclass
+class GRPORolloutBatch(_Batch):
+    """Batched GRPO experience: PPO's rollout layout without the value
+    column. No `values` and no `rewards`: one group-relative advantage a
+    row replaces both, and the KL regulariser is computed in the loss from
+    the stored reference logprobs."""
+
+    query_tensors: torch.Tensor  # [batch, prompt_len] int, left-padded
+    response_tensors: torch.Tensor  # [batch, resp_len] int, right-padded
+    logprobs: torch.Tensor  # [batch, resp_len] f32, behaviour logprobs
+    ref_logprobs: torch.Tensor  # [batch, resp_len] f32, frozen reference
+    advantages: torch.Tensor  # [batch] f32, the reward's z-score in its group
+    response_mask: torch.Tensor  # [batch, resp_len] f32 (1 = real response token)
+    # the experience transport's staleness weight and the loss's mask-count
+    # normaliser, as on PPORolloutBatch; None on every path the port has
+    is_weight: Optional[torch.Tensor] = None
+    norm_n: Optional[torch.Tensor] = None
+
+
+@dataclass
+class DPOBatch(_Batch):
+    """One collated batch of preference pairs: prompt + chosen and prompt +
+    rejected rows, right-padded to the store's one width. The response
+    masks mark exactly the completion tokens."""
+
+    chosen_ids: torch.Tensor  # [batch, seq] int32
+    chosen_attention_mask: torch.Tensor  # [batch, seq] int32
+    chosen_response_mask: torch.Tensor  # [batch, seq] int32
+    rejected_ids: torch.Tensor  # [batch, seq] int32
+    rejected_attention_mask: torch.Tensor  # [batch, seq] int32
+    rejected_response_mask: torch.Tensor  # [batch, seq] int32
 
 
 @dataclass

@@ -9,7 +9,7 @@ from trlx_tpu_torch.data.configs import (
     TrainConfig,
     TRLConfig,
 )
-from trlx_tpu_torch.data.method_configs import ILQLConfig, PPOConfig, SFTConfig
+from trlx_tpu_torch.data.method_configs import DPOConfig, GRPOConfig, ILQLConfig, PPOConfig, SFTConfig
 
 
 def default_ppo_config() -> TRLConfig:
@@ -53,6 +53,55 @@ def default_ppo_config() -> TRLConfig:
             cliprange_reward=10.0,
             gen_kwargs=dict(max_new_tokens=40, top_k=0, top_p=1.0, do_sample=True),
         ),
+    )
+
+
+def default_grpo_config() -> TRLConfig:
+    """GRPO on the PPO recipe's sections with the critic-free method half.
+    Built standalone, not by evolving the PPO config: `evolve` merges the
+    method dict, and PPO-only keys (vf_coef, gamma, ...) would reach
+    GRPOConfig. `do_sample` stays on: a greedy group is `group_size`
+    identical samples with zero advantage."""
+    base = default_ppo_config()
+    return TRLConfig(
+        train=base.train,
+        model=base.model,
+        tokenizer=base.tokenizer,
+        optimizer=base.optimizer,
+        scheduler=base.scheduler,
+        method=GRPOConfig(
+            name="grpoconfig",
+            num_rollouts=128,
+            chunk_size=128,
+            group_size=8,
+            grpo_epochs=4,
+            kl_coef=0.001,
+            cliprange=0.2,
+            scale_reward="ignored",
+            cliprange_reward=10.0,
+            gen_kwargs=dict(max_new_tokens=40, top_k=0, top_p=1.0, do_sample=True),
+        ),
+    ).evolve(train=dict(trainer="TPUGRPOTrainer"))
+
+
+def default_dpo_config() -> TRLConfig:
+    """DPO on the SFT recipe: offline preference pairs, the frozen
+    reference the initial policy."""
+    return default_sft_config().evolve(
+        train=dict(trainer="TPUDPOTrainer"),
+        optimizer=dict(
+            name="adamw",
+            kwargs=dict(lr=5.0e-6, betas=(0.9, 0.95), eps=1.0e-8, weight_decay=1.0e-6),
+        ),
+        scheduler=dict(
+            name="cosine_annealing", kwargs=dict(T_max=1e12, eta_min=5.0e-6)
+        ),
+        method=DPOConfig(
+            name="dpoconfig",
+            beta=0.1,
+            label_smoothing=0.0,
+            gen_kwargs=dict(max_new_tokens=40, top_k=0, top_p=1.0, do_sample=True),
+        ).to_dict(),
     )
 
 

@@ -1,8 +1,8 @@
 """Method (algorithm) hyperparameter configs and their registry.
 
-A schema-identical copy of trlx_tpu.data.method_configs for the methods
-the port has reached (PPO, SFT, ILQL, RFT), so a YAML config loads to the same dict
-in both packages. The loss functions live with their trainers.
+A schema-identical copy of trlx_tpu.data.method_configs (PPO, GRPO, SFT,
+ILQL, RFT, DPO), so a YAML config loads to the same dict in both packages.
+The loss functions live with their trainers.
 """
 
 from __future__ import annotations
@@ -98,6 +98,73 @@ class PPOConfig(MethodConfig):
     gen_engine: dict = field(default_factory=dict)
     exp: dict = field(default_factory=dict)
     fleet: dict = field(default_factory=dict)
+
+
+@dataclass
+@register_method
+class GRPOConfig(MethodConfig):
+    """GRPO hyperparameters; field for field the reference's GRPOConfig.
+    `group_size` samples a prompt, each one's advantage the z-score of
+    its reward within its group; `chunk_size / group_size` prompts are
+    pulled a chunk, so a group's members are consecutive rows of one
+    chunk. The KL regulariser sits in the loss (`kl_coef`). The
+    `overlap_rollouts` and `gen_engine` knobs carry PPO's semantics."""
+
+    group_size: int = 8
+    grpo_epochs: int = 4
+    num_rollouts: int = 128
+    chunk_size: int = 128
+    kl_coef: float = 0.001
+    cliprange: float = 0.2
+    scale_reward: Optional[str] = "ignored"
+    ref_mean: Optional[float] = None
+    ref_std: Optional[float] = None
+    cliprange_reward: float = 10.0
+    gen_kwargs: dict = field(default_factory=lambda: dict(max_new_tokens=40))
+    gen_experience_kwargs: Optional[dict] = None
+    overlap_rollouts: bool = False
+    gen_engine: dict = field(default_factory=dict)
+    exp: dict = field(default_factory=dict)
+    fleet: dict = field(default_factory=dict)
+
+    def __post_init__(self):
+        if self.group_size < 2:
+            raise ValueError(
+                f"grpo.group_size must be >= 2 (got {self.group_size}): a "
+                "group of one has no relative baseline"
+            )
+        if self.chunk_size % self.group_size:
+            raise ValueError(
+                f"grpo.chunk_size {self.chunk_size} must be divisible by "
+                f"group_size {self.group_size} (whole groups per chunk)"
+            )
+        if self.num_rollouts % self.chunk_size:
+            raise ValueError(
+                f"grpo.num_rollouts {self.num_rollouts} must be divisible "
+                f"by chunk_size {self.chunk_size}: a partial final chunk "
+                "would split a group across cycles"
+            )
+
+
+@dataclass
+@register_method
+class DPOConfig(MethodConfig):
+    """DPO hyperparameters; field for field the reference's DPOConfig.
+    `beta` scales the implicit reward; `label_smoothing` is the
+    conservative-DPO probability that a preference label is flipped."""
+
+    beta: float = 0.1
+    label_smoothing: float = 0.0
+    gen_kwargs: dict = field(default_factory=lambda: dict(max_new_tokens=40))
+
+    def __post_init__(self):
+        if self.beta <= 0:
+            raise ValueError(f"dpo.beta must be > 0 (got {self.beta})")
+        if not 0.0 <= self.label_smoothing < 0.5:
+            raise ValueError(
+                "dpo.label_smoothing must be in [0, 0.5) (got "
+                f"{self.label_smoothing}): past 0.5 the labels invert"
+            )
 
 
 @dataclass

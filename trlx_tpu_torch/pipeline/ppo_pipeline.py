@@ -1,10 +1,12 @@
-"""PPO rollout storage (port of trlx_tpu.pipeline.ppo_pipeline). Rollouts
-are born rectangular, so the store is one `PPORolloutBatch` whose tensors
-stay on the device they were made on; a minibatch is a gather of its rows
-by a host-drawn permutation."""
+"""Rollout storage of the online trainers (port of
+trlx_tpu.pipeline.ppo_pipeline). Rollouts are born rectangular, so the
+store is one rollout batch (`PPORolloutBatch`, or GRPO's
+`GRPORolloutBatch`) whose tensors stay on the device they were made on; a
+minibatch is a gather of its rows by a host-drawn permutation."""
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import time
@@ -18,21 +20,25 @@ from trlx_tpu_torch.pipeline import BaseRolloutStore, DataLoader
 
 
 class PPORolloutStorage(BaseRolloutStore):
-    """Experience buffer of PPO rollouts (pushed as PPORolloutBatch)."""
+    """Experience buffer of rollouts (pushed as PPORolloutBatch or
+    GRPORolloutBatch, one type a store)."""
 
     def __init__(self, pad_token_id: int = 0):
         super().__init__()
         self.pad_token_id = pad_token_id
         self.history: Optional[PPORolloutBatch] = None
 
-    def push(self, exps: PPORolloutBatch) -> None:
+    def push(self, exps) -> None:
+        """Append a chunk's rows: every field the chunk holds (not None) is
+        concatenated onto the store's."""
         if self.history is None:
             self.history = exps
             return
+        if type(exps) is not type(self.history):
+            raise TypeError(f"cannot push a {type(exps).__name__} onto a store of {type(self.history).__name__}")
         self.history = self.history.replace(**{
-            name: torch.cat([getattr(self.history, name), getattr(exps, name)], dim=0)
-            for name in ("query_tensors", "response_tensors", "logprobs", "values",
-                         "rewards", "response_mask")
+            f.name: torch.cat([getattr(self.history, f.name), v], dim=0)
+            for f in dataclasses.fields(exps) if (v := getattr(exps, f.name)) is not None
         })
 
     def clear_history(self) -> None:

@@ -1,8 +1,8 @@
 """Trainer base: model/optimizer setup, generation (with the logits
 processor hook that ILQL's evaluations sample through), evaluation and
 the per-step `learn()` loop (port of the parts of trlx_tpu.trainer.base
-that the PPO, SFT, ILQL and RFT trainers run: `TPUBaseTrainer` and the
-`TPUOnlineTrainer` experience core).
+that the PPO, GRPO, SFT, ILQL, RFT and DPO trainers run: `TPUBaseTrainer`
+and the `TPUOnlineTrainer` experience core).
 
 What the port does differently, and why:
 - Freezing. The reference masks the optimizer's UPDATES of frozen leaves
@@ -57,6 +57,7 @@ What the port does differently, and why:
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import inspect
 import json
@@ -84,8 +85,14 @@ from trlx_tpu_torch.models.generation import (
     generate,
 )
 from trlx_tpu_torch.models.seq2seq import Seq2SeqConfig, generate_seq2seq
-from trlx_tpu_torch.models.transformer import TransformerConfig
-from trlx_tpu_torch.ops.common import running_moments_init, running_moments_update
+from trlx_tpu_torch.models.transformer import TransformerConfig, logit_projection
+from trlx_tpu_torch.models.wrappers import CausalLM
+from trlx_tpu_torch.ops.common import (
+    chunked_logprobs,
+    logprobs_of_labels,
+    running_moments_init,
+    running_moments_update,
+)
 from trlx_tpu_torch.trainer import BaseRLTrainer
 from trlx_tpu_torch.utils import (
     Clock,
@@ -100,6 +107,11 @@ from trlx_tpu_torch.utils.tokenizers import load_tokenizer
 from trlx_tpu_torch.utils.trackers import DeferredStats
 
 logger = logging.get_logger(__name__)
+
+
+def _masked_kl_stats(kl: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(mean KL per row, mean KL per token) over the chunk's rows."""
+    return kl.sum(dim=1).mean(), kl.mean()
 
 # TransformerConfig knobs that tune execution, not architecture: their
 # presence alone does not select the random-init path
@@ -395,6 +407,18 @@ class TPUBaseTrainer(BaseRLTrainer):
     def setup_model(self) -> None:
         """Set self.model (and any frozen auxiliaries)."""
 
+    def setup_policy_and_frozen_copy(self, method: str) -> None:
+        """The bare policy (random weights from train.seed, or the base
+        weights of a directory `save_pretrained` wrote) and its frozen
+        reference `ref_params`: a full copy of those weights, made after
+        they are in place, outside the model and so outside AdamW (GRPO,
+        DPO). Causal only."""
+        if self.seq2seq:
+            raise NotImplementedError(f"seq2seq {method} is not implemented (causal only)")
+        self.model = CausalLM(self.load_base_model(), device=self.device)
+        self.init_weights()
+        self.ref_params = copy.deepcopy(self.model.base).requires_grad_(False)
+
     def branch_at(self) -> Optional[int]:
         """Layer index where the trainable top starts (None = all): of the
         decoder stack for a seq2seq model."""
@@ -675,6 +699,28 @@ class TPUBaseTrainer(BaseRLTrainer):
                 torch.cuda.synchronize(self.device)
             self.phase_seconds[name] += time.perf_counter() - t0
             self._active_phase = None
+
+    def _response_logprobs(self, project, hidden: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+        """log p(labels) from the hidden states that predict them, through
+        fp32 logits, chunked when train.logit_chunks asks."""
+        chunks = self.config.train.logit_chunks
+        if chunks:
+            return chunked_logprobs(project, hidden, labels, chunks)
+        return logprobs_of_labels(project(hidden), labels)
+
+    def _policy_and_reference_logprobs(self, tokens: torch.Tensor, attention_mask: torch.Tensor):
+        """log p(tokens[:, 1:]) under the policy and under the full frozen
+        reference `setup_policy_and_frozen_copy` made, [B, T - 1] each. The
+        reference runs without a graph."""
+        labels = tokens[:, 1:]
+        out = self.model(tokens, attention_mask, compute_logits=False)
+        logprobs = self._response_logprobs(self.model.logit_project_fn(), out["hidden_states"][:, :-1], labels)
+        with torch.no_grad():
+            ref_out = self.ref_params(tokens, attention_mask, compute_logits=False)
+            ref_logprobs = self._response_logprobs(
+                logit_projection(self.ref_params), ref_out["hidden_states"][:, :-1], labels
+            )
+        return logprobs, ref_logprobs
 
     @abstractmethod
     def loss(self, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -1034,6 +1080,23 @@ class TPUOnlineTrainer(TPUBaseTrainer):
         os.mkdir(self.rollout_logging_dir)
         with open(os.path.join(self.rollout_logging_dir, "config.json"), "w") as f:
             f.write(json.dumps(config.to_dict(), indent=2))
+
+    def _retokenize_outputs(self, str_outputs, batch: PromptBatch, sequences: torch.Tensor, N: int):
+        """The response tokens rebuilt from the stop-trimmed outputs (the
+        reference's host-scored path): each output re-tokenised without
+        specials and cut to N, right-padded; the sequences re-joined from
+        the prompt (seq2seq: the decoder start token). Returns (response_ids,
+        response_mask, sequences) on the device."""
+        outputs = self.tokenizer(str_outputs, add_special_tokens=False)["input_ids"]
+        response_ids = np.full((len(outputs), N), self.generate_settings.pad_token_id, np.int64)
+        response_mask = np.zeros((len(outputs), N), np.int32)
+        for i, o in enumerate(outputs):
+            o = o[:N]
+            response_ids[i, : len(o)] = o
+            response_mask[i, : len(o)] = 1
+        ids = torch.as_tensor(response_ids, dtype=sequences.dtype, device=self.device)
+        head = sequences[:, :1] if self.seq2seq else torch.as_tensor(batch.input_ids, device=self.device)
+        return ids, torch.as_tensor(response_mask, device=self.device), torch.cat([head.to(ids.dtype), ids], dim=1)
 
     def _update_reward_moments(self, scores: np.ndarray, scores_mask: np.ndarray, stats):
         """Fold one chunk's scores into the running reward moments and pick

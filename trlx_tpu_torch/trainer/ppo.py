@@ -27,7 +27,7 @@ from trlx_tpu_torch.models.wrappers import CausalLMWithValueHead, Seq2SeqLMWithV
 from trlx_tpu_torch.ops.common import chunked_logprobs, logprobs_of_labels
 from trlx_tpu_torch.ops.ppo import gae_advantages_and_returns, ppo_loss
 from trlx_tpu_torch.trainer import register_trainer
-from trlx_tpu_torch.trainer.base import TPUOnlineTrainer
+from trlx_tpu_torch.trainer.base import TPUOnlineTrainer, _masked_kl_stats
 from trlx_tpu_torch.utils import Clock
 
 
@@ -50,11 +50,6 @@ class FixedKLController:
 
     def update(self, current: float, n_steps: int) -> None:
         pass
-
-
-def _masked_kl_stats(kl: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(mean KL per row, mean KL per token) over the chunk's rows."""
-    return kl.sum(dim=1).mean(), kl.mean()
 
 
 @register_trainer("TPUPPOTrainer")
@@ -96,14 +91,6 @@ class TPUPPOTrainer(TPUOnlineTrainer):
         self.ref_params = self.model.make_ref_params()
 
     # -- loss ------------------------------------------------------------
-
-    def _response_logprobs(self, project, hidden: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-        """log p(labels) from the hidden states that predict them, through
-        fp32 logits, chunked when train.logit_chunks asks."""
-        chunks = self.config.train.logit_chunks
-        if chunks:
-            return chunked_logprobs(project, hidden, labels, chunks)
-        return logprobs_of_labels(project(hidden), labels)
 
     def response_logprobs_and_values(self, batch: PPORolloutBatch) -> Tuple[torch.Tensor, torch.Tensor]:
         """The policy's logprobs of the stored response tokens and its
@@ -265,23 +252,6 @@ class TPUPPOTrainer(TPUOnlineTrainer):
             return self.experience_forward_seq2seq(enc_ids, prompt_mask, sequences, response_mask, self.kl_ctl.value)
         attention_mask = torch.cat([prompt_mask, response_mask], dim=1).to(torch.int32)
         return self.experience_forward(sequences, attention_mask, response_mask, self.kl_ctl.value)
-
-    def _retokenize_outputs(self, str_outputs, batch: PromptBatch, sequences: torch.Tensor, N: int):
-        """The response tokens rebuilt from the stop-trimmed outputs (the
-        reference's host-scored path): each output re-tokenised without
-        specials and cut to N, right-padded; the sequences re-joined from
-        the prompt (seq2seq: the decoder start token). Returns (response_ids,
-        response_mask, sequences) on the device."""
-        outputs = self.tokenizer(str_outputs, add_special_tokens=False)["input_ids"]
-        response_ids = np.full((len(outputs), N), self.generate_settings.pad_token_id, np.int64)
-        response_mask = np.zeros((len(outputs), N), np.int32)
-        for i, o in enumerate(outputs):
-            o = o[:N]
-            response_ids[i, : len(o)] = o
-            response_mask[i, : len(o)] = 1
-        ids = torch.as_tensor(response_ids, dtype=sequences.dtype, device=self.device)
-        head = sequences[:, :1] if self.seq2seq else torch.as_tensor(batch.input_ids, device=self.device)
-        return ids, torch.as_tensor(response_mask, device=self.device), torch.cat([head.to(ids.dtype), ids], dim=1)
 
     def _score_and_assemble(self, batch: PromptBatch, gen_out, stats: Dict[str, Any],
                             iter_count: int, clock: Clock):

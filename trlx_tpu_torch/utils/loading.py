@@ -5,7 +5,7 @@ populates the registries."""
 
 from __future__ import annotations
 
-# the reference's trainer names that the port has reached
+# the reference's aliases of its trainer names
 _ALIASES = {
     "accelerateppotrainer": "tpuppotrainer",
     "nemoppotrainer": "tpuppotrainer",
@@ -14,11 +14,15 @@ _ALIASES = {
     "accelerateilqltrainer": "tpuilqltrainer",
     "nemoilqltrainer": "tpuilqltrainer",
     "acceleraterfttrainer": "tpurfttrainer",
+    "accelerategrpotrainer": "tpugrpotrainer",
+    "acceleratedpotrainer": "tpudpotrainer",
 }
 
 
 def get_trainer(name: str) -> type:
     import trlx_tpu_torch.trainer as trainer_pkg
+    import trlx_tpu_torch.trainer.dpo  # noqa: F401
+    import trlx_tpu_torch.trainer.grpo  # noqa: F401
     import trlx_tpu_torch.trainer.ilql  # noqa: F401
     import trlx_tpu_torch.trainer.ppo  # noqa: F401  (registration side effects)
     import trlx_tpu_torch.trainer.rft  # noqa: F401
@@ -27,8 +31,7 @@ def get_trainer(name: str) -> type:
     key = _ALIASES.get(name.lower(), name.lower())
     if key not in trainer_pkg._TRAINERS:
         raise ValueError(
-            f"Unknown trainer {name!r}; the port has {sorted(trainer_pkg._TRAINERS)} "
-            "(GRPO and DPO are ROADMAP queue 6)"
+            f"Unknown trainer {name!r}; registered: {sorted(trainer_pkg._TRAINERS)}"
         )
     return trainer_pkg._TRAINERS[key]
 
