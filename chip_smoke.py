@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive trlx_tpu_torch's rollout and training paths on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N] [--only fwd|paged|decode|bias|sft|ppo|ilql|rft|grpo|dpo]
+    python3 chip_smoke.py [--seed N] [--only fwd|paged|decode|bias|sft|ppo|resume|ilql|rft|grpo|dpo]
 
 Builds the CUDA kernels from `trlx_tpu_torch/csrc` (into build/kernels/)
 and holds each kernel against its plain PyTorch version on the card: both
@@ -41,6 +41,12 @@ through the entry points a user calls:
   and fp32 math) and `stop_path` (GPT-2-small widths over the byte
   tokenizer's 258 ids, stop sequences: outputs cut and re-tokenised;
   exact launches, one train step on the cut rows against the same math);
+- checkpoint, preemption and resume on that workload (`resume_path`):
+  the run uninterrupted, killed by a SIGTERM from the reward function in
+  its second rollout, then resumed with resume_from_checkpoint="auto"
+  from the step-8 checkpoint; the restored tensors bit for bit on the
+  card, the resumed counters and tracker log, and the resumed second
+  cycle against the uninterrupted one;
 - the decode engine: `engine_generate` on the hydra policy (64 prompts,
   16 slots, int8 pages, greedy, with and without speculative decoding),
   on the paged kernel and on the plain gather math; then
@@ -93,6 +99,7 @@ train step and one engine call of each mode are profiled.
 
 `--only sft` runs the build and the supervised fine-tuning phases alone;
 `--only ppo` the build, the training path and the three PPO phases above;
+`--only resume` the build and `resume_path`;
 `--only ilql`, `--only rft`, `--only grpo` and `--only dpo` the build and
 the ILQL, RFT, GRPO or DPO phases.
 `--only fwd` stops after the build, the flash forward's check and its
@@ -116,6 +123,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -151,6 +159,8 @@ DECODE_SHORT_CTAS = 10
 
 
 _START = time.perf_counter()
+# the temporary root every train() run's checkpoints go under (ckpt_dir)
+_CKPT_ROOT: list = []
 
 
 def emit(phase: str, **fields) -> None:
@@ -1331,7 +1341,7 @@ def train_config(seed: int, attention_impl="pallas", kv_cache_quant="int8_kernel
     return default_ppo_config().evolve(
         train=dict(batch_size=TRAIN_BATCH, total_steps=TRAIN_STEPS, eval_interval=10_000,
                    checkpoint_interval=10_000, seq_length=TRAIN_LEN, epochs=10_000, tracker=None,
-                   compute_dtype=compute_dtype, seed=seed),
+                   compute_dtype=compute_dtype, seed=seed, **ckpt_kw()),
         model=dict(model_path="random", num_layers_unfrozen=-1,
                    model_extra_configs={"transformer": transformer}),
         tokenizer=dict(tokenizer_path="byte"),
@@ -1380,11 +1390,7 @@ def train_path_launches(L: int, cycles: int, decode_steps: list, steps: int = TR
     every layer, the forward on the short route and the backward on the
     fused one (T, S <= 128); each decode step of every sampler call one
     short-route decode launch a layer (a 128-slot cache)."""
-    n_fwd = L * ((cycles + 2) + 2 * cycles + steps)
-    n_decode = L * sum(decode_steps)
-    return {"flash_fwd": n_fwd, "flash_fwd_short": n_fwd, "flash_fwd_long": 0,
-            "flash_bwd": L * steps, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-            "decode": n_decode, "decode_short": n_decode, "decode_long": 0}
+    return run_launches(L, cycles + 2, cycles, steps, decode_steps)
 
 
 def train_counters() -> dict:
@@ -1686,7 +1692,7 @@ def grad_reference(trainer, configs: dict, batches: list, step, outputs: tuple, 
                              f"path's: {k_bias_abs}")
 
 
-def counted_train(config, shapes: dict, path: str, **train_kw):
+def counted_train(config, shapes: dict, path: str, reward_fn=train_reward_fn, **train_kw):
     """`trlx_tpu_torch.train` on the train path's prompts with every
     training kernel's counter at 0 just before it: (trainer, wall s,
     launches, the decode steps of each sampler call)."""
@@ -1699,7 +1705,7 @@ def counted_train(config, shapes: dict, path: str, **train_kw):
         fn.launches = 0
     t0 = time.perf_counter()
     with forward_shapes(shapes, path), sampler_calls() as calls:
-        trainer = trlx_tpu_torch.train(reward_fn=train_reward_fn, prompts=TRAIN_PROMPTS, config=config, **train_kw)
+        trainer = trlx_tpu_torch.train(reward_fn=reward_fn, prompts=TRAIN_PROMPTS, config=config, **train_kw)
     torch.cuda.synchronize()
     return (trainer, time.perf_counter() - t0, {name: fn.launches for name, fn in counters.items()},
             [c["decode_steps"] for c in calls])
@@ -2010,6 +2016,243 @@ def value_branch_cost(trainer) -> None:
         for name in ("experience", "train_step")})
 
 
+RESUME_INTERVAL = 8  # resume_path: a checkpoint a cycle (8 optimizer steps)
+
+
+def ckpt_kw() -> dict:
+    """The checkpoint settings of every path but resume_path: a fresh
+    temporary directory (`ckpt_dir`), and the run's one commit (at its
+    last step) the deploy export alone."""
+    return dict(checkpoint_dir=ckpt_dir(), save_best=False, save_optimizer=False)
+
+
+def ckpt_dir() -> str:
+    """The checkpoint directory of the next `train()` run: `<root>/run`
+    under the script's temporary root (removed when main() ends), emptied
+    first, so that one run's checkpoints at most are on disk at a time."""
+    import shutil
+    import tempfile
+
+    if not _CKPT_ROOT:
+        _CKPT_ROOT.append(tempfile.mkdtemp(prefix="chip_smoke-ckpts-"))
+    path = os.path.join(_CKPT_ROOT[0], "run")
+    shutil.rmtree(path, ignore_errors=True)
+    return path
+
+
+def run_launches(L: int, sampler_calls: int, chunks: int, steps: int, decode_steps: list) -> dict:
+    """The training kernels' launches of one PPO `train()` run on the
+    headline workload, as `train_path_launches` counts them: a prefill a
+    sampler call, the policy and the full reference over each experience
+    chunk, a forward and a fused backward a train step, one short decode
+    launch a layer for each decode step."""
+    n_fwd = L * (sampler_calls + 2 * chunks + steps)
+    n_decode = L * sum(decode_steps)
+    return {"flash_fwd": n_fwd, "flash_fwd_short": n_fwd, "flash_fwd_long": 0,
+            "flash_bwd": L * steps, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+            "decode": n_decode, "decode_short": n_decode, "decode_long": 0}
+
+
+def resume_path(seed: int, shapes: dict) -> dict:
+    """Checkpoint, preemption and resume on the headline workload
+    (`train_config`: GPT-2 small, 64 rollouts of 32 + 32 tokens, batch 32,
+    4 epochs, two cycles = 16 steps, bf16 on the kernels) with a checkpoint
+    a cycle, through `trlx_tpu_torch.train`, three times: (1) uninterrupted;
+    (2) killed by a SIGTERM from the reward function during the second
+    cycle's rollout (it exits on the step-8 checkpoint the first cycle
+    committed); (3) resumed with resume_from_checkpoint="auto".
+    Gates: (a) every tensor of run 2's step-8 checkpoint comes back bit for
+    bit on the card through `load` (the parameters, the AdamW moments and
+    steps, the sampler's CUDA generator, the card's default generator, the
+    cursors), and its integrity manifest verifies; (b) the resumed run's
+    iter_count, prompt cursor and logged loss steps equal run 1's, and its
+    metrics.jsonl is monotonic with each loss step once; (c) run 2's step-8
+    checkpoint against run 1's: bitwise equal, then the resumed second
+    cycle's tokens and losses equal run 1's; otherwise the first tensor
+    that differs is printed and the resumed losses are held to run 1's
+    within twice the largest loss difference of two uninterrupted runs
+    (a fourth run); (d) each run's kernel launches exactly. Prints the
+    commit and load times, the checkpoint's size and the phase's wall."""
+    import signal
+    import tempfile
+
+    import torch
+
+    import trlx_tpu_torch
+    from trlx_tpu_torch.trainer.base import STATE_FILES, TPUBaseTrainer
+    from trlx_tpu_torch.utils import checkpointing
+    from trlx_tpu_torch.utils.loading import get_trainer
+
+    t_phase = time.perf_counter()
+    if not _CKPT_ROOT:
+        ckpt_dir()
+    root = tempfile.mkdtemp(dir=_CKPT_ROOT[0], prefix="resume-")
+    base = train_config(seed).evolve(train=dict(checkpoint_interval=RESUME_INTERVAL, save_optimizer=True))
+    commits, loads = [], []
+    commit, load = checkpointing.CheckpointManager.commit, TPUBaseTrainer.load
+
+    def timed_commit(self, name, write_fn):
+        t0 = time.perf_counter()
+        out = commit(self, name, write_fn)
+        commits.append({"name": name, "s": time.perf_counter() - t0})
+        return out
+
+    def timed_load(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        load(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        loads.append(time.perf_counter() - t0)
+
+    checkpointing.CheckpointManager.commit, TPUBaseTrainer.load = timed_commit, timed_load
+    runs, calls = {}, {"n": 0}
+
+    def killing_reward(samples, prompts, outputs, **kw):
+        calls["n"] += 1
+        if calls["n"] == 3:  # 1: the first rollout, 2: the first evaluation, 3: the second rollout
+            os.kill(os.getpid(), signal.SIGTERM)
+        return train_reward_fn(samples, prompts, outputs)
+
+    try:
+        for name, directory, kw in (("uninterrupted", "a", {}), ("killed", "b", {"reward_fn": killing_reward}),
+                                    ("resumed", "b", {"resume": True})):
+            config = base.evolve(train=dict(checkpoint_dir=os.path.join(root, directory),
+                                            resume_from_checkpoint="auto" if kw.get("resume") else None))
+            with sampler_calls() as seqs:
+                trainer, wall, launches, decode_steps = counted_train(
+                    config, shapes, "resume", reward_fn=kw.get("reward_fn", train_reward_fn))
+            runs[name] = dict(trainer=trainer, wall=wall, launches=launches, decode_steps=decode_steps,
+                              sequences=[c["sequences"] for c in seqs])
+    finally:
+        checkpointing.CheckpointManager.commit, TPUBaseTrainer.load = commit, load
+
+    full, killed, resumed = runs["uninterrupted"]["trainer"], runs["killed"]["trainer"], runs["resumed"]["trainer"]
+    L = full.model.cfg.n_layer
+    # (d) launches: run 1 two cycles; run 2 the first cycle and the second
+    # rollout (3 sampler calls, 2 chunks, 8 steps); run 3 the second cycle
+    expect = {"uninterrupted": run_launches(L, 4, 2, TRAIN_STEPS, runs["uninterrupted"]["decode_steps"]),
+              "killed": run_launches(L, 3, 2, RESUME_INTERVAL, runs["killed"]["decode_steps"]),
+              "resumed": run_launches(L, 2, 1, TRAIN_STEPS - RESUME_INTERVAL, runs["resumed"]["decode_steps"])}
+    total = {k: sum(runs[r]["launches"][k] for r in runs) for k in runs["resumed"]["launches"]}
+    for name, want in expect.items():
+        got = {k: runs[name]["launches"][k] for k in want}
+        if got != want:
+            raise AssertionError(f"resume_path {name}: launch counts {got} != expected {want}")
+    if calls["n"] != 3 or killed.iter_count != RESUME_INTERVAL:
+        raise AssertionError(f"the kill should land in the second rollout at step {RESUME_INTERVAL}: "
+                             f"{calls['n']} reward calls, iter_count {killed.iter_count}")
+
+    # (a) run 2's step-8 checkpoint back on the card, bit for bit
+    ckpt_b = os.path.join(root, "b", f"checkpoint_{RESUME_INTERVAL:02d}")
+    ckpt_a = os.path.join(root, "a", f"checkpoint_{RESUME_INTERVAL:02d}")
+    status, problems = checkpointing.verify_integrity(ckpt_b)
+    size_gb = sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(ckpt_b) for f in fs) / 1e9
+    with open(os.path.join(ckpt_b, "state.json")) as f:
+        saved = json.load(f)
+    fresh = get_trainer(base.train.trainer)(config=base.evolve(train=dict(checkpoint_dir=os.path.join(root, "c"))),
+                                            reward_fn=train_reward_fn)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fresh.load(ckpt_b)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    mismatched = []
+    for name, t in killed.model.state_dict().items():
+        got = fresh.model.state_dict()[name]
+        if got.device.type != "cuda" or not torch.equal(got, t):
+            mismatched.append(f"model/{name}")
+    live_opt, got_opt = killed.optimizer.state_dict()["state"], fresh.optimizer.state_dict()["state"]
+    for i, st in live_opt.items():
+        for k, t in st.items():
+            g = got_opt[i][k]
+            if not torch.equal(g.cpu(), t.cpu()) or (k != "step" and g.device.type != "cuda"):
+                mismatched.append(f"optimizer/{i}/{k}")
+    if fresh.generator.device.type != "cuda" or fresh.generator.get_state().tolist() != saved["rng_key"]:
+        mismatched.append("sampler generator")
+    if torch.cuda.get_rng_state().tolist() != saved["random_streams"]["torch_cuda"]:
+        mismatched.append("torch.cuda default generator")
+    if (fresh.iter_count, fresh._resume_prompt_cursor) != (RESUME_INTERVAL, 1) or saved["prompt_batches_consumed"] != 1:
+        mismatched.append(f"cursors {fresh.iter_count}, {fresh._resume_prompt_cursor}")
+    n_opt = sum(len(st) for st in live_opt.values())
+    del fresh
+    torch.cuda.empty_cache()
+
+    # (b) the resumed run's counters and its tracker log
+    def loss_steps(trainer):
+        return [(s, st["losses/total_loss"]) for s, st in trainer.stats_history if "losses/total_loss" in st]
+
+    with open(os.path.join(root, "b", "logs", "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    steps = [r["_step"] for r in records]
+    logged_loss_steps = [r["_step"] for r in records if "losses/total_loss" in r]
+    counters_ok = (resumed.iter_count == full.iter_count == TRAIN_STEPS
+                   and resumed._prompt_batches_consumed == full._prompt_batches_consumed == 2
+                   and logged_loss_steps == [s for s, _ in loss_steps(full)] == list(range(1, TRAIN_STEPS + 1))
+                   and steps == sorted(steps))
+
+    # (c) run 2's step-8 checkpoint against run 1's
+    first_diff = None
+    for key in ("model", "optimizer"):
+        a = torch.load(os.path.join(ckpt_a, "state", STATE_FILES[key]), map_location="cuda", weights_only=True)
+        b = torch.load(os.path.join(ckpt_b, "state", STATE_FILES[key]), map_location="cuda", weights_only=True)
+        flat_a = a.items() if key == "model" else ((f"{i}/{k}", v) for i, st in a["state"].items() for k, v in st.items())
+        flat_b = dict(b.items() if key == "model" else ((f"{i}/{k}", v) for i, st in b["state"].items()
+                                                        for k, v in st.items()))
+        for name, t in flat_a:
+            if first_diff is None and not torch.equal(t, flat_b[name]):
+                first_diff = {"tensor": f"{key}/{name}",
+                              "max_abs": (t.float() - flat_b[name].float()).abs().max().item()}
+        del a, b
+    with open(os.path.join(ckpt_a, "state.json")) as f:
+        saved_a = json.load(f)
+    for key in ("rng_key", "random_streams", "prompt_batches_consumed", "kl_ctl_value", "mean_kl",
+                "running_moments", "loop_position"):
+        if first_diff is None and saved_a[key] != saved[key]:
+            first_diff = {"state.json": key}
+    resumed_losses = [v for _, v in loss_steps(resumed)]
+    full_losses = [v for s, v in loss_steps(full) if s > RESUME_INTERVAL]
+    loss_diff = max(abs(x - y) for x, y in zip(resumed_losses, full_losses))
+    # the second cycle's rollout: run 1's third sampler call, run 3's first
+    tokens_equal = torch.equal(runs["resumed"]["sequences"][0], runs["uninterrupted"]["sequences"][2])
+    spread = None
+    if first_diff is None:
+        equal_ok = tokens_equal and resumed_losses == full_losses
+    else:
+        config = base.evolve(train=dict(checkpoint_dir=os.path.join(root, "d")))
+        again, *_ = counted_train(config, {}, "resume_spread")
+        spread = max(abs(x - y) for x, y in zip([v for _, v in loss_steps(again)][RESUME_INTERVAL:], full_losses))
+        equal_ok = loss_diff <= 2 * spread
+        del again
+    wall = time.perf_counter() - t_phase
+    emit("resume_path", wall_s=wall, run_wall_s={k: r["wall"] for k, r in runs.items()}, commits=commits,
+         checkpoint_gb=size_gb, load_s=load_s, resume_load_s=loads,
+         card=nvidia_smi(), integrity=status, integrity_problems=problems[:3], restored_tensors=len(
+             killed.model.state_dict()) + n_opt, restore_mismatched=mismatched[:8], iter_count=resumed.iter_count,
+         prompt_cursor=resumed._prompt_batches_consumed, loss_steps=logged_loss_steps, tracker_steps_monotonic=
+         steps == sorted(steps), step8_first_difference=first_diff, second_cycle_tokens_equal=tokens_equal,
+         resumed_losses=resumed_losses, uninterrupted_losses=full_losses, max_loss_difference=loss_diff,
+         uninterrupted_spread=spread, launches_by_run={
+             k: r["launches"] for k, r in runs.items()}, expected=expect, decode_steps={
+             k: r["decode_steps"] for k, r in runs.items()})
+    if status != "ok" or mismatched:
+        raise AssertionError(f"resume_path (a): integrity {status} {problems[:3]}; restored tensors that differ: "
+                             f"{mismatched[:8]}")
+    if not counters_ok:
+        raise AssertionError(f"resume_path (b): iter_count {resumed.iter_count} / {full.iter_count}, cursor "
+                             f"{resumed._prompt_batches_consumed} / {full._prompt_batches_consumed}, loss steps "
+                             f"{logged_loss_steps}, tracker steps {steps}")
+    if not equal_ok:
+        raise AssertionError(f"resume_path (c): step-8 states {'differ at ' + str(first_diff) if first_diff else 'equal'}"
+                             f"; resumed losses {resumed_losses} vs {full_losses} (largest difference {loss_diff}, "
+                             f"spread {spread}, tokens equal {tokens_equal})")
+    del runs, full, killed, resumed
+    import shutil
+
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return total
+
+
 def ppo_phases(seed: int, shapes: dict, train_split: list) -> dict:
     """overlap_path; ppo_knobs_path with the value branch's cost, its
     reference and one profiled train step; stop_path and its reference:
@@ -2078,7 +2321,7 @@ def sft_config(seed: int, attention_impl="pallas", kv_cache_quant="int8_kernel",
     return default_sft_config().evolve(
         train=dict(batch_size=SFT_BATCH, total_steps=SFT_STEPS, eval_interval=10_000,
                    checkpoint_interval=10_000, seq_length=SFT_SEQ, epochs=10_000, tracker=None,
-                   compute_dtype=compute_dtype, seed=seed),
+                   compute_dtype=compute_dtype, seed=seed, **ckpt_kw()),
         model=dict(model_path="random", num_layers_unfrozen=-1, model_extra_configs={"transformer": transformer}),
         tokenizer=dict(tokenizer_path="byte"),
         method=dict(gen_kwargs=dict(max_new_tokens=SFT_NEW_TOKENS, do_sample=False)),
@@ -2355,7 +2598,7 @@ def t5_config(seed: int, attention_impl="pallas", compute_dtype="bfloat16", **mo
     return default_ppo_config().evolve(
         train=dict(seq_length=T5_PROMPT_LEN + T5_NEW_TOKENS, epochs=10_000, total_steps=T5_TRAIN_STEPS,
                    batch_size=T5_BATCH, checkpoint_interval=10_000, eval_interval=10_000, tracker=None,
-                   save_best=False, compute_dtype=compute_dtype, seed=seed),
+                   compute_dtype=compute_dtype, seed=seed, **ckpt_kw()),
         model=model,
         tokenizer=dict(tokenizer_path="byte", padding_side="right", truncation_side="right"),
         optimizer=dict(name="adamw", kwargs=dict(lr=5.0e-5, betas=(0.9, 0.999), eps=1.0e-8, weight_decay=1.0e-6)),
@@ -2624,7 +2867,7 @@ def ilql_config(seed: int, attention_impl="pallas", kv_cache_quant="int8_kernel"
     return default_ilql_config().evolve(
         train=dict(batch_size=ILQL_BATCH, total_steps=ILQL_STEPS, eval_interval=ILQL_STEPS // 2,
                    checkpoint_interval=10_000, seq_length=ILQL_SEQ, epochs=10_000, tracker=None,
-                   compute_dtype=compute_dtype, seed=seed),
+                   compute_dtype=compute_dtype, seed=seed, **ckpt_kw()),
         model=dict(model_path="random", num_layers_unfrozen=-1, model_extra_configs={"transformer": transformer}),
         tokenizer=dict(tokenizer_path="byte"),
         method=dict(two_qs=True, steps_for_target_q_sync=5,
@@ -2642,7 +2885,7 @@ def ilql_t5_config(seed: int, attention_impl="pallas", compute_dtype="bfloat16")
     return default_ilql_config().evolve(
         train=dict(batch_size=ILQL_T5_BATCH, total_steps=ILQL_T5_STEPS, eval_interval=10_000,
                    checkpoint_interval=10_000, seq_length=ILQL_SEQ, epochs=10_000, tracker=None,
-                   compute_dtype=compute_dtype, seed=seed),
+                   compute_dtype=compute_dtype, seed=seed, **ckpt_kw()),
         model=dict(model_path="random", model_arch_type="seq2seq", num_layers_unfrozen=-1,
                    model_extra_configs={"seq2seq": seq2seq}),
         tokenizer=dict(tokenizer_path="byte", padding_side="right", truncation_side="right"),
@@ -2967,7 +3210,7 @@ def rft_config(seed: int, attention_impl="pallas", kv_cache_quant="int8_kernel",
     config = default_sft_config().to_dict()
     config["train"].update(batch_size=TRAIN_BATCH, total_steps=RFT_STEPS, eval_interval=10_000,
                            checkpoint_interval=10_000, seq_length=TRAIN_LEN, epochs=10_000, tracker=None,
-                           trainer="TPURFTTrainer", compute_dtype=compute_dtype, seed=seed)
+                           trainer="TPURFTTrainer", compute_dtype=compute_dtype, seed=seed, **ckpt_kw())
     config["model"].update(model_path="random", num_layers_unfrozen=-1,
                            model_extra_configs={"transformer": transformer})
     config["tokenizer"].update(tokenizer_path="byte")
@@ -3177,7 +3420,7 @@ def grpo_config(seed: int, attention_impl="pallas", kv_cache_quant="int8_kernel"
     return default_grpo_config().evolve(
         train=dict(batch_size=TRAIN_BATCH, total_steps=GRPO_STEPS, eval_interval=10_000,
                    checkpoint_interval=10_000, seq_length=TRAIN_LEN, epochs=10_000, tracker=None,
-                   compute_dtype=compute_dtype, seed=seed),
+                   compute_dtype=compute_dtype, seed=seed, **ckpt_kw()),
         model=dict(model_path="random", num_layers_unfrozen=-1, model_extra_configs={"transformer": transformer}),
         tokenizer=dict(tokenizer_path="byte"),
         method=dict(dict(num_rollouts=GRPO_ROLLOUTS, chunk_size=GRPO_ROLLOUTS, group_size=GRPO_GROUP,
@@ -3555,7 +3798,7 @@ def dpo_config(seed: int, attention_impl="pallas", kv_cache_quant="int8_kernel",
     return default_dpo_config().evolve(
         train=dict(batch_size=TRAIN_BATCH, total_steps=DPO_STEPS, eval_interval=10_000,
                    checkpoint_interval=10_000, seq_length=TRAIN_LEN, epochs=10_000, tracker=None,
-                   compute_dtype=compute_dtype, seed=seed),
+                   compute_dtype=compute_dtype, seed=seed, **ckpt_kw()),
         model=dict(model_path="random", num_layers_unfrozen=-1, model_extra_configs={"transformer": transformer}),
         tokenizer=dict(tokenizer_path="byte"),
         optimizer=dict(kwargs=dict(lr=DPO_LR)),
@@ -4149,7 +4392,7 @@ def decode_kernel_times(gen, launches, errs) -> list:
     rows = []
     L, H, D = 12, 12, 64
     by_path = {path: launches.get(path, {"short": 0, "long": 0})
-               for path in ("rollout", "train", "sft", "overlap", "ppo_knobs", "stop", "ilql", "rft", "grpo",
+               for path in ("rollout", "train", "sft", "overlap", "ppo_knobs", "stop", "resume", "ilql", "rft", "grpo",
                             "grpo_engine", "dpo")}
 
     def row(name, route, S, written, B=PROMPTS, pads=None):
@@ -4170,7 +4413,8 @@ def decode_kernel_times(gen, launches, errs) -> list:
             launches=by_path["sft" if name.endswith("/sft") else "rollout"][route],
             launches_train_path=by_path["train"][route], launches_sft_path=by_path["sft"][route],
             launches_overlap_path=by_path["overlap"][route], launches_ppo_knobs_path=by_path["ppo_knobs"][route],
-            launches_stop_path=by_path["stop"][route], launches_ilql_path=by_path["ilql"][route],
+            launches_stop_path=by_path["stop"][route], launches_resume_path=by_path["resume"][route],
+            launches_ilql_path=by_path["ilql"][route],
             launches_rft_path=by_path["rft"][route], launches_grpo_path=by_path["grpo"][route],
             launches_grpo_engine_path=by_path["grpo_engine"][route], launches_dpo_path=by_path["dpo"][route],
             max_abs_err=errs[route], shape=[L, B, H, S, D], written=written, ms=ms, kernel_ms=ms, **extra,
@@ -4253,9 +4497,20 @@ def paged_kernel_times(gen, launches, errs) -> list:
 
 
 def main() -> int:
+    try:
+        return run()
+    finally:
+        import shutil
+
+        for root in _CKPT_ROOT:
+            shutil.rmtree(root, ignore_errors=True)
+
+
+def run() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
-    parser.add_argument("--only", choices=("fwd", "paged", "decode", "bias", "sft", "ppo", "ilql", "rft", "grpo", "dpo"),
+    parser.add_argument("--only", choices=("fwd", "paged", "decode", "bias", "sft", "ppo", "resume", "ilql", "rft",
+                                           "grpo", "dpo"),
                         default=None,
                         help="fwd: the build, flash_check and the flash forward's kernel_time rows only "
                              "(a quick check of kernel 1); paged: the build, paged_check and the paged "
@@ -4266,7 +4521,7 @@ def main() -> int:
                              "sft_train_step, reload, randomwalks), no kernel_time rows; ppo: the build, "
                              "train_path and the slice-6 PPO phases (overlap_path, ppo_knobs_path, "
                              "value_branch_cost, ppo_knobs_reference, stop_path, stop_reference), no "
-                             "kernel_time rows; ilql: the build, ilql_path, ilql_reference, ilql_t5_path and the "
+                             "kernel_time rows; resume: the build and resume_path; ilql: the build, ilql_path, ilql_reference, ilql_t5_path and the "
                              "randomwalks ILQL runner; rft: the build, rft_path and the randomwalks RFT runner; "
                              "grpo: the build, grpo_path, grpo_reference and grpo_engine_path; dpo: the build, "
                              "dpo_path and dpo_reference")
@@ -4359,6 +4614,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         ppo_phases(args.seed, {}, train_split)
         rows = []
+    elif args.only == "resume":
+        resume_path(args.seed, {})
+        rows = []
     elif args.only == "ilql":
         ilql_phases(args.seed, {}, {})
         rows = []
@@ -4394,6 +4652,7 @@ def main() -> int:
     del trainer, batch
     torch.cuda.empty_cache()
     ppo_launches = ppo_phases(args.seed, shapes, train_split)
+    ppo_launches["resume"] = resume_path(args.seed, shapes)
     sft_launches = sft_phases(args.seed, shapes)
     engine = engine_path(args.seed)
     paged_launches = {"engine_plain": engine["plain"], "engine_spec": engine["spec"],

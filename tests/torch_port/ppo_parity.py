@@ -59,8 +59,8 @@ def run_reference(jconfig, **train_kw):
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(JPPOTrainer, "setup_model", capture_setup)
         mp.setattr(JBaseTrainer, "_tracker_log", lambda self, st, step: stats.append((step, dict(st))))
-        # the checkpoint writes are not under comparison (the port's are
-        # ROADMAP queue 4)
+        # the checkpoint writes are not under comparison here
+        # (test_torch_resume.py compares them)
         mp.setattr(JBaseTrainer, "_save_checkpoint", lambda self, name, final=False: None)
         ref = trlx_tpu.train(reward_fn=reward_fn, prompts=PROMPTS, config=jconfig, **train_kw)
     return ref, init, stats

@@ -467,8 +467,8 @@ def test_save_pretrained_round_trip(tmp_path):
     directory = str(tmp_path / "saved")
     trainer.save_pretrained(directory)
     assert not os.path.exists(os.path.join(directory, "aux_weights.pt"))  # the base alone
-    sft = default_sft_config().evolve(train=dict(compute_dtype="float32"), tokenizer=dict(tokenizer_path="byte"),
-                                      model=config.to_dict()["model"])
+    sft = default_sft_config().evolve(train=dict(compute_dtype="float32", checkpoint_dir=str(tmp_path / "sft")),
+                                      tokenizer=dict(tokenizer_path="byte"), model=config.to_dict()["model"])
     for cfg in (config, sft):  # into GRPO, and into another causal trainer
         reloaded = get_trainer(cfg.train.trainer)(config=cfg.evolve(model=dict(model_path=directory)), device="cpu")
         want = trainer.model.base.state_dict()

@@ -437,7 +437,7 @@ def test_generate_kwarg_contract(tmp_path):
         trainer.generate(ids, gamma=0.5)
     # a trainer without a processor declares no beta
     sft = get_trainer("TPUSFTTrainer")(config=default_sft_config().evolve(
-        train=dict(compute_dtype="float32"), tokenizer=dict(tokenizer_path="byte"),
+        train=dict(compute_dtype="float32", checkpoint_dir=str(tmp_path / "sft")), tokenizer=dict(tokenizer_path="byte"),
         model=dict(model_path="random", model_extra_configs={"transformer": dict(TINY, vocab_size=258)}),
         method=dict(gen_kwargs=dict(max_new_tokens=4))), device="cpu")
     with pytest.raises(TypeError, match="neither SamplerSettings nor"):

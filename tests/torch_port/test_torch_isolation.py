@@ -42,6 +42,16 @@ def test_every_module_imports_without_jax():
     assert res.stdout.strip().endswith("ok")
 
 
+def test_fault_tolerance_modules_are_covered():
+    """The checkpoint, retry and tracker modules are among those the two
+    tests above import without JAX and scan for imports."""
+    names = set(_module_names())
+    for name in ("trlx_tpu_torch.utils.checkpointing", "trlx_tpu_torch.utils.resilient",
+                 "trlx_tpu_torch.utils.trackers", "trlx_tpu_torch.api", "trlx_tpu_torch.trainer.base"):
+        assert name in names
+        assert REPO / (name.replace(".", "/") + ".py") in PORT_FILES
+
+
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
 def test_no_jax_or_reference_import(path):
     tree = ast.parse(path.read_text())
@@ -98,11 +108,11 @@ def test_default_ppo_config_matches():
     assert default_ppo_config().to_dict() == j_default().to_dict()
 
 
-def _tiny_ppo_config(**sections):
+def _tiny_ppo_config(checkpoint_dir, **sections):
     from trlx_tpu_torch.data.default_configs import default_ppo_config
 
     base = dict(
-        train=dict(batch_size=2, total_steps=1, seq_length=8, tracker=None),
+        train=dict(batch_size=2, total_steps=1, seq_length=8, tracker=None, checkpoint_dir=str(checkpoint_dir)),
         model=dict(model_path="random", model_extra_configs={
             "transformer": dict(hidden_size=16, n_layer=1, n_head=2, n_positions=32)
         }),
@@ -114,12 +124,12 @@ def _tiny_ppo_config(**sections):
     return default_ppo_config().evolve(**base)
 
 
-def test_train_raises_without_a_gpu(monkeypatch):
+def test_train_raises_without_a_gpu(monkeypatch, tmp_path):
     import trlx_tpu_torch
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        trlx_tpu_torch.train(reward_fn=lambda **kw: [0.0], prompts=["a", "b"], config=_tiny_ppo_config())
+        trlx_tpu_torch.train(reward_fn=lambda **kw: [0.0], prompts=["a", "b"], config=_tiny_ppo_config(tmp_path))
 
 
 @pytest.mark.parametrize("section,kw", [
@@ -130,7 +140,7 @@ def test_train_raises_without_a_gpu(monkeypatch):
     ("train", dict(watchdog={"enabled": True})),
     ("train", dict(memory={"enabled": True})),
     ("train", dict(chaos={"seed": 0})),
-    ("train", dict(resume_from_checkpoint="auto")),
+    ("train", dict(resilient_io={"reward_timeout": 1.0})),
     ("method", dict(fleet={"enabled": True})),
     ("method", dict(exp={"enabled": True})),
     ("method", dict(gen_engine={"enabled": True, "data_groups": 2})),
@@ -139,7 +149,7 @@ def test_train_raises_without_a_gpu(monkeypatch):
     ("model", dict(model_path="gpt2", model_extra_configs={})),
     ("tokenizer", dict(tokenizer_path="gpt2")),
 ])
-def test_unported_training_knobs_raise(section, kw):
+def test_unported_training_knobs_raise(section, kw, tmp_path):
     """Each knob that would turn on a part the port has not reached raises
     NotImplementedError naming its ROADMAP queue, rather than training
     without it."""
@@ -147,10 +157,10 @@ def test_unported_training_knobs_raise(section, kw):
 
     with pytest.raises(NotImplementedError, match="ROADMAP queue"):
         trlx_tpu_torch.train(reward_fn=lambda **kw: [0.0], prompts=["a", "b"],
-                             config=_tiny_ppo_config(**{section: kw}), device="cpu")
+                             config=_tiny_ppo_config(tmp_path, **{section: kw}), device="cpu")
 
 
-def test_offline_sft_and_stop_sequences_raise():
+def test_offline_sft_and_stop_sequences_raise(tmp_path):
     """The offline branch's misuses raise: DPO given `rewards` names the
     preference ordering, and GRPO and DPO on a seq2seq model raise
     NotImplementedError (causal only, as in the reference); the trainer
@@ -162,14 +172,15 @@ def test_offline_sft_and_stop_sequences_raise():
     import trlx_tpu_torch
     from trlx_tpu_torch.data.default_configs import default_dpo_config, default_grpo_config, default_ilql_config
 
-    tiny = _tiny_ppo_config().to_dict()
-    dpo = default_dpo_config().evolve(train=dict(batch_size=2, total_steps=1, seq_length=8), model=tiny["model"],
+    tiny = _tiny_ppo_config(tmp_path).to_dict()
+    train = dict(batch_size=2, total_steps=1, seq_length=8, checkpoint_dir=str(tmp_path))
+    dpo = default_dpo_config().evolve(train=train, model=tiny["model"],
                                       tokenizer=tiny["tokenizer"], method=dict(gen_kwargs=dict(max_new_tokens=2)))
     with pytest.raises(ValueError, match="preference ordering"):
         trlx_tpu_torch.train(samples=[("a", "b", "c")], rewards=[1.0], config=dpo, device="cpu")
     seq2seq = dict(model_arch_type="seq2seq", model_extra_configs={"seq2seq": dict(
         d_model=16, n_layer=1, n_head=2, d_kv=8, d_ff=32)})
-    grpo = default_grpo_config().evolve(train=dict(batch_size=2, total_steps=1, seq_length=8), model=tiny["model"],
+    grpo = default_grpo_config().evolve(train=train, model=tiny["model"],
                                         tokenizer=tiny["tokenizer"],
                                         method=dict(num_rollouts=2, chunk_size=2, group_size=2,
                                                     gen_kwargs=dict(max_new_tokens=2)))
@@ -180,7 +191,7 @@ def test_offline_sft_and_stop_sequences_raise():
                              device="cpu")
     ilql = trlx_tpu_torch.train(samples=[("a", "b"), ("c", "d")], rewards=[1.0, 0.0], device="cpu",
                                 config=default_ilql_config().evolve(
-                                    train=dict(batch_size=2, total_steps=1, seq_length=8), model=tiny["model"],
+                                    train=train, model=tiny["model"],
                                     tokenizer=tiny["tokenizer"], method=dict(gen_kwargs=dict(max_new_tokens=2))))
     assert ilql.iter_count == 1
     scored = []
@@ -189,7 +200,7 @@ def test_offline_sft_and_stop_sequences_raise():
         scored.extend(outputs)
         return [0.0] * len(outputs)
 
-    trainer = trlx_tpu_torch.train(reward_fn=reward_fn, prompts=["a", "b"], config=_tiny_ppo_config(),
+    trainer = trlx_tpu_torch.train(reward_fn=reward_fn, prompts=["a", "b"], config=_tiny_ppo_config(tmp_path),
                                    stop_sequences=["\n"], device="cpu")
     assert trainer.stop_sequences == ["\n"] and scored
     assert not any("\n" in o for o in scored)

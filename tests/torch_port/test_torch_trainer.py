@@ -61,8 +61,8 @@ def test_train_matches_reference(tmp_path, monkeypatch):
     monkeypatch.setattr(JPPOTrainer, "setup_model", capture_setup)
     monkeypatch.setattr(JBaseTrainer, "_tracker_log",
                         lambda self, stats, step: j_stats.append((step, dict(stats))))
-    # the checkpoint writes are not under comparison (the port's are
-    # ROADMAP queue 4)
+    # the checkpoint writes are not under comparison here
+    # (test_torch_resume.py compares them)
     monkeypatch.setattr(JBaseTrainer, "_save_checkpoint", lambda self, name, final=False: None)
     ref = trlx_tpu.train(reward_fn=reward_fn, prompts=PROMPTS, config=jconfig)
 

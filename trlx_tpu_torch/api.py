@@ -4,8 +4,12 @@ The same signature selects the algorithm: `reward_fn` gives online PPO
 "TPUGRPOTrainer"), `samples` with `rewards` (or `dataset`, a (samples,
 rewards) pair) offline ILQL, `samples` alone supervised fine-tuning (or
 DPO with "TPUDPOTrainer", the samples (prompt, chosen, rejected)
-triples). Resuming from a checkpoint raises, ROADMAP queue 4. `device` picks where to train: the current CUDA card by
-default (raising when there is none), or "cpu" for the plain paths.
+triples). `train.resume_from_checkpoint` (or the TRLX_TPU_RESUME_FROM
+environment variable, which overrides it) resumes: "auto" takes the newest
+committed checkpoint with training state under `train.checkpoint_dir`
+(a fresh start when there is none), a path loads that checkpoint. `device`
+picks where to train: the current CUDA card by default (raising when there
+is none), or "cpu" for the plain paths.
 """
 
 from __future__ import annotations
@@ -16,8 +20,11 @@ from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple, Union
 
 from trlx_tpu_torch.data.configs import TRLConfig
 from trlx_tpu_torch.data.default_configs import default_ilql_config, default_ppo_config, default_sft_config
-from trlx_tpu_torch.utils import set_seed
+from trlx_tpu_torch.utils import logging, set_seed
+from trlx_tpu_torch.utils.checkpointing import CheckpointCorruptError
 from trlx_tpu_torch.utils.loading import get_pipeline, get_trainer
+
+logger = logging.get_logger(__name__)
 
 
 def train(
@@ -59,9 +66,6 @@ def train(
             config = default_ilql_config()
         else:
             config = default_sft_config()
-    if config.train.resume_from_checkpoint or os.environ.get("TRLX_TPU_RESUME_FROM"):
-        raise NotImplementedError("resuming from a checkpoint is not ported yet (ROADMAP queue 4)")
-
     set_seed(config.train.seed)
     if model_path:
         config.model.model_path = model_path
@@ -103,5 +107,37 @@ def train(
             eval_prompts = [trainer.tokenizer.bos_token] * batch_size
         trainer.make_experience(samples, None, config.train.seq_length)
     trainer.add_eval_pipeline(pipeline_cls(eval_prompts, max_prompt_length, trainer.tokenizer))
+    resume(trainer, config)
     trainer.learn()
     return trainer
+
+
+def resume(trainer, config: TRLConfig) -> None:
+    """Load the checkpoint that `train.resume_from_checkpoint` (or
+    TRLX_TPU_RESUME_FROM, which overrides it) names. "auto" takes the
+    newest committed checkpoint with a `state/` tree; one that fails its
+    integrity check is quarantined and the previous one tried; none at all
+    is a fresh start. An explicit path loads without the quarantine rename:
+    a corrupt one raises."""
+    resume_from = config.train.resume_from_checkpoint
+    env_resume = os.environ.get("TRLX_TPU_RESUME_FROM")
+    if env_resume:
+        logger.warning("TRLX_TPU_RESUME_FROM=%s overrides train.resume_from_checkpoint=%r for this launch",
+                       env_resume, resume_from)
+        resume_from = env_resume
+    if resume_from == "auto":
+        while True:
+            path = trainer.ckpt_manager.latest_resumable()
+            if path is None:
+                logger.warning("resume_from_checkpoint='auto': no committed checkpoint under %s; starting fresh",
+                               config.train.checkpoint_dir)
+                return
+            logger.info("Resuming from checkpoint %s", path)
+            try:
+                trainer.load(path)
+                return
+            except CheckpointCorruptError as e:
+                logger.error("auto-resume: %s; falling back to the previous committed checkpoint", e)
+    elif resume_from:
+        logger.info("Resuming from checkpoint %s", resume_from)
+        trainer.load(resume_from, quarantine_corrupt=False)

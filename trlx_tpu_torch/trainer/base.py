@@ -9,8 +9,7 @@ What the port does differently, and why:
   (`make_freeze_mask`: the embeddings and the blocks below `branch_at`).
   Here frozen parameters get `requires_grad_(False)` and stay out of the
   optimizer; the parameters come out identical. Frozen leaves then have no
-  optimizer moments, which matters only for checkpoint parity (ROADMAP
-  queue 4).
+  optimizer moments in a checkpoint.
 - The inner loop. `train.fused_inner_loop` (default on) makes the
   reference scan all `ppo_epochs` x minibatch steps in one device call
   over `_epoch_perms`, which are by construction the per-epoch loader
@@ -50,9 +49,18 @@ What the port does differently, and why:
   keys and values), the base LM's state dict and every other parameter
   ("aux", the value head) in a second file. `model_path` loads such a
   directory, or "random"; HF directories are ROADMAP queue 7.
-- The robustness, transport, fleet, serving and checkpoint tiers are not
-  ported yet; each knob that would turn one on raises NotImplementedError
-  naming its ROADMAP queue, and `_save_checkpoint` only warns.
+- Checkpoints. `save` writes the reference's layout with torch files for
+  orbax: `state/` holds the model's, the optimizer's and the scheduler's
+  state dicts, `state.json` the reference's resume keys plus every random
+  stream the port draws from, `topology.json` each tensor's shape and
+  dtype. `_save_checkpoint` commits `state/` and `hf_model/` atomically
+  through `utils.checkpointing.CheckpointManager`; `load` verifies the
+  integrity manifest, then the topology, then restores. The loop also
+  stores where it stands in its pass over the data (`loop_position`), so
+  an offline trainer resumed mid-pass continues the same minibatch order.
+- The robustness (guardrails, watchdog, chaos, flight recorder), transport,
+  fleet and serving tiers are not ported yet; each knob that would turn
+  one on raises NotImplementedError naming its ROADMAP queue.
 """
 
 from __future__ import annotations
@@ -62,6 +70,7 @@ import dataclasses
 import inspect
 import json
 import os
+import random
 import time
 from abc import abstractmethod
 from collections import defaultdict
@@ -102,9 +111,18 @@ from trlx_tpu_torch.utils import (
     significant,
     to_scalar,
 )
+from trlx_tpu_torch.utils.checkpointing import (
+    TOPOLOGY_MANIFEST,
+    CheckpointManager,
+    ElasticConfig,
+    PreemptionHandler,
+    atomic_json_write,
+    verify_or_quarantine,
+)
 from trlx_tpu_torch.utils.device import resolve_device
+from trlx_tpu_torch.utils.resilient import CircuitBreaker, retry_call
 from trlx_tpu_torch.utils.tokenizers import load_tokenizer
-from trlx_tpu_torch.utils.trackers import DeferredStats
+from trlx_tpu_torch.utils.trackers import DeferredStats, Tracker
 
 logger = logging.get_logger(__name__)
 
@@ -125,6 +143,9 @@ _RUNTIME_TRANSFORMER_KEYS = frozenset({
 NATIVE_CONFIG = "trlx_tpu_config.json"
 BASE_WEIGHTS = "base_weights.pt"
 AUX_WEIGHTS = "aux_weights.pt"
+# a checkpoint's state/ tree: the reference's orbax {params, opt_state}
+# as the state dicts of the model, the optimizer and the LR scheduler
+STATE_FILES = {"model": "model.pt", "optimizer": "optimizer.pt", "scheduler": "scheduler.pt"}
 
 
 def _unported(what: str, where: str) -> NotImplementedError:
@@ -169,7 +190,6 @@ def check_ported(config: TRLConfig) -> None:
         (train.chaos is not None, "train.chaos", "ROADMAP queue 10"),
         (bool(train.resilient_io), "train.resilient_io", "ROADMAP queue 10"),
         (train.profile_dir is not None, "train.profile_dir", "ROADMAP queue 10"),
-        (bool(train.elastic), "train.elastic", "ROADMAP queue 4"),
         (_enabled(train.serve), "train.serve", "ROADMAP queue 11"),
         (any(int(v) not in (-1, 1) for v in train.mesh.values()),
          f"train.mesh={train.mesh} (one device only)", "ROADMAP queue 12"),
@@ -212,11 +232,6 @@ class TPUBaseTrainer(BaseRLTrainer):
         self._loaded_aux: Optional[Dict[str, torch.Tensor]] = None
         self.model_type: Optional[str] = None
         self.tokenizer = load_tokenizer(config.tokenizer)
-        if train.tracker is not None:
-            logger.warning(
-                "train.tracker=%r is not ported yet (ROADMAP queue 4): stats are "
-                "logged and kept in trainer.stats_history", train.tracker,
-            )
         # the sampler's random stream (the reference splits a jax PRNG key
         # per call; the two streams differ, greedy decoding does not)
         self.generator = torch.Generator(device=self.device).manual_seed(train.seed)
@@ -254,14 +269,38 @@ class TPUBaseTrainer(BaseRLTrainer):
             else self.generate_settings
         )
 
+        self.tracker = Tracker(config)
+        # the last cycle's staged metrics survive any shutdown order
+        self.tracker.attach_pending(self._finish_rollout_stats)
         self.iter_count = 0
         self.nth_evaluation = 0
         self.best_reward = -float("inf")
         self.total_steps = train.total_steps
+        self.elastic = ElasticConfig.from_dict(train.elastic)
+        self.ckpt_manager = CheckpointManager(train.checkpoint_dir, keep_last_n=train.keep_last_n,
+                                              integrity=self.elastic.integrity)
+        self.preemption = PreemptionHandler()
         self._bad_steps = 0  # consecutive non-finite-loss steps
-        self._warned_checkpoint = False
-        # every logged stats dict as (step, {key: float}): the port's
-        # in-memory tracker until the tracker backends are ported
+        # a tracker outage opens this after _TRACKER_CIRCUIT_LIMIT
+        # exhausted-retry failures in a row; reset 0 = one probe a step
+        self._tracker_breaker = CircuitBreaker(failure_threshold=self._TRACKER_CIRCUIT_LIMIT, reset_timeout=0.0)
+        self._ckpt_commit_failures = 0  # consecutive failed commits
+        # the run-derived step budget of a restored checkpoint (PPO derives
+        # total_steps from the store in prepare_learning, so the config
+        # value alone cannot tell a completed run from one with steps left)
+        self._restored_total_steps: Optional[int] = None
+        self._restored_config_total_steps: Optional[int] = None
+        # a preemption truncated the rollout store (online trainers)
+        self._rollout_abandoned = False
+        # where the loop stands in its pass over the data: the outer epoch,
+        # the inner epoch, the iter_count its dataloader was made at and
+        # the batches that loader has yielded (`_resume_position` holds a
+        # restored one until the loop takes it)
+        self._loop_position: Dict[str, int] = {"epoch": 0, "inner": 0, "loader_iter": 0, "batches": 0}
+        self._resume_position: Optional[Dict[str, int]] = None
+        self._loader_iter = 0
+        # every logged stats dict as (step, {key: float}), beside the
+        # tracker's own log
         self.stats_history: List[Tuple[int, Dict[str, float]]] = []
         # wall seconds by phase (generate / experience / train / eval /
         # reward), each closed by a device sync; readers reset it at will
@@ -822,36 +861,107 @@ class TPUBaseTrainer(BaseRLTrainer):
         return self._measured_forward_times[key]
 
     def _log_stats(self, stats: Dict[str, Any], step: int) -> None:
-        self.stats_history.append((step, {k: to_scalar(v) for k, v in stats.items()}))
+        """Keep the stats in `stats_history` and send them to the tracker."""
+        scalars = {k: to_scalar(v) for k, v in stats.items()}
+        self.stats_history.append((step, scalars))
+        self._tracker_log(scalars, step)
+
+    # consecutive exhausted-retry tracker failures before the circuit opens:
+    # a dead tracker must not charge the full backoff to every later step
+    _TRACKER_CIRCUIT_LIMIT = 3
+
+    def _tracker_log(self, stats: Dict[str, Any], step: int) -> None:
+        """tracker.log with retry and backoff; an outage degrades to a
+        logged error, never a dead run. After _TRACKER_CIRCUIT_LIMIT
+        exhausted-retry failures in a row the circuit opens: one un-retried
+        attempt a step, failures swallowed, until one succeeds."""
+        train = self.config.train
+        probing = not self._tracker_breaker.is_closed
+        if not self._tracker_breaker.allow():  # unreachable at reset 0
+            return
+        try:
+            if probing:
+                self.tracker.log(stats, step=step)
+            else:
+                retry_call(self.tracker.log, stats, step=step, retries=train.external_retries,
+                           base_delay=train.retry_base_delay, description="tracker.log")
+        except Exception as e:
+            self._tracker_breaker.record_failure()
+            if not probing:
+                logger.error("tracker.log failed after retries; continuing without logging step %d: %s%s", step, e,
+                             " (circuit open: further steps attempt once, no backoff)"
+                             if not self._tracker_breaker.is_closed else "")
+            return
+        if probing:
+            logger.info("tracker recovered; resuming retried logging")
+        self._tracker_breaker.record_success()
 
     def _call_reward_fn(self, **kwargs):
-        """reward_fn with train.external_retries re-tries and doubling
-        backoff from train.retry_base_delay; the final failure raises."""
+        """reward_fn with train.external_retries re-tries, backoff doubling
+        from train.retry_base_delay (with jitter); the final failure
+        raises."""
         train = self.config.train
-        for attempt in range(train.external_retries + 1):
-            try:
-                with self._phase("reward"):
-                    return self.reward_fn(**kwargs)
-            except Exception as e:
-                if attempt >= train.external_retries:
-                    logger.error("reward_fn failed after %d attempts: %s", attempt + 1, e)
-                    raise
-                delay = min(train.retry_base_delay * 2 ** attempt, 8.0)
-                logger.warning("reward_fn failed (%s); retrying in %.2fs", e, delay)
-                time.sleep(delay)
+        with self._phase("reward"):
+            return retry_call(self.reward_fn, retries=train.external_retries, base_delay=train.retry_base_delay,
+                              description="reward_fn", **kwargs)
+
+    # ------------------------------------------------------------------
+    # checkpointing
+    # ------------------------------------------------------------------
 
     def _checkpoint_tag(self) -> str:
         return f"checkpoint_{self.iter_count:0{len(str(self.total_steps))}d}"
 
+    # consecutive failed commits tolerated before the failure propagates:
+    # a storage flake must not kill a run whose state is intact (the next
+    # interval retries), a store that never takes a write must not fail
+    # silently forever
+    _CKPT_FAILURE_LIMIT = 3
+
     def _save_checkpoint(self, name: str, final: bool = False) -> None:
-        """Checkpointing is ROADMAP queue 4: nothing is written; the first
-        call says so once."""
-        if not self._warned_checkpoint:
-            logger.warning(
-                "checkpoint %r not written: checkpointing is not ported yet "
-                "(ROADMAP queue 4); no checkpoint of this run will be written", name,
-            )
-            self._warned_checkpoint = True
+        """Commit a checkpoint atomically as `<checkpoint_dir>/<name>`:
+        `state/` + `state.json` + `topology.json` when
+        train.save_optimizer, and the `hf_model/` export either way. A
+        failed commit leaves only a torn tmp_ directory; it is counted and
+        training goes on, except on the way out (`final`) or after
+        _CKPT_FAILURE_LIMIT failures in a row, where it raises."""
+        logger.info("Saving checkpoint into %s", os.path.join(self.config.train.checkpoint_dir, name))
+
+        def write(tmp_dir: str) -> None:
+            if self.config.train.save_optimizer:
+                self.save(tmp_dir)
+            self.save_pretrained(os.path.join(tmp_dir, "hf_model"))
+
+        try:
+            self.ckpt_manager.commit(name, write)
+        except Exception as e:
+            self._ckpt_commit_failures += 1
+            if final or self._ckpt_commit_failures >= self._CKPT_FAILURE_LIMIT:
+                raise
+            logger.error("checkpoint commit %r failed (%d/%d consecutive before the failure propagates): %s; "
+                         "training continues, the next checkpoint interval retries", name,
+                         self._ckpt_commit_failures, self._CKPT_FAILURE_LIMIT, e)
+            return
+        self._ckpt_commit_failures = 0
+
+    def _commit_final_checkpoint(self, reason: str) -> None:
+        """Commit this step's checkpoint before the run exits, unless it is
+        already committed (a preemption right after an interval save). The
+        steps are compared as numbers: the name's zero padding follows
+        total_steps, which a resume may change."""
+        ckpts = self.ckpt_manager.step_checkpoints()
+        if ckpts and ckpts[-1][0] == self.iter_count:
+            logger.info("%s: step %d checkpoint already committed", reason, self.iter_count)
+            return
+        self._save_checkpoint(self._checkpoint_tag(), final=True)
+        logger.info("%s: checkpoint committed at step %d", reason, self.iter_count)
+
+    def _preemption_exit(self) -> None:
+        self._commit_final_checkpoint("preemption; exiting cleanly")
+
+    def _should_stop(self) -> bool:
+        """A preemption was requested (one process: the local flag)."""
+        return self.preemption.requested()
 
     def _maybe_save_best(self, stats: Dict[str, Any]) -> None:
         if not self.config.train.save_best:
@@ -859,7 +969,187 @@ class TPUBaseTrainer(BaseRLTrainer):
         reward = stats.get("reward/mean", stats.get("metrics/reward", -float("inf")))
         if reward > self.best_reward:
             self.best_reward = reward
+            logger.info("Saving best checkpoint")
             self._save_checkpoint("best_checkpoint")
+
+    def _extra_state(self) -> Dict[str, Any]:
+        """Hook: the subclass's resumable host state for state.json."""
+        return {}
+
+    def _restore_extra_state(self, state: Dict[str, Any]) -> None:
+        """Hook: restore what `_extra_state` saved."""
+
+    def _resumable_sampler_state(self) -> torch.Tensor:
+        """The sampler generator's state a resume continues from."""
+        return self.generator.get_state()
+
+    def _random_streams(self) -> Dict[str, Any]:
+        """Every random stream besides the sampler's, as JSON: python's and
+        numpy's global generators and torch's default generators (CPU, and
+        the card's), which `set_seed` seeds."""
+        py_state, np_state = random.getstate(), np.random.get_state()
+        streams = {
+            "python": [py_state[0], list(py_state[1]), py_state[2]],
+            "numpy": [np_state[0], np_state[1].tolist(), int(np_state[2]), int(np_state[3]), float(np_state[4])],
+            "torch_cpu": torch.get_rng_state().tolist(),
+        }
+        if self.device.type == "cuda":
+            streams["torch_cuda"] = torch.cuda.get_rng_state(self.device).tolist()
+        return streams
+
+    def _restore_random_streams(self, streams: Dict[str, Any]) -> None:
+        if "python" in streams:
+            version, internal, gauss = streams["python"]
+            random.setstate((version, tuple(internal), gauss))
+        if "numpy" in streams:
+            name, keys, pos, has_gauss, cached = streams["numpy"]
+            np.random.set_state((name, np.asarray(keys, np.uint32), pos, has_gauss, cached))
+        if "torch_cpu" in streams:
+            torch.set_rng_state(torch.tensor(streams["torch_cpu"], dtype=torch.uint8))
+        if "torch_cuda" in streams and self.device.type == "cuda":
+            torch.cuda.set_rng_state(torch.tensor(streams["torch_cuda"], dtype=torch.uint8), self.device)
+
+    def _resume_state_dict(self) -> Dict[str, Any]:
+        """state.json: what the run needs to continue rather than replay.
+        The reference's keys (`rng_key` is the sampler's torch.Generator
+        state as ints), the other random streams, the loop's position in
+        its pass over the data, then the subclass's `_extra_state`. After
+        a preemption truncated the rollout store, the total_steps derived
+        from it understates the budget: the restored values are carried."""
+        state = {
+            "iter_count": self.iter_count,
+            "best_reward": self.best_reward if np.isfinite(self.best_reward) else None,
+            "nth_evaluation": self.nth_evaluation,
+            "rng_key": self._resumable_sampler_state().tolist(),
+            "lr_scale": 1.0,
+            "total_steps": self._restored_total_steps if self._rollout_abandoned else self.total_steps,
+            "config_total_steps": (self._restored_config_total_steps if self._rollout_abandoned
+                                   else self.config.train.total_steps),
+            "random_streams": self._random_streams(),
+            "loop_position": dict(self._loop_position),
+        }
+        state.update(self._extra_state())
+        return state
+
+    def save(self, directory: Optional[str] = None) -> None:
+        """The full training state: `state/` (the model's state dict, value
+        heads and ILQL's Q and target heads included, and the optimizer's
+        and the scheduler's), `state.json` (`_resume_state_dict`) and
+        `topology.json`. Each file is whole or absent after a crash."""
+        directory = os.path.abspath(directory or self.config.train.checkpoint_dir)
+        state_dir = os.path.join(directory, "state")
+        os.makedirs(state_dir, exist_ok=True)
+        state_dicts = {"model": self.model.state_dict(), "optimizer": self.optimizer.state_dict(),
+                       "scheduler": self.scheduler.state_dict()}
+        for key, sd in state_dicts.items():
+            tmp = os.path.join(state_dir, STATE_FILES[key] + ".tmp")
+            torch.save(sd, tmp)
+            os.replace(tmp, os.path.join(state_dir, STATE_FILES[key]))
+        atomic_json_write(os.path.join(directory, "state.json"), self._resume_state_dict())
+        atomic_json_write(os.path.join(directory, TOPOLOGY_MANIFEST), self._topology_manifest())
+
+    def _topology_manifest(self) -> Dict[str, Any]:
+        """The run that saved: one device, the global batch, and the shape
+        and dtype of every model tensor and of every parameter the
+        optimizer holds, in its order (the optimizer's moments take their
+        parameter's shape, and exist only after the first step)."""
+        leaves = {f"model/{k}": {"shape": list(v.shape), "dtype": str(v.dtype)}
+                  for k, v in self.model.state_dict().items()}
+        for g, group in enumerate(self.optimizer.param_groups):
+            for i, p in enumerate(group["params"]):
+                leaves[f"optimizer/{g}/{i}"] = {"shape": list(p.shape), "dtype": str(p.dtype)}
+        return {"format": 1, "mesh": {}, "process_count": 1, "data_group_count": 1,
+                "device": self.device.type, "global_batch_size": int(self.config.train.batch_size),
+                "leaves": leaves}
+
+    def _validate_topology(self, directory: str) -> None:
+        """The architecture gate of `load`, before any state changes: every
+        saved tensor's shape and dtype must equal the live one's (a
+        mismatch is another model or another freeze set, and raises). A
+        checkpoint saved on another device type loads through
+        map_location, with a warning."""
+        fp = os.path.join(directory, TOPOLOGY_MANIFEST)
+        if not os.path.isfile(fp):
+            logger.info("checkpoint %s has no topology manifest: resuming without topology validation", directory)
+            return
+        with open(fp) as f:
+            saved = json.load(f)
+        live = self._topology_manifest()
+        saved_leaves = saved.get("leaves", {})
+        mismatched = []
+        for key, meta in live["leaves"].items():
+            got = saved_leaves.get(key)
+            if got is None:
+                mismatched.append(f"{key}: missing from checkpoint")
+            elif list(got["shape"]) != meta["shape"] or got["dtype"] != meta["dtype"]:
+                mismatched.append(f"{key}: checkpoint {got['shape']}/{got['dtype']} vs "
+                                  f"live {meta['shape']}/{meta['dtype']}")
+        extra = set(saved_leaves) - set(live["leaves"])
+        if extra:
+            mismatched.append(f"checkpoint-only leaves: {sorted(extra)[:4]}")
+        if mismatched:
+            raise ValueError(f"checkpoint {directory} does not match the live model ARCHITECTURE "
+                             f"({len(mismatched)} leaf mismatches; first: {mismatched[0]})")
+        if saved.get("device") not in (None, live["device"]):
+            logger.warning("checkpoint %s was saved on %s: loading it onto %s", directory, saved["device"],
+                           live["device"])
+        if saved.get("global_batch_size") != live["global_batch_size"]:
+            logger.warning("resume: global batch size changed (%s -> %s); iter_count-derived schedules keep "
+                           "their step semantics but cover different sample counts",
+                           saved.get("global_batch_size"), live["global_batch_size"])
+
+    def load(self, directory: Optional[str] = None, quarantine_corrupt: bool = True) -> None:
+        """Restore a checkpoint `save` wrote: the integrity manifest first
+        (a mismatch quarantines the directory, unless quarantine_corrupt is
+        off, and raises CheckpointCorruptError), then the architecture,
+        then the state. The tensors are copied into the module's own
+        parameters and buffers and into optimizer state on the parameters'
+        device (the trainer's: the files are read through map_location)."""
+        directory = os.path.abspath(directory or self.config.train.checkpoint_dir)
+        if self.elastic.verify_integrity:
+            verify_or_quarantine(directory, do_quarantine=quarantine_corrupt)
+        self._validate_topology(directory)
+        state_dir = os.path.join(directory, "state")
+
+        def read(key, map_location):
+            return torch.load(os.path.join(state_dir, STATE_FILES[key]), map_location=map_location,
+                              weights_only=True)
+
+        self.model.load_state_dict(read("model", self.device))
+        # the optimizer places each moment on its parameter's device and
+        # keeps AdamW's step a host tensor, as its own steps leave them
+        self.optimizer.load_state_dict(read("optimizer", "cpu"))
+        for st in self.optimizer.state.values():
+            for k, v in st.items():
+                if isinstance(v, torch.Tensor) and v.device.type == "cpu" and k != "step":
+                    st[k] = v.clone()
+        self.scheduler.load_state_dict(read("scheduler", "cpu"))
+        state_fp = os.path.join(directory, "state.json")
+        if not os.path.exists(state_fp):
+            logger.warning("checkpoint %s has no state.json: the weights and optimizer state were restored, "
+                           "but iter_count and best_reward are unknown; treating it as step 0", directory)
+            return
+        with open(state_fp) as f:
+            state = json.load(f)
+        self.iter_count = state.get("iter_count", 0)
+        best = state.get("best_reward")
+        self.best_reward = float(best) if best is not None else -float("inf")
+        self.nth_evaluation = state.get("nth_evaluation", 0)
+        if float(state.get("lr_scale", 1.0)) != 1.0:
+            logger.warning("checkpoint %s carries a guardrail LR cut (lr_scale=%s), which the port does not "
+                           "apply (ROADMAP queue 10)", directory, state["lr_scale"])
+        if state.get("rng_key") is not None:
+            self.generator.set_state(torch.tensor(state["rng_key"], dtype=torch.uint8))
+        self._restore_random_streams(state.get("random_streams") or {})
+        self._restored_total_steps = state.get("total_steps")
+        self._restored_config_total_steps = state.get("config_total_steps")
+        if state.get("loop_position") is not None:
+            self._resume_position = dict(state["loop_position"])
+        self._restore_extra_state(state)
+
+    # ------------------------------------------------------------------
+    # the loop
+    # ------------------------------------------------------------------
 
     def _guard_bad_loss(self, loss: float) -> bool:
         """Returns True when the step's update was skipped (non-finite
@@ -881,32 +1171,96 @@ class TPUBaseTrainer(BaseRLTrainer):
         return True
 
     def learn(self):
-        """The training loop (the reference's per-step `_learn`)."""
+        """The training loop (the reference's per-step `_learn`), with the
+        preemption handler installed for its duration."""
+        self.preemption.install()
         try:
             return self._learn()
         finally:
+            self.preemption.uninstall()
             # a rollout's held-back stats reach the log even when learn()
             # ends right after it
             self._finish_rollout_stats()
             # a prefetched chunk never trains once learn() exits: its
             # prompts go back to the stream's cursor
             self._abandon_prefetch()
+            # last among the metric consumers: close() drains what the
+            # flushes above missed, then closes the backends
+            self.tracker.close()
+
+    def _restored_run_done(self) -> bool:
+        """The restored step already covers the budget: the config's, or
+        the run-derived one of state.json (store-limited PPO) when the
+        config's total is unchanged."""
+        train = self.config.train
+        restored_done = (self._restored_total_steps is not None
+                         and self.iter_count >= self._restored_total_steps
+                         and train.total_steps == self._restored_config_total_steps)
+        return self.iter_count > 0 and (self.iter_count >= train.total_steps or restored_done)
+
+    def _take_resume_position(self) -> Optional[Dict[str, int]]:
+        """The restored loop position the loop continues from (once)."""
+        pos, self._resume_position = self._resume_position, None
+        return pos
 
     def _learn(self):
         logger.info("Starting training")
+        # a relaunch of a completed run bails before prepare_learning, which
+        # for an online trainer would pay a whole rollout for nothing
+        if self._restored_run_done():
+            logger.info("restored iter_count %d already covers the step budget (total_steps=%d%s); nothing to train",
+                        self.iter_count, self.config.train.total_steps,
+                        "" if self._restored_total_steps is None else f", run-derived={self._restored_total_steps}")
+            return {}
         self.prepare_learning()
-        results = self.evaluate()
-        self._log_stats(results, step=self.iter_count)
+        if self._should_stop():
+            # preempted during prepare_learning (an online trainer's first
+            # rollout): checkpoint and exit before the initial evaluation
+            self._preemption_exit()
+            return {}
+        if self.iter_count > 0:
+            # a resumed run continues from the restored step; the initial
+            # evaluation is skipped, so tracker steps stay monotonic
+            logger.info("Resuming training at step %d/%d (best_reward=%s)", self.iter_count, self.total_steps,
+                        significant(self.best_reward))
+            results: Dict[str, Any] = {}
+            if self.iter_count >= self.total_steps:
+                return results
+        else:
+            results = self.evaluate()
+            self._log_stats(results, step=self.iter_count)
         train = self.config.train
+        pos = self._take_resume_position() or {}
         clock = Clock()
-        for _ in range(train.epochs):
+        for epoch in range(pos.get("epoch", 0), train.epochs):
+            # a preemption during the last rollout or evaluation
+            if self._should_stop():
+                self._preemption_exit()
+                return results
             if train.fused_inner_loop:
                 self.pre_optimization_hook(self.iter_count + self._cycle_steps() < self.total_steps)
-            for _ in range(self.n_inner_epochs):
-                for batch in self.create_train_dataloader():
+            for inner in range(pos.get("inner", 0), self.n_inner_epochs):
+                # a restored position mid-pass: the same loader, its
+                # consumed batches skipped
+                self._loader_iter = pos.get("loader_iter", self.iter_count)
+                skip = pos.get("batches", 0)
+                pos = {}
+                self._loop_position = {"epoch": epoch, "inner": inner, "loader_iter": self._loader_iter,
+                                       "batches": skip}
+                loader = self.create_train_dataloader()
+                # an interval checkpoint on the pass's last step waits for
+                # its callback, so that a resume continues after it
+                end_save = False
+                for b, batch in enumerate(loader):
+                    if b < skip:
+                        continue
+                    if self._should_stop():
+                        self._preemption_exit()
+                        return results
                     clock.tick()
                     loss, stats = self.train_step(batch)
                     step_time = clock.tick()
+                    self._loop_position["batches"] = b + 1
                     if self._guard_bad_loss(loss):
                         # the skipped step does not advance the step index
                         # and logs nothing
@@ -923,9 +1277,13 @@ class TPUBaseTrainer(BaseRLTrainer):
                     self._seen_step_shapes.add(shape_key)
                     stats["learning_rate_group_0"] = float(self.schedule(self.iter_count))
                     self.iter_count += 1
-                    if self.iter_count % train.checkpoint_interval == 0 or self.iter_count >= self.total_steps:
+                    done = self.iter_count >= self.total_steps
+                    save = self.iter_count % train.checkpoint_interval == 0
+                    if done:
+                        # the run's last checkpoint, before its evaluation
+                        # as in the reference
                         self._save_checkpoint(self._checkpoint_tag())
-                    if self.iter_count % train.eval_interval == 0 or self.iter_count >= self.total_steps:
+                    if self.iter_count % train.eval_interval == 0 or done:
                         results = self.evaluate()
                         stats.update(results)
                         self._maybe_save_best(stats)
@@ -936,12 +1294,24 @@ class TPUBaseTrainer(BaseRLTrainer):
                     # flush them first so logged steps stay monotonic
                     self._finish_rollout_stats()
                     self._log_stats(stats, step=self.iter_count)
-                    if self.iter_count >= self.total_steps:
+                    if done:
                         return results
+                    # an interval checkpoint holds the step as a whole:
+                    # its evaluation and its logs included
+                    if save and b + 1 < len(loader):
+                        self._save_checkpoint(self._checkpoint_tag())
+                    end_save = save and b + 1 == len(loader)
                 self.post_backward_callback()
+                self._loop_position = {"epoch": epoch, "inner": inner + 1, "loader_iter": self.iter_count,
+                                       "batches": 0}
+                if end_save:
+                    self._save_checkpoint(self._checkpoint_tag())
             self.post_epoch_callback()
+            self._loop_position = {"epoch": epoch + 1, "inner": 0, "loader_iter": self.iter_count, "batches": 0}
+        # the epochs can run out below total_steps (NaN-skipped steps, small
+        # datasets): commit what exists
         if self.iter_count > 0:
-            self._save_checkpoint(self._checkpoint_tag(), final=True)
+            self._commit_final_checkpoint("epoch budget exhausted")
         return results
 
 
@@ -959,8 +1329,10 @@ class TPUOnlineTrainer(TPUBaseTrainer):
         self.running_moments = running_moments_init(self.device)
         self.ref_mean = getattr(config.method, "ref_mean", None)
         self.ref_std = getattr(config.method, "ref_std", None)
-        # prompt chunks pulled off the (deterministically shuffled) stream
+        # prompt chunks pulled off the (deterministically shuffled) stream,
+        # and the restored cursor the stream is fast-forwarded to
         self._prompt_batches_consumed = 0
+        self._resume_prompt_cursor = 0
         # rollout stats staged until the next flush: (stats, step, meta)
         self._deferred_rollout = DeferredStats()
         # the next cycle's first chunk (batch, generate() output, seconds),
@@ -968,6 +1340,7 @@ class TPUOnlineTrainer(TPUBaseTrainer):
         # rewind to if it never trains
         self._prefetched_gen: Optional[Tuple[PromptBatch, Dict[str, Any], float]] = None
         self._prefetch_cursor_start: Optional[int] = None
+        self._prefetch_sampler_state: Optional[torch.Tensor] = None
         self.log_rollouts = config.train.rollout_logging_dir is not None
         if self.log_rollouts:
             self.setup_rollout_logging(config)
@@ -1003,6 +1376,15 @@ class TPUOnlineTrainer(TPUBaseTrainer):
         scored now, with the weights the last cycle's steps left."""
         logger.info("Collecting rollouts")
         self.phase_marks.append(dict(self.phase_seconds))
+        self._rollout_abandoned = False
+        # an abandoned (preempted) rollout never trains, so the cursor
+        # rewinds to here; a cycle that starts from a prefetched chunk
+        # rewinds to before that chunk's pull
+        prompt_cursor_start = (self._prefetch_cursor_start if self._prefetched_gen is not None
+                               else self._prompt_batches_consumed)
+        # the sampler's stream rewinds with it, so that the replayed chunks
+        # draw what the abandoned ones drew
+        sampler_start = self._resumable_sampler_state()
         self._finish_rollout_stats()
         clock = Clock()
         n_collected = 0
@@ -1012,10 +1394,20 @@ class TPUOnlineTrainer(TPUBaseTrainer):
             next_batch, next_gen, next_gen_time = self._prefetched_gen
             self._prefetched_gen = None
             self._prefetch_cursor_start = None
+            self._prefetch_sampler_state = None
         else:
             next_batch, next_gen, next_gen_time = self._pull_and_generate()
         chunk_rows = len(next_batch.input_ids)
         while n_collected < num_rollouts:
+            # a preemption must not wait out the remaining chunks: abandon
+            # the rollout, and learn() checkpoints and exits
+            if self._should_stop():
+                logger.warning("preemption during rollout collection: abandoning after %d/%d rollouts",
+                               n_collected, num_rollouts)
+                self._rollout_abandoned = True
+                self._prompt_batches_consumed = prompt_cursor_start
+                self.generator.set_state(sampler_start)
+                break
             stats: Dict[str, Any] = {"time/rollout_generate": next_gen_time}
             batch, gen_out = next_batch, next_gen
             if n_collected + chunk_rows < num_rollouts:
@@ -1026,6 +1418,8 @@ class TPUOnlineTrainer(TPUBaseTrainer):
             self.push_to_store(rollout_batch)
             n_collected += rows
             logger.info("[rollout %d / %d]", n_collected, num_rollouts)
+        if not accumulated:  # abandoned before its first chunk
+            return
         agg = {k: sum(xs[k] for xs in accumulated) / len(accumulated) for k in accumulated[-1]}
         # one stacked device->host copy for every tensor stat, read at the
         # next flush
@@ -1052,18 +1446,27 @@ class TPUOnlineTrainer(TPUBaseTrainer):
             return
         if self._prefetched_gen is not None or not hasattr(self, "prompt_iterator"):
             return
-        cursor0 = self._prompt_batches_consumed
+        cursor0, sampler0 = self._prompt_batches_consumed, self.generator.get_state()
         self._prefetched_gen = self._pull_and_generate()
         self._prefetch_cursor_start = cursor0
+        self._prefetch_sampler_state = sampler0
 
     def _abandon_prefetch(self) -> None:
         """Drop an in-flight prefetched chunk and rewind the prompt cursor
-        to before it: its rollouts never train."""
+        and the sampler's stream to before it: its rollouts never train."""
         if self._prefetched_gen is None:
             return
         self._prefetched_gen = None
         self._prompt_batches_consumed = self._prefetch_cursor_start
+        self.generator.set_state(self._prefetch_sampler_state)
         self._prefetch_cursor_start = None
+        self._prefetch_sampler_state = None
+
+    def _resumable_sampler_state(self) -> torch.Tensor:
+        """Before an in-flight prefetch, as the saved cursor is."""
+        if self._prefetched_gen is not None:
+            return self._prefetch_sampler_state
+        return self.generator.get_state()
 
     # -- the rollout export (train.rollout_logging_dir) -------------------
 
@@ -1170,6 +1573,7 @@ class TPUOnlineTrainer(TPUBaseTrainer):
     def add_prompt_pipeline(self, pipeline) -> None:
         self._prompt_pipeline = pipeline
         self._build_prompt_iterator()
+        self._fast_forward_prompts()
 
     def _prompt_chunk_rows(self) -> int:
         return self.config.method.chunk_size
@@ -1194,6 +1598,57 @@ class TPUOnlineTrainer(TPUBaseTrainer):
         self._prompt_batches_consumed += 1
         return batch
 
+    def _fast_forward_prompts(self) -> None:
+        """Resume: advance the prompt stream to the restored cursor by
+        replaying its host-side pulls (collation only), which reproduces
+        the loader's shuffle stream as the killed run would have gone on."""
+        skip = self._resume_prompt_cursor - self._prompt_batches_consumed
+        if skip <= 0 or not hasattr(self, "prompt_iterator"):
+            return
+        logger.info("resume: fast-forwarding the prompt stream by %d chunks", skip)
+        for _ in range(skip):
+            next(self.prompt_iterator)
+        self._prompt_batches_consumed += skip
+
+    # -- resumable state -------------------------------------------------
+
+    def _extra_state(self) -> Dict[str, Any]:
+        """The reward normalisation and the prompt cursor. An in-flight
+        prefetched chunk has not trained: the cursor from before its pull
+        is saved, so a resume replays those prompts."""
+        rm = self.running_moments
+        return {
+            "ref_mean": None if self.ref_mean is None else float(self.ref_mean),
+            "ref_std": None if self.ref_std is None else float(self.ref_std),
+            "running_moments": {"mean": float(rm.mean), "var": float(rm.var), "std": float(rm.std),
+                                "count": float(rm.count)},
+            "prompt_batches_consumed": (self._prefetch_cursor_start if self._prefetched_gen is not None
+                                        else self._prompt_batches_consumed),
+            "prompt_stream": "global-chunks-v1",
+        }
+
+    def _restore_extra_state(self, state: Dict[str, Any]) -> None:
+        self.ref_mean = state.get("ref_mean", self.ref_mean)
+        self.ref_std = state.get("ref_std", self.ref_std)
+        rm = state.get("running_moments")
+        if rm:
+            self.running_moments = type(self.running_moments)(**{
+                k: torch.tensor(rm[k], dtype=torch.float32, device=self.device) for k in ("mean", "var", "std", "count")
+            })
+        self._resume_prompt_cursor = state.get("prompt_batches_consumed", 0)
+        self._fast_forward_prompts()
+
+    def _take_resume_position(self) -> Optional[Dict[str, int]]:
+        """A resumed online run collects a fresh store in prepare_learning.
+        Saved after its cycle's last pass, that rollout is the one the
+        cycle's end was about to collect, and the loop goes on with the
+        next cycle; saved inside a pass, the old store is gone, and the
+        cycle starts over on the new one (as in the reference)."""
+        pos = super()._take_resume_position()
+        if pos is None:
+            return None
+        return {"epoch": pos["epoch"] + int(pos["inner"] >= self.n_inner_epochs)}
+
     # -- loop hooks ------------------------------------------------------
 
     def prepare_learning(self) -> None:
@@ -1209,7 +1664,7 @@ class TPUOnlineTrainer(TPUBaseTrainer):
     def create_train_dataloader(self):
         return self.store.create_loader(
             self.config.train.batch_size, shuffle=True, drop_last=True,
-            seed=self.config.train.seed + self.iter_count,
+            seed=self.config.train.seed + self._loader_iter,
         )
 
     def post_backward_callback(self) -> None:

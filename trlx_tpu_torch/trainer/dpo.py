@@ -70,4 +70,4 @@ class TPUDPOTrainer(TPUBaseTrainer):
 
     def create_train_dataloader(self):
         return self.store.create_loader(self.config.train.batch_size, shuffle=True, drop_last=True,
-                                        seed=self.config.train.seed + self.iter_count)
+                                        seed=self.config.train.seed + self._loader_iter)

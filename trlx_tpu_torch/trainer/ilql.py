@@ -178,7 +178,7 @@ class TPUILQLTrainer(TPUBaseTrainer):
 
     def create_train_dataloader(self):
         return self.store.create_loader(self.config.train.batch_size, shuffle=True, drop_last=True,
-                                        seed=self.config.train.seed + self.iter_count)
+                                        seed=self.config.train.seed + self._loader_iter)
 
     def post_backward_callback(self) -> None:
         """The Polyak sync, at the end of each pass over the store when the

@@ -330,3 +330,17 @@ class TPUPPOTrainer(TPUOnlineTrainer):
         super().post_backward_callback()
         self.kl_ctl.update(self.mean_kl, n_steps=self.config.train.batch_size)
 
+    # -- resumable state: the KL controller on top of the online core's --
+
+    def _extra_state(self):
+        state = super()._extra_state()
+        state["kl_ctl_value"] = float(self.kl_ctl.value)
+        state["mean_kl"] = float(self.mean_kl)
+        return state
+
+    def _restore_extra_state(self, state) -> None:
+        if "kl_ctl_value" in state:
+            self.kl_ctl.value = state["kl_ctl_value"]
+        self.mean_kl = state.get("mean_kl", 0.0)
+        super()._restore_extra_state(state)
+

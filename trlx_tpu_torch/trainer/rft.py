@@ -10,7 +10,7 @@ here."""
 from __future__ import annotations
 
 from collections import defaultdict
-from typing import Dict, List
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -44,6 +44,10 @@ class TPURFTTrainer(TPUBaseTrainer):
         super().__init__(config, **kwargs)
         self.generations_per_prompt: Dict[str, List[dict]] = defaultdict(list)
         self.epoch_count = 0
+        # the (prompt, output) pairs of the current store, and those a
+        # checkpoint restored (the resumed run trains on the same store)
+        self._store_samples: List[Tuple[str, str]] = []
+        self._restored_store_samples: Optional[List[Tuple[str, str]]] = None
 
     def setup_model(self) -> None:
         """The bare policy: random weights from train.seed, or the base
@@ -118,21 +122,44 @@ class TPURFTTrainer(TPUBaseTrainer):
             while len(samples_selected) < target:
                 samples_selected.append(samples_selected[i])
                 i += 1
-            seq_length = self.config.train.seq_length
-            dialogs = [tokenize_dialogue(list(pair), self.tokenizer, seq_length) for pair in samples_selected]
-            # one width across improve rounds
-            self.store = DialogStore(dialogs, self.tokenizer, max_length=seq_length)
+            self._build_store(samples_selected)
+
+    def _build_store(self, samples: List[Tuple[str, str]]) -> None:
+        seq_length = self.config.train.seq_length
+        dialogs = [tokenize_dialogue(list(pair), self.tokenizer, seq_length) for pair in samples]
+        # one width across improve rounds
+        self.store = DialogStore(dialogs, self.tokenizer, max_length=seq_length)
+        self._store_samples = [tuple(pair) for pair in samples]
 
     def prepare_learning(self) -> None:
         self.eval_dataloader = self.eval_pipeline.create_loader(self.config.train.batch_size)
         self.n_inner_epochs = 1
         self.total_steps = self.config.train.total_steps
+        if self._restored_store_samples is not None:
+            # resumed: the store the killed run was training on
+            self._build_store(self._restored_store_samples)
+            self._restored_store_samples = None
+            return
         self.epoch_count = 0
         self.make_experience()
 
+    # -- resumable state: the improve rounds' scores and the current store
+
+    def _extra_state(self) -> Dict[str, Any]:
+        return {"rft": {"epoch_count": self.epoch_count,
+                        "generations_per_prompt": dict(self.generations_per_prompt),
+                        "store_samples": [list(pair) for pair in self._store_samples]}}
+
+    def _restore_extra_state(self, state: Dict[str, Any]) -> None:
+        rft = state.get("rft")
+        if rft:
+            self.epoch_count = rft["epoch_count"]
+            self.generations_per_prompt = defaultdict(list, rft["generations_per_prompt"])
+            self._restored_store_samples = [tuple(pair) for pair in rft["store_samples"]]
+
     def create_train_dataloader(self):
         return self.store.create_loader(self.config.train.batch_size, shuffle=True,
-                                        seed=self.config.train.seed + self.iter_count)
+                                        seed=self.config.train.seed + self._loader_iter)
 
     def post_epoch_callback(self) -> None:
         self.epoch_count += 1

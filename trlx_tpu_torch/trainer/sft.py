@@ -84,5 +84,5 @@ class TPUSFTTrainer(TPUBaseTrainer):
 
     def create_train_dataloader(self):
         return self.store.create_loader(
-            self.config.train.batch_size, shuffle=True, seed=self.config.train.seed + self.iter_count
+            self.config.train.batch_size, shuffle=True, seed=self.config.train.seed + self._loader_iter
         )

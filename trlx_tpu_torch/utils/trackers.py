@@ -1,7 +1,15 @@
-"""Deferred device->host stats (port of the `DeferredStats` of
-trlx_tpu.utils.trackers; the tracker backends are ROADMAP queue 4).
+"""Metric tracking (port of trlx_tpu.utils.trackers): the `Tracker` that
+writes every logged stats dict to `<logging_dir>/metrics.jsonl` and to the
+configured backend, and the deferred device->host stats.
 
-`stage()` stacks every tensor scalar of a stats dict into one float32
+`Tracker` always appends one JSON line per call (`_step`, `_time` and the
+scalars) to `metrics.jsonl` under `train.logging_dir`, or
+`<train.checkpoint_dir>/logs` when that is unset. `train.tracker`
+"tensorboard" adds a `torch.utils.tensorboard` writer and "wandb" a wandb
+run, each when its package imports; otherwise the tracker warns and keeps
+the JSONL, as the reference does. One process, so it always writes.
+
+`DeferredStats.stage()` stacks every tensor scalar of a stats dict into one float32
 tensor and, on the card, starts its copy into pinned host memory on the
 current stream, with a recorded CUDA event; `flush()` waits on the events
 and returns `[(stats, step, meta), ...]` in stage order with every value
@@ -17,9 +25,24 @@ host float) either way.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple
+import json
+import os
+import sys
+import time
+from numbers import Number
+from typing import Any, Callable, Dict, List, Tuple
 
 import torch
+
+from trlx_tpu_torch.utils import logging
+
+logger = logging.get_logger(__name__)
+
+
+def _run_name(config) -> str:
+    script = os.path.basename(getattr(sys.modules.get("__main__"), "__file__", "run") or "run")
+    model = config.model.model_path.rstrip("/").split("/")[-1]
+    return config.train.run_name or f"{script}/{model}/1dev"
 
 
 class DeferredStats:
@@ -55,3 +78,73 @@ class DeferredStats:
             out.append(({k: float(v) for k, v in zip(keys, vals)}, step, meta))
         self._pending.clear()
         return out
+
+
+class Tracker:
+    """Sends scalar stats to the configured backend and a JSONL log."""
+
+    def __init__(self, config):
+        train = config.train
+        self.backend = train.tracker
+        self.run_name = _run_name(config)
+        self.logging_dir = train.logging_dir or os.path.join(train.checkpoint_dir, "logs")
+        self._tb = None
+        self._wandb = None
+        # flushers of deferred stats: close() drains them before the
+        # backends go, so the last cycle's staged metrics are never dropped
+        self._pending_flushes: List[Callable[[], None]] = []
+        if self.backend not in (None, "jsonl", "tensorboard", "wandb"):
+            raise ValueError(f"unknown tracker {self.backend!r} (tensorboard | wandb | jsonl | None)")
+        os.makedirs(self.logging_dir, exist_ok=True)
+        self._jsonl = open(os.path.join(self.logging_dir, "metrics.jsonl"), "a")
+        if self.backend == "tensorboard":
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+
+                self._tb = SummaryWriter(log_dir=os.path.join(self.logging_dir, self.run_name.replace("/", "_")))
+            except Exception as e:  # tensorboard is optional
+                logger.warning("tensorboard unavailable (%s); falling back to jsonl", e)
+        elif self.backend == "wandb":
+            try:
+                import wandb
+
+                self._wandb = wandb.init(project=train.project_name, name=self.run_name, entity=train.entity_name,
+                                         group=train.group_name, tags=train.tags, config=config.to_dict())
+            except Exception as e:
+                logger.warning("wandb unavailable (%s); falling back to jsonl", e)
+
+    def log(self, stats: Dict[str, Any], step: int) -> None:
+        if self._jsonl is None:  # closed
+            return
+        scalars = {k: float(v) for k, v in stats.items() if isinstance(v, Number)}
+        self._jsonl.write(json.dumps(dict(scalars, _step=step, _time=time.time())) + "\n")
+        self._jsonl.flush()
+        if self._tb is not None:
+            for k, v in scalars.items():
+                self._tb.add_scalar(k, v, step)
+        if self._wandb is not None:
+            self._wandb.log(stats, step=step)
+
+    def attach_pending(self, flush_fn: Callable[[], None]) -> None:
+        """Register a callable that logs any still-staged deferred stats
+        (idempotent); close() runs it before the backends go."""
+        self._pending_flushes.append(flush_fn)
+
+    def close(self) -> None:
+        """Flush the staged deferred stats, then close the backends.
+        Idempotent; log() on a closed tracker does nothing."""
+        flushes, self._pending_flushes = self._pending_flushes, []
+        for flush in flushes:
+            try:
+                flush()
+            except Exception as e:
+                logger.error("tracker.close: deferred-stats flush failed (%s); closing backends anyway", e)
+        if self._jsonl is not None:
+            self._jsonl.close()
+            self._jsonl = None
+        if self._tb is not None:
+            self._tb.close()
+            self._tb = None
+        if self._wandb is not None:
+            self._wandb.finish()
+            self._wandb = None
