@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive trlx_tpu_torch's rollout and training paths on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N] [--only fwd|paged|decode|bias|sft|ppo|resume|ilql|rft|grpo|dpo]
+    python3 chip_smoke.py [--seed N] [--only fwd|paged|decode|bias|sft|ppo|resume|ilql|rft|grpo|dpo|llama]
 
 Builds the CUDA kernels from `trlx_tpu_torch/csrc` (into build/kernels/)
 and holds each kernel against its plain PyTorch version on the card: both
@@ -90,7 +90,18 @@ through the entry points a user calls:
   `train.trainer="TPUDPOTrainer"` at GPT-2-small width (64 separable
   pairs, 16 steps of 32 pairs stacked into 64-row forwards; the final
   accuracy > 0.9, the margin grew, the reference frozen; one step on 256
-  pairs against the same references).
+  pairs against the same references);
+- the Llama family at Llama-2-7B's widths (4096 / 32 heads of 128 /
+  11008 / 32000, rotary, RMSNorm, SwiGLU, an untied head; cut to 4 of its
+  32 layers), loaded from a local HF directory that the script writes
+  from the seed's random weights: `train(model_path=<dir>)` (PPO, 32
+  prompts, 32 new tokens, batch 16, 8 steps, the hydra reference over the
+  top two blocks and lm_head) with exact launches of kernels 1, 2/3 and 8
+  at head width 128; the run's HF export reloaded bit for bit; a greedy
+  rollout and one train step against the plain bf16 and fp32 math; one
+  cycle through the decode engine (kernel 7 at head width 128). Before
+  the paths, the four kernels' cases at head width 128 (GQA at
+  Llama-3-8B's and Llama-2-70B's attention, int8 decode groups 1-8).
 
 Launch counters, zeroed before each path and read after it, show each
 path ran through its kernels. Then the kernels are timed at the paths'
@@ -101,7 +112,8 @@ train step and one engine call of each mode are profiled.
 `--only ppo` the build, the training path and the three PPO phases above;
 `--only resume` the build and `resume_path`;
 `--only ilql`, `--only rft`, `--only grpo` and `--only dpo` the build and
-the ILQL, RFT, GRPO or DPO phases.
+the ILQL, RFT, GRPO or DPO phases; `--only llama` the build, the head
+width 128 kernel cases, the Llama path and its kernel_time rows.
 `--only fwd` stops after the build, the flash forward's check and its
 kernel_time rows; `--only paged` after the build, the paged check and the
 paged kernel_time rows; `--only decode` after the build, the int8 decode
@@ -227,8 +239,9 @@ def ptxas_report(log: str, kernel: str) -> list:
         if m:
             cur = {"function": m.group(1)} if kernel in m.group(1) else None
             if cur is not None:
-                nk = re.search(r"ILi(\d+)E", m.group(1))
-                cur["nk"] = int(nk.group(1)) if nk else None
+                ints = [int(x) for x in re.findall(r"Li(\d+)E", m.group(1))]
+                cur["nk"] = ints[0] if ints else None
+                cur["template_ints"] = ints
                 out.append(cur)
             continue
         if cur is None:
@@ -377,19 +390,20 @@ def paged_counters():
             "paged_long": da.paged_attention_long}
 
 
-def check_flash(gen) -> dict:
+def check_flash(gen, cases=None, phase="flash_check") -> dict:
     """Kernel 1 against flash_attention_plain on the same bf16 inputs: max
     |error| of out under 2e-2, m and l within 1e-3 relative. Each case runs
     the route `forward_route` names, and the launch counters must show that
     route and no other; a case the short kernel takes also runs the long
     route's kernel on the same inputs, held to the same bars. Returns the
-    worst |error| of each route."""
+    worst |error| of each route. `cases` replaces the head width 64 cases
+    below (FLASH_D128_CASES)."""
     import torch
 
     from trlx_tpu_torch.ops import flash_attention as fa
     from trlx_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain, forward_route
 
-    cases = {  # name: (B, H, Hkv, T, S, D, q_offset, pad, causal)
+    cases = cases or {  # name: (B, H, Hkv, T, S, D, q_offset, pad, causal)
         "prefill": (64, 12, 12, PROMPT_LEN, 128, 64, 0, "prefill", True),
         "teacher_forced": (64, 12, 12, PROMPT_LEN + NEW_TOKENS, PROMPT_LEN + NEW_TOKENS, 64, 0, "left", True),
         "long": (8, 12, 12, 1024, 1024, 64, 0, "left", True),
@@ -420,7 +434,7 @@ def check_flash(gen) -> dict:
         q, k, v, mask = flash_inputs(gen, B, H, Hkv, T, S, D, off, pad)
         kw = dict(q_offset=off if pad == "prefill" else None, with_stats=True, causal=causal,
                   sm_scale=None if causal else 1.0)
-        route = forward_route(T, S)
+        route = forward_route(T, S, D)
         for fn in counters.values():
             fn.launches = 0
         got = {route: flash_attention(q, k, v, mask, **kw)}
@@ -440,7 +454,7 @@ def check_flash(gen) -> dict:
             errs[r] = {"max_abs_err": (out.float() - ref).abs().max().item(),
                        "m_rel_err": ((m - m_ref).abs() / m_ref.abs().clamp(min=1.0)).max().item(),
                        "l_rel_err": ((l - l_ref).abs() / l_ref.abs().clamp(min=1.0)).max().item()}
-        emit("flash_check", case=name, shape=[B, H, Hkv, T, S, D], causal=causal, route=route, launches=launched,
+        emit(phase, case=name, shape=[B, H, Hkv, T, S, D], causal=causal, route=route, launches=launched,
              **errs[route], errs=errs)
         for r, e in errs.items():
             if not (e["max_abs_err"] <= 2e-2 and e["m_rel_err"] <= 1e-3 and e["l_rel_err"] <= 1e-3):
@@ -472,7 +486,7 @@ BWD_CASES = {  # name: (B, H, Hkv, T, S, q_offset, pad, causal)
 }
 
 
-def flash_bwd_inputs(gen, B, H, Hkv, T, S, q_offset, pad, causal=True):
+def flash_bwd_inputs(gen, B, H, Hkv, T, S, q_offset, pad, causal=True, D=64):
     """Kernel inputs of the backward: q/k/v/mask as `flash_inputs` makes
     them with `pad`, the forward kernel's (out, m, l) and a bf16 output
     gradient. Without `causal` the scale is T5's 1.0."""
@@ -480,7 +494,7 @@ def flash_bwd_inputs(gen, B, H, Hkv, T, S, q_offset, pad, causal=True):
 
     from trlx_tpu_torch.ops.flash_attention import flash_attention
 
-    q, k, v, mask = flash_inputs(gen, B, H, Hkv, T, S, 64, q_offset, pad)
+    q, k, v, mask = flash_inputs(gen, B, H, Hkv, T, S, D, q_offset, pad)
     out, m, l = flash_attention(q, k, v, mask, q_offset=q_offset, with_stats=True, causal=causal,
                                 sm_scale=None if causal else 1.0)
     g = torch.randn(out.shape, generator=gen, device="cuda").to(torch.bfloat16)
@@ -499,7 +513,7 @@ def long_route(q, k, v, mask, g, m, l, causal, scale, q_offset):
     return dq, dk, dv
 
 
-def check_flash_bwd(gen) -> dict:
+def check_flash_bwd(gen, cases=None, D=64, phase="flash_bwd_check") -> dict:
     """Both routes of the flash backward (the fused kernel up to 128
     queries and keys, the dq and dk/dv kernels past that) against
     flash_attention_backward_plain on the same bf16 inputs upcast to fp32:
@@ -511,7 +525,8 @@ def check_flash_bwd(gen) -> dict:
     other; a case the fused kernel takes also runs the long route, and the
     fused kernel's results must be bit-identical on a second call. Returns
     the worst max |error| of each kernel, and under "by_case" each case's
-    own (the largest over its kernels' dq, dk and dv)."""
+    own (the largest over its kernels' dq, dk and dv). `cases` and `D`
+    replace BWD_CASES and the head width 64 (BWD_D128_CASES)."""
     import torch
 
     from trlx_tpu_torch.ops import flash_attention as fa
@@ -526,10 +541,10 @@ def check_flash_bwd(gen) -> dict:
 
     counters = {"fused": fa.flash_attention_bwd, "dq": fa.flash_attention_dq, "dkv": fa.flash_attention_dkv}
     worst = {"rel": 0.0, "fused": 0.0, "dq": 0.0, "dkv": 0.0, "by_case": {}}  # max |error| of each kernel's outputs
-    for name, (B, H, Hkv, T, S, off, pad, causal) in BWD_CASES.items():
-        q, k, v, mask, out, m, l, g = flash_bwd_inputs(gen, B, H, Hkv, T, S, off, pad, causal)
-        scale = 64 ** -0.5 if causal else 1.0
-        route = backward_route(T, S)
+    for name, (B, H, Hkv, T, S, off, pad, causal) in (cases or BWD_CASES).items():
+        q, k, v, mask, out, m, l, g = flash_bwd_inputs(gen, B, H, Hkv, T, S, off, pad, causal, D)
+        scale = D ** -0.5 if causal else 1.0
+        route = backward_route(T, S, D)
         for fn in counters.values():
             fn.launches = 0
         got = {route: flash_attention_backward(q, k, v, mask, out, m, l, g, causal, scale, off)}
@@ -552,7 +567,7 @@ def check_flash_bwd(gen) -> dict:
             errs[r] = {key: rel(a, b) for key, a, b in zip(("dq", "dk", "dv"), res, ref)}
             errs[r]["dv_fully_masked_row"] = rel(res[2][0], ref[2][0])
             abs_err[r] = {key: (a.float() - b).abs().max().item() for key, a, b in zip(("dq", "dk", "dv"), res, ref)}
-        emit("flash_bwd_check", case=name, shape=[B, H, Hkv, T, S, 64], q_offset=off, causal=causal, route=route,
+        emit(phase, case=name, shape=[B, H, Hkv, T, S, D], q_offset=off, causal=causal, route=route,
              launches=launched, rel_err=errs, max_abs_err=abs_err, fused_bitwise_same_rerun=same,
              dv_masked_row_ref_max=ref[2][0].abs().max().item())
         if not all(e < 2e-2 for r in errs.values() for e in r.values()):
@@ -764,7 +779,7 @@ def check_flash_bias(gen) -> dict:
     return worst
 
 
-def check_decode(gen) -> dict:
+def check_decode(gen, cases=None, D=64, phase="decode_check") -> dict:
     """Both int8 decode kernels against decode_attention_int8_plain on the
     same inputs (max abs error 2e-2), every layer of each case: the rollout
     shape; GQA at S = 200 with a fully masked row; a mask with holes inside
@@ -774,7 +789,8 @@ def check_decode(gen) -> dict:
     the route decode_route names (the counters); each case of at most
     SHORT_DECODE_MAX_SLOTS slots also runs both route kernels, and every
     kernel call is made twice and must give the same bits; the short kernel
-    must refuse a longer cache."""
+    must refuse a longer cache. `cases` and `D` replace the cases below and
+    the head width 64 (DECODE_D128_CASES)."""
     import torch
 
     from trlx_tpu_torch.ops.decode_attention import (
@@ -786,7 +802,7 @@ def check_decode(gen) -> dict:
         decode_route,
     )
 
-    cases = {  # name: (L, B, H, Hkv, S, written)
+    cases = cases or {  # name: (L, B, H, Hkv, S, written)
         "rollout": (12, 64, 12, 12, 128, PROMPT_LEN + NEW_TOKENS),
         "gqa": (2, 8, 12, 4, 200, 150),
         "holes": (2, 16, 12, 12, 131, 120),
@@ -797,10 +813,9 @@ def check_decode(gen) -> dict:
     counters = decode_counters()
     kernels = {"short": decode_attention_int8_short, "long": decode_attention_int8_long}
     worst = {"short": 0.0, "long": 0.0}
-    D = 64
     for name, (L, B, H, Hkv, S, written) in cases.items():
         q, ck, cv, ks, vs, mask = decode_inputs(gen, L, B, H, Hkv, S, D, written)
-        if name in ("gqa", "edge_256"):
+        if name in ("gqa", "edge_256", "gqa8_edge_256"):
             mask[1] = 0  # a fully masked row averages V uniformly over all S
         if name == "holes":
             mask &= (torch.rand(mask.shape, generator=gen, device="cuda") < 0.7).to(torch.int32)
@@ -829,7 +844,7 @@ def check_decode(gen) -> dict:
         calls = L * (1 + 2 * len(routes))
         want = {"decode": L, "decode_short": int(route == "short") * L + (2 * L if "short" in routes else 0),
                 "decode_long": int(route == "long") * L + 2 * L}
-        emit("decode_check", case=name, shape=[L, B, H, Hkv, S, D], route=route, max_abs_err=errs,
+        emit(phase, case=name, shape=[L, B, H, Hkv, S, D], route=route, max_abs_err=errs,
              repeat_identical=identical, launches=launched, kernel_calls=calls,
              attendable_slots=int((mask > 0).sum().item()), fully_masked_rows=int((mask.sum(dim=1) == 0).sum().item()))
         if launched != want:
@@ -850,7 +865,7 @@ def check_decode(gen) -> dict:
     return {"max_abs_err": max(worst.values()), "by_route": worst}
 
 
-def paged_inputs(gen, B, T, H, Hkv, PS, MP, quant, depths, L=12, nulls=()):
+def paged_inputs(gen, B, T, H, Hkv, PS, MP, quant, depths, L=12, nulls=(), D=64):
     """A paged pool of L layers with every lane's pages, the step's q/k/v and
     the engine's bias. Lane b holds depths[b] tokens before the step's T
     (left padding masks the first pad[b] slots); a lane's pages past its
@@ -862,7 +877,6 @@ def paged_inputs(gen, B, T, H, Hkv, PS, MP, quant, depths, L=12, nulls=()):
 
     S = MP * PS
     NP = 1 + B * MP
-    D = 64
     depths = torch.tensor(depths, device="cuda")
     pad = torch.clamp(depths // 3, max=PS + 2)
     pad[depths <= 1] = 0
@@ -892,13 +906,12 @@ def paged_inputs(gen, B, T, H, Hkv, PS, MP, quant, depths, L=12, nulls=()):
     return q, kn, vn, pools, table.to(torch.int32).contiguous(), depths, bias, visible
 
 
-def paged_work(visible, table, H, Hkv, T, PS, quant):
+def paged_work(visible, table, H, Hkv, T, PS, quant, D=64):
     """Bytes and operations the paged attention function needs on this
     table and mask: the K and V rows (and with int8 their per-row scales)
     of every slot some query of the lane sees, bf16 q and out, the fp32
     bias and the int32 table; 4 * D operations per visible (query head,
     slot) pair."""
-    D = 64
     seen = visible.any(dim=1)  # [B, S]
     n_rows = int(seen.sum().item()) * Hkv
     row_bytes = 2 * D * (1 if quant else 2) + (8 if quant else 0)
@@ -907,7 +920,7 @@ def paged_work(visible, table, H, Hkv, T, PS, quant):
     return n_bytes, 4 * D * H * int(visible.sum().item())
 
 
-def check_paged(gen) -> dict:
+def check_paged(gen, cases=None, D=64, phase="paged_check") -> dict:
     """The paged kernels against paged_attention_plain on the card, through
     paged_attention_step(impl="pallas") (the write half included): page
     sizes 8, 16 and 128, T 1 and 4, int8 and bf16 pools, GQA groups 1 and
@@ -918,7 +931,8 @@ def check_paged(gen) -> dict:
     at most SHORT_PAGED_MAX_SLOTS slots also runs the long kernel on the
     same pools, and the short kernel again, which must give the same bits;
     the short kernel must refuse a wider table. Every query row here sees
-    some slot, so every row is compared (rel 2e-2)."""
+    some slot, so every row is compared (rel 2e-2). `cases` and `D`
+    replace the cases below and the head width 64 (PAGED_D128_CASES)."""
     import torch
 
     from trlx_tpu_torch.ops.decode_attention import (
@@ -930,7 +944,7 @@ def check_paged(gen) -> dict:
         paged_route,
     )
 
-    cases = {  # name: (B, T, H, Hkv, PS, MP, quant, depths, nulls)
+    cases = cases or {  # name: (B, T, H, Hkv, PS, MP, quant, depths, nulls)
         "decode_int8_ps16": (8, 1, 12, 12, 16, 5, "int8", [1, 5, 16, 17, 40, 63, 70, 33], [(3, 1)]),
         "verify_int8_ps16": (8, 4, 12, 12, 16, 5, "int8", [1, 5, 16, 17, 40, 60, 70, 33], [(4, 1)]),
         "decode_bf16_ps8": (6, 1, 12, 4, 8, 9, None, [1, 9, 30, 64, 20, 7], [(3, 2)]),
@@ -947,21 +961,21 @@ def check_paged(gen) -> dict:
     worst = {"short": 0.0, "long": 0.0}
     for name, (B, T, H, Hkv, PS, MP, quant, depths, nulls) in cases.items():
         q, kn, vn, pools, table, slot_pos, bias, visible = paged_inputs(
-            gen, B, T, H, Hkv, PS, MP, quant, depths, nulls=nulls)
+            gen, B, T, H, Hkv, PS, MP, quant, depths, nulls=nulls, D=D)
         lane_valid = torch.ones(B, dtype=torch.bool, device="cuda")
         lane_valid[1] = False
         route = paged_route(T, H, Hkv, PS, MP)
         for fn in counters.values():
             fn.launches = 0
-        out, pools = paged_attention_step(q, kn, vn, pools, 5, table, slot_pos, bias, 64 ** -0.5,
+        out, pools = paged_attention_step(q, kn, vn, pools, 5, table, slot_pos, bias, D ** -0.5,
                                           lane_valid=lane_valid, impl="pallas")
         torch.cuda.synchronize()
         launched = {k: fn.launches for k, fn in counters.items()}
         want = {"paged": 1, "paged_short": int(route == "short"), "paged_long": int(route == "long")}
         if launched != want:
             raise AssertionError(f"{name}: paged_route names {route}, the counters show {launched}")
-        ref = paged_attention_plain(q.float(), pools, 5, table, bias, 64 ** -0.5)
-        seen = visible.any(dim=-1)[:, :, None, None].expand(B, T, H, 64)
+        ref = paged_attention_plain(q.float(), pools, 5, table, bias, D ** -0.5)
+        seen = visible.any(dim=-1)[:, :, None, None].expand(B, T, H, D)
         if not bool(seen.all()):
             raise AssertionError(f"{name}: every query row must see a slot")
 
@@ -969,7 +983,7 @@ def check_paged(gen) -> dict:
             return ((x.float() - ref).abs().max() / ref.abs().max().clamp(min=1.0)).item()
 
         errs = {route: rel(out)}
-        args = (q, pools, 5, table, bias, 64 ** -0.5)
+        args = (q, pools, 5, table, bias, D ** -0.5)
         repeat_identical = None
         if MP * PS <= SHORT_PAGED_MAX_SLOTS:
             errs["long"] = rel(paged_attention_long(*args))
@@ -983,7 +997,7 @@ def check_paged(gen) -> dict:
                 pass
             else:
                 raise AssertionError(f"{name}: the short kernel took a table of {MP * PS} slots")
-        emit("paged_check", case=name, shape=[B, T, H, Hkv, PS, MP], quant=quant, route=route, rel_err=errs,
+        emit(phase, case=name, shape=[B, T, H, Hkv, PS, MP, D], quant=quant, route=route, rel_err=errs,
              short_repeat_identical=repeat_identical)
         if max(errs.values()) > 2e-2:
             raise AssertionError(f"paged kernel disagrees with its plain version on {name}: {errs}")
@@ -1430,17 +1444,24 @@ def sampler_calls():
             setattr(trainer_base, name, sampler)
 
 
-def check_params_moved(trainer, seed: int, phase: str = "train_params", frozen=()) -> None:
+def check_params_moved(trainer, seed: int, phase: str = "train_params", frozen=(), base_state=None) -> None:
     """Every trainable tensor moved from its seeded init (a value branch
-    from its copy of the seeded top blocks); the tensors whose names start
-    with one of `frozen`, and the frozen reference (a full copy, or the
-    hydra branch over the top blocks), did not. Without `frozen`, every
-    tensor must be trainable."""
+    from its copy of the seeded top blocks; with `base_state`, the base
+    weights the run loaded and heads fresh from the seed); the tensors
+    whose names start with one of `frozen`, and the frozen reference (a
+    full copy, or the hydra branch over the top blocks), did not. Without
+    `frozen`, every tensor must be trainable."""
     import torch
 
     model = trainer.model
     kw = {k: getattr(model, k) for k in ("branch_at", "value_branch_at") if getattr(model, k, None) is not None}
-    init = type(model)(model.cfg, device="cuda", **kw).init_params(torch.Generator().manual_seed(seed))
+    init = type(model)(model.cfg, device="cuda", **kw)
+    if base_state is None:
+        init.init_params(torch.Generator().manual_seed(seed))
+    else:
+        with torch.no_grad():
+            init.base.load_state_dict(base_state)
+            init.init_heads(torch.Generator().manual_seed(seed))
     start = dict(init.named_parameters())
     params = dict(model.named_parameters())
     should_freeze = {n for n in params if n.startswith(tuple(frozen))} if frozen else set()
@@ -1692,8 +1713,8 @@ def grad_reference(trainer, configs: dict, batches: list, step, outputs: tuple, 
                              f"path's: {k_bias_abs}")
 
 
-def counted_train(config, shapes: dict, path: str, reward_fn=train_reward_fn, **train_kw):
-    """`trlx_tpu_torch.train` on the train path's prompts with every
+def counted_train(config, shapes: dict, path: str, reward_fn=train_reward_fn, prompts=TRAIN_PROMPTS, **train_kw):
+    """`trlx_tpu_torch.train` on `prompts` (the train path's) with every
     training kernel's counter at 0 just before it: (trainer, wall s,
     launches, the decode steps of each sampler call)."""
     import torch
@@ -1705,7 +1726,7 @@ def counted_train(config, shapes: dict, path: str, reward_fn=train_reward_fn, **
         fn.launches = 0
     t0 = time.perf_counter()
     with forward_shapes(shapes, path), sampler_calls() as calls:
-        trainer = trlx_tpu_torch.train(reward_fn=reward_fn, prompts=TRAIN_PROMPTS, config=config, **train_kw)
+        trainer = trlx_tpu_torch.train(reward_fn=reward_fn, prompts=prompts, config=config, **train_kw)
     torch.cuda.synchronize()
     return (trainer, time.perf_counter() - t0, {name: fn.launches for name, fn in counters.items()},
             [c["decode_steps"] for c in calls])
@@ -3931,6 +3952,596 @@ def dpo_phases(seed: int, shapes: dict) -> dict:
     return {"dpo": launches}
 
 
+# ---------------------------------------------------------------------------
+# the Llama family at head width 128
+# ---------------------------------------------------------------------------
+
+# Llama-2-7B's published widths (NousResearch/Llama-2-7b-hf config.json, the
+# model examples/ppo_sentiments_llama.py trains), cut from 32 layers to 4 so
+# that the script keeps its time; random weights from the seed
+LLAMA_7B = dict(
+    vocab_size=32000, hidden_size=4096, n_layer=4, n_head=32, n_kv_head=32, intermediate_size=11008,
+    n_positions=4096, pos_embed="rotary", rotary_style="neox", rope_theta=10000.0, norm="rmsnorm",
+    layer_norm_epsilon=1e-5, activation="silu", mlp_gated=True, use_attn_bias=False, use_mlp_bias=False,
+    use_norm_bias=False, tie_word_embeddings=False,
+)
+LLAMA_PUBLISHED_LAYERS = 32
+# the HF config.json of that model at the cut depth (what models/hf.py reads)
+LLAMA_HF_CONFIG = dict(
+    model_type="llama", architectures=["LlamaForCausalLM"], vocab_size=32000, hidden_size=4096,
+    num_hidden_layers=LLAMA_7B["n_layer"], num_attention_heads=32, num_key_value_heads=32,
+    intermediate_size=11008, max_position_embeddings=4096, rms_norm_eps=1e-5, rope_theta=10000.0,
+    tie_word_embeddings=False, hidden_act="silu", torch_dtype="bfloat16",
+)
+# the example's num_layers_unfrozen; 32 prompts, 32 rollouts a cycle of 32
+# new tokens, batch 16, 2 PPO epochs, two cycles = 8 optimizer steps
+LLAMA_UNFROZEN = 2
+LLAMA_PROMPTS = TRAIN_PROMPTS[:32]
+LLAMA_ROLLOUTS, LLAMA_BATCH, LLAMA_EPOCHS = 32, 16, 2
+LLAMA_CYCLE_STEPS = LLAMA_EPOCHS * LLAMA_ROLLOUTS // LLAMA_BATCH
+LLAMA_STEPS = 2 * LLAMA_CYCLE_STEPS
+LLAMA_REFERENCE_ROLLOUTS = 256  # 16 minibatches of 16 independent rows for llama_train_reference
+# llama_reference's floor on the per-step greedy agreement (same prefix) of the
+# kernel path with the plain bf16 path, as T5_STEP_AGREEMENT: random Llama
+# weights give near-tied top logits over 32000 ids (every row distinct, not
+# degenerate), so bf16 rounding flips decisions. Measured on the H100 at seed
+# 0: 94.0% per step, 39.5% free-running; the plain bf16 and fp32 paths agree
+# 22% free-running. The gate beside it holds the kernel path to fp32's
+# choices at least as often as the plain bf16 path, within 2 points.
+LLAMA_STEP_AGREEMENT = 0.90
+LLAMA_ENGINE = dict(enabled=True, slots=32, page_size=16, paged_attention_impl="pallas", spec_decode=True, draft_k=4)
+
+# the kernels' cases at D = 128, held to their plain versions at the D = 64
+# bars: the Llama path's shapes, T = S in {64, 128, 129, 512} causal and
+# left-padded, a prefill at a q_offset on both routes, and GQA at Llama-3-8B's
+# attention (H 32 over Hkv 8) and Llama-2-70B's (H 64 over Hkv 8)
+FLASH_D128_CASES = {  # name: (B, H, Hkv, T, S, D, q_offset, pad, causal)
+    "llama_prefill": (LLAMA_ROLLOUTS, 32, 32, PROMPT_LEN, 128, 128, 0, "prefill", True),
+    "llama_train": (LLAMA_BATCH, 32, 32, TRAIN_LEN, TRAIN_LEN, 128, 0, "left", True),
+    "d128_t128": (4, 32, 32, 128, 128, 128, 0, "left", True),
+    "d128_t129": (4, 32, 32, 129, 129, 128, 0, "left", True),
+    "d128_t512": (2, 32, 32, 512, 512, 128, 0, "left", True),
+    "d128_prefill_offset": (4, 8, 8, 37, 128, 128, 5, "prefill", True),
+    "d128_prefill_offset_long": (2, 8, 8, 150, 512, 128, 300, "prefill", True),
+    "gqa_llama3_8b": (4, 32, 8, TRAIN_LEN, TRAIN_LEN, 128, 0, "left", True),
+    "gqa_llama3_8b_t512": (2, 32, 8, 512, 512, 128, 0, "left", True),
+    "gqa_llama2_70b": (2, 64, 8, 128, 128, 128, 0, "left", True),
+}
+BWD_D128_CASES = {  # name: (B, H, Hkv, T, S, q_offset, pad, causal)
+    "llama_train": (LLAMA_BATCH, 32, 32, TRAIN_LEN, TRAIN_LEN, 0, "left", True),
+    "d128_max_fused": (4, 32, 32, 112, 112, 0, "left", True),  # the fused kernel's largest shape at D = 128
+    "d128_t128": (4, 32, 32, 128, 128, 0, "left", True),  # the long route at D = 128
+    "d128_t129": (4, 32, 32, 129, 129, 0, "left", True),
+    "d128_t512": (2, 32, 32, 512, 512, 0, "left", True),
+    "d128_prefill_offset": (4, 8, 8, 37, 128, 5, "prefill", True),
+    "gqa_llama3_8b": (4, 32, 8, TRAIN_LEN, TRAIN_LEN, 0, "left", True),
+    "gqa_llama3_8b_t512": (2, 32, 8, 512, 512, 0, "left", True),
+    "gqa_llama2_70b": (2, 64, 8, TRAIN_LEN, TRAIN_LEN, 0, "left", True),
+    "gqa_llama2_70b_t128": (2, 64, 8, 128, 128, 0, "left", True),
+}
+DECODE_D128_CASES = {  # name: (L, B, H, Hkv, S, written); groups 1, 4 and 8
+    "llama_rollout": (LLAMA_7B["n_layer"], LLAMA_ROLLOUTS, 32, 32, 128, TRAIN_LEN),
+    "gqa4": (2, 8, 32, 8, 200, 150),
+    "gqa8_edge_256": (2, 8, 64, 8, 256, 256),  # with a fully masked row
+    "gqa8_long_384": (2, 4, 64, 8, 384, 300),
+    "g1_long_384": (2, 8, 32, 32, 384, 300),
+}
+PAGED_D128_CASES = {  # name: (B, T, H, Hkv, PS, MP, quant, depths, nulls); groups 1 and 8, 8 x 4 = 32 rows
+    "llama_decode_int8": (8, 1, 32, 32, 16, 5, "int8", [1, 5, 16, 17, 40, 63, 70, 33], [(3, 1)]),
+    "llama_verify_int8": (8, 4, 32, 32, 16, 5, "int8", [1, 5, 16, 17, 40, 60, 70, 33], [(4, 1)]),
+    "gqa8_decode_int8_mp16": (4, 1, 64, 8, 16, 16, "int8", [255, 1, 140, 64], [(0, 3)]),
+    "gqa8_verify_int8_mp16": (4, 4, 64, 8, 16, 16, "int8", [1, 100, 251, 37], [(2, 7)]),
+    "gqa8_verify_bf16_mp16": (4, 4, 64, 8, 16, 16, None, [251, 1, 130, 64], [(0, 6)]),
+    "gqa8_verify_bf16_mp17": (4, 4, 64, 8, 16, 17, None, [1, 267, 140, 200], [(2, 4)]),
+    "verify_int8_ps128_mp3": (4, 4, 32, 32, 128, 3, "int8", [3, 129, 250, 300], []),
+}
+
+
+def check_d128(gen) -> dict:
+    """The four kernels the Llama path runs, at head width 128, against
+    their plain versions: FLASH_D128_CASES (kernel 1), BWD_D128_CASES
+    (kernels 2 and 3), DECODE_D128_CASES (kernel 8) and PAGED_D128_CASES
+    (kernel 7), with the D = 64 checks' bars, route counters and repeat
+    gates. Returns each check's worst errors."""
+    return {
+        "fwd": check_flash(gen, FLASH_D128_CASES, phase="flash_check_d128"),
+        "bwd": check_flash_bwd(gen, BWD_D128_CASES, D=128, phase="flash_bwd_check_d128"),
+        "decode": check_decode(gen, DECODE_D128_CASES, D=128, phase="decode_check_d128")["by_route"],
+        "paged": check_paged(gen, PAGED_D128_CASES, D=128, phase="paged_check_d128")["by_route"],
+    }
+
+
+def llama_hf_dir(seed: int) -> str:
+    """A local HF directory of the cut Llama-2-7B (`LLAMA_HF_CONFIG`,
+    `pytorch_model.bin` in bf16, as the published checkpoint keeps it),
+    written with `models/hf.py`'s export from random weights of the seed,
+    under the script's temporary root. Nothing is downloaded."""
+    import torch
+
+    from trlx_tpu_torch.models import hf
+    from trlx_tpu_torch.models.transformer import TransformerConfig, TransformerLM
+
+    ckpt_dir()  # makes the temporary root
+    path = os.path.join(_CKPT_ROOT[0], "llama_hf")
+    os.makedirs(path, exist_ok=True)
+    cfg = TransformerConfig(**LLAMA_7B)
+    with torch.no_grad():
+        lm = TransformerLM(cfg, device="cuda").init_params(torch.Generator().manual_seed(seed))
+        sd = hf.state_dict_from_params(lm.state_dict(), cfg, "llama")
+    del lm
+    torch.save({k: v.to(torch.bfloat16) for k, v in sd.items()}, os.path.join(path, hf.WEIGHTS_NAME))
+    with open(os.path.join(path, hf.CONFIG_NAME), "w") as f:
+        json.dump(LLAMA_HF_CONFIG, f)
+    return path
+
+
+def llama_config(seed: int, hf_dir: str, attention_impl="pallas", kv_cache_quant="int8_kernel",
+                 compute_dtype="bfloat16"):
+    """PPO on the cut Llama-2-7B loaded from `hf_dir` (model_path, with the
+    kernels' runtime keys on top), examples/ppo_sentiments_llama.py's
+    num_layers_unfrozen, bf16 compute over fp32 parameters, byte prompts."""
+    from trlx_tpu_torch.data.default_configs import default_ppo_config
+
+    return default_ppo_config().evolve(
+        train=dict(batch_size=LLAMA_BATCH, total_steps=LLAMA_STEPS, eval_interval=10_000,
+                   checkpoint_interval=10_000, seq_length=TRAIN_LEN, epochs=10_000, tracker=None,
+                   compute_dtype=compute_dtype, seed=seed, **ckpt_kw()),
+        model=dict(model_path=hf_dir, num_layers_unfrozen=LLAMA_UNFROZEN, model_extra_configs={
+            "transformer": dict(attention_impl=attention_impl, kv_cache_quant=kv_cache_quant)}),
+        tokenizer=dict(tokenizer_path="byte"),
+        method=dict(num_rollouts=LLAMA_ROLLOUTS, chunk_size=LLAMA_ROLLOUTS, ppo_epochs=LLAMA_EPOCHS,
+                    gen_kwargs=dict(max_new_tokens=TRAIN_NEW_TOKENS, top_k=0, top_p=1.0, do_sample=True)),
+    )
+
+
+def llama_launches(L: int, K: int, cycles: int, steps: int, decode_steps: list) -> dict:
+    """The kernels' launches of the Llama `train()` run, every one at D =
+    128: each sampler call (a rollout a cycle, an evaluation at each end)
+    prefills through the L blocks (the forward's short route: 32 queries
+    over a 128-slot cache); each cycle's experience pass runs the L trunk
+    blocks and the K blocks of the hydra reference; each train step's
+    policy forward runs the L blocks (the short route, T = S = 64; the
+    step reads the stored reference logprobs), and its backward runs
+    through the K trainable blocks alone (the fused route: T, S <= 112;
+    the frozen trunk builds no graph); each decode step of every sampler
+    call launches the short int8 decode kernel once a layer (a 128-slot
+    cache)."""
+    n_fwd = L * (cycles + 2) + cycles * (L + K) + steps * L
+    n_decode = L * sum(decode_steps)
+    return {"flash_fwd": n_fwd, "flash_fwd_short": n_fwd, "flash_fwd_long": 0,
+            "flash_bwd": K * steps, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+            "decode": n_decode, "decode_short": n_decode, "decode_long": 0}
+
+
+def llama_path(seed: int, shapes: dict) -> dict:
+    """The Llama family at Llama-2-7B's widths (4096 / 32 x 128 / 11008 /
+    32000, cut to 4 layers), through the entry points a user calls: an HF
+    directory written from the seed's random weights, then
+    `trlx_tpu_torch.train(model_path=<that dir>)` (PPO, 32 byte prompts
+    left-padded to 32, 32 new tokens, batch 16, 2 epochs, two cycles = 8
+    steps, the static sampler, the hydra reference over the top two
+    blocks and lm_head). Gates: finite losses, exact launches of kernels 1,
+    2/3 and 8 (all at D = 128), the trainable top moved while the frozen
+    trunk and the reference did not; then the HF round trip: the run's own
+    `hf_model/` export (config.json, pytorch_model.bin) reloaded through
+    `model_path` bit for bit, with equal logits; then `llama_reference`,
+    `llama_train_reference` and the profiles; then `llama_engine_path`."""
+    import glob
+    import shutil
+
+    import torch
+
+    from trlx_tpu_torch.models import hf
+    from trlx_tpu_torch.utils.loading import get_trainer
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    src = llama_hf_dir(seed)
+    write_s = time.perf_counter() - t0
+    start = hf.load_pretrained(src)[1]
+    config = llama_config(seed, src)
+    trainer, wall, launches, decode_steps = counted_train(config, shapes, "llama", prompts=LLAMA_PROMPTS)
+    cfg = trainer.model.cfg
+    L, K = cfg.n_layer, LLAMA_UNFROZEN
+    cycles = LLAMA_STEPS // LLAMA_CYCLE_STEPS
+    expect = llama_launches(L, K, cycles, LLAMA_STEPS, decode_steps)
+    losses = [st["losses/total_loss"] for _, st in trainer.stats_history if "losses/total_loss" in st]
+    emit("llama_path", wall_s=wall, hf_write_s=write_s, peak_device_bytes=torch.cuda.max_memory_allocated(),
+         launches=launches, expected=expect, sampler_calls=len(decode_steps), decode_steps=decode_steps,
+         losses=losses, cycle_seconds=cycle_split(trainer), model_type=trainer.model_type,
+         head_dim=cfg.head_dim, layers=L, published_layers=LLAMA_PUBLISHED_LAYERS,
+         parameters=sum(p.numel() for p in trainer.model.base.parameters()),
+         trainable=sum(p.numel() for p in trainer.trainable_params))
+    if (trainer.model_type, cfg.head_dim, cfg.tie_word_embeddings) != ("llama", 128, False):
+        raise AssertionError(f"the HF directory did not load as an untied Llama of head width 128: {cfg}")
+    if len(losses) != LLAMA_STEPS or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"expected {LLAMA_STEPS} finite losses, got {losses}")
+    if len(decode_steps) != cycles + 2 or {k: launches[k] for k in expect} != expect:
+        raise AssertionError(f"launch counts {launches} != expected {expect} ({len(decode_steps)} sampler calls)")
+    check_params_moved(trainer, seed, "llama_params", base_state=start,
+                       frozen=("base.embed.",) + tuple(f"base.blocks.{i}." for i in range(L - K)))
+    del start
+
+    # the HF round trip: the run's final checkpoint exported the HF layout
+    # (save_pretrained of an HF-loaded model); model_path=<that export>
+    # reloads the trained base weights bit for bit, and their logits
+    exports = glob.glob(os.path.join(trainer.config.train.checkpoint_dir, "checkpoint_*", "hf_model"))
+    if len(exports) != 1:
+        raise AssertionError(f"expected one final hf_model export, found {exports}")
+    export = os.path.join(_CKPT_ROOT[0], "llama_export")
+    shutil.rmtree(export, ignore_errors=True)
+    shutil.move(exports[0], export)
+    files = sorted(os.listdir(export))
+    t0 = time.perf_counter()
+    reloaded = get_trainer(config.train.trainer)(
+        config=config.evolve(model=dict(model_path=export)), reward_fn=train_reward_fn)
+    reload_s = time.perf_counter() - t0
+    base, again = trainer.model.base.state_dict(), reloaded.model.base.state_dict()
+    unequal = [n for n in base if not torch.equal(base[n], again[n])]
+    ids = torch.randint(0, 258, (4, TRAIN_LEN), generator=torch.Generator().manual_seed(seed)).cuda()
+    with torch.no_grad():
+        logits_equal = bool(torch.equal(trainer.model.base(ids)["logits"], reloaded.model.base(ids)["logits"]))
+    emit("llama_hf_round_trip", files=files, reload_s=reload_s, tensors=len(base), unequal=unequal,
+         logits_equal=logits_equal, reloaded_model_type=reloaded.model_type)
+    if not {"config.json", hf.WEIGHTS_NAME}.issubset(files) or "base_weights.pt" in files:
+        raise AssertionError(f"save_pretrained of an HF-loaded model must write the HF layout: {files}")
+    if unequal or set(base) != set(again) or not logits_equal:
+        raise AssertionError(f"the HF export did not reload bit for bit: {unequal}, logits equal {logits_equal}")
+    del reloaded, base, again
+    shutil.rmtree(export, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    llama_reference(trainer, seed)
+    batch = llama_train_reference(trainer, seed, src)["batch"]
+    llama_profiles(trainer, batch)
+    del trainer, batch
+    torch.cuda.empty_cache()
+    engine = llama_engine_path(seed, src, shapes)
+    shutil.rmtree(src, ignore_errors=True)
+    return {"train": launches, "engine": engine}
+
+
+def llama_reference(trainer, seed: int) -> None:
+    """A greedy rollout of the trained Llama policy (32 byte prompts
+    left-padded to 32, 32 new tokens, the int8 decode kernel) and one
+    experience pass, against the plain bf16 path (attention_impl="xla",
+    the folded int8 cache) and the plain fp32 path on the same weights.
+    Per step: both plain paths are forced onto the kernel path's tokens
+    and each decision is compared on the same prefix; the kernel path
+    must agree with plain bf16 on LLAMA_STEP_AGREEMENT of them and pick
+    fp32's token at least as often as plain bf16 does, within 2 points.
+    Free-running agreement is printed (on these near-tied logits bf16
+    rounding alone moves most free-running tokens). Each experience output
+    must be at most twice as far from fp32 as plain bf16 (the ratio is
+    printed), as `main_path` gates it."""
+    import torch
+
+    from trlx_tpu_torch.models.generation import SamplerSettings, generate
+    from trlx_tpu_torch.models.wrappers import CausalLMWithValueHead
+    from trlx_tpu_torch.utils.tokenizers import ByteTokenizer
+
+    tok = ByteTokenizer()
+    ids, mask = (x[:LLAMA_ROLLOUTS] for x in byte_prompts(tok))
+    greedy = SamplerSettings(max_new_tokens=TRAIN_NEW_TOKENS, do_sample=False,
+                             eos_token_id=tok.eos_token_id, pad_token_id=tok.pad_token_id)
+    policy = trainer.model
+    state = policy.state_dict()
+
+    def copy(**kw):
+        model = CausalLMWithValueHead(policy.cfg.replace(**kw), branch_at=policy.branch_at, device="cuda")
+        model.load_state_dict(state)
+        return model
+
+    def experience(model, seqs, attn):
+        return model.forward_train(model.make_ref_params(), seqs, attn)
+
+    def forced(model):
+        """The model's own greedy choice at each step of the kernel path's rows."""
+        own = []
+
+        def force(hidden_last, logits_last):
+            t = len(own)
+            own.append(logits_last.argmax(dim=-1))
+            return torch.full_like(logits_last, float("-inf")).scatter_(1, kernel_ids[:, t:t + 1], 0.0)
+
+        generate(model.base, ids, mask, None, greedy, logits_processor=force)
+        return torch.stack(own, dim=1)
+
+    with torch.no_grad():
+        out_g = generate(policy.base, ids, mask, None, greedy)
+        kernel_ids = out_g["response_ids"]
+        seqs = out_g["sequences"]
+        attn = torch.cat([mask, out_g["response_mask"]], dim=1)
+        exp = experience(policy, seqs, attn)
+        plain = copy(attention_impl="xla", kv_cache_quant="int8")
+        exact = copy(attention_impl="xla", kv_cache_quant=None, dtype=torch.float32)
+        out_x = generate(plain.base, ids, mask, None, greedy)
+        out_f = generate(exact.base, ids, mask, None, greedy)
+        own_x, own_f = forced(plain), forced(exact)
+        exp_x, exp_f = experience(plain, seqs, attn), experience(exact, seqs, attn)
+    del plain, exact
+
+    def free_running(a, b):
+        real = a["response_mask"].bool() & b["response_mask"].bool()
+        return (a["response_ids"] == b["response_ids"])[real].float().mean().item()
+
+    n = own_x.shape[1]
+    real_steps = out_g["response_mask"].bool()[:, :n]
+
+    def agree(a, b):
+        return (a[:, :n] == b[:, :n])[real_steps].float().mean().item()
+
+    step = {"kernel_vs_plain_bf16": agree(own_x, kernel_ids), "kernel_vs_fp32": agree(own_f, kernel_ids),
+            "plain_bf16_vs_fp32": agree(own_x, own_f)}
+    free = free_running(out_g, out_x)
+    real = attn.bool()[..., None]
+
+    def max_err(a, b, key):
+        return ((a[key].float() - b[key].float()).abs() * (real if a[key].dim() == 3 else real[..., 0])).max().item()
+
+    err = {key: {"kernel_vs_fp32": max_err(exp, exp_f, key), "plain_bf16_vs_fp32": max_err(exp_x, exp_f, key)}
+           for key in ("logits", "ref_logits", "values")}
+    for e in err.values():
+        e["ratio"] = e["kernel_vs_fp32"] / max(e["plain_bf16_vs_fp32"], 1e-30)
+    distinct = [len(set(row)) for row in out_g["response_ids"].tolist()]
+    emit("llama_reference", greedy_step_agreement=step, greedy_free_running_agreement=free,
+         greedy_free_running_agreement_fp32={"kernel_vs_fp32": free_running(out_g, out_f),
+                                             "plain_bf16_vs_fp32": free_running(out_x, out_f)},
+         experience_max_abs_err=err, distinct_tokens_per_row=distinct)
+    if step["kernel_vs_plain_bf16"] < LLAMA_STEP_AGREEMENT:
+        raise AssertionError(f"only {step['kernel_vs_plain_bf16']:.2%} of greedy decisions agree with the plain path")
+    if step["kernel_vs_fp32"] < step["plain_bf16_vs_fp32"] - 0.02:
+        raise AssertionError(f"the kernel path picks fp32's greedy token less often than plain bf16 does: {step}")
+    for key, e in err.items():
+        if e["kernel_vs_fp32"] > 2 * e["plain_bf16_vs_fp32"]:
+            raise AssertionError(f"{key}: the kernel path strays from fp32 more than plain bf16 does: {e}")
+
+
+def llama_train_reference(trainer, seed: int, hf_dir: str) -> dict:
+    """`train_reference` on the Llama trainer: one train step on a fresh
+    store of 256 rollouts (16 minibatches of 16, cut by two shuffles)
+    through the kernels, the plain bf16 and the plain fp32 attention math,
+    at `grad_reference`'s bars."""
+    configs = {
+        "plain_bf16": llama_config(seed, hf_dir, attention_impl="xla", kv_cache_quant="int8"),
+        "fp32": llama_config(seed, hf_dir, attention_impl="xla", kv_cache_quant=None, compute_dtype="float32"),
+    }
+    return train_reference(trainer, seed, configs, rollouts=LLAMA_REFERENCE_ROLLOUTS, batch_size=LLAMA_BATCH,
+                           phase="llama_train_reference")
+
+
+def llama_profiles(trainer, batch) -> None:
+    """One traced train step on a stored batch (`train_step_profile`), and
+    the wall time (median of 3) and one traced run of an experience pass
+    (policy and hydra reference) over a greedy rollout of the 32 prompts."""
+    import torch
+
+    from trlx_tpu_torch.models.generation import SamplerSettings, generate
+
+    train_step_profile(trainer, batch, "llama_train_step")
+    tok = trainer.tokenizer
+    ids, mask = (x[:LLAMA_ROLLOUTS] for x in byte_prompts(tok))
+    greedy = SamplerSettings(max_new_tokens=TRAIN_NEW_TOKENS, do_sample=False,
+                             eos_token_id=tok.eos_token_id, pad_token_id=tok.pad_token_id)
+    with torch.no_grad():
+        out = generate(trainer.model.base, ids, mask, None, greedy)
+        seqs = out["sequences"]
+        attn = torch.cat([mask, out["response_mask"]], dim=1)
+
+        def experience():
+            return trainer.model.forward_train(trainer.ref_params, seqs, attn)
+
+        wall, _, _ = timed(experience)
+        emit("llama_experience_time", wall_s=wall, batch=int(seqs.shape[0]), seq_len=int(seqs.shape[1]))
+        profile_phase("llama_experience", experience, wall)
+
+
+def llama_engine_path(seed: int, hf_dir: str, shapes: dict) -> dict:
+    """`trlx_tpu_torch.train` on the Llama config for one cycle (4 steps)
+    with rollouts and evaluations through the decode engine (32 lanes,
+    16-token int8 pages, the paged kernel at D = 128, speculative decoding
+    off the hydra draft, draft_k 4). Gates: paged launches == n_layer x the
+    engine's decode steps, every one on the short route; the flash
+    forward on its short route; no pool exhaustion; finite losses."""
+    import torch
+
+    import trlx_tpu_torch
+    from trlx_tpu_torch.trainer.base import TPUBaseTrainer
+
+    calls = []
+    engine_generate = TPUBaseTrainer._engine_generate
+
+    def counted(self, *args, **kwargs):
+        out = engine_generate(self, *args, **kwargs)
+        calls.append(out["gen_stats"])
+        return out
+
+    config = llama_config(seed, hf_dir).evolve(method=dict(gen_engine=LLAMA_ENGINE),
+                                               train=dict(total_steps=LLAMA_CYCLE_STEPS))
+    fwd, paged = fwd_counters(), paged_counters()
+    for fn in (*fwd.values(), *paged.values()):
+        fn.launches = 0
+    TPUBaseTrainer._engine_generate = counted
+    try:
+        t0 = time.perf_counter()
+        with forward_shapes(shapes, "llama_engine"):
+            trainer = trlx_tpu_torch.train(reward_fn=train_reward_fn, prompts=LLAMA_PROMPTS, config=config)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        TPUBaseTrainer._engine_generate = engine_generate
+    L = trainer.model.cfg.n_layer
+    steps = sum(g["decode_steps"] for g in calls)
+    launches = {name: fn.launches for name, fn in paged.items()}
+    fwd_launches = {name: fn.launches for name, fn in fwd.items()}
+    losses = [st["losses/total_loss"] for _, st in trainer.stats_history if "losses/total_loss" in st]
+    accept = [st.get("rollout/spec_accept_rate") for _, st in trainer.stats_history if "rollout/engine_refills" in st]
+    emit("llama_engine_path", wall_s=wall, engine_calls=len(calls), decode_steps=steps, paged_launches=launches,
+         expected=L * steps, flash_fwd_launches=fwd_launches, losses=losses, spec_accept_rate=accept,
+         oom_truncated=sum(g["oom_truncated"] for g in calls), unserved=sum(g["unserved"] for g in calls),
+         cycle_seconds=cycle_split(trainer))
+    if not calls or launches != {"paged": L * steps, "paged_short": L * steps, "paged_long": 0}:
+        raise AssertionError(f"paged launches {launches} != {L} x {steps} engine decode steps, all short")
+    if not (fwd_launches["flash_fwd"] > 0 and fwd_launches["flash_fwd_short"] == fwd_launches["flash_fwd"]):
+        raise AssertionError(f"the flash forward left the short route: {fwd_launches}")
+    if any(g["oom_truncated"] or g["unserved"] for g in calls):
+        raise AssertionError("the engine's page pool ran out")
+    if len(losses) != LLAMA_CYCLE_STEPS or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"expected {LLAMA_CYCLE_STEPS} finite losses, got {losses}")
+    del trainer
+    return {"short": launches["paged_short"], "long": launches["paged_long"]}
+
+
+def llama_kernel_times(gen, launches: dict, shape_launches: dict, errs: dict) -> list:
+    """The four kernels at D = 128, at the Llama path's shapes (the
+    prefill B32 H32 T32 over a 128-slot cache, the train step B16 H32
+    T=S=64, the decode step L4 B32 H32 over a 128-slot cache, the engine's
+    decode and verify steps: 32 lanes, 16-token int8 pages, 5 pages a
+    lane) and at the extra shapes of the cases (T=S=512, GQA at Llama-3-8B's
+    and Llama-2-70B's attention, the int8 decode at groups 4 and 8, the
+    paged verify at group 8): each beside its bound, its plain version and,
+    where one PyTorch call computes it, SDPA (forward and backward).
+    `launches` is llama_path's {"train": counts, "engine": {route: n}},
+    `shape_launches` the `forward_shapes` tallies of its two runs."""
+    import torch
+    import torch.nn.functional as F
+
+    from trlx_tpu_torch.ops import decode_attention as da
+    from trlx_tpu_torch.ops import flash_attention as fa
+
+    train, engine = launches.get("train", {}), launches.get("engine", {})
+    rows, D = [], 128
+
+    def emit_row(**row):
+        row = dict(route="cuda", max_abs_err=row.pop("err"), kernel_ms=row["ms"], head_dim=D, **row)
+        rows.append(row)
+
+    def causal_mask(mask, T, S, qo, causal):
+        allowed = (mask[:, None, None, :] > 0).expand(mask.shape[0], 1, T, S).clone()
+        if causal:
+            allowed &= (torch.arange(T, device="cuda")[:, None] + qo) >= torch.arange(S, device="cuda")[None, :]
+        return allowed
+
+    with torch.no_grad():
+        for case, (B, H, Hkv, T, S, off, pad) in {
+            "llama_prefill": (LLAMA_ROLLOUTS, 32, 32, PROMPT_LEN, 128, 0, "prefill"),
+            "llama_train": (LLAMA_BATCH, 32, 32, TRAIN_LEN, TRAIN_LEN, 0, "left"),
+            "llama_experience": (LLAMA_ROLLOUTS, 32, 32, TRAIN_LEN, TRAIN_LEN, 0, "left"),
+            "t512": (2, 32, 32, 512, 512, 0, "left"),
+            "gqa_llama3_8b": (4, 32, 8, TRAIN_LEN, TRAIN_LEN, 0, "left"),
+            "gqa_llama2_70b": (2, 64, 8, 128, 128, 0, "left"),
+        }.items():
+            q, k, v, mask = flash_inputs(gen, B, H, Hkv, T, S, D, off, pad)
+            kw = dict(q_offset=off if pad == "prefill" else None, with_stats=True)
+            _, scale, qo = fa._prepare(q, k, mask, None, kw["q_offset"], True)
+            route = fa.forward_route(T, S, D)
+            ms = time_ms(lambda: fa.flash_attention(q, k, v, mask, **kw))
+            plain = time_ms(lambda: fa.flash_attention_plain(q, k, v, mask, **kw))
+            allowed = causal_mask(mask, T, S, qo, True)
+            # the library call takes the GQA group's kv heads repeated (made outside the timing)
+            kr, vr = k.repeat_interleave(H // Hkv, 1), v.repeat_interleave(H // Hkv, 1)
+            lib = time_ms(lambda: F.scaled_dot_product_attention(q, kr, vr, attn_mask=allowed, scale=scale))
+            by_path = {path: shape_launches.get(path, {}).get((route, (B, H, T), S), 0)
+                       for path in ("llama", "llama_engine")}
+            bms, by = bound_ms(*flash_work(mask, H, Hkv, T, S, D, qo))
+            emit_row(name=f"flash_fwd_d128/{case}", source="trlx_tpu_torch/csrc/flash_fwd.cu",
+                     replaces="trlx_tpu/ops/flash_attention.py:84", fwd_route=route,
+                     launches=sum(by_path.values()), launches_by_path=by_path, err=errs["fwd"][route],
+                     shape=[B, H, Hkv, T, S, D],
+                     ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=lib,
+                     library_is="F.scaled_dot_product_attention, boolean mask",
+                     occupancy=fa.flash_attention_fwd_short_occupancy(T, S, True, qo, D) if route == "short" else None)
+            del q, k, v, kr, vr, mask, allowed
+
+        for case, (B, H, Hkv, T, S, n) in {
+            "llama_train": (LLAMA_BATCH, 32, 32, TRAIN_LEN, TRAIN_LEN, train.get("flash_bwd", 0)),
+            "d128_t512": (2, 32, 32, 512, 512, 0),
+            "gqa_llama3_8b": (4, 32, 8, TRAIN_LEN, TRAIN_LEN, 0),
+            "gqa_llama2_70b_t128": (2, 64, 8, 128, 128, 0),
+        }.items():
+            q, k, v, mask, out, m, l, g = flash_bwd_inputs(gen, B, H, Hkv, T, S, 0, "left", True, D)
+            scale = D ** -0.5
+            route = fa.backward_route(T, S, D)
+            ms = time_ms(lambda: fa.flash_attention_backward(q, k, v, mask, out, m, l, g, True, scale, 0))
+            plain = time_ms(lambda: fa.flash_attention_backward_plain(q, k, v, mask, out, m, l, g, True, scale, 0))
+            allowed = causal_mask(mask, T, S, 0, True)
+            allowed[..., 0] |= ~allowed.any(dim=-1)  # SDPA gives NaN on a row with no open slot
+            with torch.enable_grad():
+                # the library call takes the GQA group's kv heads repeated (its dk, dv per query head)
+                lq, lk, lv = (x.detach().clone().requires_grad_(True)
+                              for x in (q, k.repeat_interleave(H // Hkv, 1), v.repeat_interleave(H // Hkv, 1)))
+                lib_out = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=allowed, scale=scale)
+                lib = time_ms(lambda: torch.autograd.grad(lib_out, (lq, lk, lv), g, retain_graph=True))
+            work_dq, work_dkv, work_fused = flash_bwd_work(mask, H, Hkv, T, S, D, 0)
+            work = work_fused if route == "fused" else (work_dq[0] + work_dkv[0], work_dq[1] + work_dkv[1])
+            bms, by = bound_ms(*work)
+            err = max(errs["bwd"]["by_case"][case].values())
+            emit_row(name=f"flash_bwd_d128/{case}", source="trlx_tpu_torch/csrc/flash_bwd.cu",
+                     replaces="trlx_tpu/ops/flash_attention.py:192", also_replaces="trlx_tpu/ops/flash_attention.py:231",
+                     bwd_route=route, launches=n, err=err, shape=[B, H, Hkv, T, S, D], ms=ms, plain_ms=plain,
+                     plain_is="the whole plain backward (dq, dk, dv)", bound_ms=bms, bound_by=by, library_ms=lib,
+                     library_is="F.scaled_dot_product_attention backward (dq, dk, dv together)",
+                     occupancy=fa.flash_attention_bwd_occupancy(T, S, D) if route == "fused" else None)
+            del q, k, v, mask, out, m, l, g, lq, lk, lv, lib_out, allowed
+
+        for case, (L, B, H, Hkv, S, written, n) in {
+            "llama_rollout": (LLAMA_7B["n_layer"], LLAMA_ROLLOUTS, 32, 32, 128, TRAIN_LEN, train.get("decode_short", 0)),
+            "gqa4": (2, 8, 32, 8, 200, 150, 0),
+            "gqa8": (2, 8, 64, 8, 256, 256, 0),
+        }.items():
+            q, ck, cv, ks, vs, mask = decode_inputs(gen, L, B, H, Hkv, S, D, written)
+            args = (q, ck, cv, ks, vs[1], mask, 1, D ** -0.5)
+            ms = time_ms(lambda: da.decode_attention_int8(*args))
+            long_ms = time_ms(lambda: da.decode_attention_int8_long(*args))
+            plain = time_ms(lambda: da.decode_attention_int8_plain(*args))
+            bms, by = bound_ms(*decode_work(mask, H, Hkv, S, D))
+            occ = da.decode_attention_int8_occupancy("short", H, Hkv, S, D=D)
+            emit_row(name=f"decode_int8_short_d128/{case}", source="trlx_tpu_torch/csrc/decode_int8.cu",
+                     replaces="trlx_tpu/ops/decode_attention.py:369", kernel_route=da.decode_route(S), launches=n,
+                     err=errs["decode"]["short"], shape=[L, B, H, Hkv, S, D], written=written, ms=ms, long_ms=long_ms,
+                     plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=None,
+                     ctas_per_sm=occ["ctas_per_sm"], smem_bytes=occ["smem_bytes"])
+            del q, ck, cv, ks, vs, mask
+
+        lanes, PS, MP = 32, 16, 5
+        depths = torch.randint(33, MP * PS - 4, (lanes,), generator=gen, device="cuda").tolist()
+        for case, (B, T, H, Hkv, ps, mp, quant, dep, n) in {
+            "llama_decode": (lanes, 1, 32, 32, PS, MP, "int8", depths, engine.get("short", 0)),
+            "llama_verify": (lanes, 4, 32, 32, PS, MP, "int8", depths, 0),
+            "gqa8_verify": (8, 4, 64, 8, 16, 16, "int8", [1, 100, 251, 37, 180, 64, 200, 9], 0),
+        }.items():
+            q, _, _, pools, table, _, bias, visible = paged_inputs(gen, B, T, H, Hkv, ps, mp, quant, dep, L=4, D=D)
+            args = (q, pools, 1, table, bias, D ** -0.5)
+            route = da.paged_route(T, H, Hkv, ps, mp)
+            ms = time_ms(lambda: da.paged_attention(*args))
+            long_ms = time_ms(lambda: da.paged_attention_long(*args))
+            plain = time_ms(lambda: da.paged_attention_plain(*args))
+            bms, by = bound_ms(*paged_work(visible, table, H, Hkv, T, ps, True, D))
+            occ = da.paged_attention_occupancy(route, T, H, Hkv, ps, mp, True, D=D)
+            emit_row(name=f"paged_attention_d128/{case}", source="trlx_tpu_torch/csrc/paged_attention.cu",
+                     replaces="trlx_tpu/ops/decode_attention.py:198", kernel_route=route,
+                     launches=n if case == "llama_decode" else 0,
+                     launches_note={"llama_decode": "the engine run's launches, its decode and verify steps together",
+                                    "llama_verify": "counted in llama_decode's launches"}.get(case),
+                     err=errs["paged"][route], shape=[B, T, H, Hkv, ps, mp, D], ms=ms, long_ms=long_ms,
+                     plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=None,
+                     ctas_per_sm=occ["ctas_per_sm"], smem_bytes=occ["smem_bytes"])
+            del q, pools, table, bias, visible
+    for r in rows:
+        emit("kernel_time", **r)
+    return rows
+
+
+def llama_phases(seed: int, shapes: dict) -> dict:
+    """The Llama path (`llama_path`) on a card with room for it."""
+    import torch
+
+    torch.cuda.empty_cache()
+    out = llama_path(seed, shapes)
+    torch.cuda.empty_cache()
+    return out
+
+
 def flash_bwd_work(mask, H, Hkv, T, S, D, q_offset, causal=True):
     """Bytes and operations each backward function needs on this mask, in
     the way of `flash_work`. A weighed (t, s) pair costs the dq kernel
@@ -4510,7 +5121,7 @@ def run() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--only", choices=("fwd", "paged", "decode", "bias", "sft", "ppo", "resume", "ilql", "rft",
-                                           "grpo", "dpo"),
+                                           "grpo", "dpo", "llama"),
                         default=None,
                         help="fwd: the build, flash_check and the flash forward's kernel_time rows only "
                              "(a quick check of kernel 1); paged: the build, paged_check and the paged "
@@ -4524,7 +5135,8 @@ def run() -> int:
                              "kernel_time rows; resume: the build and resume_path; ilql: the build, ilql_path, ilql_reference, ilql_t5_path and the "
                              "randomwalks ILQL runner; rft: the build, rft_path and the randomwalks RFT runner; "
                              "grpo: the build, grpo_path, grpo_reference and grpo_engine_path; dpo: the build, "
-                             "dpo_path and dpo_reference")
+                             "dpo_path and dpo_reference; llama: the build, the head width 128 kernel cases, "
+                             "llama_path and the head width 128 kernel_time rows")
     args = parser.parse_args()
 
     import torch
@@ -4555,6 +5167,17 @@ def run() -> int:
     short_bias_fwd = ptxas_report(log, "flash_bias_fwd_short_kernel")
     short_paged = ptxas_report(log, "paged_attention_short_kernel")
     short_decode = ptxas_report(log, "decode_int8_short_kernel")
+    # the long routes' instantiations this slice added (the earlier D = 64
+    # ones are as they were): at head width 128 the flash forward, the dq
+    # kernel, the dk/dv kernel's two halves, the int8 decode kernel at
+    # groups 1, 2, 3, 4 and 8 (5 to 7 run in the 8-row one) and the paged
+    # kernel's six (int8 / bf16 x 8, 16, 32 rows: fewer rows run in the
+    # 8-row one); at 64 the int8 decode kernel at groups 2, 4 and 8
+    long_new = {name: [f for f in ptxas_report(log, name)
+                       if 128 in f["template_ints"]
+                       or (name == "decode_int8_kernel" and f["template_ints"][1] not in (1, 3))]
+                for name in ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
+                             "decode_int8_kernel", "paged_attention_kernel")}
     # the int8 decode step at the rollout shape (64 rows x 12 kv heads, a
     # 128-slot cache) and a GQA group of 3 at the short route's edge
     decode_occupancy = {"rollout": decode_attention_int8_occupancy("short", 12, 12, 128),
@@ -4569,6 +5192,20 @@ def run() -> int:
     # T5's self-attention: the encoder's and the decoder's lengths
     bias_fwd_occupancy = {"encoder": flash_bias_fwd_short_occupancy(T5_PROMPT_LEN, T5_PROMPT_LEN, False),
                           "decoder": flash_bias_fwd_short_occupancy(T5_DEC_LEN, T5_DEC_LEN, True)}
+    # the head width 128 instantiations at the Llama path's shapes and the
+    # largest GQA groups
+    d128_occupancy = {
+        "flash_fwd_short_prefill": flash_attention_fwd_short_occupancy(PROMPT_LEN, 128, True, 0, D=128),
+        "flash_fwd_short_train": flash_attention_fwd_short_occupancy(TRAIN_LEN, TRAIN_LEN, True, 0, D=128),
+        "flash_fwd_short_128": flash_attention_fwd_short_occupancy(128, 128, True, 0, D=128),
+        "flash_bwd_fused_train": flash_attention_bwd_occupancy(TRAIN_LEN, TRAIN_LEN, D=128),
+        "flash_bwd_fused_112": flash_attention_bwd_occupancy(112, 112, D=128),
+        "decode_short_rollout": decode_attention_int8_occupancy("short", 32, 32, 128, D=128),
+        "decode_short_gqa8_256": decode_attention_int8_occupancy("short", 64, 8, 256, D=128),
+        "paged_short_decode": paged_attention_occupancy("short", 1, 32, 32, 16, 5, True, D=128),
+        "paged_short_verify": paged_attention_occupancy("short", 4, 32, 32, 16, 5, True, D=128),
+        "paged_short_verify_gqa8_bf16_256": paged_attention_occupancy("short", 4, 64, 8, 16, 16, False, D=128),
+    }
     emit("build", seconds=time.perf_counter() - t0,
          ptxas=[ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln],
          flash_bias_bwd_fused=fused, flash_bwd_fused=fused_plain, flash_fwd_short=short_fwd,
@@ -4577,11 +5214,21 @@ def run() -> int:
          paged_attention_short_occupancy=paged_occupancy, decode_int8_short=short_decode,
          decode_int8_short_occupancy=decode_occupancy,
          flash_bwd_fused_occupancy={"train": flash_attention_bwd_occupancy(TRAIN_LEN, TRAIN_LEN),
-                                    "t5_cross": flash_attention_bwd_occupancy(T5_DEC_LEN, T5_PROMPT_LEN)})
-    for what, report, n in (("fused bias backward", fused, 8), ("fused flash backward", fused_plain, 8),
-                            ("short flash forward", short_fwd, 8), ("short bias forward", short_bias_fwd, 8),
-                            ("short paged kernel", short_paged, 10),
-                            ("short int8 decode kernel", short_decode, 2)):
+                                    "t5_cross": flash_attention_bwd_occupancy(T5_DEC_LEN, T5_PROMPT_LEN)},
+         long_new=long_new, d128_occupancy=d128_occupancy, nvcc_seconds=_build.build_seconds())
+    # the short and fused kernels at head widths 64 and 128 (eight
+    # instantiations by ceil16(S) / 16 at each; the paged kernel's ten at
+    # each; the int8 decode kernel's groups 1-8 at each), and the long
+    # routes' new instantiations, all without spills
+    for what, report, n in (("fused bias backward", fused, 8), ("fused flash backward", fused_plain, 16),
+                            ("short flash forward", short_fwd, 16), ("short bias forward", short_bias_fwd, 8),
+                            ("short paged kernel", short_paged, 20),
+                            ("short int8 decode kernel", short_decode, 16),
+                            ("D = 128 long flash forward", long_new["flash_fwd_kernel"], 1),
+                            ("D = 128 dq kernel", long_new["flash_bwd_dq_kernel"], 1),
+                            ("D = 128 dk/dv kernel", long_new["flash_bwd_dkv_kernel"], 2),
+                            ("new long int8 decode kernel", long_new["decode_int8_kernel"], 8),
+                            ("D = 128 long paged kernel", long_new["paged_attention_kernel"], 6)):
         if len(report) != n or any(f.get("spill_stores", 1) or f.get("spill_loads", 1) for f in report):
             raise AssertionError(f"the {what}'s {n} instantiations must build without spills: {report}")
     if short_occupancy["teacher_forced"]["ctas_per_sm"] < 3:
@@ -4594,6 +5241,8 @@ def run() -> int:
     if decode_occupancy["rollout"]["ctas_per_sm"] < DECODE_SHORT_CTAS:
         raise AssertionError(f"the short int8 decode kernel must fit {DECODE_SHORT_CTAS} CTAs an SM at the rollout "
                              f"shape: {decode_occupancy}")
+    if any(o["ctas_per_sm"] < 1 for o in d128_occupancy.values()):
+        raise AssertionError(f"a head width 128 kernel cannot launch at its shape: {d128_occupancy}")
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     if args.only == "paged":
@@ -4629,6 +5278,11 @@ def run() -> int:
     elif args.only == "dpo":
         dpo_phases(args.seed, {})
         rows = []
+    elif args.only == "llama":
+        d128_errs = check_d128(gen)
+        llama_shapes = {}
+        llama = llama_phases(args.seed, llama_shapes)
+        rows = llama_kernel_times(gen, llama, llama_shapes, d128_errs)
     if args.only is not None:
         print(json.dumps({"kernels": rows}))
         print(card)
@@ -4641,6 +5295,7 @@ def run() -> int:
     bwd_errs = check_flash_bwd(gen)
     bias_errs = check_flash_bias(gen)
     paged_errs = check_paged(gen)["by_route"]
+    d128_errs = check_d128(gen)
     check_rng(args.seed)
     shapes = {}  # path -> its gated run's forward launches by shape (forward_shapes)
     bias_shapes = {}  # path -> its gated run's bias forward launches by shape (bias_fwd_shapes)
@@ -4671,6 +5326,7 @@ def run() -> int:
     torch.cuda.empty_cache()
     offline.update(grpo_phases(args.seed, shapes))
     offline.update(dpo_phases(args.seed, shapes))
+    llama = llama_phases(args.seed, shapes)
     for phase, tallies in (("fwd_shapes", shapes), ("bias_fwd_shapes", bias_shapes)):
         emit(phase, **{path: [[route, list(bht), S, n] for (route, bht, S), n in sorted(tally.items())]
                        for path, tally in tallies.items()})
@@ -4686,6 +5342,7 @@ def run() -> int:
     paged_launches["grpo_engine"] = {route: offline["grpo_engine"][f"paged_{route}"] for route in ("short", "long")}
     rows += paged_kernel_times(gen, paged_launches, paged_errs)
     rows += bias_kernel_times(gen, t5_train_launches, t5_launches, bias_shapes, bias_errs, offline["ilql_t5"])
+    rows += llama_kernel_times(gen, llama, shapes, d128_errs)
     emit("run", wall_s=time.perf_counter() - _START)
     print(json.dumps({"kernels": rows}))
     print(card)

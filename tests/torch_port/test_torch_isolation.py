@@ -30,6 +30,8 @@ def test_every_module_imports_without_jax():
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['trlx_tpu'] = None\n"
+        "sys.modules['transformers'] = None\n"
+        "sys.modules['safetensors'] = None\n"
         f"for name in {mods!r}:\n"
         "    importlib.import_module(name)\n"
         "print('ok')\n"
@@ -64,7 +66,8 @@ def test_no_jax_or_reference_import(path):
             continue
         for name in names:
             root = name.split(".")[0]
-            assert root not in ("jax", "jaxlib", "flax", "optax", "trlx_tpu"), (path, name)
+            assert root not in ("jax", "jaxlib", "flax", "optax", "trlx_tpu", "transformers", "safetensors"), (
+                path, name)
 
 
 def test_entry_points_raise_without_a_gpu(monkeypatch):
@@ -81,12 +84,14 @@ def test_entry_points_raise_without_a_gpu(monkeypatch):
 
 
 def test_unported_switches_raise():
+    """The switches of OPT, Bloom, GPT-Neo and GPT-BigCode and ring
+    attention raise (the Llama and GPT-J switches, which raised until the
+    port reached them, build: test_torch_arch.py)."""
     from trlx_tpu_torch.models.transformer import TransformerConfig, TransformerLM
 
     base = dict(vocab_size=32, hidden_size=16, n_layer=1, n_head=2)
-    for kw in (dict(pos_embed="rotary"), dict(norm="rmsnorm"), dict(mlp_gated=True),
-               dict(parallel_residual=True), dict(attention_impl="ring"),
-               dict(local_window=4), dict(tie_word_embeddings=False)):
+    for kw in (dict(pos_embed="alibi"), dict(local_window=4), dict(pos_offset=2),
+               dict(embed_layernorm=True), dict(attn_scale=1.0), dict(attention_impl="ring")):
         with pytest.raises(NotImplementedError):
             TransformerLM(TransformerConfig(**base, **kw), device="cpu")
 

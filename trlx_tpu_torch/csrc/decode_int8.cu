@@ -32,11 +32,23 @@
 // rows. Both dequantisations commute out of the reductions: the K scale
 // folds into the scores and the V scale multiplies the normalised output
 // once. Any S works; the last chunk is masked. K scales and V rows of slots
-// that take no weight are skipped too.
+// that take no weight are skipped too. The long kernel is instantiated for
+// groups of 1, 2, 3, 4 and 8 query rows: a group of 5 to 7 (`rep`, a
+// runtime argument) runs in the 8-row instantiation with its extra rows
+// zero (the 5- to 7-row ones spilled registers).
+//
+// Head widths D = 64 (GPT-2) and D = 128 (the Llama family), GQA groups
+// H / Hkv = 1..8, on both routes: at D = 128 a slot's int8 row is eight
+// 16-byte pieces instead of four (the long route's slot groups halve, the
+// short route's score step spreads a slot over eight threads and its P.V
+// lanes cover one 128-channel row a warp step instead of two 64-channel
+// ones).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "mma_bf16.cuh"  // cp_async16 / cp_async4, their commit / wait, byte_to_float
 
@@ -67,9 +79,12 @@ decode_int8_kernel(const __nv_bfloat16* __restrict__ q,
                    const float* __restrict__ v_scale,
                    const int* __restrict__ key_mask,
                    __nv_bfloat16* __restrict__ out,
-                   int B, int Hkv, int S, int layer_ix, float sm_scale) {
+                   int B, int Hkv, int S, int layer_ix, float sm_scale, int rep) {
   constexpr int NV = D / 16;  // 16-byte pieces per int8 row
   constexpr int SG = NT / NV;  // slot groups of the P.V pass
+  // the group's real rows: REP itself below 8 (a constant, as the code the
+  // smaller instantiations were built from has it), `rep` in the 8-row one
+  const int rows = REP < 8 ? REP : rep;
 
   __shared__ float q_s[REP][D];
   __shared__ float p_s[REP][NT];
@@ -85,8 +100,8 @@ decode_int8_kernel(const __nv_bfloat16* __restrict__ q,
   const float* ksb = k_scale + row0;
   const int* mb = key_mask + (long long)b * S;
 
-  for (int i = tid; i < REP * D; i += NT) {
-    q_s[i / D][i % D] = __bfloat162float(q[((long long)bk * REP) * D + i]);
+  for (int i = tid; i < REP * D; i += NT) {  // rows past `rows` are zero
+    q_s[i / D][i % D] = i < rows * D ? __bfloat162float(q[((long long)bk * rows) * D + i]) : 0.f;
   }
   if (tid < REP) {
     m_s[tid] = NEG_INF;
@@ -208,23 +223,29 @@ decode_int8_kernel(const __nv_bfloat16* __restrict__ q,
   }
   __syncthreads();
   const float* vsb = v_scale + (long long)bk * D;
-  for (int i = tid; i < REP * D; i += NT) {
+  for (int i = tid; i < rows * D; i += NT) {
     const int r = i / D, d = i % D;
     float o = 0.f;
 #pragma unroll
     for (int w = 0; w < NWARPS; ++w) o += red_s[w][r][d];
     o = o / fmaxf(l_s[r], 1e-30f) * vsb[d];
-    out[((long long)bk * REP) * D + i] = __float2bfloat16_rn(o);
+    out[((long long)bk * rows) * D + i] = __float2bfloat16_rn(o);
   }
 }
 
+// the long kernel's instantiation for a group of `rep` rows: rep itself up
+// to 4, else 8
+template <int REP>
+constexpr int long_rep() { return REP <= 4 ? REP : 8; }
+
 template <int D, int REP>
-void launch(const void* q, const int8_t* ck, const int8_t* cv, const float* ks,
-            const float* vs, const int* key_mask, void* out, int B, int Hkv,
-            int S, int layer_ix, float sm_scale, cudaStream_t stream) {
-  decode_int8_kernel<D, REP><<<B * Hkv, NT, 0, stream>>>(
+int launch(const void* q, const int8_t* ck, const int8_t* cv, const float* ks,
+           const float* vs, const int* key_mask, void* out, int B, int Hkv,
+           int S, int layer_ix, float sm_scale, cudaStream_t stream) {
+  decode_int8_kernel<D, long_rep<REP>()><<<B * Hkv, NT, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(q), ck, cv, ks, vs, key_mask,
-      static_cast<__nv_bfloat16*>(out), B, Hkv, S, layer_ix, sm_scale);
+      static_cast<__nv_bfloat16*>(out), B, Hkv, S, layer_ix, sm_scale, REP);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------------------
@@ -266,31 +287,32 @@ void launch(const void* q, const int8_t* ck, const int8_t* cv, const float* ks,
 //    meet by one shuffle and the four warps' partials in shared memory,
 //    summed in warp order (the same bits on every call). The V scale
 //    multiplies the normalised output once.
-// No tensor cores: GPT-2 is MHA (rep = 1), so a CTA has one query row, and
-// an MMA tile of 16 rows would waste 15 of them; the 4 flops per byte pair
-// suit the CUDA cores. Dynamic shared memory is sized by S (about 19 KB at
-// S = 128, rep 1; at most 41 KB at S = 256, rep 3: no opt-in past 48 KB is
-// needed). Registers are bounded so that at least eight CTAs share an SM
-// at rep 1 (the 768 CTAs of the rollout shape fit one wave on 132 SMs) and
-// four at rep 3. Two other forms measured slower on the H100 and were not
-// kept (PERF.md, kernel 8): the burst as one TMA bulk copy per run of slots,
-// and the burst in 32-slot chunks with the scores and P.V of each chunk
-// started as it lands.
+// No tensor cores: GPT-2 and Llama-2 are MHA (rep = 1), so a CTA has one
+// query row, and an MMA tile of 16 rows would waste 15 of them; the 4 flops
+// per byte pair suit the CUDA cores. Dynamic shared memory is sized by S
+// (about 19 KB at S = 128, rep 1, D = 64; 34 KB at D = 128); an
+// instantiation whose largest launch passes 48 KB (rep 8 at S = 256) raises
+// its limit once per device. Registers are bounded so that at least eight
+// CTAs share an SM at rep 1 and D = 64 (the 768 CTAs of the rollout shape
+// fit one wave on 132 SMs; six at D = 128, as many as its shared memory
+// allows), four at rep 2 and 3, and two past that (rep 8 holds 128 query
+// channels a thread). Two other forms measured slower on the H100 and were
+// not kept (PERF.md, kernel 8): the burst as one TMA bulk copy per run of
+// slots, and the burst in 32-slot chunks with the scores and P.V of each
+// chunk started as it lands.
 // ---------------------------------------------------------------------------
 
 constexpr int SHORT_SLOTS = 256;  // the longest cache the short kernel takes
 constexpr int SNT = 128;          // threads of a short CTA
 constexpr int SNW = SNT / 32;
-constexpr int HD = 64;            // head width
-constexpr int NPC = HD / 16;      // 16-byte pieces of an int8 row
 
 // Byte offsets of the short kernel's shared arrays, all 16-byte aligned, and
-// their total, for a cache of S slots
+// their total, for a cache of S slots and head width HD
 struct ShortSmem {
   int k, v, q, mask, ks, vs, p, bits, red, part, total;
 };
 
-template <int REP>
+template <int REP, int HD>
 __host__ __device__ __forceinline__ ShortSmem short_smem(int S) {
   const int SP = (S + 15) & ~15;
   ShortSmem m;
@@ -328,8 +350,8 @@ __device__ __forceinline__ void piece_to_float(const uint4& x, float (&f)[16]) {
     for (int j = 0; j < 4; ++j) f[4 * i + j] = byte_to_float(w[i], j);
 }
 
-template <int REP>
-__global__ void __launch_bounds__(SNT, REP == 1 ? 8 : 4)
+template <int REP, int HD>
+__global__ void __launch_bounds__(SNT, REP == 1 ? (HD == 64 ? 8 : 6) : (REP <= 3 ? 4 : 2))
 decode_int8_short_kernel(const __nv_bfloat16* __restrict__ q,
                          const int8_t* __restrict__ ck, const int8_t* __restrict__ cv,
                          const float* __restrict__ k_scale,
@@ -337,9 +359,12 @@ decode_int8_short_kernel(const __nv_bfloat16* __restrict__ q,
                          const int* __restrict__ key_mask,
                          __nv_bfloat16* __restrict__ out,
                          int B, int Hkv, int S, int layer_ix, float sm_scale) {
+  constexpr int NPC = HD / 16;  // 16-byte pieces of an int8 row, the threads that score a slot
+  constexpr int LPR = HD / 4;   // P.V lanes a V row (4 channels each)
+  constexpr int RPW = 32 / LPR; // V rows a warp step
   extern __shared__ __align__(16) unsigned char smem[];
   const int SP = (S + 15) & ~15;
-  const ShortSmem at = short_smem<REP>(S);
+  const ShortSmem at = short_smem<REP, HD>(S);
   uint4* k_s = reinterpret_cast<uint4*>(smem + at.k);  // [SP][NPC]
   uint4* v_s = reinterpret_cast<uint4*>(smem + at.v);  // [SP][NPC]
   __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem + at.q);  // [REP][HD]
@@ -420,7 +445,7 @@ decode_int8_short_kernel(const __nv_bfloat16* __restrict__ q,
     cp_async16(&v_s[x], vb + (need ? x * 16 : 0), need);
   }
   cp_async_commit();
-  const int quarter = lane & 3;  // the 16 channels of a slot this thread scores
+  const int quarter = lane & (NPC - 1);  // the 16 channels of a slot this thread scores
   float qreg[REP][16];
 #pragma unroll
   for (int r = 0; r < REP; ++r) {
@@ -438,8 +463,8 @@ decode_int8_short_kernel(const __nv_bfloat16* __restrict__ q,
     }
   }
 
-  // 4. scores once K is in: threads 4i .. 4i + 3 share a slot, 16 channels
-  // each; s = (q . k) * (k_scale * sm_scale) on an attendable slot, 0 on
+  // 4. scores once K is in: NPC neighbouring threads share a slot, 16
+  // channels each; s = (q . k) * (k_scale * sm_scale) on an attendable slot, 0 on
   // every slot < S of a row with none (the uniform average), -inf elsewhere;
   // each warp's row maxima go to max_s
   cp_async_wait_group<1>();
@@ -461,8 +486,9 @@ decode_int8_short_kernel(const __nv_bfloat16* __restrict__ q,
       for (int i = 0; i < 16; ++i) dot += qreg[r][i] * kf[i];
       dot += __shfl_xor_sync(0xffffffffu, dot, 1);
       dot += __shfl_xor_sync(0xffffffffu, dot, 2);
+      if constexpr (NPC == 8) dot += __shfl_xor_sync(0xffffffffu, dot, 4);
       const float sc = att ? dot * scale : (j < S ? masked : neg_infinity());
-      if (r == quarter) p_s[r * SP + j] = sc;
+      if (r % NPC == quarter) p_s[r * SP + j] = sc;
       mx[r] = fmaxf(mx[r], sc);
     }
   }
@@ -501,13 +527,13 @@ decode_int8_short_kernel(const __nv_bfloat16* __restrict__ q,
   }
 
   // 6. P.V once V is in: lane (half, c4) of warp w accumulates channels
-  // 4 c4 .. 4 c4 + 3 over the slots lo + sg, lo + sg + 8, ... of slot group
-  // sg = 2 w + half (two rows a warp step: 128 contiguous bytes); the
-  // halves meet by one shuffle, the warps' partials in shared memory,
-  // summed in warp order
+  // 4 c4 .. 4 c4 + 3 over the slots lo + sg, lo + sg + RPW * 4, ... of slot
+  // group sg = RPW w + half (RPW = 2 rows a warp step at D = 64, one at
+  // D = 128: 128 contiguous bytes); at D = 64 the halves meet by one
+  // shuffle; the warps' partials meet in shared memory, summed in warp order
   cp_async_wait_group<0>();
   __syncthreads();
-  const int c4 = lane & 15, sg = warp * 2 + (lane >> 4);
+  const int c4 = lane % LPR, sg = warp * RPW + lane / LPR;
   const unsigned char* v_bytes = reinterpret_cast<const unsigned char*>(v_s);
   float acc[REP][4];
 #pragma unroll
@@ -515,7 +541,7 @@ decode_int8_short_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int i = 0; i < 4; ++i) acc[r][i] = 0.f;
 #pragma unroll 2
-  for (int j = lo + sg; j < hi; j += 2 * SNW) {  // (hi - lo) / 8 steps for every thread
+  for (int j = lo + sg; j < hi; j += RPW * SNW) {  // (hi - lo) / (RPW * 4) steps for every thread
     const uint32_t w = *reinterpret_cast<const uint32_t*>(v_bytes + j * HD + c4 * 4) ^ 0x80808080u;
     float vf[4];
 #pragma unroll
@@ -529,9 +555,11 @@ decode_int8_short_kernel(const __nv_bfloat16* __restrict__ q,
   }
 #pragma unroll
   for (int r = 0; r < REP; ++r) {
+    if constexpr (RPW == 2) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) acc[r][i] += __shfl_xor_sync(0xffffffffu, acc[r][i], 16);
-    if (lane < 16)
+      for (int i = 0; i < 4; ++i) acc[r][i] += __shfl_xor_sync(0xffffffffu, acc[r][i], 16);
+    }
+    if (lane < LPR)
       *reinterpret_cast<float4*>(&part_s[(warp * REP + r) * HD + c4 * 4]) =
           make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
   }
@@ -552,36 +580,75 @@ decode_int8_short_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int REP>
+// raises the short kernel's dynamic shared memory limit to its largest
+// launch (S = SHORT_SLOTS) once per device, where that passes the default
+// 48 KB; returns a CUDA error code
+template <int REP, int HD>
+int short_prepare() {
+  const int most = short_smem<REP, HD>(SHORT_SLOTS).total;
+  if (most <= 48 * 1024) return 0;
+  static unsigned long long done = 0;  // one bit a device
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev < 64 && (done >> dev & 1ULL)) return 0;
+  err = cudaFuncSetAttribute(decode_int8_short_kernel<REP, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev < 64) done |= 1ULL << dev;
+  return 0;
+}
+
+template <int REP, int HD>
 int launch_short(const void* q, const int8_t* ck, const int8_t* cv, const float* ks,
                  const float* vs, const int* key_mask, void* out, int B, int Hkv,
                  int S, int layer_ix, float sm_scale, cudaStream_t stream) {
-  decode_int8_short_kernel<REP><<<B * Hkv, SNT, short_smem<REP>(S).total, stream>>>(
+  const int rc = short_prepare<REP, HD>();
+  if (rc != 0) return rc;
+  decode_int8_short_kernel<REP, HD><<<B * Hkv, SNT, short_smem<REP, HD>(S).total, stream>>>(
       static_cast<const __nv_bfloat16*>(q), ck, cv, ks, vs, key_mask,
       static_cast<__nv_bfloat16*>(out), B, Hkv, S, layer_ix, sm_scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+// f(std::integral_constant<int, D>{}, std::integral_constant<int, REP>{}) for
+// D in {64, 128} and REP in 1..8; cudaErrorInvalidValue otherwise
+template <typename F>
+int by_shape(int D, int rep, F&& f) {
+  auto with_rep = [&](auto d) -> int {
+    switch (rep) {
+      case 1: return f(d, std::integral_constant<int, 1>{});
+      case 2: return f(d, std::integral_constant<int, 2>{});
+      case 3: return f(d, std::integral_constant<int, 3>{});
+      case 4: return f(d, std::integral_constant<int, 4>{});
+      case 5: return f(d, std::integral_constant<int, 5>{});
+      case 6: return f(d, std::integral_constant<int, 6>{});
+      case 7: return f(d, std::integral_constant<int, 7>{});
+      case 8: return f(d, std::integral_constant<int, 8>{});
+    }
+    return static_cast<int>(cudaErrorInvalidValue);
+  };
+  if (D == 64) return with_rep(std::integral_constant<int, 64>{});
+  if (D == 128) return with_rep(std::integral_constant<int, 128>{});
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 // All tensors contiguous. q/out [B,H,D] bf16, ck/cv [L,B,Hkv,S,D] int8,
 // k_scale [L,B,Hkv,1,S] f32, v_scale [B,Hkv,1,D] f32, key_mask [B,S] int32.
-// Built for D = 64 (GPT-2's head width) and H / Hkv in {1, 3}; other widths
-// and group sizes are instantiated with the model that needs them. Returns
-// cudaGetLastError(), or cudaErrorInvalidValue for an unsupported (D, H / Hkv).
+// Built for D in {64, 128} and H / Hkv in 1..8. Returns cudaGetLastError(),
+// or cudaErrorInvalidValue for an unsupported (D, H / Hkv).
 extern "C" int decode_int8_bf16(const void* q, const int8_t* ck, const int8_t* cv,
                                 const float* k_scale, const float* v_scale,
                                 const int* key_mask, void* out, int B, int H,
                                 int Hkv, int S, int D, int layer_ix,
                                 float sm_scale, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D != 64 || H % Hkv) return static_cast<int>(cudaErrorInvalidValue);
-  switch (H / Hkv) {
-    case 1: launch<64, 1>(q, ck, cv, k_scale, v_scale, key_mask, out, B, Hkv, S, layer_ix, sm_scale, st); break;
-    case 3: launch<64, 3>(q, ck, cv, k_scale, v_scale, key_mask, out, B, Hkv, S, layer_ix, sm_scale, st); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (Hkv < 1 || H % Hkv) return static_cast<int>(cudaErrorInvalidValue);
+  return by_shape(D, H / Hkv, [&](auto d, auto r) {
+    return launch<decltype(d)::value, decltype(r)::value>(q, ck, cv, k_scale, v_scale, key_mask, out, B, Hkv, S,
+                                                          layer_ix, sm_scale, st);
+  });
 }
 
 // The short route: the arguments of decode_int8_bf16, for caches of S <= 256
@@ -593,35 +660,35 @@ extern "C" int decode_int8_short_bf16(const void* q, const int8_t* ck, const int
                                       int Hkv, int S, int D, int layer_ix,
                                       float sm_scale, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D != HD || Hkv < 1 || H % Hkv || B < 1 || S < 1 || S > SHORT_SLOTS)
+  if (Hkv < 1 || H % Hkv || B < 1 || S < 1 || S > SHORT_SLOTS)
     return static_cast<int>(cudaErrorInvalidValue);
-  switch (H / Hkv) {
-    case 1: return launch_short<1>(q, ck, cv, k_scale, v_scale, key_mask, out, B, Hkv, S, layer_ix, sm_scale, st);
-    case 3: return launch_short<3>(q, ck, cv, k_scale, v_scale, key_mask, out, B, Hkv, S, layer_ix, sm_scale, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return by_shape(D, H / Hkv, [&](auto d, auto r) {
+    return launch_short<decltype(r)::value, decltype(d)::value>(q, ck, cv, k_scale, v_scale, key_mask, out, B,
+                                                                Hkv, S, layer_ix, sm_scale, st);
+  });
 }
 
 // What a launch at this shape gets on the current card: CTAs an SM, threads
 // a CTA and dynamic shared memory. `short_route` selects the kernel.
-extern "C" int decode_int8_occupancy(int short_route, int H, int Hkv, int S, int* ctas_per_sm,
+extern "C" int decode_int8_occupancy(int short_route, int H, int Hkv, int S, int D, int* ctas_per_sm,
                                      int* threads, int* smem_bytes) {
-  if (Hkv < 1 || H % Hkv || S < 1 || (H / Hkv != 1 && H / Hkv != 3) || (short_route && S > SHORT_SLOTS))
+  if (Hkv < 1 || H % Hkv || S < 1 || (short_route && S > SHORT_SLOTS))
     return static_cast<int>(cudaErrorInvalidValue);
-  const bool one = H / Hkv == 1;
-  cudaError_t err;
-  if (short_route) {
-    *threads = SNT;
-    *smem_bytes = one ? short_smem<1>(S).total : short_smem<3>(S).total;
-    err = one ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_per_sm, decode_int8_short_kernel<1>, SNT, *smem_bytes)
-              : cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_per_sm, decode_int8_short_kernel<3>, SNT, *smem_bytes);
-  } else {
+  return by_shape(D, H / Hkv, [&](auto d, auto r) {
+    constexpr int HD = decltype(d)::value, REP = decltype(r)::value;
+    if (short_route) {
+      const int rc = short_prepare<REP, HD>();
+      if (rc != 0) return rc;
+      *threads = SNT;
+      *smem_bytes = short_smem<REP, HD>(S).total;
+      return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          ctas_per_sm, decode_int8_short_kernel<REP, HD>, SNT, *smem_bytes));
+    }
     *threads = NT;
     *smem_bytes = 0;
-    err = one ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_per_sm, decode_int8_kernel<64, 1>, NT, 0)
-              : cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_per_sm, decode_int8_kernel<64, 3>, NT, 0);
-  }
-  return static_cast<int>(err);
+    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        ctas_per_sm, decode_int8_kernel<HD, long_rep<REP>()>, NT, 0));
+  });
 }
 
 extern "C" const char* decode_int8_error_string(int code) {

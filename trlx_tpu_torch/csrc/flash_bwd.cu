@@ -116,11 +116,26 @@
 //   (__syncthreads_or over the tile's m), as the forward's tile skip.
 // Registers: up to 255 a thread (two CTAs an SM), so the fragments and both
 // fp32 accumulators stay out of local memory.
+//
+// Head widths: D = 64 (GPT-2, T5) and D = 128 (the Llama family).
+// - The dq kernel and the fused kernel take D = 128 as they are: their
+//   fragments and accumulators double and still fit 255 registers a thread,
+//   the fused kernel's bound at D = 128 being two CTAs an SM up to S = 64
+//   and one past that (its shared memory at T = S = 64 leaves room for two).
+// - The fused route's tile does not fit shared memory at D = 128 and T = S =
+//   128 (243,712 bytes against 232,448), so at D = 128 it takes T, S <= 112
+//   (FUSED_MAX_D128) and the long route takes the rest (backward_route).
+// - The dk/dv kernel at D = 128 would hold k and v fragments (64 registers)
+//   beside two 64-register accumulators; it runs as two launches of the
+//   same kernel instead, the first summing dv alone (no dP^T product), the
+//   second dk alone (S^T once more).
 // TMA, wgmma and pipelining are later work for both routes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "mma_bf16.cuh"
 
@@ -288,7 +303,8 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int D>
+// DK / DV: which of the two sums this launch forms (both at D = 64).
+template <int D, bool DK, bool DV>
 __global__ void __launch_bounds__(NTHREADS, 2)
 flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k,
@@ -334,7 +350,7 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
   }
   uint32_t kf[KSTEPS][4], vf[KSTEPS][4];
   load_a_rows<D>(kf, k + b * k_sb + hk * k_sh, k_ss, j0, kvalid[0], kvalid[1], c);
-  load_a_rows<D>(vf, v + b * v_sb + hk * v_sh, v_ss, j0, kvalid[0], kvalid[1], c);
+  if constexpr (DK) load_a_rows<D>(vf, v + b * v_sb + hk * v_sh, v_ss, j0, kvalid[0], kvalid[1], c);
 
   float dk_acc[NT_D][4], dv_acc[NT_D][4];
 #pragma unroll
@@ -396,8 +412,10 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
             uint32_t b0, b1;
             b_from_cols<LDS>(q_s, ks, 2 * kk + nn, g, c, b0, b1);
             mma_bf16(st[nn], kf[ks], b0, b1);
-            b_from_cols<LDS>(do_s, ks, 2 * kk + nn, g, c, b0, b1);
-            mma_bf16(dpt[nn], vf[ks], b0, b1);
+            if constexpr (DK) {
+              b_from_cols<LDS>(do_s, ks, 2 * kk + nn, g, c, b0, b1);
+              mma_bf16(dpt[nn], vf[ks], b0, b1);
+            }
           }
         }
 #pragma unroll
@@ -424,11 +442,15 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
         for (int n = 0; n < NT_D; ++n) {
           uint32_t b0, b1;
-          b_from_rows<LDS>(do_s, kk, n, g, c, b0, b1);
-          mma_bf16(dv_acc[n], pa, b0, b1);
-          b_from_rows<LDS>(q_s, kk, n, g, c, b0, b1);
-          mma_bf16(dk_acc[n], dhi, b0, b1);
-          mma_bf16(dk_acc[n], dlo, b0, b1);
+          if constexpr (DV) {
+            b_from_rows<LDS>(do_s, kk, n, g, c, b0, b1);
+            mma_bf16(dv_acc[n], pa, b0, b1);
+          }
+          if constexpr (DK) {
+            b_from_rows<LDS>(q_s, kk, n, g, c, b0, b1);
+            mma_bf16(dk_acc[n], dhi, b0, b1);
+            mma_bf16(dk_acc[n], dlo, b0, b1);
+          }
         }
       }
     }
@@ -442,10 +464,12 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
     __nv_bfloat16* vrow = dv + b * dv_sb + hk * dv_sh + slot * dv_ss;
 #pragma unroll
     for (int n = 0; n < NT_D; ++n) {
-      *reinterpret_cast<uint32_t*>(krow + n * 8 + c * 2) =
-          pack_f32(dk_acc[n][2 * i], dk_acc[n][2 * i + 1]);
-      *reinterpret_cast<uint32_t*>(vrow + n * 8 + c * 2) =
-          pack_f32(dv_acc[n][2 * i], dv_acc[n][2 * i + 1]);
+      if constexpr (DK)
+        *reinterpret_cast<uint32_t*>(krow + n * 8 + c * 2) =
+            pack_f32(dk_acc[n][2 * i], dk_acc[n][2 * i + 1]);
+      if constexpr (DV)
+        *reinterpret_cast<uint32_t*>(vrow + n * 8 + c * 2) =
+            pack_f32(dv_acc[n][2 * i], dv_acc[n][2 * i + 1]);
     }
   }
 }
@@ -456,30 +480,34 @@ typedef __nv_bfloat16 bf16;
 // The fused route
 // ---------------------------------------------------------------------------
 
-constexpr int FUSED_MAX = 128;     // the longest T or S the fused kernel takes
-constexpr int FUSED_LDS = 64 + 8;  // padded Q / dO / K / V row, bf16 elements (D = 64)
+constexpr int FUSED_MAX = 128;       // the longest T or S the fused kernel takes at D = 64
+constexpr int FUSED_MAX_D128 = 112;  // ... and at D = 128 (shared memory)
+
+__host__ __device__ constexpr int fused_max(int D) { return D == 64 ? FUSED_MAX : FUSED_MAX_D128; }
+// padded Q / dO / K / V row, bf16 elements
+__host__ __device__ constexpr int fused_lds(int D) { return D + 8; }
 
 // warps of the fused kernel: one per 16-slot key strip, at least four
 __host__ __device__ constexpr int fused_warps(int nk) { return nk > 4 ? nk : 4; }
 
 // dynamic shared memory of the fused kernel for tp = ceil16(T), sp =
-// ceil16(S): q, do [tp][72], k, v [sp][72], p, ds hi, ds lo [tp][sp + 8]
-// (bf16), the slots' flags [sp] and the strips' fully-masked flags [tp / 16]
-// (int); every bf16 region starts on a 16-byte boundary
-inline int fused_smem_bytes(int tp, int sp) {
-  return 2 * (2 * tp + 2 * sp) * FUSED_LDS + 2 * 3 * tp * (sp + 8) + 4 * sp + 4 * (tp / 16);
+// ceil16(S): q, do [tp][D + 8], k, v [sp][D + 8], p, ds hi, ds lo
+// [tp][sp + 8] (bf16), the slots' flags [sp] and the strips' fully-masked
+// flags [tp / 16] (int); every bf16 region starts on a 16-byte boundary
+inline int fused_smem_bytes(int D, int tp, int sp) {
+  return 2 * (2 * tp + 2 * sp) * fused_lds(D) + 2 * 3 * tp * (sp + 8) + 4 * sp + 4 * (tp / 16);
 }
 
-// rows [0, tp) of one head's [T, 64] bf16 rows into a [tp][FUSED_LDS] tile,
-// by cp.async, zero-filled (nothing read) at rows past T
-template <int NTH>
+// rows [0, tp) of one head's [T, D] bf16 rows into a [tp][D + 8] tile, by
+// cp.async, zero-filled (nothing read) at rows past T
+template <int NTH, int D>
 __device__ __forceinline__ void rows_async(bf16* dst_s, const bf16* src, long long stride, int tp, int T,
                                            int tid) {
-  constexpr int VECS = 64 / 8;  // 16-byte vectors per row
+  constexpr int VECS = D / 8;  // 16-byte vectors per row
   for (int i = tid; i < tp * VECS; i += NTH) {
     const int row = i / VECS, col = (i % VECS) * 8;
     const bool ok = row < T;
-    cp_async16(&dst_s[row * FUSED_LDS + col], src + (ok ? row * stride + col : 0), ok);
+    cp_async16(&dst_s[row * fused_lds(D) + col], src + (ok ? row * stride + col : 0), ok);
   }
 }
 
@@ -487,9 +515,11 @@ __device__ __forceinline__ void rows_async(bf16* dst_s, const bf16* src, long lo
 // sizes the strips' registers. Registers are bounded so that three CTAs of
 // four warps share an SM up to NK = 4 (168 a thread: each of the SM's four
 // register banks of 16K holds three such warps), two CTAs of five warps at
-// NK = 5, and one CTA past that.
-template <int NK>
-__global__ void __launch_bounds__(NK == 5 ? 192 : (NK > 4 ? 32 * NK : 128), NK <= 4 ? 3 : (NK == 5 ? 2 : 1))
+// NK = 5, and one CTA past that. At D = 128: two CTAs up to NK = 4 (255
+// registers a thread), one past that.
+template <int NK, int D>
+__global__ void __launch_bounds__(NK == 5 ? 192 : (NK > 4 ? 32 * NK : 128),
+                                  D == 64 ? (NK <= 4 ? 3 : (NK == 5 ? 2 : 1)) : (NK <= 4 ? 2 : 1))
 flash_bwd_fused_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v, const int* __restrict__ key_mask,
                        const bf16* __restrict__ dout,
@@ -505,10 +535,9 @@ flash_bwd_fused_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        long long dk_sb, long long dk_sh, long long dk_ss,
                        long long dv_sb, long long dv_sh, long long dv_ss,
                        int causal, int q_offset, float sm_scale) {
-  constexpr int D = 64;
   constexpr int KSTEPS = D / 16;
   constexpr int NT_D = D / 8;
-  constexpr int LDS = FUSED_LDS;
+  constexpr int LDS = fused_lds(D);
   constexpr int SP = NK * 16;
   constexpr int LDP = SP + 8;  // padded p / ds row
   constexpr int NT_S = 2 * NK;  // 8-slot tiles of a strip's row
@@ -542,8 +571,8 @@ flash_bwd_fused_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // first head, the key flags meanwhile, then K and V of the slots some row
   // attends (zero-filled elsewhere: a masked slot's s is -1e30 and its ds
   // zero whatever K and V hold)
-  rows_async<NTHREADS>(q_s, q + b * q_sb + hk * rep * q_sh, q_st, TP, T, tid);
-  rows_async<NTHREADS>(do_s, dout + b * do_sb + hk * rep * do_sh, do_st, TP, T, tid);
+  rows_async<NTHREADS, D>(q_s, q + b * q_sb + hk * rep * q_sh, q_st, TP, T, tid);
+  rows_async<NTHREADS, D>(do_s, dout + b * do_sb + hk * rep * do_sh, do_st, TP, T, tid);
   for (int i = tid; i < SP; i += NTHREADS) {
     const int mk = __ldg(mb + min(i, S - 1));
     valid_s[i] = i < S ? (mk > 0 ? 1 : 0) : -1;
@@ -568,8 +597,8 @@ flash_bwd_fused_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const long long bh = (long long)b * H + h;
     if (r > 0) {
       __syncthreads();  // the previous head's key-major phase has read q_s, do_s, p and ds
-      rows_async<NTHREADS>(q_s, q + b * q_sb + h * q_sh, q_st, TP, T, tid);
-      rows_async<NTHREADS>(do_s, dout + b * do_sb + h * do_sh, do_st, TP, T, tid);
+      rows_async<NTHREADS, D>(q_s, q + b * q_sb + h * q_sh, q_st, TP, T, tid);
+      rows_async<NTHREADS, D>(do_s, dout + b * do_sb + h * do_sh, do_st, TP, T, tid);
       cp_async_wait_all();
       __syncthreads();
     }
@@ -774,31 +803,31 @@ flash_bwd_fused_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// sets the kernel's dynamic shared memory limit (its 128-row footprint) once
-// per device; returns a CUDA error code
-template <int NK>
+// sets the kernel's dynamic shared memory limit (its longest T's footprint)
+// once per device; returns a CUDA error code
+template <int NK, int D>
 int fused_prepare() {
   static unsigned long long done = 0;  // one bit a device
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (dev < 64 && (done >> dev & 1ULL)) return 0;
-  err = cudaFuncSetAttribute(flash_bwd_fused_kernel<NK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             fused_smem_bytes(FUSED_MAX, NK * 16));
+  err = cudaFuncSetAttribute(flash_bwd_fused_kernel<NK, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             fused_smem_bytes(D, fused_max(D), NK * 16));
   if (err != cudaSuccess) return static_cast<int>(err);
   if (dev < 64) done |= 1ULL << dev;
   return 0;
 }
 
-template <int NK>
+template <int NK, int D>
 int fused_launch(const void* q, const void* k, const void* v, const int* key_mask, const void* dout,
                  const float* m, const float* l, void* dq, void* dk, void* dv, float* dkv_part, int B, int H,
                  int Hkv, int T, int S, const long long* st, int causal, int q_offset, float sm_scale,
                  cudaStream_t stream) {
-  const int rc = fused_prepare<NK>();
+  const int rc = fused_prepare<NK, D>();
   if (rc != 0) return rc;
   const int tp = (T + 15) & ~15;
-  flash_bwd_fused_kernel<NK><<<B * Hkv, 32 * fused_warps(NK), fused_smem_bytes(tp, NK * 16), stream>>>(
+  flash_bwd_fused_kernel<NK, D><<<B * Hkv, 32 * fused_warps(NK), fused_smem_bytes(D, tp, NK * 16), stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v), key_mask,
       static_cast<const bf16*>(dout), m, l, static_cast<bf16*>(dq), static_cast<bf16*>(dk),
       static_cast<bf16*>(dv), dkv_part, H, Hkv, T, S, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
@@ -807,15 +836,57 @@ int fused_launch(const void* q, const void* k, const void* v, const int* key_mas
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int NK>
+template <int NK, int D>
 int fused_occupancy(int T, int* ctas_per_sm, int* threads, int* smem_bytes) {
-  const int rc = fused_prepare<NK>();
+  const int rc = fused_prepare<NK, D>();
   if (rc != 0) return rc;
   const int tp = (T + 15) & ~15;
   *threads = 32 * fused_warps(NK);
-  *smem_bytes = fused_smem_bytes(tp, NK * 16);
+  *smem_bytes = fused_smem_bytes(D, tp, NK * 16);
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      ctas_per_sm, flash_bwd_fused_kernel<NK>, *threads, *smem_bytes));
+      ctas_per_sm, flash_bwd_fused_kernel<NK, D>, *threads, *smem_bytes));
+}
+
+// f(std::integral_constant<int, NK>) for NK = ceil16(S) / 16 in 1..8
+template <typename F>
+int by_nk(int S, F&& f) {
+  switch ((S + 15) / 16) {
+    case 1: return f(std::integral_constant<int, 1>{});
+    case 2: return f(std::integral_constant<int, 2>{});
+    case 3: return f(std::integral_constant<int, 3>{});
+    case 4: return f(std::integral_constant<int, 4>{});
+    case 5: return f(std::integral_constant<int, 5>{});
+    case 6: return f(std::integral_constant<int, 6>{});
+    case 7: return f(std::integral_constant<int, 7>{});
+    case 8: return f(std::integral_constant<int, 8>{});
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <int D>
+void dq_launch(const void* q, const void* k, const void* v, const int* key_mask, const void* dout,
+               const float* m, const float* l, float* delta, void* dq, int B, int H, int Hkv, int T, int S,
+               const long long* st, int causal, int q_offset, float sm_scale, cudaStream_t stream) {
+  const dim3 grid(B * H, (T + BQ - 1) / BQ);
+  flash_bwd_dq_kernel<D><<<grid, NTHREADS, 0, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      key_mask, static_cast<const bf16*>(dout), m, l, delta, static_cast<bf16*>(dq), H, Hkv, T, S,
+      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11],
+      st[12], st[13], st[14], causal, q_offset, sm_scale);
+}
+
+template <int D, bool DK, bool DV>
+void dkv_launch(const void* q, const void* k, const void* v, const int* key_mask, const void* dout,
+                const float* m, const float* l, const float* delta, void* dk, void* dv, int B, int H, int Hkv,
+                int T, int S, const long long* st, int causal, int q_offset, float sm_scale,
+                cudaStream_t stream) {
+  const dim3 grid(B * Hkv, (S + BK - 1) / BK);
+  flash_bwd_dkv_kernel<D, DK, DV><<<grid, NTHREADS, 0, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      key_mask, static_cast<const bf16*>(dout), m, l, delta, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), H, Hkv, T, S, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
+      st[7], st[8], st[9], st[10], st[11], st[12], st[13], st[14], st[15], st[16], st[17],
+      causal, q_offset, sm_scale);
 }
 
 }  // namespace
@@ -823,84 +894,86 @@ int fused_occupancy(int T, int* ctas_per_sm, int* threads, int* smem_bytes) {
 // strides: element strides (b, h, t|s) of q, k, v, do, dq, in that order; the
 // last dimension of each is contiguous. m, l are contiguous fp32 [B*H, T];
 // delta [B*H, T] is written here, for flash_bwd_dkv_bf16 to read. Built for
-// D = 64 (GPT-2's head width); another width is instantiated with the model
-// that needs it. Returns cudaGetLastError(), or cudaErrorInvalidValue for
-// another D.
+// D = 64 and D = 128. Returns cudaGetLastError(), or cudaErrorInvalidValue
+// for another D.
 extern "C" int flash_bwd_dq_bf16(const void* q, const void* k, const void* v,
                                  const int* key_mask, const void* dout, const float* m,
                                  const float* l, float* delta, void* dq, int B, int H,
                                  int Hkv, int T, int S, int D, const long long* st,
                                  int causal, int q_offset, float sm_scale, void* stream) {
-  if (D != 64) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(B * H, (T + BQ - 1) / BQ);
-  flash_bwd_dq_kernel<64><<<grid, NTHREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      key_mask, static_cast<const bf16*>(dout), m, l, delta, static_cast<bf16*>(dq), H, Hkv, T, S,
-      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11],
-      st[12], st[13], st[14], causal, q_offset, sm_scale);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 64) {
+    dq_launch<64>(q, k, v, key_mask, dout, m, l, delta, dq, B, H, Hkv, T, S, st, causal, q_offset, sm_scale, s);
+  } else if (D == 128) {
+    dq_launch<128>(q, k, v, key_mask, dout, m, l, delta, dq, B, H, Hkv, T, S, st, causal, q_offset, sm_scale, s);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 // strides: element strides (b, h, t|s) of q, k, v, do, dk, dv, in that order;
 // delta is the one flash_bwd_dq_bf16 wrote. Any GQA group size H / Hkv: the
-// kernel loops over the group's heads.
+// kernel loops over the group's heads. D = 64: one launch for dk and dv;
+// D = 128: a launch for dv, then one for dk.
 extern "C" int flash_bwd_dkv_bf16(const void* q, const void* k, const void* v,
                                   const int* key_mask, const void* dout, const float* m,
                                   const float* l, const float* delta, void* dk, void* dv, int B,
                                   int H, int Hkv, int T, int S, int D, const long long* st,
                                   int causal, int q_offset, float sm_scale, void* stream) {
-  if (D != 64) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(B * Hkv, (S + BK - 1) / BK);
-  flash_bwd_dkv_kernel<64><<<grid, NTHREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      key_mask, static_cast<const bf16*>(dout), m, l, delta, static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), H, Hkv, T, S, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
-      st[7], st[8], st[9], st[10], st[11], st[12], st[13], st[14], st[15], st[16], st[17],
-      causal, q_offset, sm_scale);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 64) {
+    dkv_launch<64, true, true>(q, k, v, key_mask, dout, m, l, delta, dk, dv, B, H, Hkv, T, S, st, causal,
+                               q_offset, sm_scale, s);
+  } else if (D == 128) {
+    dkv_launch<128, false, true>(q, k, v, key_mask, dout, m, l, delta, dk, dv, B, H, Hkv, T, S, st, causal,
+                                 q_offset, sm_scale, s);
+    const int rc = static_cast<int>(cudaGetLastError());
+    if (rc != 0) return rc;
+    dkv_launch<128, true, false>(q, k, v, key_mask, dout, m, l, delta, dk, dv, B, H, Hkv, T, S, st, causal,
+                                 q_offset, sm_scale, s);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
-// The fused route, T, S <= 128 and D = 64. strides: element strides
-// (b, h, t|s) of q, k, v, do, dq, dk, dv, in that order; the last dimension of
-// each is contiguous. m, l are contiguous fp32 [B*H, T]. dkv_part is fp32
-// scratch of B*Hkv*ceil16(S)*128 floats (each CTA's running dk/dv sum over
-// its GQA group), needed only when H > Hkv (null otherwise).
-// Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue for
-// another D, a longer T or S, or a missing scratch.
+// The fused route, T, S <= 128 at D = 64 and T, S <= 112 at D = 128.
+// strides: element strides (b, h, t|s) of q, k, v, do, dq, dk, dv, in that
+// order; the last dimension of each is contiguous. m, l are contiguous fp32
+// [B*H, T]. dkv_part is fp32 scratch of B*Hkv*ceil16(S)*2D floats (each CTA's
+// running dk/dv sum over its GQA group), needed only when H > Hkv (null
+// otherwise). Returns cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue for another D, a longer T or S, or a missing scratch.
 extern "C" int flash_bwd_fused_bf16(const void* q, const void* k, const void* v, const int* key_mask,
                                     const void* dout, const float* m, const float* l, void* dq, void* dk,
                                     void* dv, float* dkv_part, int B, int H, int Hkv, int T, int S, int D,
                                     const long long* st, int causal, int q_offset, float sm_scale,
                                     void* stream) {
-  if (D != 64 || T < 1 || S < 1 || T > FUSED_MAX || S > FUSED_MAX || Hkv < 1 || H % Hkv ||
+  if ((D != 64 && D != 128) || T < 1 || S < 1 || T > fused_max(D) || S > fused_max(D) || Hkv < 1 || H % Hkv ||
       (H > Hkv && dkv_part == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch ((S + 15) / 16) {
-#define FUSED_CASE(NK)                                                                                     \
-  case NK:                                                                                                 \
-    return fused_launch<NK>(q, k, v, key_mask, dout, m, l, dq, dk, dv, dkv_part, B, H, Hkv, T, S, st, causal, \
-                            q_offset, sm_scale, s);
-    FUSED_CASE(1) FUSED_CASE(2) FUSED_CASE(3) FUSED_CASE(4)
-    FUSED_CASE(5) FUSED_CASE(6) FUSED_CASE(7) FUSED_CASE(8)
-#undef FUSED_CASE
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return by_nk(S, [&](auto nk) {
+    constexpr int NK = decltype(nk)::value;
+    return D == 64 ? fused_launch<NK, 64>(q, k, v, key_mask, dout, m, l, dq, dk, dv, dkv_part, B, H, Hkv, T, S,
+                                          st, causal, q_offset, sm_scale, s)
+                   : fused_launch<NK, 128>(q, k, v, key_mask, dout, m, l, dq, dk, dv, dkv_part, B, H, Hkv, T, S,
+                                           st, causal, q_offset, sm_scale, s);
+  });
 }
 
-// What a fused launch at (T, S) gets: its threads, its dynamic shared memory
-// and the CTAs an SM holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
-extern "C" int flash_bwd_fused_occupancy(int T, int S, int* ctas_per_sm, int* threads, int* smem_bytes) {
-  if (T < 1 || S < 1 || T > FUSED_MAX || S > FUSED_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  switch ((S + 15) / 16) {
-#define FUSED_CASE(NK) \
-  case NK:             \
-    return fused_occupancy<NK>(T, ctas_per_sm, threads, smem_bytes);
-    FUSED_CASE(1) FUSED_CASE(2) FUSED_CASE(3) FUSED_CASE(4)
-    FUSED_CASE(5) FUSED_CASE(6) FUSED_CASE(7) FUSED_CASE(8)
-#undef FUSED_CASE
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+// What a fused launch at (T, S) and head width D gets: its threads, its
+// dynamic shared memory and the CTAs an SM holds at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+extern "C" int flash_bwd_fused_occupancy(int T, int S, int D, int* ctas_per_sm, int* threads, int* smem_bytes) {
+  if ((D != 64 && D != 128) || T < 1 || S < 1 || T > fused_max(D) || S > fused_max(D))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return by_nk(S, [&](auto nk) {
+    constexpr int NK = decltype(nk)::value;
+    return D == 64 ? fused_occupancy<NK, 64>(T, ctas_per_sm, threads, smem_bytes)
+                   : fused_occupancy<NK, 128>(T, ctas_per_sm, threads, smem_bytes);
+  });
 }
 
 extern "C" const char* flash_bwd_error_string(int code) {

@@ -28,11 +28,17 @@
 // row's causal future are skipped unless a row of the CTA has seen no
 // attendable slot yet (that row's uniform average needs their V); K rows of
 // masked or causal-future slots are never read.
+// Head widths: D = 64 (GPT-2, T5) and D = 128 (the Llama family). At 128 the
+// query fragments and the output accumulator double (32 + 64 fp32 registers
+// a thread), so the D = 128 instantiation is bounded at two CTAs an SM (255
+// registers a thread) instead of four.
 // A faster version (TMA, wgmma, warp specialisation) is later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "mma_bf16.cuh"
 
@@ -44,10 +50,11 @@ constexpr int NTHREADS = 128;
 constexpr float NEG_INF = -1e30f;
 __device__ __forceinline__ float neg_infinity() { return -__int_as_float(0x7f800000); }
 
-// At most 128 registers a thread, so that four CTAs share an SM: the
-// teacher-forced pass launches B*H*ceil(T/64) CTAs, several waves of them.
+// At most 128 registers a thread at D = 64, so that four CTAs share an SM:
+// the teacher-forced pass launches B*H*ceil(T/64) CTAs, several waves of
+// them. At D = 128, 255 (two CTAs an SM).
 template <int D>
-__global__ void __launch_bounds__(NTHREADS, 4)
+__global__ void __launch_bounds__(NTHREADS, D == 64 ? 4 : 2)
 flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v,
@@ -260,17 +267,22 @@ void launch(const void* q, const void* k, const void* v, const int* key_mask,
 }  // namespace
 
 // strides: 12 element strides (b, h, t|s) of q, k, v, out, in that order;
-// the last dimension of each is contiguous. Built for D = 64 (GPT-2's head
-// width); other widths are instantiated with the model that needs them.
-// Returns cudaGetLastError(), or cudaErrorInvalidValue for another D.
+// the last dimension of each is contiguous. Built for D = 64 (GPT-2's and
+// T5's head width) and D = 128 (the Llama family's). Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for another D.
 extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
                               const int* key_mask, void* out, float* m, float* l,
                               int B, int H, int Hkv, int T, int S, int D,
                               const long long* strides, int causal, int q_offset,
                               float sm_scale, void* stream) {
-  if (D != 64) return static_cast<int>(cudaErrorInvalidValue);
-  launch<64>(q, k, v, key_mask, out, m, l, B, H, Hkv, T, S, strides, causal,
-             q_offset, sm_scale, static_cast<cudaStream_t>(stream));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == 64) {
+    launch<64>(q, k, v, key_mask, out, m, l, B, H, Hkv, T, S, strides, causal, q_offset, sm_scale, st);
+  } else if (D == 128) {
+    launch<128>(q, k, v, key_mask, out, m, l, B, H, Hkv, T, S, strides, causal, q_offset, sm_scale, st);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -319,8 +331,9 @@ extern "C" const char* flash_fwd_error_string(int code) {
 // 4. Online rescaling over 64-slot tiles. Here a strip keeps its whole row of
 //    scores (at most 128 slots, 64 fp32 registers a thread) in registers: one
 //    row max, one exp, the row sum, then P V on the tensor cores (p packed
-//    to bf16 first, and the output in two halves of the head dim, to save
-//    registers). Causal skipping is per 16-slot block: a block in the causal
+//    to bf16 first, and the output in chunks of 32 channels of the head
+//    dim, two at D = 64 and four at D = 128, to save registers: the
+//    registers of a strip do not grow with D). Causal skipping is per 16-slot block: a block in the causal
 //    future of every row of a strip takes no S product, no softmax and,
 //    unless the strip holds a fully masked row, no P V product. An 8-slot
 //    tile whose every pair is weighed takes the scale alone (no per-pair
@@ -328,14 +341,21 @@ extern "C" const char* flash_fwd_error_string(int code) {
 // Masked slots score -1e30 and slots past S take no weight, exactly as in
 // flash_fwd_kernel, so m and l keep their meaning for the backward kernels.
 // GQA reads kv head h / (H / Hkv) in place; nothing is summed across CTAs.
+// At D = 128 (the Llama family) the same design holds T, S <= 128: Q, K and V
+// rows double to 272 bytes (104 KB of shared memory at T = S = 128), the Q K^T
+// product takes eight k-steps instead of four, and the registers stay those
+// of D = 64; each instantiation is bounded at two CTAs an SM.
 // TMA, wgmma and a persistent grid are later work.
 
 namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int SHORT_MAX = 128;     // the longest T or S the short kernel takes
-constexpr int SHORT_LDS = 64 + 8;  // padded Q / K / V row in shared memory, bf16 elements (D = 64)
+constexpr int SHORT_MAX = 128;  // the longest T or S the short kernel takes
+constexpr int OCH = 4;          // 8-channel output tiles a P V chunk (32 channels)
+
+// padded Q / K / V row in shared memory, bf16 elements
+__host__ __device__ constexpr int short_lds(int D) { return D + 8; }
 
 // warps of a short-route CTA for n_strips = ceil(T / 16), at most six: one
 // a strip up to four strips, or up to six without causality (every strip
@@ -354,8 +374,8 @@ __host__ __device__ inline int short_kv_end(int T, int S, int causal, int q_offs
   return end < S ? end : S;
 }
 
-// dynamic shared memory: q [tp][72], k [kp][72], v [sp][72] (bf16)
-inline int short_smem_bytes(int tp, int kp, int sp) { return 2 * (tp + kp + sp) * SHORT_LDS; }
+// dynamic shared memory: q [tp][D + 8], k [kp][D + 8], v [sp][D + 8] (bf16)
+inline int short_smem_bytes(int D, int tp, int kp, int sp) { return 2 * (tp + kp + sp) * short_lds(D); }
 
 // One CTA per (b, h) of short_warps(ceil(T / 16), causal) warps; NK =
 // ceil16(S) / 16 sizes the strips' score registers. KP =
@@ -365,9 +385,10 @@ inline int short_smem_bytes(int tp, int kp, int sp) { return 2 * (tp + kp + sp) 
 // 16K holds a quarter of its warps): up to S = 64 at most 80 a thread (six
 // four-warp CTAs at T = 64); up to S = 80 about 100, of which six
 // three-warp CTAs at T = 72 need 96 or fewer (the build gives 94); past
-// that 128 (eight two-warp CTAs at the prefill's T = 32 over S = 128).
-template <int NK>
-__global__ void __launch_bounds__(NK <= 5 ? 192 : 256, NK <= 4 ? 4 : (NK == 5 ? 3 : 2))
+// that 128 (eight two-warp CTAs at the prefill's T = 32 over S = 128). At
+// D = 128 two CTAs an SM (170 registers up to S = 80, 128 past that).
+template <int NK, int D>
+__global__ void __launch_bounds__(NK <= 5 ? 192 : 256, D == 64 ? (NK <= 4 ? 4 : (NK == 5 ? 3 : 2)) : 2)
 flash_fwd_short_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v, const int* __restrict__ key_mask,
                        bf16* __restrict__ out, float* __restrict__ m_out, float* __restrict__ l_out,
@@ -377,10 +398,9 @@ flash_fwd_short_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        long long v_sb, long long v_sh, long long v_ss,
                        long long o_sb, long long o_sh, long long o_st,
                        int causal, int q_offset, float sm_scale) {
-  constexpr int D = 64;
   constexpr int KSTEPS = D / 16;  // k-steps of Q K^T over the head dim
   constexpr int NT_O = D / 8;     // 8-channel tiles of the output
-  constexpr int LDS = SHORT_LDS;
+  constexpr int LDS = short_lds(D);
   constexpr int SP = NK * 16;
   constexpr int NT_S = 2 * NK;       // 8-slot tiles of a strip's row
   constexpr int NW = (NK + 1) / 2;   // words of attendable bits
@@ -566,36 +586,36 @@ flash_fwd_short_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       __syncthreads();  // V is in shared memory
     }
 
-    // 4. O = P V, a half of the head dim at a time (16 accumulators a
-    // thread, not 32), each half through the strip's own Q rows in shared
-    // memory (no other warp reads them) on its way to device memory
+    // 4. O = P V, 32 channels of the head dim at a time (16 accumulators a
+    // thread), each chunk through the strip's own Q rows in shared memory
+    // (no other warp reads them) on its way to device memory
     const float inv[2] = {1.f / fmaxf(sum[0], 1e-30f), 1.f / fmaxf(sum[1], 1e-30f)};
     bf16* o_s = q_s + r_base * LDS;
     __syncwarp();  // the strip's Q fragments are read
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      float o[NT_O / 2][4];
+    for (int half = 0; half < NT_O / OCH; ++half) {
+      float o[OCH][4];
 #pragma unroll
-      for (int n = 0; n < NT_O / 2; ++n)
+      for (int n = 0; n < OCH; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
 #pragma unroll
       for (int j = 0; j < NK; ++j) {
         if (j < nb_pv) {
 #pragma unroll
-          for (int n = 0; n < NT_O / 2; n += 2) {
+          for (int n = 0; n < OCH; n += 2) {
             uint32_t vf[4];
-            ldm_b_rows<LDS>(vf, v_s, j, half * (NT_O / 2) + n, lane);
+            ldm_b_rows<LDS>(vf, v_s, j, half * OCH + n, lane);
             mma_bf16(o[n], pa[j], vf[0], vf[1]);
             mma_bf16(o[n + 1], pa[j], vf[2], vf[3]);
           }
         }
       }
 #pragma unroll
-      for (int n = 0; n < NT_O / 2; ++n) {
+      for (int n = 0; n < OCH; ++n) {
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
-          *reinterpret_cast<uint32_t*>(&o_s[(g + i * 8) * LDS + (half * (NT_O / 2) + n) * 8 + c * 2]) =
+          *reinterpret_cast<uint32_t*>(&o_s[(g + i * 8) * LDS + (half * OCH + n) * 8 + c * 2]) =
               pack_f32(o[n][2 * i] * inv[i], o[n][2 * i + 1] * inv[i]);
         }
       }
@@ -614,15 +634,15 @@ flash_fwd_short_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 // sets the kernel's dynamic shared memory limit (its 128-row footprint) once
 // per device; returns a CUDA error code
-template <int NK>
+template <int NK, int D>
 int short_prepare() {
   static unsigned long long done = 0;  // one bit a device
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (dev < 64 && (done >> dev & 1ULL)) return 0;
-  err = cudaFuncSetAttribute(flash_fwd_short_kernel<NK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             short_smem_bytes(SHORT_MAX, NK * 16, NK * 16));
+  err = cudaFuncSetAttribute(flash_fwd_short_kernel<NK, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             short_smem_bytes(D, SHORT_MAX, NK * 16, NK * 16));
   if (err != cudaSuccess) return static_cast<int>(err);
   if (dev < 64) done |= 1ULL << dev;
   return 0;
@@ -630,74 +650,85 @@ int short_prepare() {
 
 // (threads, dynamic shared memory, K rows in shared memory) of a launch at
 // these lengths
-inline void short_config(int T, int S, int causal, int q_offset, int* threads, int* smem_bytes, int* kp) {
+inline void short_config(int D, int T, int S, int causal, int q_offset, int* threads, int* smem_bytes,
+                         int* kp) {
   const int tp = (T + 15) & ~15;
   *kp = (short_kv_end(T, S, causal, q_offset) + 15) & ~15;
   *threads = 32 * short_warps(tp / 16, causal);
-  *smem_bytes = short_smem_bytes(tp, *kp, (S + 15) & ~15);
+  *smem_bytes = short_smem_bytes(D, tp, *kp, (S + 15) & ~15);
 }
 
-template <int NK>
+template <int NK, int D>
 int short_launch(const void* q, const void* k, const void* v, const int* key_mask, void* out, float* m,
                  float* l, int B, int H, int Hkv, int T, int S, const long long* st, int causal, int q_offset,
                  float sm_scale, cudaStream_t stream) {
-  const int rc = short_prepare<NK>();
+  const int rc = short_prepare<NK, D>();
   if (rc != 0) return rc;
   int threads = 0, smem_bytes = 0, kp = 0;
-  short_config(T, S, causal, q_offset, &threads, &smem_bytes, &kp);
-  flash_fwd_short_kernel<NK><<<B * H, threads, smem_bytes, stream>>>(
+  short_config(D, T, S, causal, q_offset, &threads, &smem_bytes, &kp);
+  flash_fwd_short_kernel<NK, D><<<B * H, threads, smem_bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v), key_mask,
       static_cast<bf16*>(out), m, l, H, Hkv, T, S, kp, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
       st[7], st[8], st[9], st[10], st[11], causal, q_offset, sm_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int NK>
+template <int NK, int D>
 int short_occupancy(int T, int S, int causal, int q_offset, int* ctas_per_sm, int* threads, int* smem_bytes) {
-  const int rc = short_prepare<NK>();
+  const int rc = short_prepare<NK, D>();
   if (rc != 0) return rc;
   int kp = 0;
-  short_config(T, S, causal, q_offset, threads, smem_bytes, &kp);
+  short_config(D, T, S, causal, q_offset, threads, smem_bytes, &kp);
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      ctas_per_sm, flash_fwd_short_kernel<NK>, *threads, *smem_bytes));
+      ctas_per_sm, flash_fwd_short_kernel<NK, D>, *threads, *smem_bytes));
+}
+
+// f(std::integral_constant<int, NK>) for NK = ceil16(S) / 16 in 1..8
+template <typename F>
+int by_nk(int S, F&& f) {
+  switch ((S + 15) / 16) {
+    case 1: return f(std::integral_constant<int, 1>{});
+    case 2: return f(std::integral_constant<int, 2>{});
+    case 3: return f(std::integral_constant<int, 3>{});
+    case 4: return f(std::integral_constant<int, 4>{});
+    case 5: return f(std::integral_constant<int, 5>{});
+    case 6: return f(std::integral_constant<int, 6>{});
+    case 7: return f(std::integral_constant<int, 7>{});
+    case 8: return f(std::integral_constant<int, 8>{});
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// The short route, T, S <= 128 and D = 64: the arguments and outputs of
-// flash_fwd_bf16. Returns cudaGetLastError() after the launch, or
+// The short route, T, S <= 128 and D in {64, 128}: the arguments and outputs
+// of flash_fwd_bf16. Returns cudaGetLastError() after the launch, or
 // cudaErrorInvalidValue for another D or a longer T or S.
 extern "C" int flash_fwd_short_bf16(const void* q, const void* k, const void* v, const int* key_mask,
                                     void* out, float* m, float* l, int B, int H, int Hkv, int T, int S, int D,
                                     const long long* strides, int causal, int q_offset, float sm_scale,
                                     void* stream) {
-  if (D != 64 || T < 1 || S < 1 || T > SHORT_MAX || S > SHORT_MAX || Hkv < 1 || H % Hkv)
+  if ((D != 64 && D != 128) || T < 1 || S < 1 || T > SHORT_MAX || S > SHORT_MAX || Hkv < 1 || H % Hkv)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch ((S + 15) / 16) {
-#define SHORT_CASE(NK) \
-  case NK:             \
-    return short_launch<NK>(q, k, v, key_mask, out, m, l, B, H, Hkv, T, S, strides, causal, q_offset, sm_scale, s);
-    SHORT_CASE(1) SHORT_CASE(2) SHORT_CASE(3) SHORT_CASE(4)
-    SHORT_CASE(5) SHORT_CASE(6) SHORT_CASE(7) SHORT_CASE(8)
-#undef SHORT_CASE
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return by_nk(S, [&](auto nk) {
+    constexpr int NK = decltype(nk)::value;
+    return D == 64
+        ? short_launch<NK, 64>(q, k, v, key_mask, out, m, l, B, H, Hkv, T, S, strides, causal, q_offset, sm_scale, s)
+        : short_launch<NK, 128>(q, k, v, key_mask, out, m, l, B, H, Hkv, T, S, strides, causal, q_offset, sm_scale, s);
+  });
 }
 
-// What a short-route launch at these lengths gets: its threads, its dynamic
-// shared memory and the CTAs an SM holds at once
+// What a short-route launch at these lengths and head width gets: its
+// threads, its dynamic shared memory and the CTAs an SM holds at once
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
-extern "C" int flash_fwd_short_occupancy(int T, int S, int causal, int q_offset, int* ctas_per_sm, int* threads,
-                                         int* smem_bytes) {
-  if (T < 1 || S < 1 || T > SHORT_MAX || S > SHORT_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  switch ((S + 15) / 16) {
-#define SHORT_CASE(NK) \
-  case NK:             \
-    return short_occupancy<NK>(T, S, causal, q_offset, ctas_per_sm, threads, smem_bytes);
-    SHORT_CASE(1) SHORT_CASE(2) SHORT_CASE(3) SHORT_CASE(4)
-    SHORT_CASE(5) SHORT_CASE(6) SHORT_CASE(7) SHORT_CASE(8)
-#undef SHORT_CASE
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+extern "C" int flash_fwd_short_occupancy(int T, int S, int D, int causal, int q_offset, int* ctas_per_sm,
+                                         int* threads, int* smem_bytes) {
+  if ((D != 64 && D != 128) || T < 1 || S < 1 || T > SHORT_MAX || S > SHORT_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return by_nk(S, [&](auto nk) {
+    constexpr int NK = decltype(nk)::value;
+    return D == 64 ? short_occupancy<NK, 64>(T, S, causal, q_offset, ctas_per_sm, threads, smem_bytes)
+                   : short_occupancy<NK, 128>(T, S, causal, q_offset, ctas_per_sm, threads, smem_bytes);
+  });
 }

@@ -44,6 +44,18 @@
 // cores: at rep * T <= 32 rows tensor cores would buy nothing yet. Any page
 // size works: the last chunk is masked. Splitting long lanes over CTAs and
 // pipelining the page loads is later work.
+//
+// Head widths D = 64 (GPT-2) and D = 128 (the Llama family), on both routes.
+// At D = 128 the long route does not stage V rows in shared memory (a
+// 128-slot chunk of bf16 rows would take the static limit of 48 KB beside
+// the query and score rows): the score pass leaves each slot's pool row in
+// shared memory, and in the P.V pass thread d reads channel d of each
+// weighed slot's V row from device memory (128 threads, one 256-byte bf16
+// or 128-byte int8 row a slot), for all the group's rows.
+//
+// Built with -DKERNEL_HEAD_DIM=64 or 128, a library holds that head width's
+// instantiations alone (ops/_build.py builds the two side by side); without
+// it, both.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -57,7 +69,6 @@ namespace {
 
 constexpr int NT = 128;  // threads per CTA, and slots per chunk
 constexpr int NWARPS = NT / 32;
-constexpr int HD = 64;  // head width
 constexpr float NEG_INF = -1e30f;
 
 __device__ __forceinline__ float neg_infinity() { return -__int_as_float(0x7f800000); }
@@ -85,8 +96,8 @@ __device__ __forceinline__ float elem_to_float(int8_t x) { return static_cast<fl
 __device__ __forceinline__ float elem_to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 // KV: int8_t (with per-row scales) or __nv_bfloat16 (without).
-// RMAX: rows of shared query storage, >= rep * T.
-template <typename KV, int RMAX>
+// RMAX: rows of shared query storage, >= rep * T. HD: the head width.
+template <typename KV, int RMAX, int HD>
 __global__ void __launch_bounds__(NT)
 paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
                        const KV* __restrict__ pk, const KV* __restrict__ pv,
@@ -100,11 +111,14 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
   constexpr bool QUANT = sizeof(KV) == 1;
   constexpr int EPP = 16 / sizeof(KV);  // elements per 16-byte piece
   constexpr int NV = HD / EPP;  // pieces per row
-  constexpr int RH = (RMAX + 1) / 2;  // rows per thread in the P.V pass
+  constexpr bool VSH = HD == 64;  // V rows staged in shared memory
+  constexpr int NHALF = NT / HD;  // row parities of the P.V pass (a thread a channel)
+  constexpr int RH = (RMAX + NHALF - 1) / NHALF;  // rows per thread in the P.V pass
 
   __shared__ float q_s[RMAX][HD];
   __shared__ float p_s[RMAX][NT];
-  __shared__ __align__(16) KV v_s[NT][HD];
+  __shared__ __align__(16) KV v_s[VSH ? NT : 1][VSH ? HD : 8];
+  __shared__ long long vrow_s[VSH ? 1 : NT];  // D = 128: each slot's pool row, -1 on none
   __shared__ float vs_s[NT];
   __shared__ float m_s[RMAX], l_s[RMAX], corr_s[RMAX];
 
@@ -142,7 +156,7 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
       pid = table[slot / PS];
       off = slot % PS;
     }
-    uint4* vrow_s = reinterpret_cast<uint4*>(&v_s[tid][0]);
+    uint4* vpieces_s = reinterpret_cast<uint4*>(&v_s[VSH ? tid : 0][0]);
     if (pid != 0) {
       const long long row = (((long long)layer_ix * NP + pid) * PS + off) * Hkv + g;
       const uint4* kr = reinterpret_cast<const uint4*>(pk + row * HD);
@@ -159,8 +173,12 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
           for (int r = 0; r < RMAX; ++r) dot[r] += q_s[r][p * EPP + i] * kf[i];
       }
+      if constexpr (VSH) {
 #pragma unroll
-      for (int p = 0; p < NV; ++p) vrow_s[p] = vr[p];
+        for (int p = 0; p < NV; ++p) vpieces_s[p] = vr[p];
+      } else {
+        vrow_s[tid] = row;
+      }
       const float ks = QUANT ? pk_scale[row] : 1.f;
       vs_s[tid] = QUANT ? pv_scale[row] : 1.f;
 #pragma unroll
@@ -173,8 +191,12 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
     } else {
       // past the end or on a null page: no weight, and zeros in v_s so
       // that 0 * v stays 0
+      if constexpr (VSH) {
 #pragma unroll
-      for (int p = 0; p < NV; ++p) vrow_s[p] = make_uint4(0u, 0u, 0u, 0u);
+        for (int p = 0; p < NV; ++p) vpieces_s[p] = make_uint4(0u, 0u, 0u, 0u);
+      } else {
+        vrow_s[tid] = -1;
+      }
       vs_s[tid] = 0.f;
       for (int r = 0; r < R; ++r) p_s[r][tid] = neg_infinity();
     }
@@ -213,18 +235,26 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
     }
     __syncthreads();
 
-    // P.V: thread (half, d_own) accumulates channel d_own of rows half, half + 2, ...
+    // P.V: thread (half, d_own) accumulates channel d_own of rows half,
+    // half + NHALF, ...
     const int n_slots = min(NT, S - c0);
 #pragma unroll
     for (int i = 0; i < RH; ++i) {
-      const int r = half + 2 * i;
+      const int r = half + NHALF * i;
       if (r < R) acc[i] *= corr_s[r];
     }
     for (int sl = 0; sl < n_slots; ++sl) {
-      const float v = elem_to_float(v_s[sl][d_own]);
+      float v;
+      if constexpr (VSH) {
+        v = elem_to_float(v_s[sl][d_own]);
+      } else {
+        const long long vrow = vrow_s[sl];
+        if (vrow < 0) continue;  // no weight, nothing read
+        v = elem_to_float(pv[vrow * HD + d_own]);
+      }
 #pragma unroll
       for (int i = 0; i < RH; ++i) {
-        const int r = half + 2 * i;
+        const int r = half + NHALF * i;
         if (r < R) acc[i] += p_s[r][sl] * v;
       }
     }
@@ -233,7 +263,7 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
 
 #pragma unroll
   for (int i = 0; i < RH; ++i) {
-    const int r = half + 2 * i;
+    const int r = half + NHALF * i;
     if (r < R) {
       const int t = r / rep, h = g * rep + r % rep;
       out[(((long long)b * T + t) * H + h) * HD + d_own] =
@@ -242,31 +272,42 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <typename KV, int RMAX>
-void launch(const void* q, const void* pk, const void* pv, const float* pks,
-            const float* pvs, const int* table, const float* bias, void* out,
-            int B, int T, int H, int Hkv, int NP, int PS, int MP, int layer_ix,
-            float sm_scale, cudaStream_t stream) {
-  paged_attention_kernel<KV, RMAX><<<B * Hkv, NT, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const KV*>(pk),
-      static_cast<const KV*>(pv), pks, pvs, table, bias,
-      static_cast<__nv_bfloat16*>(out), T, H, Hkv, NP, PS, MP, layer_ix, sm_scale);
+// the instantiation for R query rows and head width D:
+// f(std::integral_constant<int, RMAX>, std::integral_constant<int, HD>).
+// LONG: the long kernel, which at D = 128 takes up to 8 rows in its 8-row
+// instantiation (its 1- and 4-row ones spilled registers)
+template <bool LONG = false, typename F>
+int by_shape(int R, int D, F&& f) {
+  auto with_rows = [&](auto hd) -> int {
+    if constexpr (!(LONG && decltype(hd)::value == 128)) {
+      if (R <= 1) return f(std::integral_constant<int, 1>{}, hd);
+      if (R <= 4) return f(std::integral_constant<int, 4>{}, hd);
+    }
+    if (R <= 8) return f(std::integral_constant<int, 8>{}, hd);
+    if (R <= 16) return f(std::integral_constant<int, 16>{}, hd);
+    return f(std::integral_constant<int, 32>{}, hd);
+  };
+#if !defined(KERNEL_HEAD_DIM) || KERNEL_HEAD_DIM == 64
+  if (D == 64) return with_rows(std::integral_constant<int, 64>{});
+#endif
+#if !defined(KERNEL_HEAD_DIM) || KERNEL_HEAD_DIM == 128
+  if (D == 128) return with_rows(std::integral_constant<int, 128>{});
+#endif
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <typename KV>
 int dispatch(int R, const void* q, const void* pk, const void* pv, const float* pks,
              const float* pvs, const int* table, const float* bias, void* out, int B,
-             int T, int H, int Hkv, int NP, int PS, int MP, int layer_ix,
+             int T, int H, int Hkv, int D, int NP, int PS, int MP, int layer_ix,
              float sm_scale, cudaStream_t st) {
-#define PAGED_LAUNCH(RM) \
-  launch<KV, RM>(q, pk, pv, pks, pvs, table, bias, out, B, T, H, Hkv, NP, PS, MP, layer_ix, sm_scale, st)
-  if (R <= 1) PAGED_LAUNCH(1);
-  else if (R <= 4) PAGED_LAUNCH(4);
-  else if (R <= 8) PAGED_LAUNCH(8);
-  else if (R <= 16) PAGED_LAUNCH(16);
-  else PAGED_LAUNCH(32);
-#undef PAGED_LAUNCH
-  return static_cast<int>(cudaGetLastError());
+  return by_shape<true>(R, D, [&](auto rows, auto hd) {
+    paged_attention_kernel<KV, decltype(rows)::value, decltype(hd)::value><<<B * Hkv, NT, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(q), static_cast<const KV*>(pk),
+        static_cast<const KV*>(pv), pks, pvs, table, bias,
+        static_cast<__nv_bfloat16*>(out), T, H, Hkv, NP, PS, MP, layer_ix, sm_scale);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 // ---------------------------------------------------------------------------
@@ -307,11 +348,16 @@ int dispatch(int R, const void* q, const void* pk, const void* pv, const float* 
 // 5. P.V runs in parallel over slots: warp w takes a quarter of them, lane l
 //    channels 2l and 2l + 1 of every row. The four warps' partials meet in
 //    shared memory and are summed in a fixed order (the same bits on every
-//    call), and the output leaves as 4-byte bf16 pairs.
+//    call), and the output leaves as 4-byte bf16 pairs. At D = 128 the
+//    warps split the channels instead (thread c takes channel c of every
+//    row over all the slots): no partials, whose 64 KB at 32 rows would not
+//    fit beside the bf16 rows of 256 slots.
 // Dynamic shared memory is sized by the launch's S, T and MP (13 KB at the
 // engine's decode shape); its limit is raised once per device for the
-// largest (bf16 pools at 256 slots and 32 rows, 177 KB). Registers are
-// bounded so that four CTAs share an SM up to 8 rows (three past that).
+// largest (bf16 pools at 256 slots and 32 rows, 177 KB at D = 64 and 213 KB
+// at D = 128). Registers are bounded so that four CTAs share an SM up to 8
+// rows (three past that). At D = 128 a slot is scored by eight threads, 16
+// channels each, and K and V rows are twice as long.
 // ---------------------------------------------------------------------------
 
 constexpr int SHORT_SLOTS = 256;   // the widest table (MP * PS) the short kernel takes
@@ -341,6 +387,7 @@ __device__ __forceinline__ void k16_to_float(const uint4* p, float (&f)[16], __n
 }
 
 // channels c * 16 .. c * 16 + 15 of query row r (bf16 in shared memory)
+template <int HD>
 __device__ __forceinline__ void q16_to_float(const __nv_bfloat16* q_s, int r, int c, float (&f)[16]) {
   k16_to_float(reinterpret_cast<const uint4*>(q_s + r * HD + c * 16), f, __nv_bfloat16());
 }
@@ -360,7 +407,7 @@ __device__ __forceinline__ void v_pair(const __nv_bfloat16* p, float& a, float& 
 // K and V rows in shared memory: int8 rows unpadded (the four threads of
 // a slot read its four pieces, two slots a quarter-warp: no bank
 // conflicts), bf16 rows padded by one piece (each thread reads two)
-template <typename KV>
+template <typename KV, int HD>
 __host__ __device__ constexpr int short_row_pieces() {
   return sizeof(KV) == 1 ? HD / 16 : HD / 8 + 1;
 }
@@ -371,9 +418,9 @@ struct ShortSmem {
   int k, v, q, bias, ks, vs, p, part, red, row, table, total;
 };
 
-template <typename KV, int RMAX>
+template <typename KV, int RMAX, int HD>
 __host__ __device__ __forceinline__ ShortSmem short_smem(int T, int S, int MP) {
-  constexpr int ROW = short_row_pieces<KV>() * 16;
+  constexpr int ROW = short_row_pieces<KV, HD>() * 16;
   const int SP = (S + 15) & ~15;
   ShortSmem m;
   int o = 0;
@@ -392,7 +439,7 @@ __host__ __device__ __forceinline__ ShortSmem short_smem(int T, int S, int MP) {
   m.p = o;
   o += RMAX * SP * 4;
   m.part = o;
-  o += SNW * RMAX * HD * 4;
+  o += HD == 64 ? SNW * RMAX * HD * 4 : 0;  // D = 128 sums no partials
   m.red = o;
   o += 2 * SNW * RMAX * 4;
   m.row = o;
@@ -419,7 +466,8 @@ __device__ __forceinline__ int short_slot_row(const int* table_s, const float* b
 
 // KV: int8_t (with per-row scales) or __nv_bfloat16 (without).
 // RMAX: query rows of the group the instantiation holds, >= rep * T.
-template <typename KV, int RMAX>
+// HD: the head width, 64 or 128.
+template <typename KV, int RMAX, int HD>
 __global__ void __launch_bounds__(SNT, RMAX <= 8 ? 4 : 3)
 paged_attention_short_kernel(const __nv_bfloat16* __restrict__ q,
                              const KV* __restrict__ pk, const KV* __restrict__ pv,
@@ -433,12 +481,13 @@ paged_attention_short_kernel(const __nv_bfloat16* __restrict__ q,
   constexpr bool QUANT = sizeof(KV) == 1;
   constexpr int EPP = 16 / sizeof(KV);  // elements per 16-byte piece
   constexpr int NV = HD / EPP;          // pieces per K or V row
-  constexpr int LDR = short_row_pieces<KV>();  // shared row stride in pieces
+  constexpr int LDR = short_row_pieces<KV, HD>();  // shared row stride in pieces
+  constexpr int NQ = HD / 16;           // threads that score one slot, 16 channels each
   constexpr bool QREG = RMAX <= 4;      // the thread's q channels live in registers
   extern __shared__ __align__(16) unsigned char smem[];
 
   const int S = MP * PS, SP = (S + 15) & ~15;
-  const ShortSmem at = short_smem<KV, RMAX>(T, S, MP);
+  const ShortSmem at = short_smem<KV, RMAX, HD>(T, S, MP);
   uint4* k_s = reinterpret_cast<uint4*>(smem + at.k);
   uint4* v_s = reinterpret_cast<uint4*>(smem + at.v);
   __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem + at.q);
@@ -503,16 +552,16 @@ paged_attention_short_kernel(const __nv_bfloat16* __restrict__ q,
     cp_async16(&v_s[j * LDR + p], pv + (row < 0 ? 0 : static_cast<long long>(row) * HD + p * EPP), row >= 0);
   }
   cp_async_commit();
-  const int quarter = lane & 3;  // the 16 channels of a slot this thread scores
+  const int quarter = lane & (NQ - 1);  // the 16 channels of a slot this thread scores
   float qreg[QREG ? RMAX : 1][16];
   if constexpr (QREG) {
 #pragma unroll
-    for (int r = 0; r < RMAX; ++r) q16_to_float(q_s, r, quarter, qreg[r]);
+    for (int r = 0; r < RMAX; ++r) q16_to_float<HD>(q_s, r, quarter, qreg[r]);
   }
 
-  // 3. scores once K is in: threads 4i .. 4i + 3 share a slot, 16 channels
-  // each; s = (q . k) * sm_scale * k_scale + bias, -inf on a slot not
-  // read; each warp's row maxima go to max_s
+  // 3. scores once K is in: threads NQ i .. NQ i + NQ - 1 share a slot, 16
+  // channels each; s = (q . k) * sm_scale * k_scale + bias, -inf on a slot
+  // not read; each warp's row maxima go to max_s
   cp_async_wait_group<1>();
   __syncthreads();
   float mx[RMAX];
@@ -522,8 +571,8 @@ paged_attention_short_kernel(const __nv_bfloat16* __restrict__ q,
     mx[r] = neg_infinity();
     brow_s[r] = r < R ? (r / rep) * S : 0;
   }
-  for (int x = tid; x < SP * 4; x += SNT) {  // a whole warp takes each step (SP * 4 is a multiple of 64)
-    const int j = x >> 2;
+  for (int x = tid; x < SP * NQ; x += SNT) {  // a whole warp takes each step (SP * NQ is a multiple of 64)
+    const int j = x / NQ;
     const bool live = row_s[j] >= 0;
     float kf[16];
     k16_to_float(&k_s[j * LDR + quarter * (16 / EPP)], kf, KV());
@@ -535,16 +584,17 @@ paged_attention_short_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
         for (int i = 0; i < 16; ++i) qf[i] = qreg[r][i];
       } else {
-        q16_to_float(q_s, r, quarter, qf);
+        q16_to_float<HD>(q_s, r, quarter, qf);
       }
       float dot = 0.f;
 #pragma unroll
       for (int i = 0; i < 16; ++i) dot += qf[i] * kf[i];
       dot += __shfl_xor_sync(0xffffffffu, dot, 1);
       dot += __shfl_xor_sync(0xffffffffu, dot, 2);
+      if constexpr (NQ == 8) dot += __shfl_xor_sync(0xffffffffu, dot, 4);
       float sc = neg_infinity();
       if (live && r < R) sc = dot * sm_scale * ks + bias_s[brow_s[r] + j];
-      if ((r & 3) == quarter) p_s[r * SP + j] = sc;
+      if ((r % NQ) == quarter) p_s[r * SP + j] = sc;
       mx[r] = fmaxf(mx[r], sc);
     }
   }
@@ -589,68 +639,89 @@ paged_attention_short_kernel(const __nv_bfloat16* __restrict__ q,
   // in shared memory and are summed in warp order
   cp_async_wait_group<0>();
   __syncthreads();
-  float acc[RMAX][2];
+  if constexpr (HD == 64) {
+    float acc[RMAX][2];
 #pragma unroll
-  for (int r = 0; r < RMAX; ++r) acc[r][0] = acc[r][1] = 0.f;
-  const int span = SP / SNW;  // a multiple of 4
-  for (int j = warp * span; j < (warp + 1) * span; j += 4) {
-    float v0[4], v1[4];
+    for (int r = 0; r < RMAX; ++r) acc[r][0] = acc[r][1] = 0.f;
+    const int span = SP / SNW;  // a multiple of 4
+    for (int j = warp * span; j < (warp + 1) * span; j += 4) {
+      float v0[4], v1[4];
 #pragma unroll
-    for (int u = 0; u < 4; ++u) v_pair(reinterpret_cast<const KV*>(v_s + (j + u) * LDR) + 2 * lane, v0[u], v1[u]);
+      for (int u = 0; u < 4; ++u) v_pair(reinterpret_cast<const KV*>(v_s + (j + u) * LDR) + 2 * lane, v0[u], v1[u]);
+#pragma unroll
+      for (int r = 0; r < RMAX; ++r) {
+        if (r < R) {
+          const float4 pr = *reinterpret_cast<const float4*>(&p_s[r * SP + j]);
+          acc[r][0] += pr.x * v0[0] + pr.y * v0[1] + pr.z * v0[2] + pr.w * v0[3];
+          acc[r][1] += pr.x * v1[0] + pr.y * v1[1] + pr.z * v1[2] + pr.w * v1[3];
+        }
+      }
+    }
 #pragma unroll
     for (int r = 0; r < RMAX; ++r) {
       if (r < R) {
-        const float4 pr = *reinterpret_cast<const float4*>(&p_s[r * SP + j]);
-        acc[r][0] += pr.x * v0[0] + pr.y * v0[1] + pr.z * v0[2] + pr.w * v0[3];
-        acc[r][1] += pr.x * v1[0] + pr.y * v1[1] + pr.z * v1[2] + pr.w * v1[3];
+        *reinterpret_cast<float2*>(&part_s[(warp * RMAX + r) * HD + 2 * lane]) = make_float2(acc[r][0], acc[r][1]);
+      }
+    }
+    __syncthreads();
+    for (int x = tid; x < R * (HD / 2); x += SNT) {
+      const int r = x / (HD / 2), c = (x % (HD / 2)) * 2;
+      float o0 = 0.f, o1 = 0.f, lsum = 0.f;
+#pragma unroll
+      for (int w = 0; w < SNW; ++w) {
+        const float2 pw = *reinterpret_cast<const float2*>(&part_s[(w * RMAX + r) * HD + c]);
+        o0 += pw.x;
+        o1 += pw.y;
+        lsum += sum_s[w * RMAX + r];
+      }
+      const float lm = fmaxf(lsum, 1e-30f);
+      const int t = r / rep, h = g * rep + r % rep;
+      *reinterpret_cast<__nv_bfloat162*>(out + ((static_cast<long long>(b) * T + t) * H + h) * HD + c) =
+          __floats2bfloat162_rn(o0 / lm, o1 / lm);
+    }
+  } else {
+    // D = 128: thread c takes channel c of every row over all the slots
+    // (the V scale rides p), and writes it
+    const int ch = tid;
+    float acc[RMAX];
+#pragma unroll
+    for (int r = 0; r < RMAX; ++r) acc[r] = 0.f;
+    for (int j = 0; j < SP; j += 4) {
+      float vv[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) vv[u] = elem_to_float(reinterpret_cast<const KV*>(v_s + (j + u) * LDR)[ch]);
+#pragma unroll
+      for (int r = 0; r < RMAX; ++r) {
+        if (r < R) {
+          const float4 pr = *reinterpret_cast<const float4*>(&p_s[r * SP + j]);
+          acc[r] += pr.x * vv[0] + pr.y * vv[1] + pr.z * vv[2] + pr.w * vv[3];
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < RMAX; ++r) {
+      if (r < R) {
+        float lsum = 0.f;
+#pragma unroll
+        for (int w = 0; w < SNW; ++w) lsum += sum_s[w * RMAX + r];
+        const int t = r / rep, h = g * rep + r % rep;
+        out[((static_cast<long long>(b) * T + t) * H + h) * HD + ch] = __float2bfloat16_rn(acc[r] / fmaxf(lsum, 1e-30f));
       }
     }
   }
-#pragma unroll
-  for (int r = 0; r < RMAX; ++r) {
-    if (r < R) {
-      *reinterpret_cast<float2*>(&part_s[(warp * RMAX + r) * HD + 2 * lane]) = make_float2(acc[r][0], acc[r][1]);
-    }
-  }
-  __syncthreads();
-  for (int x = tid; x < R * (HD / 2); x += SNT) {
-    const int r = x / (HD / 2), c = (x % (HD / 2)) * 2;
-    float o0 = 0.f, o1 = 0.f, lsum = 0.f;
-#pragma unroll
-    for (int w = 0; w < SNW; ++w) {
-      const float2 pw = *reinterpret_cast<const float2*>(&part_s[(w * RMAX + r) * HD + c]);
-      o0 += pw.x;
-      o1 += pw.y;
-      lsum += sum_s[w * RMAX + r];
-    }
-    const float lm = fmaxf(lsum, 1e-30f);
-    const int t = r / rep, h = g * rep + r % rep;
-    *reinterpret_cast<__nv_bfloat162*>(out + ((static_cast<long long>(b) * T + t) * H + h) * HD + c) =
-        __floats2bfloat162_rn(o0 / lm, o1 / lm);
-  }
-}
-
-// the instantiation for R query rows: f(std::integral_constant<int, RMAX>)
-template <typename F>
-int by_rows(int R, F&& f) {
-  if (R <= 1) return f(std::integral_constant<int, 1>{});
-  if (R <= 4) return f(std::integral_constant<int, 4>{});
-  if (R <= 8) return f(std::integral_constant<int, 8>{});
-  if (R <= 16) return f(std::integral_constant<int, 16>{});
-  return f(std::integral_constant<int, 32>{});
 }
 
 // raises the kernel's dynamic shared memory limit to its largest launch
 // (T = RMAX, S = MP = SHORT_SLOTS) once per device; returns a CUDA error code
-template <typename KV, int RMAX>
+template <typename KV, int RMAX, int HD>
 int short_prepare() {
   static unsigned long long done = 0;  // one bit a device
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (dev < 64 && (done >> dev & 1ULL)) return 0;
-  err = cudaFuncSetAttribute(paged_attention_short_kernel<KV, RMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             short_smem<KV, RMAX>(RMAX, SHORT_SLOTS, SHORT_SLOTS).total);
+  err = cudaFuncSetAttribute(paged_attention_short_kernel<KV, RMAX, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             short_smem<KV, RMAX, HD>(RMAX, SHORT_SLOTS, SHORT_SLOTS).total);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (dev < 64) done |= 1ULL << dev;
   return 0;
@@ -658,13 +729,13 @@ int short_prepare() {
 
 template <typename KV>
 int short_dispatch(int R, const void* q, const void* pk, const void* pv, const float* pks, const float* pvs,
-                   const int* table, const float* bias, void* out, int B, int T, int H, int Hkv, int NP, int PS,
-                   int MP, int layer_ix, float sm_scale, cudaStream_t st) {
-  return by_rows(R, [&](auto rows) {
-    constexpr int RMAX = decltype(rows)::value;
-    const int rc = short_prepare<KV, RMAX>();
+                   const int* table, const float* bias, void* out, int B, int T, int H, int Hkv, int D, int NP,
+                   int PS, int MP, int layer_ix, float sm_scale, cudaStream_t st) {
+  return by_shape(R, D, [&](auto rows, auto hd) {
+    constexpr int RMAX = decltype(rows)::value, HD = decltype(hd)::value;
+    const int rc = short_prepare<KV, RMAX, HD>();
     if (rc != 0) return rc;
-    paged_attention_short_kernel<KV, RMAX><<<B * Hkv, SNT, short_smem<KV, RMAX>(T, MP * PS, MP).total, st>>>(
+    paged_attention_short_kernel<KV, RMAX, HD><<<B * Hkv, SNT, short_smem<KV, RMAX, HD>(T, MP * PS, MP).total, st>>>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const KV*>(pk), static_cast<const KV*>(pv), pks, pvs,
         table, bias, static_cast<__nv_bfloat16*>(out), T, H, Hkv, NP, PS, MP, layer_ix, sm_scale);
     return static_cast<int>(cudaGetLastError());
@@ -672,25 +743,23 @@ int short_dispatch(int R, const void* q, const void* pk, const void* pv, const f
 }
 
 template <typename KV>
-int short_occupancy(int R, int T, int S, int MP, int* ctas_per_sm, int* smem_bytes) {
-  return by_rows(R, [&](auto rows) {
-    constexpr int RMAX = decltype(rows)::value;
-    const int rc = short_prepare<KV, RMAX>();
+int short_occupancy(int R, int D, int T, int S, int MP, int* ctas_per_sm, int* smem_bytes) {
+  return by_shape(R, D, [&](auto rows, auto hd) {
+    constexpr int RMAX = decltype(rows)::value, HD = decltype(hd)::value;
+    const int rc = short_prepare<KV, RMAX, HD>();
     if (rc != 0) return rc;
-    *smem_bytes = short_smem<KV, RMAX>(T, S, MP).total;
+    *smem_bytes = short_smem<KV, RMAX, HD>(T, S, MP).total;
     return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        ctas_per_sm, paged_attention_short_kernel<KV, RMAX>, SNT, *smem_bytes));
+        ctas_per_sm, paged_attention_short_kernel<KV, RMAX, HD>, SNT, *smem_bytes));
   });
 }
 
 template <typename KV>
-int long_occupancy(int R, int* ctas_per_sm) {
-  const auto kernel = R <= 1    ? paged_attention_kernel<KV, 1>
-                      : R <= 4  ? paged_attention_kernel<KV, 4>
-                      : R <= 8  ? paged_attention_kernel<KV, 8>
-                      : R <= 16 ? paged_attention_kernel<KV, 16>
-                                : paged_attention_kernel<KV, 32>;
-  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_per_sm, kernel, NT, 0));
+int long_occupancy(int R, int D, int* ctas_per_sm) {
+  return by_shape<true>(R, D, [&](auto rows, auto hd) {
+    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        ctas_per_sm, paged_attention_kernel<KV, decltype(rows)::value, decltype(hd)::value>, NT, 0));
+  });
 }
 
 }  // namespace
@@ -698,7 +767,7 @@ int long_occupancy(int R, int* ctas_per_sm) {
 // All tensors contiguous. q/out [B,T,H,D] bf16; pk/pv [L,NP,PS,Hkv,D] int8
 // (quant = 1, with pk_scale/pv_scale [L,NP,PS,Hkv] fp32) or bf16 (quant = 0,
 // scales ignored); page_table [B,MP] int32; bias [B,1,T,MP*PS] fp32. Built
-// for D = 64 and (H / Hkv) * T <= 32. Returns cudaGetLastError(), or
+// for D in {64, 128} and (H / Hkv) * T <= 32. Returns cudaGetLastError(), or
 // cudaErrorInvalidValue for unsupported arguments.
 extern "C" int paged_attention_bf16(const void* q, const void* pk, const void* pv,
                                     const float* pk_scale, const float* pv_scale,
@@ -707,16 +776,16 @@ extern "C" int paged_attention_bf16(const void* q, const void* pk, const void* p
                                     int MP, int layer_ix, int quant, float sm_scale,
                                     void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D != HD || Hkv < 1 || H % Hkv || T < 1 || PS < 1 || MP < 1 || B < 1)
+  if ((D != 64 && D != 128) || Hkv < 1 || H % Hkv || T < 1 || PS < 1 || MP < 1 || B < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const int R = (H / Hkv) * T;
   if (R > 32 || (quant && (pk_scale == nullptr || pv_scale == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (quant)
     return dispatch<int8_t>(R, q, pk, pv, pk_scale, pv_scale, page_table, bias, out, B, T, H,
-                            Hkv, NP, PS, MP, layer_ix, sm_scale, st);
+                            Hkv, D, NP, PS, MP, layer_ix, sm_scale, st);
   return dispatch<__nv_bfloat16>(R, q, pk, pv, nullptr, nullptr, page_table, bias, out, B, T,
-                                 H, Hkv, NP, PS, MP, layer_ix, sm_scale, st);
+                                 H, Hkv, D, NP, PS, MP, layer_ix, sm_scale, st);
 }
 
 // The short route: the arguments of paged_attention_bf16, for tables of
@@ -729,36 +798,37 @@ extern "C" int paged_attention_short_bf16(const void* q, const void* pk, const v
                                           int MP, int layer_ix, int quant, float sm_scale,
                                           void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D != HD || Hkv < 1 || H % Hkv || T < 1 || PS < 1 || MP < 1 || B < 1 || MP * PS > SHORT_SLOTS)
+  if ((D != 64 && D != 128) || Hkv < 1 || H % Hkv || T < 1 || PS < 1 || MP < 1 || B < 1 ||
+      MP * PS > SHORT_SLOTS)
     return static_cast<int>(cudaErrorInvalidValue);
   const int R = (H / Hkv) * T;
   if (R > 32 || (quant && (pk_scale == nullptr || pv_scale == nullptr)) ||
       (static_cast<long long>(layer_ix) + 1) * NP * PS * Hkv >= (1LL << 31))
     return static_cast<int>(cudaErrorInvalidValue);
   if (quant)
-    return short_dispatch<int8_t>(R, q, pk, pv, pk_scale, pv_scale, page_table, bias, out, B, T, H, Hkv, NP,
-                                  PS, MP, layer_ix, sm_scale, st);
+    return short_dispatch<int8_t>(R, q, pk, pv, pk_scale, pv_scale, page_table, bias, out, B, T, H, Hkv, D,
+                                  NP, PS, MP, layer_ix, sm_scale, st);
   return short_dispatch<__nv_bfloat16>(R, q, pk, pv, nullptr, nullptr, page_table, bias, out, B, T, H, Hkv,
-                                       NP, PS, MP, layer_ix, sm_scale, st);
+                                       D, NP, PS, MP, layer_ix, sm_scale, st);
 }
 
 // What a launch at this shape gets on the current card: CTAs an SM, threads
 // a CTA and dynamic shared memory. `short_route` selects the kernel.
-extern "C" int paged_attention_occupancy(int short_route, int T, int H, int Hkv, int PS, int MP, int quant,
+extern "C" int paged_attention_occupancy(int short_route, int T, int H, int Hkv, int D, int PS, int MP, int quant,
                                          int* ctas_per_sm, int* threads, int* smem_bytes) {
-  if (Hkv < 1 || H % Hkv || T < 1 || PS < 1 || MP < 1 || (H / Hkv) * T > 32)
+  if ((D != 64 && D != 128) || Hkv < 1 || H % Hkv || T < 1 || PS < 1 || MP < 1 || (H / Hkv) * T > 32)
     return static_cast<int>(cudaErrorInvalidValue);
   const int R = (H / Hkv) * T, S = MP * PS;
   if (short_route) {
     if (S > SHORT_SLOTS) return static_cast<int>(cudaErrorInvalidValue);
     *threads = SNT;
-    if (quant) return short_occupancy<int8_t>(R, T, S, MP, ctas_per_sm, smem_bytes);
-    return short_occupancy<__nv_bfloat16>(R, T, S, MP, ctas_per_sm, smem_bytes);
+    if (quant) return short_occupancy<int8_t>(R, D, T, S, MP, ctas_per_sm, smem_bytes);
+    return short_occupancy<__nv_bfloat16>(R, D, T, S, MP, ctas_per_sm, smem_bytes);
   }
   *threads = NT;
   *smem_bytes = 0;
-  if (quant) return long_occupancy<int8_t>(R, ctas_per_sm);
-  return long_occupancy<__nv_bfloat16>(R, ctas_per_sm);
+  if (quant) return long_occupancy<int8_t>(R, D, ctas_per_sm);
+  return long_occupancy<__nv_bfloat16>(R, D, ctas_per_sm);
 }
 
 extern "C" const char* paged_attention_error_string(int code) {

@@ -25,28 +25,31 @@ def _t(x) -> torch.Tensor:
 
 def lm_state_dict_from_jax(p: Mapping, cfg: TransformerConfig) -> Dict[str, torch.Tensor]:
     """State dict of a `TransformerLM` from a reference `TransformerLM`
-    param tree {embed, blocks, ln_f}; without `embed`, of the blocks and
-    final norm alone (a value branch, whose blocks stack only its layers)."""
-    sd = {"embed.wte": _t(p["embed"]["wte"]), "embed.wpe": _t(p["embed"]["wpe"])} if "embed" in p else {}
+    param tree {embed, blocks, ln_f[, lm_head]}; without `embed`, of the
+    blocks and final norm alone (a value branch, whose blocks stack only its
+    layers). Leaves the tree lacks (biases of a bias-free model, ln_2 under
+    the parallel residual, wpe of a rotary model) are absent here too."""
+    sd = {f"embed.{leaf}": _t(x) for leaf, x in p["embed"].items()} if "embed" in p else {}
     blocks = p["blocks"]
     E = cfg.hidden_size
     for i in range(len(blocks["ln_1"]["scale"])):
         pre = f"blocks.{i}."
         for ln in ("ln_1", "ln_2"):
-            for leaf, x in blocks[ln].items():
+            for leaf, x in blocks.get(ln, {}).items():
                 sd[pre + f"{ln}.{leaf}"] = _t(x[i])
-        for name in ("q", "k", "v"):
+        for name in ("q", "k", "v", "o"):
             dense = blocks["attn"][name]
-            sd[pre + f"attn.{name}.kernel"] = _t(dense["kernel"][i]).reshape(E, -1)
-            sd[pre + f"attn.{name}.bias"] = _t(dense["bias"][i]).reshape(-1)
-        o = blocks["attn"]["o"]
-        sd[pre + "attn.o.kernel"] = _t(o["kernel"][i]).reshape(-1, E)
-        sd[pre + "attn.o.bias"] = _t(o["bias"][i])
-        for name in ("fc_in", "fc_out"):
-            for leaf, x in blocks["mlp"][name].items():
+            shape = (-1, E) if name == "o" else (E, -1)
+            sd[pre + f"attn.{name}.kernel"] = _t(dense["kernel"][i]).reshape(shape)
+            if "bias" in dense:
+                sd[pre + f"attn.{name}.bias"] = _t(dense["bias"][i]).reshape(-1)
+        for name, dense in blocks["mlp"].items():
+            for leaf, x in dense.items():
                 sd[pre + f"mlp.{name}.{leaf}"] = _t(x[i])
     for leaf, x in p["ln_f"].items():
         sd[f"ln_f.{leaf}"] = _t(x)
+    if "lm_head" in p:
+        sd["lm_head.kernel"] = _t(p["lm_head"]["kernel"])
     return sd
 
 

@@ -180,7 +180,7 @@ def compose_draft_params(cfg, policy: TransformerLM, ref_params: nn.Module) -> T
     reference is a standalone model and is returned as it is. A hydra
     `Branch` holds only the top k blocks: the draft is a model made of the
     policy's trunk blocks (shared, not copied) under the branch's blocks,
-    with the branch's final norm and embedding."""
+    with the branch's final norm, embedding and untied lm_head (if any)."""
     if not isinstance(ref_params, Branch):
         return ref_params
     k = len(ref_params.blocks)
@@ -190,6 +190,7 @@ def compose_draft_params(cfg, policy: TransformerLM, ref_params: nn.Module) -> T
     draft.embed = ref_params.embed
     draft.blocks = nn.ModuleList(list(policy.blocks[: cfg.n_layer - k]) + list(ref_params.blocks))
     draft.ln_f = ref_params.ln_f
+    draft.lm_head = ref_params.lm_head
     return draft
 
 

@@ -1,5 +1,5 @@
-"""The GPT-2-class causal transformer: the port of
-trlx_tpu.models.transformer for the rollout path.
+"""The decoder-only causal transformer: the port of
+trlx_tpu.models.transformer (GPT-2, Llama and GPT-J through its switches).
 
 The JAX reference keeps block parameters stacked [L, ...] and scans over
 them; here the blocks are an `nn.ModuleList` and the forward is a Python
@@ -24,10 +24,16 @@ Attention dispatch keeps the reference's knobs:
   (ops/decode_attention.py) for T == 1 steps over the quantized cache;
   `"int8"` runs the reference's folded-scale plain math.
 
-Only the GPT-2 switches are ported (learned positions, LayerNorm with
-bias, biased projections, gelu_new, a sequential residual, tied
-embeddings), plus grouped-query attention; any other architecture
-switch raises NotImplementedError.
+Ported switches: learned or rotary positions (neox or gptj style, a
+partial `rotary_dim`, `rope_theta`; the rope rotates q and k at each
+token's real position before the cache write and before either kernel),
+LayerNorm or RMSNorm with or without a bias, gelu_new / gelu / silu /
+relu, the gated (SwiGLU) MLP, projections with or without biases, the
+sequential or the parallel residual (GPT-J: attention and MLP both read
+ln_1's output, and no ln_2 exists), tied embeddings or an untied
+`lm_head`, and grouped-query attention. The switches of OPT, Bloom,
+GPT-Neo and GPT-BigCode (alibi, pos_offset, embed_layernorm, attn_scale,
+local windows) and int8 decode weights raise NotImplementedError.
 
 The KV cache is a dict of tensors plus a host-int write `index`. Forwards
 with a cache write their new K/V columns into the cache buffers IN PLACE
@@ -136,38 +142,80 @@ class TransformerConfig:
         return dataclasses.replace(self, **kw)
 
 
+_UNPORTED_QUEUE = "ROADMAP queue 7"
+
+_CHOICES = {
+    "pos_embed": ("learned", "rotary"),
+    "rotary_style": ("neox", "gptj"),
+    "norm": ("layernorm", "rmsnorm"),
+    "activation": ("gelu_new", "gelu", "silu", "relu"),
+}
+
+
 def check_ported(cfg: TransformerConfig) -> None:
-    """Raise NotImplementedError for any switch outside the GPT-2 family
-    the port has reached (rather than silently computing another model)."""
+    """Raise NotImplementedError for any switch the port has not reached
+    (rather than silently computing another model): the OPT, Bloom,
+    GPT-Neo and GPT-BigCode switches and int8 decode weights."""
     unported = {
-        "pos_embed": (cfg.pos_embed, "learned"),
         "pos_offset": (cfg.pos_offset, 0),
         "embed_layernorm": (cfg.embed_layernorm, False),
         "attn_scale": (cfg.attn_scale, None),
         "local_window": (cfg.local_window, None),
         "attn_layers": (cfg.attn_layers, None),
-        "norm": (cfg.norm, "layernorm"),
-        "mlp_gated": (cfg.mlp_gated, False),
-        "parallel_residual": (cfg.parallel_residual, False),
-        "activation": (cfg.activation, "gelu_new"),
-        "use_attn_bias": (cfg.use_attn_bias, True),
-        "use_attn_out_bias": (cfg.use_attn_out_bias, None),
-        "use_mlp_bias": (cfg.use_mlp_bias, True),
-        "use_norm_bias": (cfg.use_norm_bias, True),
-        "tie_word_embeddings": (cfg.tie_word_embeddings, True),
         "decode_weights_quant": (cfg.decode_weights_quant, None),
     }
     for name, (got, ported) in unported.items():
         if got != ported:
             raise NotImplementedError(
-                f"TransformerConfig.{name}={got!r} is not ported yet (only {ported!r})"
+                f"TransformerConfig.{name}={got!r} is not ported yet (only {ported!r}; {_UNPORTED_QUEUE})"
             )
+    for name, choices in _CHOICES.items():
+        if getattr(cfg, name) not in choices:
+            raise NotImplementedError(
+                f"TransformerConfig.{name}={getattr(cfg, name)!r} is not ported yet "
+                f"(one of {choices}; {_UNPORTED_QUEUE})"
+            )
+    if cfg.pos_embed == "rotary" and (cfg.rotary_dim % 2 or not 0 < cfg.rotary_dim <= cfg.head_dim):
+        raise ValueError(f"rotary_dim={cfg.rotary_dim} must be even and within head_dim={cfg.head_dim}")
     if cfg.attention_impl not in ("xla", "pallas"):
-        raise NotImplementedError(f"attention_impl={cfg.attention_impl!r} is not ported")
+        raise NotImplementedError(f"attention_impl={cfg.attention_impl!r} is not ported ({_UNPORTED_QUEUE})")
     if cfg.kv_cache_quant not in (None, "int8", "int8_kernel"):
         raise NotImplementedError(f"kv_cache_quant={cfg.kv_cache_quant!r} is not ported")
     if cfg.n_head % cfg.n_kv_head:
         raise ValueError(f"n_head={cfg.n_head} not a multiple of n_kv_head={cfg.n_kv_head}")
+
+
+_ACTIVATIONS = {
+    "gelu_new": lambda x: F.gelu(x, approximate="tanh"),
+    "gelu": F.gelu,
+    "silu": F.silu,
+    "relu": F.relu,
+}
+
+
+def rope_frequencies(cfg: TransformerConfig, positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin tables [B, T, rotary_dim // 2] (fp32) for positions [B, T]."""
+    dim = cfg.rotary_dim
+    exps = torch.arange(0, dim, 2, dtype=torch.float32, device=positions.device) / dim
+    inv_freq = 1.0 / (cfg.rope_theta ** exps)
+    angles = positions[..., None].float() * inv_freq
+    return torch.cos(angles), torch.sin(angles)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, style: str) -> torch.Tensor:
+    """Rotate the first rotary_dim channels of x [B, T, H, D] in fp32 and
+    cast back: "gptj" rotates interleaved pairs, "neox" (Llama) halves."""
+    rot_dim = cos.shape[-1] * 2
+    x_rot, x_pass = x[..., :rot_dim].float(), x[..., rot_dim:]
+    cos, sin = cos[:, :, None, :], sin[:, :, None, :]
+    if style == "gptj":
+        x1, x2 = x_rot[..., 0::2], x_rot[..., 1::2]
+        rotated = torch.stack([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).reshape(x_rot.shape)
+    else:
+        half = rot_dim // 2
+        x1, x2 = x_rot[..., :half], x_rot[..., half:]
+        rotated = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return torch.cat([rotated.to(x.dtype), x_pass], dim=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -176,37 +224,52 @@ def check_ported(cfg: TransformerConfig) -> None:
 
 
 class Norm(nn.Module):
-    """LayerNorm computed in fp32, cast back to the input dtype."""
+    """LayerNorm (a bias unless use_norm_bias is off) or RMSNorm (never a
+    bias), computed in fp32 and cast back to the input dtype."""
 
     def __init__(self, cfg: TransformerConfig, device=None):
         super().__init__()
         self.eps = cfg.layer_norm_epsilon
+        self.rms = cfg.norm == "rmsnorm"
         self.scale = nn.Parameter(torch.ones(cfg.hidden_size, dtype=cfg.param_dtype, device=device))
-        self.bias = nn.Parameter(torch.zeros(cfg.hidden_size, dtype=cfg.param_dtype, device=device))
+        if not self.rms and cfg.use_norm_bias:
+            self.bias = nn.Parameter(torch.zeros(cfg.hidden_size, dtype=cfg.param_dtype, device=device))
+        else:
+            self.register_parameter("bias", None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x32 = x.float()
+        if self.rms:
+            return (x32 * torch.rsqrt((x32 * x32).mean(dim=-1, keepdim=True) + self.eps) * self.scale.float()).to(x.dtype)
         mean = x32.mean(dim=-1, keepdim=True)
         var = x32.var(dim=-1, keepdim=True, unbiased=False)
-        y = (x32 - mean) * torch.rsqrt(var + self.eps) * self.scale.float() + self.bias.float()
+        y = (x32 - mean) * torch.rsqrt(var + self.eps) * self.scale.float()
+        if self.bias is not None:
+            y = y + self.bias.float()
         return y.to(x.dtype)
 
 
 class QDense(nn.Module):
     """Linear map with the reference's param layout: `kernel` [in, out]
     (the reference's (input dims..., feature dims...) flattened) and a
-    zero-init `bias` [out]. The product runs in `dtype`."""
+    zero-init `bias` [out] unless `use_bias` is off. The product runs in
+    `dtype`."""
 
-    def __init__(self, in_features: int, out_features: int, dtype, param_dtype, device=None):
+    def __init__(self, in_features: int, out_features: int, dtype, param_dtype, device=None,
+                 use_bias: bool = True):
         super().__init__()
         self.dtype = dtype
         self.kernel = nn.Parameter(
             torch.empty(in_features, out_features, dtype=param_dtype, device=device)
         )
-        self.bias = nn.Parameter(torch.zeros(out_features, dtype=param_dtype, device=device))
+        if use_bias:
+            self.bias = nn.Parameter(torch.zeros(out_features, dtype=param_dtype, device=device))
+        else:
+            self.register_parameter("bias", None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.matmul(x.to(self.dtype), self.kernel.to(self.dtype)) + self.bias.to(self.dtype)
+        y = torch.matmul(x.to(self.dtype), self.kernel.to(self.dtype))
+        return y if self.bias is None else y + self.bias.to(self.dtype)
 
 
 def _quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -282,10 +345,11 @@ class Attention(nn.Module):
         self.cfg = cfg
         H, Hkv, D, E = cfg.n_head, cfg.n_kv_head, cfg.head_dim, cfg.hidden_size
         dense = dict(dtype=cfg.dtype, param_dtype=cfg.param_dtype, device=device)
-        self.q = QDense(E, H * D, **dense)
-        self.k = QDense(E, Hkv * D, **dense)
-        self.v = QDense(E, Hkv * D, **dense)
-        self.o = QDense(H * D, E, **dense)
+        out_bias = cfg.use_attn_out_bias if cfg.use_attn_out_bias is not None else cfg.use_attn_bias
+        self.q = QDense(E, H * D, use_bias=cfg.use_attn_bias, **dense)
+        self.k = QDense(E, Hkv * D, use_bias=cfg.use_attn_bias, **dense)
+        self.v = QDense(E, Hkv * D, use_bias=cfg.use_attn_bias, **dense)
+        self.o = QDense(H * D, E, use_bias=out_bias, **dense)
 
     def forward(
         self,
@@ -294,6 +358,7 @@ class Attention(nn.Module):
         cache: Optional[Dict] = None,  # the model's whole cache dict
         ix: int = 0,  # this layer's index into the stacked cache
         key_mask: Optional[torch.Tensor] = None,  # [B, S]
+        positions: Optional[torch.Tensor] = None,  # [B, T] real positions (rope)
     ) -> torch.Tensor:
         cfg = self.cfg
         B, T, _ = x.shape
@@ -301,6 +366,10 @@ class Attention(nn.Module):
         q = self.q(x).view(B, T, H, D)
         k = self.k(x).view(B, T, Hkv, D)
         v = self.v(x).view(B, T, Hkv, D)
+        if cfg.pos_embed == "rotary":
+            cos, sin = rope_frequencies(cfg, positions)
+            q = apply_rope(q, cos, sin, cfg.rotary_style)
+            k = apply_rope(k, cos, sin, cfg.rotary_style)
         sm_scale = 1.0 / math.sqrt(D)
 
         out = None
@@ -363,52 +432,98 @@ class Attention(nn.Module):
 
 
 class MLP(nn.Module):
+    """fc_out(act(fc_in(x))), or with `mlp_gated` fc_out(act(fc_in(x)) *
+    fc_gate(x)) (Llama's SwiGLU: fc_in is HF's gate_proj, fc_gate its
+    up_proj)."""
+
     def __init__(self, cfg: TransformerConfig, device=None):
         super().__init__()
-        dense = dict(dtype=cfg.dtype, param_dtype=cfg.param_dtype, device=device)
+        dense = dict(dtype=cfg.dtype, param_dtype=cfg.param_dtype, device=device, use_bias=cfg.use_mlp_bias)
+        self.act = _ACTIVATIONS[cfg.activation]
         self.fc_in = QDense(cfg.hidden_size, cfg.intermediate_size, **dense)
+        if cfg.mlp_gated:
+            self.fc_gate = QDense(cfg.hidden_size, cfg.intermediate_size, **dense)
+        else:
+            self.fc_gate = None
         self.fc_out = QDense(cfg.intermediate_size, cfg.hidden_size, **dense)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc_out(F.gelu(self.fc_in(x), approximate="tanh"))  # gelu_new
+        h = self.act(self.fc_in(x))
+        if self.fc_gate is not None:
+            h = h * self.fc_gate(x)
+        return self.fc_out(h)
 
 
 class Block(nn.Module):
-    """Pre-norm decoder block with a sequential residual (gpt2)."""
+    """Pre-norm decoder block: a sequential residual (gpt2, llama), or with
+    `parallel_residual` attention and MLP both on ln_1's output (gptj; no
+    ln_2, as in the reference's param tree)."""
 
     def __init__(self, cfg: TransformerConfig, device=None):
         super().__init__()
+        self.parallel = cfg.parallel_residual
         self.ln_1 = Norm(cfg, device)
         self.attn = Attention(cfg, device)
-        self.ln_2 = Norm(cfg, device)
+        self.ln_2 = None if self.parallel else Norm(cfg, device)
         self.mlp = MLP(cfg, device)
 
-    def forward(self, x, attn_bias, cache=None, ix=0, key_mask=None):
-        x = x + self.attn(self.ln_1(x), attn_bias, cache, ix, key_mask)
+    def forward(self, x, attn_bias, cache=None, ix=0, key_mask=None, positions=None):
+        h = self.ln_1(x)
+        attn_out = self.attn(h, attn_bias, cache, ix, key_mask, positions)
+        if self.parallel:
+            return x + attn_out + self.mlp(h)
+        x = x + attn_out
         return x + self.mlp(self.ln_2(x))
 
 
 class Embedding(nn.Module):
+    """Token embedding `wte`, plus the learned position table `wpe` when
+    pos_embed is "learned" (a rotary model has none)."""
+
     def __init__(self, cfg: TransformerConfig, device=None):
         super().__init__()
         self.cfg = cfg
         self.wte = nn.Parameter(
             torch.empty(cfg.vocab_size, cfg.hidden_size, dtype=cfg.param_dtype, device=device)
         )
-        self.wpe = nn.Parameter(
-            torch.empty(cfg.n_positions, cfg.hidden_size, dtype=cfg.param_dtype, device=device)
-        )
+        if cfg.pos_embed == "learned":
+            self.wpe = nn.Parameter(
+                torch.empty(cfg.n_positions, cfg.hidden_size, dtype=cfg.param_dtype, device=device)
+            )
+        else:
+            self.register_parameter("wpe", None)
 
     def forward(self, input_ids: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
-        pos = torch.clamp(positions, 0, self.cfg.n_positions - 1)
-        h = F.embedding(input_ids.long(), self.wte) + F.embedding(pos.long(), self.wpe)
+        h = F.embedding(input_ids.long(), self.wte)
+        if self.wpe is not None:
+            pos = torch.clamp(positions, 0, self.cfg.n_positions - 1)
+            h = h + F.embedding(pos.long(), self.wpe)
         return h.to(self.cfg.dtype)
 
 
+class LMHead(nn.Module):
+    """The untied output projection: `kernel` [E, V]."""
+
+    def __init__(self, cfg: TransformerConfig, device=None):
+        super().__init__()
+        self.kernel = nn.Parameter(
+            torch.empty(cfg.hidden_size, cfg.vocab_size, dtype=cfg.param_dtype, device=device)
+        )
+
+
 def logit_projection(model: "TransformerLM"):
-    """hidden -> fp32 logits closure over the tied wte: the product runs on
+    """hidden -> fp32 logits closure over the untied `lm_head` when the
+    model (or hydra Branch) has one, else the tied wte: the product runs on
     compute-dtype operands with fp32 accumulation (the reference's
     preferred_element_type=float32), i.e. on their exact fp32 values."""
+    head = getattr(model, "lm_head", None)
+    if head is not None:
+        kernel = head.kernel
+
+        def proj(h: torch.Tensor) -> torch.Tensor:
+            return torch.matmul(h.float(), kernel.to(h.dtype).float())
+
+        return proj
     wte = model.embed.wte
 
     def proj(h: torch.Tensor) -> torch.Tensor:
@@ -442,18 +557,21 @@ def _pad_positions(attention_mask: torch.Tensor) -> torch.Tensor:
 
 
 class Branch(nn.Module):
-    """The frozen hydra reference branch: the top blocks, the final norm
-    and the (tied) embedding."""
+    """The frozen hydra reference branch: the top blocks, the final norm,
+    the embedding and the untied `lm_head` where the model has one."""
 
-    def __init__(self, blocks: Sequence[Block], ln_f: Norm, embed: Embedding):
+    def __init__(self, blocks: Sequence[Block], ln_f: Norm, embed: Embedding,
+                 lm_head: Optional[LMHead] = None):
         super().__init__()
         self.blocks = nn.ModuleList(blocks)
         self.ln_f = ln_f
         self.embed = embed
+        self.lm_head = lm_head
 
 
 class TransformerLM(nn.Module):
-    """Causal LM: embedding, a stack of blocks, final norm, tied logits.
+    """Causal LM: embedding, a stack of blocks, final norm, and the logits
+    through the tied embedding or the untied `lm_head`.
 
     `device` defaults to the current CUDA card and raises when there is
     none; pass device="cpu" for the plain path on the CPU."""
@@ -466,6 +584,7 @@ class TransformerLM(nn.Module):
         self.embed = Embedding(cfg, device)
         self.blocks = nn.ModuleList(Block(cfg, device) for _ in range(cfg.n_layer))
         self.ln_f = Norm(cfg, device)
+        self.lm_head = None if cfg.tie_word_embeddings else LMHead(cfg, device)
 
     @property
     def device(self) -> torch.device:
@@ -474,8 +593,8 @@ class TransformerLM(nn.Module):
     @torch.no_grad()
     def init_params(self, generator: torch.Generator) -> "TransformerLM":
         """Random init with the reference's distributions: normal(0.02)
-        kernels and wte, normal(0.02 / sqrt(2L)) for the o and fc_out
-        kernels, normal(0.01) wpe, zero biases, unit norm scales. Draws
+        kernels, wte and lm_head, normal(0.02 / sqrt(2L)) for the o and
+        fc_out kernels, normal(0.01) wpe, zero biases, unit norm scales. Draws
         come from a CPU `generator`, so a seed gives the same weights on
         every device."""
         out_std = 0.02 / math.sqrt(2 * self.cfg.n_layer)
@@ -510,14 +629,15 @@ class TransformerLM(nn.Module):
         }
 
     def _run_blocks(self, blocks, h, attn_bias, cache=None, key_mask=None, layer_offset=0,
-                    layer_ixs=None):
+                    layer_ixs=None, positions=None):
         """`layer_ixs` maps block i onto cache layer layer_ixs[i] (a hydra
         draft's trunk blocks onto the policy's trunk slots of a paged pool,
         its branch blocks onto the extension slots); default
-        layer_offset + i."""
+        layer_offset + i. `positions` [B, T] are the real positions the
+        rope rotates by."""
         for i, block in enumerate(blocks):
             ix = layer_offset + i if layer_ixs is None else int(layer_ixs[i])
-            h = block(h, attn_bias, cache, ix, key_mask)
+            h = block(h, attn_bias, cache, ix, key_mask, positions)
         return h
 
     def _logits(self, hidden: torch.Tensor) -> torch.Tensor:
@@ -552,7 +672,7 @@ class TransformerLM(nn.Module):
             bias = make_attention_bias(cache["key_mask"], q_slots, torch.arange(S, device=dev))
             h = self.embed(input_ids, positions)
             h = self._run_blocks(self.blocks, h, bias, cache, cache["key_mask"],
-                                 layer_ixs=cache.get("layer_ixs"))
+                                 layer_ixs=cache.get("layer_ixs"), positions=positions)
             hidden = self.ln_f(h)
             return {
                 "logits": self._logits(hidden) if compute_logits else None,
@@ -578,7 +698,7 @@ class TransformerLM(nn.Module):
                 attention_mask, torch.arange(T, device=dev), torch.arange(T, device=dev)
             )
         h = self.embed(input_ids, positions)
-        h = self._run_blocks(self.blocks, h, bias, cache, key_mask)
+        h = self._run_blocks(self.blocks, h, bias, cache, key_mask, positions=positions)
         hidden = self.ln_f(h)
         new_cache = dict(cache, index=cache["index"] + T) if cache is not None else None
         return {
@@ -613,7 +733,7 @@ class TransformerLM(nn.Module):
             if point > prev:
                 h = self._run_blocks(
                     self.blocks[prev:point], h, bias, key_mask=attention_mask,
-                    layer_offset=prev,
+                    layer_offset=prev, positions=positions,
                 )
             if point < self.cfg.n_layer:
                 captures.append(h)
@@ -641,7 +761,7 @@ class TransformerLM(nn.Module):
         a captured hidden state."""
         h = self._run_blocks(
             branch.blocks, branch_hidden, attn_bias, key_mask=key_mask,
-            layer_offset=self.cfg.n_layer - len(branch.blocks),
+            layer_offset=self.cfg.n_layer - len(branch.blocks), positions=positions,
         )
         hidden = branch.ln_f(h)
         logits = logit_projection(branch)(hidden) if compute_logits else None
@@ -649,11 +769,13 @@ class TransformerLM(nn.Module):
 
 
 def extract_branch_params(model: TransformerLM, branch_at: int) -> Branch:
-    """A frozen deep copy of the top (L - branch_at) blocks, the final norm
-    and the embedding: the hydra reference branch."""
+    """A frozen deep copy of the top (L - branch_at) blocks, the final norm,
+    the embedding and the untied lm_head where there is one: the hydra
+    reference branch."""
     branch = Branch(
         [copy.deepcopy(b) for b in model.blocks[branch_at:]],
         copy.deepcopy(model.ln_f),
         copy.deepcopy(model.embed),
+        copy.deepcopy(model.lm_head),
     )
     return branch.requires_grad_(False)

@@ -180,7 +180,8 @@ class CausalLMWithValueHead(nn.Module):
         if self.value_branch_at is None:
             return apply_head(self.v_head, out["hidden_states"])[..., 0]
         h = self.base._run_blocks(self.v_branch.blocks, out["v_branch_hidden"], out["attn_bias"],
-                                  key_mask=out["key_mask"], layer_offset=self.value_branch_at)
+                                  key_mask=out["key_mask"], layer_offset=self.value_branch_at,
+                                  positions=out["positions"])
         return apply_head(self.v_head, self.v_branch.ln_f(h))[..., 0]
 
     def forward(

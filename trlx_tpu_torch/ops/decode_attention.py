@@ -29,6 +29,9 @@ SHORT_DECODE_MAX_SLOTS slots, the long one past that) and
   v_scale, in q.dtype, [B, H, D].
 
 Query head h reads kv head h // (H // Hkv). Any cache length S works.
+The kernels of both layouts take head widths D = 64 and 128; the int8
+decode kernels GQA groups H // Hkv of 1 to 8, the paged kernels groups of
+(H // Hkv) * T <= 32 query rows. The plain versions take any shape.
 """
 
 from __future__ import annotations
@@ -39,9 +42,12 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from trlx_tpu_torch.ops import paged_kv
+from trlx_tpu_torch.ops._build import HEAD_DIMS
 
 NEG_INF = -1e30
 POOL_KEYS = ("pk", "pv", "pk_scale", "pv_scale")
+KERNEL_HEAD_DIMS = HEAD_DIMS  # the head widths the decode and paged kernels are built for
+DECODE_MAX_GROUP = 8  # the largest GQA group H // Hkv the int8 decode kernels take
 
 
 def paged_attention_step(
@@ -158,7 +164,7 @@ def paged_route(T: int, H: int, Hkv: int, PS: int, MP: int) -> str:
 
 
 def _paged_operands(q, pools, layer_ix, page_table, attn_bias) -> None:
-    """Check the paged kernels' operands: q bf16 on a CUDA device, D = 64,
+    """Check the paged kernels' operands: q bf16 on a CUDA device, D = 64 or 128,
     an int8 pool with its fp32 scales or a bf16 pool without, all
     contiguous, 16-byte aligned and on q's device."""
     if q.device.type != "cuda":
@@ -187,16 +193,16 @@ def _paged_operands(q, pools, layer_ix, page_table, attn_bias) -> None:
             )
         if not x.is_contiguous() or x.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
-    if H % Hkv or D != 64 or (H // Hkv) * T > 32:
+    if H % Hkv or D not in KERNEL_HEAD_DIMS or (H // Hkv) * T > 32:
         raise ValueError(f"unsupported (H, Hkv, T, D) = {(H, Hkv, T, D)} for the CUDA kernel")
     if not 0 <= int(layer_ix) < L:
         raise IndexError(f"layer_ix {layer_ix} out of range for {L} layers")
 
 
-def _paged_library():
+def _paged_library(head_dim: int):
     from trlx_tpu_torch.ops import _build
 
-    return _build.load("paged_attention.cu")
+    return _build.load("paged_attention.cu", head_dim=head_dim)
 
 
 def _paged_kernel(fn_name, q, pools, layer_ix, page_table, attn_bias, sm_scale) -> torch.Tensor:
@@ -208,7 +214,7 @@ def _paged_kernel(fn_name, q, pools, layer_ix, page_table, attn_bias, sm_scale) 
     MP = page_table.shape[1]
     quant = "pk_scale" in pools
     out = torch.empty_like(q)
-    lib = _paged_library()
+    lib = _paged_library(D)
     fn = getattr(lib, fn_name)
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p]
@@ -247,16 +253,17 @@ paged_attention_short.launches = 0
 paged_attention_long.launches = 0
 
 
-def paged_attention_occupancy(route: str, T: int, H: int, Hkv: int, PS: int, MP: int, quant: bool) -> dict:
+def paged_attention_occupancy(route: str, T: int, H: int, Hkv: int, PS: int, MP: int, quant: bool,
+                              D: int = 64) -> dict:
     """What a launch of the `route` kernel at this shape gets on the current
     card: its threads a CTA, its dynamic shared memory and the CTAs an SM
     holds."""
     ctas, threads, smem = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
-    lib = _paged_library()
+    lib = _paged_library(D)
     fn = lib.paged_attention_occupancy
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)] * 3
-    rc = fn(int(route == "short"), T, H, Hkv, PS, MP, int(quant),
+    fn.argtypes = [ctypes.c_int] * 8 + [ctypes.POINTER(ctypes.c_int)] * 3
+    rc = fn(int(route == "short"), T, H, Hkv, D, PS, MP, int(quant),
             ctypes.byref(ctas), ctypes.byref(threads), ctypes.byref(smem))
     if rc != 0:
         raise RuntimeError(f"paged_attention_occupancy failed with CUDA error {rc}")
@@ -275,7 +282,7 @@ def paged_attention(
     layer (see `paged_attention_plain`). CPU tensors take the plain
     version; CUDA tensors launch the kernel of the route `paged_route`
     names (`paged_attention_short` or `paged_attention_long`) or raise: q
-    bf16, D = 64, (H // Hkv) * T <= 32, an int8 pool with its fp32 scales
+    bf16, D = 64 or 128, (H // Hkv) * T <= 32, an int8 pool with its fp32 scales
     or a bf16 pool without, all operands contiguous. Neither route gives
     way to the other.
 
@@ -343,8 +350,8 @@ def decode_route(S: int) -> str:
 
 
 def _decode_operands(q, ck, cv, k_scale, v_scale, key_mask, layer_ix) -> torch.Tensor:
-    """Check the decode kernels' operands: q bf16 on a CUDA device, D = 64,
-    H // Hkv in {1, 3}, the int8 caches and fp32 scales contiguous, 16-byte
+    """Check the decode kernels' operands: q bf16 on a CUDA device, D = 64
+    or 128, H // Hkv in 1..DECODE_MAX_GROUP, the int8 caches and fp32 scales contiguous, 16-byte
     aligned and on q's device. Returns the key mask as a contiguous,
     16-byte aligned int32 tensor."""
     if q.device.type != "cuda":
@@ -367,7 +374,7 @@ def _decode_operands(q, ck, cv, k_scale, v_scale, key_mask, layer_ix) -> torch.T
             )
         if not x.is_contiguous() or x.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
-    if H % Hkv or H // Hkv not in (1, 3) or D != 64:
+    if H % Hkv or not 1 <= H // Hkv <= DECODE_MAX_GROUP or D not in KERNEL_HEAD_DIMS:
         raise ValueError(f"unsupported (H, Hkv, D) = {(H, Hkv, D)} for the CUDA kernel")
     if not 0 <= int(layer_ix) < L:
         raise IndexError(f"layer_ix {layer_ix} out of range for {L} layers")
@@ -427,10 +434,10 @@ decode_attention_int8_short.launches = 0
 decode_attention_int8_long.launches = 0
 
 
-def decode_attention_int8_occupancy(route: str, H: int, Hkv: int, S: int, device="cuda") -> dict:
+def decode_attention_int8_occupancy(route: str, H: int, Hkv: int, S: int, device="cuda", D: int = 64) -> dict:
     """What a launch of the `route` kernel for H query heads over Hkv kv
-    heads and a cache of S slots gets on the CUDA `device`: its threads a
-    CTA, its dynamic shared memory and the CTAs an SM holds."""
+    heads, a cache of S slots and head width D gets on the CUDA `device`:
+    its threads a CTA, its dynamic shared memory and the CTAs an SM holds."""
     device = torch.device(device)
     if device.type != "cuda":
         raise ValueError(f"decode_attention_int8_occupancy queries a CUDA device, not {device}")
@@ -442,9 +449,9 @@ def decode_attention_int8_occupancy(route: str, H: int, Hkv: int, S: int, device
     lib = _decode_library()
     fn = lib.decode_int8_occupancy
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 3
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)] * 3
     with torch.cuda.device(device):
-        rc = fn(int(route == "short"), H, Hkv, S, ctypes.byref(ctas), ctypes.byref(threads), ctypes.byref(smem))
+        rc = fn(int(route == "short"), H, Hkv, S, D, ctypes.byref(ctas), ctypes.byref(threads), ctypes.byref(smem))
     if rc != 0:
         raise RuntimeError(f"decode_attention_int8_occupancy failed with CUDA error {rc}")
     return {"ctas_per_sm": ctas.value, "threads": threads.value, "smem_bytes": smem.value}
@@ -464,8 +471,8 @@ def decode_attention_int8(
     (see the module docstring). CPU tensors take the plain version; CUDA
     tensors launch the kernel of the route `decode_route` names
     (`decode_attention_int8_short` or `decode_attention_int8_long`) or
-    raise: q bf16, all operands contiguous, D = 64, H // Hkv in {1, 3}.
-    Neither route gives way to the other."""
+    raise: q bf16, all operands contiguous, D = 64 or 128, H // Hkv in
+    1..DECODE_MAX_GROUP. Neither route gives way to the other."""
     if q.device.type == "cpu":
         return decode_attention_int8_plain(
             q, ck, cv, k_scale, v_scale, key_mask, layer_ix, sm_scale

@@ -10,9 +10,13 @@ and their plain PyTorch versions on CPU tensors:
   the head's whole K/V; past that 64-row query tiles stream K/V tiles.
   Plain version `flash_attention_plain`;
 - backward: `csrc/flash_bwd.cu` in two routes (`backward_route`): up to
-  FUSED_BWD_MAX_LEN queries and keys one fused kernel gives dq, dk and
-  dv in one launch; past that the dq kernel, then the dk/dv kernel.
-  Plain version `flash_attention_backward_plain`.
+  FUSED_BWD_MAX_LEN queries and keys (FUSED_BWD_MAX_LEN_D128 at D = 128)
+  one fused kernel gives dq, dk and dv in one launch; past that the dq
+  kernel, then the dk/dv kernel. Plain version
+  `flash_attention_backward_plain`.
+
+The kernels take head widths D = 64 (GPT-2, T5) and D = 128 (the Llama
+family); the plain versions any D.
 
 Both compute the same function:
 
@@ -52,6 +56,8 @@ import math
 from typing import Optional
 
 import torch
+
+from trlx_tpu_torch.ops._build import HEAD_DIMS
 
 NEG_INF = -1e30
 
@@ -169,6 +175,9 @@ def _kernel_layout_ok(x: torch.Tensor) -> bool:
     return x.stride(-1) == 1 and not any(s % 8 for s in x.stride()[:3]) and x.data_ptr() % 16 == 0
 
 
+KERNEL_HEAD_DIMS = HEAD_DIMS  # the head widths the flash kernels are built for (the bias ones: 64)
+
+
 def _check_inputs(q, k, v, key_mask):
     """Validate the kernels' operands; returns the int32 key mask."""
     B, H, T, D = q.shape
@@ -183,8 +192,8 @@ def _check_inputs(q, k, v, key_mask):
             )
     if tuple(k.shape) != (B, Hkv, S, D) or tuple(v.shape) != (B, Hkv, S, D):
         raise ValueError(f"k/v shapes {tuple(k.shape)}, {tuple(v.shape)} do not match q {tuple(q.shape)}")
-    if D != 64:
-        raise ValueError(f"head_dim {D} unsupported by the CUDA kernels (built for 64)")
+    if D not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"head_dim {D} unsupported by the CUDA kernels (built for {KERNEL_HEAD_DIMS})")
     if tuple(key_mask.shape) != (B, S) or key_mask.device != dev:
         raise ValueError(f"key_mask must be [B, S] = {(B, S)} on {dev}")
     return key_mask.to(torch.int32).contiguous()
@@ -227,11 +236,13 @@ def _stream(x: torch.Tensor):
 SHORT_FWD_MAX_LEN = 128  # the longest T or S the short forward kernel takes
 
 
-def forward_route(T: int, S: int) -> str:
-    """The CUDA forward's route for T queries and S keys: "short" (one CTA
-    per (batch row, head) holding the head's whole K/V) when both are at
-    most SHORT_FWD_MAX_LEN, else "long" (64-row query tiles streaming
-    64-slot K/V tiles)."""
+def forward_route(T: int, S: int, D: int = 64) -> str:
+    """The CUDA forward's route for T queries and S keys of head width D:
+    "short" (one CTA per (batch row, head) holding the head's whole K/V)
+    when both are at most SHORT_FWD_MAX_LEN, at either width, else "long"
+    (64-row query tiles streaming 64-slot K/V tiles)."""
+    if D not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"no flash forward kernel takes head_dim {D}")
     return "short" if max(T, S) <= SHORT_FWD_MAX_LEN else "long"
 
 
@@ -271,14 +282,15 @@ flash_attention_fwd_short.launches = 0
 flash_attention_fwd_long.launches = 0
 
 
-def flash_attention_fwd_short_occupancy(T: int, S: int, causal: bool, q_offset: int) -> dict:
-    """What a short-route launch at these lengths gets on the current card:
-    its threads a CTA, its dynamic shared memory and the CTAs an SM holds."""
+def flash_attention_fwd_short_occupancy(T: int, S: int, causal: bool, q_offset: int, D: int = 64) -> dict:
+    """What a short-route launch at these lengths and head width gets on
+    the current card: its threads a CTA, its dynamic shared memory and the
+    CTAs an SM holds."""
     ctas, threads, smem = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
     _launch(
         "flash_fwd.cu", "flash_fwd_short_occupancy",
-        [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 3,
-        (T, S, int(causal), q_offset, ctypes.byref(ctas), ctypes.byref(threads), ctypes.byref(smem)),
+        [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)] * 3,
+        (T, S, D, int(causal), q_offset, ctypes.byref(ctas), ctypes.byref(threads), ctypes.byref(smem)),
     )
     return {"ctas_per_sm": ctas.value, "threads": threads.value, "smem_bytes": smem.value}
 
@@ -287,7 +299,7 @@ def _flash_forward_cuda(q, k, v, key_mask, causal, sm_scale, q_offset):
     """The route `forward_route` names; neither gives way to the other."""
     km = _check_inputs(q, k, v, key_mask)
     flash_attention.launches += 1
-    if forward_route(q.shape[2], k.shape[2]) == "short":
+    if forward_route(q.shape[2], k.shape[2], q.shape[3]) == "short":
         return flash_attention_fwd_short(q, k, v, km, causal, sm_scale, q_offset)
     return flash_attention_fwd_long(q, k, v, km, causal, sm_scale, q_offset)
 
@@ -313,19 +325,23 @@ def backward_operands(q, k, v, key_mask, g, m, l):
     return km, g
 
 
-FUSED_BWD_MAX_LEN = 128  # the longest T or S the fused backward kernel takes
+FUSED_BWD_MAX_LEN = 128  # the longest T or S the fused backward kernel takes at D = 64
+FUSED_BWD_MAX_LEN_D128 = 112  # ... and at D = 128, where its tile at 128 passes the shared memory
 
 
-def backward_route(T: int, S: int) -> str:
-    """The CUDA backward's route for T queries and S keys: "fused" (one
-    kernel for dq, dk and dv) when both are at most FUSED_BWD_MAX_LEN,
-    else "long" (the dq kernel, then the dk/dv kernel)."""
-    return "fused" if max(T, S) <= FUSED_BWD_MAX_LEN else "long"
+def backward_route(T: int, S: int, D: int = 64) -> str:
+    """The CUDA backward's route for T queries and S keys of head width D:
+    "fused" (one kernel for dq, dk and dv) when both are at most
+    FUSED_BWD_MAX_LEN (FUSED_BWD_MAX_LEN_D128 at D = 128), else "long" (the
+    dq kernel, then the dk/dv kernel)."""
+    if D not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"no flash backward kernel takes head_dim {D}")
+    return "fused" if max(T, S) <= (FUSED_BWD_MAX_LEN if D == 64 else FUSED_BWD_MAX_LEN_D128) else "long"
 
 
 def flash_attention_bwd(q, k, v, km, g, m, l, causal, sm_scale, q_offset):
     """(dq [B, H, T, D], dk, dv [B, Hkv, S, D]) by the fused kernel of
-    `csrc/flash_bwd.cu` (T, S <= 128), on the operands `backward_operands`
+    `csrc/flash_bwd.cu` (T, S <= 128; 112 at D = 128), on the operands `backward_operands`
     prepared: one CTA per (batch row, kv head), walking the GQA group's
     heads in order. With more than one head a group, dk and dv are summed
     over it in fp32 scratch of this call (ceil16(S) x 2D for each CTA)."""
@@ -352,14 +368,15 @@ def flash_attention_bwd(q, k, v, km, g, m, l, causal, sm_scale, q_offset):
 flash_attention_bwd.launches = 0
 
 
-def flash_attention_bwd_occupancy(T: int, S: int) -> dict:
-    """What a fused backward launch at (T, S) gets on the current card: its
-    threads a CTA, its dynamic shared memory and the CTAs an SM holds."""
+def flash_attention_bwd_occupancy(T: int, S: int, D: int = 64) -> dict:
+    """What a fused backward launch at (T, S) and head width D gets on the
+    current card: its threads a CTA, its dynamic shared memory and the CTAs
+    an SM holds."""
     ctas, threads, smem = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
     _launch(
         "flash_bwd.cu", "flash_bwd_fused_occupancy",
-        [ctypes.c_int, ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 3,
-        (T, S, ctypes.byref(ctas), ctypes.byref(threads), ctypes.byref(smem)),
+        [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 3,
+        (T, S, D, ctypes.byref(ctas), ctypes.byref(threads), ctypes.byref(smem)),
     )
     return {"ctas_per_sm": ctas.value, "threads": threads.value, "smem_bytes": smem.value}
 
@@ -386,8 +403,9 @@ def flash_attention_dq(q, k, v, km, g, m, l, causal, sm_scale, q_offset):
 
 def flash_attention_dkv(q, k, v, km, g, m, l, delta, causal, sm_scale, q_offset):
     """The long route's second step: (dk, dv) [B, Hkv, S, D] by the dk/dv
-    kernel of `csrc/flash_bwd.cu`, on the operands `backward_operands`
-    prepared and the delta that `flash_attention_dq` wrote."""
+    kernel of `csrc/flash_bwd.cu` (one launch at D = 64; at D = 128 one for
+    dv, then one for dk), on the operands `backward_operands` prepared and
+    the delta that `flash_attention_dq` wrote."""
     B, H, T, D = q.shape
     Hkv, S = k.shape[1], k.shape[2]
     dk = _bhtd_empty(B, Hkv, S, D, k)
@@ -419,7 +437,7 @@ def flash_attention_backward(q, k, v, key_mask, o, m, l, g, causal, sm_scale, q_
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cpu or cuda, not {q.device}")
     km, g = backward_operands(q, k, v, key_mask, g, m, l)
-    if backward_route(q.shape[2], k.shape[2]) == "fused":
+    if backward_route(q.shape[2], k.shape[2], q.shape[3]) == "fused":
         return flash_attention_bwd(q, k, v, km, g, m, l, causal, sm_scale, q_offset)
     dq, delta = flash_attention_dq(q, k, v, km, g, m, l, causal, sm_scale, q_offset)
     dk, dv = flash_attention_dkv(q, k, v, km, g, m, l, delta, causal, sm_scale, q_offset)
@@ -467,7 +485,7 @@ def flash_attention(
 
     On CPU tensors the plain versions run. On CUDA tensors the kernels
     launch or the call raises: q/k/v must be bf16 with a contiguous last
-    dimension, D = 64, 16-byte aligned rows. q/k/v may be strided views
+    dimension, D = 64 or 128, 16-byte aligned rows. q/k/v may be strided views
     (e.g. [B, T, H, D] projections transposed to [B, H, T, D]); `out` and
     the gradients come back as [B, H, T, D] views of [B, T, H, D] buffers,
     so `.transpose(1, 2)` of each is contiguous."""
@@ -587,6 +605,8 @@ def _check_bias(q, k, bias, causal):
     S = k.shape[2]
     if k.shape[1] != H:
         raise ValueError("flash_attention_bias does not support GQA")
+    if D != 64:
+        raise ValueError(f"head_dim {D} unsupported by the bias kernels (built for T5's 64)")
     _check_top_left(T, S, causal)
     _check_cuda("bias", bias, q.device, torch.float32, 3)
     if tuple(bias.shape) != (H, T, S):

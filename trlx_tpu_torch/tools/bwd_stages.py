@@ -159,10 +159,11 @@ DECODE_CP_ASYNC_BURST = """  for (int x = lo * NPC + tid; x < hi * NPC; x += SNT
   }
   cp_async_commit();
 """
+DECODE_SHORT_BOUNDS = "__launch_bounds__(SNT, REP == 1 ? (HD == 64 ? 8 : 6) : (REP <= 3 ? 4 : 2))"
 DECODE_TMA = [
     ("  o += SHORT_SLOTS / 8;\n", "  o += SHORT_SLOTS / 8 + 16;\n"),
-    ("template <int REP>\n__global__ void __launch_bounds__(SNT, REP == 1 ? 8 : 4)",
-     DECODE_TMA_HELPERS + "template <int REP>\n__global__ void __launch_bounds__(SNT, REP == 1 ? 8 : 4)"),
+    ("template <int REP, int HD>\n__global__ void " + DECODE_SHORT_BOUNDS,
+     DECODE_TMA_HELPERS + "template <int REP, int HD>\n__global__ void " + DECODE_SHORT_BOUNDS),
     ("  for (int x = tid; x < HD / 4; x += SNT) cp_async16(&vs_s[4 * x]",
      DECODE_TMA_INIT + "  for (int x = tid; x < HD / 4; x += SNT) cp_async16(&vs_s[4 * x]"),
     (DECODE_CP_ASYNC_BURST, DECODE_TMA_BURST),
@@ -232,7 +233,8 @@ KERNELS = {
         source="flash_bwd.cu",
         stages=(("start", START), ("loads", "    // 2a. query-major"), ("query_major", "    // 2b. key-major")),
         extra={},
-        bounds="__launch_bounds__(NK == 5 ? 192 : (NK > 4 ? 32 * NK : 128), NK <= 4 ? 3 : (NK == 5 ? 2 : 1))",
+        bounds=("__launch_bounds__(NK == 5 ? 192 : (NK > 4 ? 32 * NK : 128),\n"
+                "                                  D == 64 ? (NK <= 4 ? 3 : (NK == 5 ? 2 : 1)) : (NK <= 4 ? 2 : 1))"),
         shapes={"train": (32, 12, 64, 64, True), "t5_cross": (12, 12, 65, 32, False)},
     ),
     "fwd": dict(
@@ -242,7 +244,7 @@ KERNELS = {
         stages=(("start", START), ("loads", "  // 3. the strips", "  cp_async_wait_all();\n" + RETURN),
                 ("softmax", "    // 4. O = P V", "    if (true) continue;\n")),
         extra={},
-        bounds="__launch_bounds__(NK <= 5 ? 192 : 256, NK <= 4 ? 4 : (NK == 5 ? 3 : 2))",
+        bounds="__launch_bounds__(NK <= 5 ? 192 : 256, D == 64 ? (NK <= 4 ? 4 : (NK == 5 ? 3 : 2)) : 2)",
         shapes={"teacher_forced": (64, 12, 72, 72, True), "train": (32, 12, 64, 64, True)},
     ),
     "bias_fwd": dict(
@@ -288,7 +290,7 @@ KERNELS = {
         source="decode_int8.cu",
         # stores to static shared memory that nothing reads are deleted
         # with the loads that feed them: each cut keeps them (S is never < 0)
-        stages=(("start", "  for (int i = tid; i < REP * D; i += NT) {\n    q_s[i / D][i % D]"),
+        stages=(("start", "  for (int i = tid; i < REP * D; i += NT) {  // rows past `rows` are zero\n    q_s[i / D][i % D]"),
                 ("q_loaded", "  for (int c0 = 0; c0 < S; c0 += NT) {", DECODE_KEEP),
                 ("scores", "    // online-softmax update: warp w owns rows", DECODE_KEEP),
                 ("softmax", "    // P.V: thread (sg, piece) accumulates", DECODE_KEEP)),
@@ -312,7 +314,7 @@ KERNELS = {
                                     ("cp_async16(&v_s[x], vb + (need ? x * 16 : 0), need);", "cp_async16(&v_s[x], vb, false);")],
                "burst_none": (DECODE_CP_ASYNC_BURST, ""),
                "tma_burst": DECODE_TMA},
-        bounds="__launch_bounds__(SNT, REP == 1 ? 8 : 4)",
+        bounds=DECODE_SHORT_BOUNDS,
         shapes={"rollout": (64, 12, 128, 72)},
     ),
 }
@@ -515,7 +517,8 @@ def main() -> int:
                     call, occupancy = fused_call(kind, gen, *dims)
                     where = dict(dims=[*dims[:4], 64], causal=dims[4])
                 for name, lib in libs.items():
-                    _build.load = lambda src, lib=lib, source=source: lib if src == source else load(src)
+                    _build.load = lambda src, head_dim=None, lib=lib, source=source: (
+                        lib if src == source else load(src, head_dim))
                     line = dict(kernel=kind, shape=shape, **where, variant=name,
                                 ms=time_ms(call), occupancy=occupancy(), card=card)
                     lines.append(line)

@@ -48,7 +48,10 @@ What the port does differently, and why:
   with torch files in place of orbax: `trlx_tpu_config.json` (the same
   keys and values), the base LM's state dict and every other parameter
   ("aux", the value head) in a second file. `model_path` loads such a
-  directory, or "random"; HF directories are ROADMAP queue 7.
+  directory, "random", or a local HF directory (`models/hf.py`: gpt2,
+  gptj, llama, t5, mt5); a model loaded from HF is saved in the HF layout
+  again (`pytorch_model.bin`, its `config.json` carried over), with the
+  aux file beside it. A hub name raises (no network; ROADMAP queue 7).
 - Checkpoints. `save` writes the reference's layout with torch files for
   orbax: `state/` holds the model's, the optimizer's and the scheduler's
   state dicts, `state.json` the reference's resume keys plus every random
@@ -82,6 +85,7 @@ import torch
 
 from trlx_tpu_torch.data import PromptBatch
 from trlx_tpu_torch.data.configs import TRLConfig
+from trlx_tpu_torch.models import hf
 from trlx_tpu_torch.models.gen_engine import (
     GenEngineConfig,
     compose_draft_params,
@@ -231,6 +235,9 @@ class TPUBaseTrainer(BaseRLTrainer):
         self._loaded_base: Optional[Dict[str, torch.Tensor]] = None
         self._loaded_aux: Optional[Dict[str, torch.Tensor]] = None
         self.model_type: Optional[str] = None
+        # the HF directory the base model was loaded from (save_pretrained
+        # writes the HF layout again, with its config.json)
+        self._hf_config_path: Optional[str] = None
         self.tokenizer = load_tokenizer(config.tokenizer)
         # the sampler's random stream (the reference splits a jax PRNG key
         # per call; the two streams differ, greedy decoding does not)
@@ -346,17 +353,14 @@ class TPUBaseTrainer(BaseRLTrainer):
         self.model_type = meta.get("model_type", "t5" if arch_key == "seq2seq" else None)
         return cfg
 
-    def _random_init_arch(self, arch_key: str) -> Dict[str, Any]:
+    def _random_init_arch(self, arch_key: str) -> Optional[Dict[str, Any]]:
         """The `model_extra_configs[arch_key]` dict of a random-init model:
         `model_path="random"` or architecture keys select it, as in the
-        reference; any other path raises."""
+        reference; None for any other path (an HF directory)."""
         mc, train = self.config.model, self.config.train
         extra = dict((mc.model_extra_configs or {}).get(arch_key, {}))
         if mc.model_path != "random" and not set(extra) - _RUNTIME_TRANSFORMER_KEYS:
-            raise _unported(
-                f"loading model_path={mc.model_path!r} (the port loads 'random' and directories its "
-                "save_pretrained wrote; HF checkpoints)", "ROADMAP queue 7: HF interop",
-            )
+            return None
         self.model_type = (mc.model_extra_configs or {}).get(
             "model_type", "t5" if arch_key == "seq2seq" else None)
         extra.setdefault("vocab_size", getattr(self.tokenizer, "vocab_size", 258))
@@ -364,28 +368,51 @@ class TPUBaseTrainer(BaseRLTrainer):
         extra.setdefault("param_dtype", train.param_dtype)
         return extra
 
+    def _load_hf(self, arch_key: str):
+        """The config of the local HF directory `model.model_path`, its base
+        weights into `_loaded_base` (`models/hf.py`), the runtime keys of
+        `model_extra_configs[arch_key]` on top. Anything else, a hub name
+        included, raises: there is no network."""
+        mc, train = self.config.model, self.config.train
+        path = mc.model_path
+        if not hf.is_hf_dir(path):
+            raise _unported(
+                f"loading model_path={path!r} (the port loads 'random', directories its save_pretrained "
+                "wrote and local HF directories; a hub download needs the network)", "ROADMAP queue 7: HF interop",
+            )
+        load = hf.load_pretrained_seq2seq if arch_key == "seq2seq" else hf.load_pretrained
+        cfg, self._loaded_base, self.model_type = load(
+            path, dtype=train.compute_dtype, param_dtype=train.param_dtype)
+        self._hf_config_path = path
+        return _apply_runtime_overrides(cfg, (mc.model_extra_configs or {}).get(arch_key, {}))
+
     def load_base_model(self) -> TransformerConfig:
         """The architecture that `model.model_path` names: a directory that
-        `save_pretrained` wrote (its weights go to `init_weights`), or
-        `model_extra_configs["transformer"]` with random weights."""
+        `save_pretrained` wrote or a local HF directory (their weights go to
+        `init_weights`), or `model_extra_configs["transformer"]` with random
+        weights."""
         cfg = self._load_native("transformer", TransformerConfig)
         if cfg is None:
-            cfg = TransformerConfig(**self._random_init_arch("transformer"))
+            extra = self._random_init_arch("transformer")
+            cfg = TransformerConfig(**extra) if extra is not None else self._load_hf("transformer")
         self._check_token_ids(cfg.vocab_size)
         return cfg
 
     def load_seq2seq_base(self) -> Seq2SeqConfig:
-        """The T5 architecture, as `load_base_model`: from a saved
+        """The T5 architecture, as `load_base_model`: from a saved or an HF
         directory, or `model_extra_configs["seq2seq"]` with random weights,
         the vocabulary from the tokenizer when not given, and the decoder
         start token its pad token (the HF T5 convention)."""
         cfg = self._load_native("seq2seq", Seq2SeqConfig)
         if cfg is None:
             extra = self._random_init_arch("seq2seq")
-            pad = getattr(self.tokenizer, "pad_token_id", None)
-            if pad is not None:
-                extra.setdefault("decoder_start_token_id", int(pad))
-            cfg = Seq2SeqConfig(**extra)
+            if extra is None:
+                cfg = self._load_hf("seq2seq")
+            else:
+                pad = getattr(self.tokenizer, "pad_token_id", None)
+                if pad is not None:
+                    extra.setdefault("decoder_start_token_id", int(pad))
+                cfg = Seq2SeqConfig(**extra)
         self._check_token_ids(cfg.vocab_size)
         return cfg
 
@@ -408,27 +435,33 @@ class TPUBaseTrainer(BaseRLTrainer):
             self.model.load_state_dict(aux, strict=False)
 
     def save_pretrained(self, directory: Optional[str] = None) -> None:
-        """The deploy artifact (the reference's native branch, torch files
-        for orbax): `trlx_tpu_config.json` with the architecture (no dtypes,
-        no None values) and the model_type, the base LM's state dict in
-        `base_weights.pt`, every other parameter (the value head) in
-        `aux_weights.pt`, and the tokenizer where it can save itself.
-        Default directory: `<train.checkpoint_dir>/hf_model`."""
+        """The deploy artifact. A model loaded from an HF directory is
+        written in the HF layout (`pytorch_model.bin` and that directory's
+        `config.json`, `models/hf.py`), as the reference exports it; any
+        other in the reference's native layout with torch files for orbax:
+        `trlx_tpu_config.json` with the architecture (no dtypes, no None
+        values) and the model_type, the base LM's state dict in
+        `base_weights.pt`. Either way every other parameter (the value
+        head) goes to `aux_weights.pt` beside it, and the tokenizer saves
+        itself where it can. Default directory: `<train.checkpoint_dir>/hf_model`."""
         directory = os.path.abspath(directory or os.path.join(self.config.train.checkpoint_dir, "hf_model"))
         os.makedirs(directory, exist_ok=True)
         state = {k: v.detach().cpu() for k, v in self.model.state_dict().items()}
         base = {k[len("base."):]: v for k, v in state.items() if k.startswith("base.")}
         aux = {k: v for k, v in state.items() if not k.startswith("base.")}
-        torch.save(base, os.path.join(directory, BASE_WEIGHTS))
         aux_fp = os.path.join(directory, AUX_WEIGHTS)
         if aux:
             torch.save(aux, aux_fp)
         elif os.path.exists(aux_fp):
             os.remove(aux_fp)  # a stale head from an earlier save
-        arch = {k: v for k, v in dataclasses.asdict(self.model.cfg).items()
-                if k not in ("dtype", "param_dtype") and v is not None}
-        with open(os.path.join(directory, NATIVE_CONFIG), "w") as f:
-            json.dump({"seq2seq" if self.seq2seq else "transformer": arch, "model_type": self.model_type}, f)
+        if self._hf_config_path is not None:
+            hf.save_pretrained_hf(base, self.model.cfg, self.model_type, self._hf_config_path, directory)
+        else:
+            torch.save(base, os.path.join(directory, BASE_WEIGHTS))
+            arch = {k: v for k, v in dataclasses.asdict(self.model.cfg).items()
+                    if k not in ("dtype", "param_dtype") and v is not None}
+            with open(os.path.join(directory, NATIVE_CONFIG), "w") as f:
+                json.dump({"seq2seq" if self.seq2seq else "transformer": arch, "model_type": self.model_type}, f)
         if hasattr(self.tokenizer, "save_pretrained"):
             self.tokenizer.save_pretrained(directory)
 
