@@ -1,5 +1,6 @@
 """Reads chip_smoke.py's train-reference gate, many draws at a time, on the
-PPO-knobs and stop-sequence trainers of the PyTorch port, on one CUDA card.
+PPO-knobs, stop-sequence and peft trainers of the PyTorch port, on one CUDA
+card.
 
 The gate (`chip_smoke.grad_reference`) runs one train step of the kernel
 path, the plain bf16 path and the plain fp32 path on the same parameters
@@ -23,6 +24,30 @@ the gate's own size; the gate's numbers are recorded and its verdict
   sampled with the stop strings off (full 32-token responses).
 - `stop`: `stop_path`'s trainer (GPT-2-small widths over the byte
   tokenizer's 258 ids, stop strings). Draw 0 is chip_smoke.py's reading.
+- `peft_lora`, `peft_prefix`: `peft_lora_path`'s and `peft_virtual_path`'s
+  trainers (GPT-2 small, LoRA r 8 / alpha 32, or prefix tuning with 10
+  virtual tokens, on the train path's workload). Draw 0 is chip_smoke.py's
+  own reading.
+- `value_bias_train`, `value_bias_peft_lora` (not gate readings): the train
+  path's trainer (everything trainable) or `peft_lora`'s, one fresh store of
+  256 rollouts: each path's signed and absolute mean value error from fp32
+  over the real response tokens, overall and by response position (the
+  value head's output-bias gradient reads the signed mean); then kernel 1
+  alone at the train step's shape on random inputs: the signed and absolute
+  mean output error from fp32 of the kernel and of the plain bf16 math the
+  "xla" path runs (probabilities rounded to bf16 before P V).
+- `peft_lora_control`: `peft_lora`'s gate with the kernel path's attention
+  made wrong on purpose: kernel 1's output scaled by 1 + eps inside the
+  gate's train step (the stores are the kernel path's own), `--draws`
+  readings for each eps in CONTROL_EPS. Each reading's signed-sum error
+  (the value head's output bias, held to chip_smoke.SIGNED_SUM_REL_ERR)
+  shows what the 2% bar sees of a kernel that is off by that much, beside
+  the per-token and gradient gates' verdict.
+- `peft_virtual_greedy` (not a gate reading): `peft_virtual_path`'s prompt
+  and prefix trainers at seeds seed + 1 .. seed + draws (seed itself is
+  chip_smoke.py's reading): `peft_greedy_reference`'s per-step and
+  free-running agreements of the kernel, plain bf16 and fp32 paths, and its
+  verdict.
 - `positions` (not a gate reading): `knobs`' trainer, one fresh store of
   1024 full responses, the mean |logprob error| from fp32 of the kernel and
   plain bf16 paths at each response position; then the same store with
@@ -31,13 +56,17 @@ the gate's own size; the gate's numbers are recorded and its verdict
   position must not move, since causal attention never reads the slots
   a cut pads.
 
+Each trainer takes chip_smoke.py's depth: the knobs, stop and train-path
+variants GPT-2 small at `chip_smoke.EARLIER_LAYERS` of its 12 layers, the
+peft variants all 12.
+
 One JSON line per draw (the gate's numbers, its verdict, the store's share
 of real response tokens), then one per variant pooling its draws: the mean
 |loss error| of each path over all minibatches and a bootstrap 95%
 interval of their ratio (whole draws resampled), how many draws
 failed which check, and the per-draw median gradient ratios.
 
-    python scripts/torch_knobs_gate_diag.py [--seed 0] [--draws 8] [--variants knobs stop] [--out FILE]
+    python scripts/torch_knobs_gate_diag.py [--seed 0] [--draws 8] [--variants knobs stop peft_lora] [--out FILE]
 """
 
 from __future__ import annotations
@@ -56,13 +85,30 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import chip_smoke  # noqa: E402
 
-VARIANTS = ("knobs", "knobs_stops", "knobs_stops_full_ref", "stop", "positions")
+VARIANTS = ("knobs", "knobs_stops", "knobs_stops_full_ref", "stop", "peft_lora", "peft_prefix", "positions",
+            "value_bias_train", "value_bias_peft_lora", "peft_lora_control", "peft_virtual_greedy")
+# the tensors each variant's gate must hold (`grad_reference`'s must_gate)
+MUST_GATE = {"knobs": "v_branch.", "knobs_stops": "v_branch.", "knobs_stops_full_ref": "v_branch.",
+             "peft_lora": "lora.", "peft_prefix": "prefix."}
+# the tensors each variant's gate holds as signed sums (`grad_reference`'s signed_sums)
+SIGNED_SUMS = {"peft_lora": ("v_head.fc_out.bias",), "peft_lora_control": ("v_head.fc_out.bias",)}
+MUST_GATE["peft_lora_control"] = "lora."
+CONTROL_EPS = (2.0 ** -8, 2.0 ** -6, 2.0 ** -4)  # `peft_lora_control`: kernel 1's output x (1 + eps)
 POSITION_ROLLOUTS = 1024  # `positions`: 1024 tokens at each response position
 
 
 def build(variant: str, seed: int, logs: str):
     """(the variant's trained kernel-path trainer, the plain paths' configs)."""
     cs = chip_smoke
+    if variant == "train":
+        trainer = cs.counted_train(cs.train_config(seed), {}, variant)[0]
+        return trainer, {"plain_bf16": cs.train_config(seed, attention_impl="xla", kv_cache_quant="int8"),
+                         "fp32": cs.train_config(seed, attention_impl="xla", kv_cache_quant=None,
+                                                 compute_dtype="float32")}
+    if variant.startswith("peft_"):
+        adapter = cs.PEFT_LORA if variant == "peft_lora" else cs.PEFT_ADAPTERS["prefix"]
+        trainer = cs.counted_train(cs.peft_config(seed, adapter), {}, variant)[0]
+        return trainer, cs.peft_reference_configs(seed, adapter)
     if variant == "stop":
         config, stops = cs.stop_config(seed), cs.STOPS
         configs = {
@@ -91,7 +137,7 @@ def draw(trainer, configs, seed: int, variant: str, i: int) -> dict:
     chip_smoke.emit = lambda phase, **kw: seen.append(kw)
     try:
         chip_smoke.train_reference(trainer, seed + 2 * i, configs, phase=f"{variant}_{i}",
-                                   must_gate="v_branch." if variant != "stop" else None)
+                                   must_gate=MUST_GATE.get(variant), signed_sums=SIGNED_SUMS.get(variant, ()))
         verdict = "pass"
     except AssertionError as e:
         verdict = str(e)
@@ -105,9 +151,69 @@ def draw(trainer, configs, seed: int, variant: str, i: int) -> dict:
             "loss_err_ratio": e["loss"]["kernel"] / max(e["loss"]["plain_bf16"], 1e-30),
             "grad_rel_err_ratio_median": got["grad_rel_err_ratio_median"],
             "grad_rel_err_ratio_max": got["grad_rel_err_ratio_max"], "mean_abs_err": e,
+            "grad_rel_err_ratio_top": got["grad_rel_err_ratio_top"], "tensors_over_2x": got["tensors_over_2x"],
+            "signed_sum_grad_rel_err": got["signed_sum_grad_rel_err"],
             "loss_err_by_minibatch": got["loss_err_by_minibatch"],
             "response_real_share": mask.mean().item(), "rows_cut_short": int((mask[:, -1] == 0).sum().item()),
             "rows_without_response": int((mask.sum(dim=1) == 0).sum().item()), "rows": mask.shape[0]}
+
+
+def control(trainer, configs, seed: int, draws: int) -> list:
+    """`peft_lora`'s gate readings with kernel 1's output scaled by 1 + eps
+    in the kernel path's train step (the plain paths run no kernel)."""
+    from trlx_tpu_torch.models import transformer
+
+    flash = transformer.flash_attention
+    grad_reference = chip_smoke.grad_reference
+    rows = []
+    for eps in CONTROL_EPS:
+        def scaled(*args, **kw):
+            return flash(*args, **kw) * (1.0 + eps)
+
+        def perturbed(*args, **kw):
+            transformer.flash_attention = scaled
+            try:
+                return grad_reference(*args, **kw)
+            finally:
+                transformer.flash_attention = flash
+
+        chip_smoke.grad_reference = perturbed
+        try:
+            for i in range(draws):
+                row = draw(trainer, configs, seed, "peft_lora_control", i)
+                rows.append(dict(row, eps=eps))
+        finally:
+            chip_smoke.grad_reference = grad_reference
+    return rows
+
+
+def virtual_greedy(seed: int, draws: int) -> list:
+    """`peft_greedy_reference`'s readings for prompt and prefix tuning at
+    seeds seed + 1 .. seed + draws; its verdict kept, not raised."""
+    import torch
+
+    rows = []
+    for i in range(1, draws + 1):
+        for kind, adapter in chip_smoke.PEFT_ADAPTERS.items():
+            trainer = chip_smoke.counted_train(chip_smoke.peft_config(seed + i, adapter), {}, f"peft_{kind}")[0]
+            seen = []
+            emit = chip_smoke.emit
+            chip_smoke.emit = lambda phase, **kw: seen.append(kw)
+            try:
+                chip_smoke.peft_greedy_reference(trainer, f"peft_{kind}_greedy")
+                verdict = "pass"
+            except AssertionError as e:
+                verdict = str(e)
+            finally:
+                chip_smoke.emit = emit
+            got = seen[-1]
+            rows.append({"variant": "peft_virtual_greedy", "adapter": kind, "seed": seed + i, "verdict": verdict,
+                         "greedy_step_agreement": got["greedy_step_agreement"],
+                         "greedy_free_running_agreement": got["greedy_free_running_agreement"],
+                         "response_tokens": got["response_tokens"]})
+            del trainer
+            torch.cuda.empty_cache()
+    return rows
 
 
 def positions(trainer, configs, seed: int) -> dict:
@@ -154,6 +260,64 @@ def positions(trainer, configs, seed: int) -> dict:
             "logprob_err_by_position": by_pos,
             "ratio_by_position": [k / max(p, 1e-30) for k, p in zip(by_pos["kernel"], by_pos["plain_bf16"])],
             "first_position_moved_by_cut": {name: {"logprob": m[0], "value": m[1]} for name, m in moved.items()}}
+
+
+def value_bias(trainer, configs, seed: int, variant: str) -> dict:
+    """Signed value errors of the kernel and plain bf16 paths from fp32 on
+    one fresh store, and kernel 1's signed output error on random inputs."""
+    import math
+
+    import torch
+
+    from trlx_tpu_torch.ops.flash_attention import flash_attention
+    from trlx_tpu_torch.utils.loading import get_trainer
+
+    state = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+    paths = {"kernel": trainer}
+    for name, config in configs.items():
+        paths[name] = get_trainer(config.train.trainer)(config=config, reward_fn=chip_smoke.train_reward_fn)
+        paths[name].model.load_state_dict(state)
+    del state
+    trainer.store.clear_history()
+    trainer.make_experience(chip_smoke.TRAIN_REFERENCE_ROLLOUTS, trainer.iter_count)
+    signed = {name: 0.0 for name in ("kernel", "plain_bf16")}
+    absolute = dict(signed)
+    by_pos = {name: 0.0 for name in signed}
+    count, pos_count, scale = 0.0, 0.0, 0.0
+    with torch.no_grad():
+        for batch in trainer.store.create_loader(chip_smoke.TRAIN_BATCH, shuffle=False):
+            real = batch.response_mask.float()
+            vals = {name: t.response_logprobs_and_values(batch)[1].float() for name, t in paths.items()}
+            for name in signed:
+                d = (vals[name] - vals["fp32"]) * real
+                signed[name] += d.sum().item()
+                absolute[name] += d.abs().sum().item()
+                by_pos[name] = by_pos[name] + d.sum(0)
+            scale += (vals["fp32"].abs() * real).sum().item()
+            count += real.sum().item()
+            pos_count = pos_count + real.sum(0)
+    del paths
+    B, H, T, D = chip_smoke.TRAIN_BATCH, 12, chip_smoke.TRAIN_LEN, 64
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, mask = chip_smoke.flash_inputs(gen, B, H, H, T, T, D, 0, "left")
+    with torch.no_grad():
+        out_k = flash_attention(q, k, v, mask).float()
+        allowed = (mask[:, None, None, :] > 0) & (torch.arange(T, device="cuda")[:, None]
+                                                  >= torch.arange(T, device="cuda")[None, :])
+        s = torch.einsum("bhtd,bhsd->bhts", q.float(), k.float()) / math.sqrt(D)
+        s = torch.where(allowed, s, torch.full_like(s, -1e9))
+        p = torch.softmax(s, dim=-1)
+        out_32 = torch.einsum("bhts,bhsd->bhtd", p, v.float())
+        out_p = torch.einsum("bhts,bhsd->bhtd", p.to(torch.bfloat16), v).float()
+        rows = allowed.any(dim=-1)[..., None].expand_as(out_32)
+    op = {name: {"signed_mean": (o - out_32)[rows].mean().item(), "abs_mean": (o - out_32)[rows].abs().mean().item()}
+          for name, o in (("kernel", out_k), ("plain_bf16", out_p))}
+    torch.cuda.empty_cache()
+    return {"variant": variant, "seed": seed, "tokens": count, "fp32_value_abs_mean": scale / count,
+            "value_err_signed_mean": {n: x / count for n, x in signed.items()},
+            "value_err_abs_mean": {n: x / count for n, x in absolute.items()},
+            "value_err_signed_by_position": {n: (x / pos_count.clamp(min=1)).tolist() for n, x in by_pos.items()},
+            "kernel1_output_err": op}
 
 
 def nanmean(xs) -> float:
@@ -217,11 +381,22 @@ def main() -> int:
 
     out({"device": chip_smoke.nvidia_smi(), "torch": torch.__version__, "seed": args.seed, "draws": args.draws})
     for variant in args.variants:
+        if variant == "peft_virtual_greedy":
+            for row in virtual_greedy(args.seed, args.draws):
+                out(row)
+            continue
         logs = tempfile.mkdtemp(prefix="rollouts-")
         try:
-            trainer, configs = build("knobs" if variant == "positions" else variant, args.seed, logs)
-            if variant == "positions":
+            built = {"positions": "knobs", "value_bias_train": "train", "value_bias_peft_lora": "peft_lora",
+                     "peft_lora_control": "peft_lora"}
+            trainer, configs = build(built.get(variant, variant), args.seed, logs)
+            if variant == "peft_lora_control":
+                for row in control(trainer, configs, args.seed, args.draws):
+                    out(row)
+            elif variant == "positions":
                 out(positions(trainer, configs, args.seed))
+            elif variant.startswith("value_bias"):
+                out(value_bias(trainer, configs, args.seed, variant))
             else:
                 rows = []
                 for i in range(args.draws):

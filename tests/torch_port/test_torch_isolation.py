@@ -32,6 +32,7 @@ def test_every_module_imports_without_jax():
         "sys.modules['trlx_tpu'] = None\n"
         "sys.modules['transformers'] = None\n"
         "sys.modules['safetensors'] = None\n"
+        "sys.modules['peft'] = None\n"
         f"for name in {mods!r}:\n"
         "    importlib.import_module(name)\n"
         "print('ok')\n"
@@ -54,6 +55,16 @@ def test_fault_tolerance_modules_are_covered():
         assert REPO / (name.replace(".", "/") + ".py") in PORT_FILES
 
 
+@pytest.mark.parametrize("name", ["trlx_tpu_torch.models.lora", "trlx_tpu_torch.models.peft",
+                                  "trlx_tpu_torch.models.hf"])
+def test_peft_modules_are_covered(name):
+    """The peft tier's modules (and the safetensors writer beside the
+    reader) are among those imported without JAX, `peft` and
+    `safetensors`, and scanned for imports."""
+    assert name in set(_module_names())
+    assert REPO / (name.replace(".", "/") + ".py") in PORT_FILES
+
+
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
 def test_no_jax_or_reference_import(path):
     tree = ast.parse(path.read_text())
@@ -66,8 +77,8 @@ def test_no_jax_or_reference_import(path):
             continue
         for name in names:
             root = name.split(".")[0]
-            assert root not in ("jax", "jaxlib", "flax", "optax", "trlx_tpu", "transformers", "safetensors"), (
-                path, name)
+            assert root not in ("jax", "jaxlib", "flax", "optax", "trlx_tpu", "transformers", "safetensors",
+                                "peft"), (path, name)
 
 
 def test_entry_points_raise_without_a_gpu(monkeypatch):

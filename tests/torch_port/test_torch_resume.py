@@ -280,6 +280,10 @@ ALGOS = {
     # cycle's last pass and its callback, is the one the kill resumes from
     "ppo_interval": (lambda d: _ppo(d, checkpoint_interval=4),
                      lambda kill: dict(reward_fn=kill(ppo_parity.reward_fn), prompts=ppo_parity.PROMPTS), 4, 4),
+    # LoRA: the frozen base has no optimizer state, the adapter and the
+    # value head do; the resumed run equals the uninterrupted one bit for bit
+    "ppo_lora": (lambda d: _ppo(d).evolve(model=dict(peft_config={"peft_type": "LORA", "r": 4, "lora_alpha": 8})),
+                 lambda kill: dict(reward_fn=kill(ppo_parity.reward_fn), prompts=ppo_parity.PROMPTS), 4, 4),
     "grpo": (_grpo, lambda kill: dict(reward_fn=kill(ppo_parity.reward_fn), prompts=ppo_parity.PROMPTS[:8]), 4, 4),
     # metric calls 1: the first evaluation, 2: step 4's, in the second
     # epoch of three batches (4 samples each): the kill lands mid-pass

@@ -30,7 +30,7 @@ from trlx_tpu.utils.tokenizers import ByteTokenizer as JByteTokenizer
 import trlx_tpu_torch
 from trlx_tpu_torch.data.configs import TRLConfig
 from trlx_tpu_torch.data.default_configs import default_sft_config
-from trlx_tpu_torch.models import wrappers
+from trlx_tpu_torch.models import lora, wrappers
 from trlx_tpu_torch.models.convert import lm_state_dict_from_jax
 from trlx_tpu_torch.pipeline.offline_pipeline import DialogStore, tokenize_dialogue
 from trlx_tpu_torch.trainer import base as trainer_base
@@ -229,14 +229,29 @@ def test_sft_epochs_and_short_last_batch(tmp_path):
 
 
 def test_sft_knobs_that_raise(tmp_path):
-    """Seq2seq SFT raises as in the reference; peft names its queue."""
-    config = _tiny_sft_config(tmp_path).evolve(model=dict(model_arch_type="seq2seq", model_extra_configs={
-        "seq2seq": dict(d_model=16, n_layer=1, n_head=2, d_kv=8, d_ff=32)}))
+    """Seq2seq SFT raises as in the reference, with a prompt-tuning adapter
+    too (seq2seq takes LoRA only there); SFT with LoRA runs, training the
+    adapter over a frozen base."""
+    seq2seq = dict(model_arch_type="seq2seq", model_extra_configs={
+        "seq2seq": dict(d_model=16, n_layer=1, n_head=2, d_kv=8, d_ff=32)})
+    config = _tiny_sft_config(tmp_path).evolve(model=seq2seq)
     with pytest.raises(NotImplementedError, match="seq2seq SFT"):
         trlx_tpu_torch.train(samples=["ab"], config=config, device="cpu")
-    config = _tiny_sft_config(tmp_path).evolve(model=dict(peft_config={"peft_type": "LORA"}))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 7"):
+    config = _tiny_sft_config(tmp_path).evolve(model=dict(seq2seq, peft_config={"peft_type": "PROMPT_TUNING"}))
+    with pytest.raises(NotImplementedError, match="seq2seq"):
         trlx_tpu_torch.train(samples=["ab"], config=config, device="cpu")
+    config = _tiny_sft_config(tmp_path).evolve(model=dict(peft_config={"peft_type": "LORA"}))
+    trainer = trlx_tpu_torch.train(samples=["ab", "cd", "ef", "gh"], config=config, device="cpu")
+    assert trainer.iter_count == 2
+    trained = {n for n, p in trainer.model.named_parameters() if p.requires_grad}
+    assert trained and all(n.startswith("lora.") for n in trained)
+    assert not any(p.requires_grad for p in trainer.model.base.parameters())
+    # the trainer's own random init drew A ~ N(0, 0.02) and B = 0, and both
+    # trained: every B moved off zero (lr 1e-4 x 2 steps leaves A's std)
+    pairs = dict(lora.pairs(trainer.model.lora))
+    assert pairs and all(bool(pair.b.detach().ne(0).any()) for pair in pairs.values())
+    a_std = float(torch.cat([pair.a.detach().flatten() for pair in pairs.values()]).std())
+    assert 0.015 < a_std < 0.025, a_std
     with pytest.raises(ValueError, match="samples"):
         trlx_tpu_torch.train(config=_tiny_sft_config(tmp_path), device="cpu")
 

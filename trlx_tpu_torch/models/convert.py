@@ -6,6 +6,10 @@ module itself imports no JAX. The reference stacks block leaves along a
 leading layer axis and keeps attention kernels as [E, H, D] / [H, D, E];
 the port has one module per block and [E, H*D] / [H*D, E] kernels.
 The T5 trees (`models/seq2seq.py`) keep (H, d_kv) kernels the same way.
+Adapters: the reference's stacked LoRA {path: {"a": [L, in, r], "b": [L,
+r, out]}} becomes one pair a projection (`lora.blocks.{i}.attn.q.a`), and
+`prompt.embedding` / `prefix.{k,v}` keep their names
+(`models/peft.py::adapter_state_dict_from_jax`).
 """
 
 from __future__ import annotations
@@ -15,6 +19,7 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
+from trlx_tpu_torch.models.peft import adapter_state_dict_from_jax
 from trlx_tpu_torch.models.seq2seq import Seq2SeqConfig
 from trlx_tpu_torch.models.transformer import TransformerConfig
 
@@ -104,8 +109,9 @@ def ilql_heads_state_dict_from_jax(heads: Mapping, prefix: str = "heads") -> Dic
 def params_from_jax(tree: Mapping, cfg) -> Dict[str, torch.Tensor]:
     """State dict from a reference param tree: a `CausalLMWithValueHead` or
     `Seq2SeqLMWithValueHead` `init_params` tree {base, v_head[, v_branch]},
-    or an ILQL wrapper's {base, heads}, gives the wrapper's state dict, a
-    bare LM tree a `TransformerLM` or `T5LM` one (by the config's type)."""
+    or an ILQL wrapper's {base, heads}, each with an adapter (`lora`,
+    `prompt` or `prefix`) where it has one, gives the wrapper's state dict,
+    a bare LM tree a `TransformerLM` or `T5LM` one (by the config's type)."""
     lm = t5_state_dict_from_jax if isinstance(cfg, Seq2SeqConfig) else lm_state_dict_from_jax
     if "base" not in tree:
         return lm(tree, cfg)
@@ -116,4 +122,5 @@ def params_from_jax(tree: Mapping, cfg) -> Dict[str, torch.Tensor]:
         sd.update(head_state_dict_from_jax(tree["v_head"], "v_head"))
     if "v_branch" in tree:
         sd.update({f"v_branch.{k}": v for k, v in lm_state_dict_from_jax(tree["v_branch"], cfg).items()})
+    sd.update(adapter_state_dict_from_jax(tree))
     return sd

@@ -20,6 +20,7 @@ from dataclasses import dataclass
 from typing import Callable, Dict, Optional
 
 import torch
+from torch import nn
 
 from trlx_tpu_torch.models.transformer import (
     TransformerLM,
@@ -188,19 +189,32 @@ def cast_params_for_decode(model: TransformerLM, compute_dtype: torch.dtype) -> 
     norm scales and biases stay fp32. Returns `model` itself when nothing
     needs a cast. The sampler then adds take(wte) + take(wpe) on rounded
     operands, while the teacher-forced pass adds in fp32 and rounds — the
-    reference's split, kept on purpose."""
-    names = [
-        n for n, p in model.named_parameters()
-        if n.rsplit(".", 1)[-1] in ("kernel", "wte", "wpe")
-        and p.dtype.is_floating_point and p.dtype != compute_dtype
-    ]
-    if not names:
+    reference's split, kept on purpose.
+
+    A projection with an active LoRA pair gets its merged weight W + s A B
+    (fp32, then cast), as the reference merges before its sampler; the
+    copy holds no pair (a pair switched off is dropped unmerged). Only
+    the new weights are allocated: the cast tensors are put in place
+    during the copy."""
+    merged = {}
+    held = []
+    for module in model.modules():
+        pair = module.__dict__.get("lora")
+        if pair is not None:
+            held.append(pair)
+            if pair.enabled:
+                merged[id(module.kernel)] = pair
+    memo = {id(pair): None for pair in held}
+    for n, p in model.named_parameters():
+        cast = (n.rsplit(".", 1)[-1] in ("kernel", "wte", "wpe") and p.dtype.is_floating_point
+                and p.dtype != compute_dtype)
+        pair = merged.get(id(p))
+        if cast or pair is not None:
+            data = p.detach() if pair is None else pair.merged(p.detach())
+            memo[id(p)] = nn.Parameter(data.to(compute_dtype) if cast else data, requires_grad=False)
+    if not memo:
         return model
-    cast = copy.deepcopy(model)
-    params = dict(cast.named_parameters())
-    for n in names:
-        params[n].data = params[n].data.to(compute_dtype)
-    return cast
+    return copy.deepcopy(model, memo)
 
 
 @torch.no_grad()
@@ -211,13 +225,21 @@ def generate(
     generator: Optional[torch.Generator],
     settings: SamplerSettings,
     logits_processor: Optional[Callable[[torch.Tensor, torch.Tensor], torch.Tensor]] = None,
+    soft_prompt: Optional[torch.Tensor] = None,  # [n, E] prompt tuning's soft tokens
+    kv_prefix: Optional[Dict[str, torch.Tensor]] = None,  # {k, v} [L, n, Hkv, D] prefix tuning
 ) -> Dict[str, torch.Tensor]:
     """Sample up to `settings.max_new_tokens` continuations.
 
     Returns sequences [B, P+N] (prompt ++ response, response right-padded),
     response_ids [B, N] and response_mask [B, N] (1 for real response
     tokens, incl. the EOS). `logits_processor(hidden_last, logits)` runs
-    before temperature/top-k/top-p."""
+    before temperature/top-k/top-p.
+
+    Adapters warm the cache: soft tokens run one extra prefill over slots
+    [0, n); prefix keys and values are written there directly. Either way
+    the prompt then occupies slots [n, n + P), its positions start at n,
+    and the decode loop is adapter-oblivious (an int8 cache holds the
+    virtual slots quantized like the rest)."""
     B, P = input_ids.shape
     N = settings.max_new_tokens
     if N < 1:
@@ -225,14 +247,20 @@ def generate(
     cfg = model.cfg
     dev = input_ids.device
     model = cast_params_for_decode(model, cfg.dtype)
+    n_virt = 0
+    if soft_prompt is not None:
+        n_virt = soft_prompt.shape[0]
+    elif kv_prefix is not None:
+        n_virt = kv_prefix["k"].shape[1]
     # the reference's cache length: rounded up to 128 slots when its
     # prefill takes the fused kernel, so both packages compare equal shapes
-    total = P + N
+    total = n_virt + P + N
     pad_slots = (-total) % 128 if cfg.attention_impl == "pallas" and P % 8 == 0 else 0
     total += pad_slots
     attention_mask = attention_mask.to(torch.int32)
     key_mask = torch.cat(
         [
+            torch.ones((B, n_virt), dtype=torch.int32, device=dev),
             attention_mask,
             torch.ones((B, N), dtype=torch.int32, device=dev),
             torch.zeros((B, pad_slots), dtype=torch.int32, device=dev),
@@ -240,7 +268,15 @@ def generate(
         dim=1,
     )
     cache = model.init_cache(B, total, key_mask)
-    positions = torch.clamp(torch.cumsum(attention_mask, dim=1) - 1, min=0)
+    if kv_prefix is not None:
+        for side in ("k", "v"):
+            cache[side][:, :, :n_virt] = kv_prefix[side][:, None].to(cache[side].dtype)
+        cache["index"] = n_virt
+    elif soft_prompt is not None:
+        warm = model(torch.zeros((B, n_virt), dtype=input_ids.dtype, device=dev), cache=cache,
+                     prefix_embeds=soft_prompt, compute_logits=False)
+        cache = warm["cache"]
+    positions = n_virt + torch.clamp(torch.cumsum(attention_mask, dim=1) - 1, min=0)
     out = model(input_ids, attention_mask, positions=positions, cache=cache,
                 compute_logits=False)
     project = logit_projection(model)
@@ -263,7 +299,7 @@ def generate(
     mask_buf = torch.zeros((B, N), dtype=torch.bool, device=dev)
     ids_buf[:, 0] = tok
     mask_buf[:, 0] = True
-    pos = attention_mask.sum(dim=1).long()  # the next token's real position
+    pos = n_virt + attention_mask.sum(dim=1).long()  # the next token's real position
     t = 1
     while t < N and not bool(finished.all()):
         step = model(tok[:, None], positions=pos[:, None], cache=cache)

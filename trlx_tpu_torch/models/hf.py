@@ -10,7 +10,8 @@ layout, with no `transformers` and no `safetensors` package:
   every model-specific key).
 - `.safetensors` files go through `read_safetensors`, a reader of the
   format itself: an 8-byte little-endian header length, a JSON header of
-  {name: {dtype, shape, data_offsets}}, then the raw tensors. `.bin` files
+  {name: {dtype, shape, data_offsets}}, then the raw tensors
+  (`write_safetensors` writes it, for HF-peft adapters). `.bin` files
   go through `torch.load(weights_only=True)`. Sharded checkpoints are
   merged through their `*.index.json`.
 
@@ -152,6 +153,27 @@ def read_safetensors(fp: str) -> Dict[str, torch.Tensor]:
         flat = torch.frombuffer(data, dtype=dtype, count=count, offset=begin) if count else torch.empty(0, dtype=dtype)
         out[name] = flat.reshape(meta["shape"])
     return out
+
+
+def write_safetensors(fp: str, tensors: Dict[str, torch.Tensor]) -> None:
+    """A `.safetensors` file of `tensors`, the reader's format: the JSON
+    header padded with spaces to a multiple of 8 bytes, then each tensor's
+    raw little-endian bytes back to back, in name order."""
+    names = {dtype: name for name, dtype in _ST_DTYPES.items()}
+    header, blobs, offset = {}, [], 0
+    for name in sorted(tensors):
+        t = tensors[name].detach().cpu().contiguous()
+        blob = t.reshape(-1).view(torch.uint8).numpy().tobytes() if t.numel() else b""
+        header[name] = {"dtype": names[t.dtype], "shape": list(t.shape), "data_offsets": [offset, offset + len(blob)]}
+        blobs.append(blob)
+        offset += len(blob)
+    raw = json.dumps(header, separators=(",", ":")).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(fp, "wb") as f:
+        f.write(len(raw).to_bytes(8, "little"))
+        f.write(raw)
+        for blob in blobs:
+            f.write(blob)
 
 
 def _load_file(fp: str) -> Dict[str, torch.Tensor]:

@@ -42,6 +42,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from trlx_tpu_torch.models.lora import adapter_of
 from trlx_tpu_torch.models.transformer import NEG_INF, to_torch_dtype
 from trlx_tpu_torch.ops.flash_attention import flash_attention, flash_attention_bias
 from trlx_tpu_torch.utils.device import resolve_device
@@ -173,7 +174,8 @@ class T5Norm(nn.Module):
 
 class Dense(nn.Module):
     """Linear map without bias: `kernel` [in, out] (the reference's input
-    dims and feature dims flattened); the product runs in `dtype`."""
+    dims and feature dims flattened); the product runs in `dtype`. A LoRA
+    pair attached to it (`models/lora.py`) adds its unmerged term."""
 
     def __init__(self, in_features: int, out_features: int, cfg: Seq2SeqConfig, device=None):
         super().__init__()
@@ -181,7 +183,9 @@ class Dense(nn.Module):
         self.kernel = nn.Parameter(torch.empty(in_features, out_features, dtype=cfg.param_dtype, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.matmul(x.to(self.dtype), self.kernel.to(self.dtype))
+        y = torch.matmul(x.to(self.dtype), self.kernel.to(self.dtype))
+        pair = adapter_of(self)
+        return y if pair is None else y + pair.delta(x, self.dtype)
 
 
 class T5Attention(nn.Module):

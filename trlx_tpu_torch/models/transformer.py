@@ -35,6 +35,12 @@ ln_1's output, and no ln_2 exists), tied embeddings or an untied
 GPT-Neo and GPT-BigCode (alibi, pos_offset, embed_layernorm, attn_scale,
 local windows) and int8 decode weights raise NotImplementedError.
 
+Adapters: a LoRA pair attached to a projection (`models/lora.py`) adds
+its unmerged term inside `QDense`; `forward` takes prompt tuning's soft
+tokens (`prefix_embeds`) and prefix tuning's per-layer keys and values
+(`kv_prefix`, concatenated before each layer's own, so the teacher-forced
+pass runs the flash kernel at T queries over n + T keys with q_offset n).
+
 The KV cache is a dict of tensors plus a host-int write `index`. Forwards
 with a cache write their new K/V columns into the cache buffers IN PLACE
 (the reference's functional update-carry; in place it needs no second
@@ -62,6 +68,7 @@ from trlx_tpu_torch.ops.decode_attention import (
     decode_attention_int8,
     paged_attention_step,
 )
+from trlx_tpu_torch.models.lora import adapter_of
 from trlx_tpu_torch.ops.flash_attention import flash_attention
 from trlx_tpu_torch.utils.device import resolve_device
 
@@ -253,7 +260,8 @@ class QDense(nn.Module):
     """Linear map with the reference's param layout: `kernel` [in, out]
     (the reference's (input dims..., feature dims...) flattened) and a
     zero-init `bias` [out] unless `use_bias` is off. The product runs in
-    `dtype`."""
+    `dtype`. A LoRA pair attached to it (`models/lora.py`) adds its
+    unmerged term."""
 
     def __init__(self, in_features: int, out_features: int, dtype, param_dtype, device=None,
                  use_bias: bool = True):
@@ -269,7 +277,10 @@ class QDense(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = torch.matmul(x.to(self.dtype), self.kernel.to(self.dtype))
-        return y if self.bias is None else y + self.bias.to(self.dtype)
+        if self.bias is not None:
+            y = y + self.bias.to(self.dtype)
+        pair = adapter_of(self)
+        return y if pair is None else y + pair.delta(x, self.dtype)
 
 
 def _quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -359,6 +370,7 @@ class Attention(nn.Module):
         ix: int = 0,  # this layer's index into the stacked cache
         key_mask: Optional[torch.Tensor] = None,  # [B, S]
         positions: Optional[torch.Tensor] = None,  # [B, T] real positions (rope)
+        prefix: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # this layer's (k, v) [n, Hkv, D]
     ) -> torch.Tensor:
         cfg = self.cfg
         B, T, _ = x.shape
@@ -374,6 +386,15 @@ class Attention(nn.Module):
 
         out = None
         q_offset = None
+        if prefix is not None:
+            # prefix tuning's teacher-forced pass: the layer's prefix keys and
+            # values (stored unrotated, as the reference's cache holds them)
+            # occupy slots [0, n) before the sequence's, with no cache, so
+            # autograd reaches them; the queries sit at slots [n, n + T)
+            n = prefix[0].shape[0]
+            k = torch.cat([prefix[0].to(k.dtype).expand(B, n, Hkv, D), k], dim=1)
+            v = torch.cat([prefix[1].to(v.dtype).expand(B, n, Hkv, D), v], dim=1)
+            q_offset = n
         if cache is not None and "pk" in cache:
             # paged pools (models/gen_engine.py): write this layer's T tokens
             # into their pages in place and attend over each lane's logical
@@ -467,9 +488,9 @@ class Block(nn.Module):
         self.ln_2 = None if self.parallel else Norm(cfg, device)
         self.mlp = MLP(cfg, device)
 
-    def forward(self, x, attn_bias, cache=None, ix=0, key_mask=None, positions=None):
+    def forward(self, x, attn_bias, cache=None, ix=0, key_mask=None, positions=None, prefix=None):
         h = self.ln_1(x)
-        attn_out = self.attn(h, attn_bias, cache, ix, key_mask, positions)
+        attn_out = self.attn(h, attn_bias, cache, ix, key_mask, positions, prefix)
         if self.parallel:
             return x + attn_out + self.mlp(h)
         x = x + attn_out
@@ -592,26 +613,29 @@ class TransformerLM(nn.Module):
 
     @torch.no_grad()
     def init_params(self, generator: torch.Generator) -> "TransformerLM":
-        """Random init with the reference's distributions: normal(0.02)
-        kernels, wte and lm_head, normal(0.02 / sqrt(2L)) for the o and
-        fc_out kernels, normal(0.01) wpe, zero biases, unit norm scales. Draws
-        come from a CPU `generator`, so a seed gives the same weights on
-        every device."""
-        out_std = 0.02 / math.sqrt(2 * self.cfg.n_layer)
+        """Random init with the reference's distributions (`init_value`),
+        parameter by parameter in order. Draws come from `generator` on its
+        device: a CPU generator gives the same weights on every device."""
         for name, p in self.named_parameters():
-            leaf = name.rsplit(".", 1)[-1]
-            if leaf == "scale":
-                p.fill_(1.0)
-            elif leaf == "bias":
-                p.zero_()
-            else:
-                std = 0.02
-                if name.endswith(("attn.o.kernel", "mlp.fc_out.kernel")):
-                    std = out_std
-                elif name.endswith("wpe"):
-                    std = 0.01
-                p.copy_(torch.randn(p.shape, generator=generator, dtype=torch.float32) * std)
+            p.copy_(self.init_value(name, p, generator))
         return self
+
+    def init_value(self, name: str, p: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+        """The next init draw for parameter `name` (fp32, on the generator's
+        device): normal(0.02) kernels, wte and lm_head, normal(0.02 /
+        sqrt(2L)) for the o and fc_out kernels, normal(0.01) wpe, zero
+        biases, unit norm scales."""
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf == "scale":
+            return torch.ones(p.shape, dtype=torch.float32, device=generator.device)
+        if leaf == "bias":
+            return torch.zeros(p.shape, dtype=torch.float32, device=generator.device)
+        std = 0.02
+        if name.endswith(("attn.o.kernel", "mlp.fc_out.kernel")):
+            std = 0.02 / math.sqrt(2 * self.cfg.n_layer)
+        elif name.endswith("wpe"):
+            std = 0.01
+        return torch.randn(p.shape, generator=generator, dtype=torch.float32, device=generator.device) * std
 
     def init_cache(self, batch: int, max_len: int,
                    key_mask: Optional[torch.Tensor] = None) -> Dict:
@@ -629,15 +653,17 @@ class TransformerLM(nn.Module):
         }
 
     def _run_blocks(self, blocks, h, attn_bias, cache=None, key_mask=None, layer_offset=0,
-                    layer_ixs=None, positions=None):
+                    layer_ixs=None, positions=None, kv_prefix=None):
         """`layer_ixs` maps block i onto cache layer layer_ixs[i] (a hydra
         draft's trunk blocks onto the policy's trunk slots of a paged pool,
         its branch blocks onto the extension slots); default
         layer_offset + i. `positions` [B, T] are the real positions the
-        rope rotates by."""
+        rope rotates by; `kv_prefix` {k, v} [L, n, Hkv, D] are prefix
+        tuning's keys and values, by cache layer."""
         for i, block in enumerate(blocks):
             ix = layer_offset + i if layer_ixs is None else int(layer_ixs[i])
-            h = block(h, attn_bias, cache, ix, key_mask, positions)
+            prefix = None if kv_prefix is None else (kv_prefix["k"][ix], kv_prefix["v"][ix])
+            h = block(h, attn_bias, cache, ix, key_mask, positions, prefix)
         return h
 
     def _logits(self, hidden: torch.Tensor) -> torch.Tensor:
@@ -650,16 +676,52 @@ class TransformerLM(nn.Module):
         positions: Optional[torch.Tensor] = None,
         cache: Optional[Dict] = None,
         compute_logits: bool = True,
+        prefix_embeds: Optional[torch.Tensor] = None,  # [n, E] prompt tuning
+        kv_prefix: Optional[Dict[str, torch.Tensor]] = None,  # {k, v} [L, n, Hkv, D] prefix tuning
     ) -> Dict[str, Any]:
         """Without `cache`: a teacher-forced pass over a (possibly
         left-padded) sequence. With `cache`: the input occupies cache
         slots [index, index + T) and attends over the cache prefix — the
         same entry point serves prefill (T = prompt length) and decode
-        (T = 1)."""
+        (T = 1).
+
+        Adapters (teacher-forced; `generate` warms its cache with them):
+        - `prefix_embeds` (prompt tuning): n soft tokens run as real leading
+          positions, embedded as token 0 plus their position embedding
+          with the wte row swapped for the soft one; the outputs keep
+          [B, T] (the virtual rows are sliced off after the blocks). With a
+          cache, every input row is a soft token (the sampler's warm-up).
+        - `kv_prefix` (prefix tuning): each layer attends over its n prefix
+          keys and values before the sequence's, the queries at slots
+          [n, n + T) (`Attention`, no cache).
+        Real-token positions start at n under either (HF past-length
+        semantics)."""
         B, T = input_ids.shape
         dev = input_ids.device
         if attention_mask is None:
             attention_mask = torch.ones((B, T), dtype=torch.int32, device=dev)
+        n_virtual = 0  # rows to slice off the outputs (prompt tuning)
+        if prefix_embeds is not None and cache is None:
+            n_virtual = prefix_embeds.shape[0]
+            input_ids = torch.cat([torch.zeros((B, n_virtual), dtype=input_ids.dtype, device=dev), input_ids], 1)
+            attention_mask = torch.cat(
+                [torch.ones((B, n_virtual), dtype=attention_mask.dtype, device=dev), attention_mask], 1)
+            positions = None  # recomputed over the extended mask
+            T = T + n_virtual
+        if kv_prefix is not None and cache is None:
+            n = kv_prefix["k"].shape[1]
+            key_mask = torch.cat([torch.ones((B, n), dtype=attention_mask.dtype, device=dev), attention_mask], 1)
+            positions = n + _pad_positions(attention_mask)
+            bias = make_attention_bias(key_mask, n + torch.arange(T, device=dev), torch.arange(n + T, device=dev))
+            h = self.embed(input_ids, positions)
+            h = self._run_blocks(self.blocks, h, bias, key_mask=key_mask, positions=positions, kv_prefix=kv_prefix)
+            hidden = self.ln_f(h)
+            return {
+                "logits": self._logits(hidden) if compute_logits else None,
+                "hidden_states": hidden,
+                "cache": None,
+                "positions": positions,
+            }
         if cache is not None and "pk" in cache:
             # paged pools: each lane sits at its own depth (per-row slot_pos
             # instead of one write index); the engine precomputes key_mask
@@ -698,9 +760,17 @@ class TransformerLM(nn.Module):
                 attention_mask, torch.arange(T, device=dev), torch.arange(T, device=dev)
             )
         h = self.embed(input_ids, positions)
+        if prefix_embeds is not None:
+            # the virtual rows were embedded as token 0 (+ wpe): swap the wte
+            # row for the soft embedding, keeping wpe
+            n_rows = n_virtual or T
+            soft = h[:, :n_rows] - self.embed.wte[0].to(h.dtype) + prefix_embeds[None, :n_rows].to(h.dtype)
+            h = torch.cat([soft, h[:, n_rows:]], dim=1)
         h = self._run_blocks(self.blocks, h, bias, cache, key_mask, positions=positions)
         hidden = self.ln_f(h)
         new_cache = dict(cache, index=cache["index"] + T) if cache is not None else None
+        if n_virtual:
+            hidden, positions = hidden[:, n_virtual:], positions[:, n_virtual:]
         return {
             "logits": self._logits(hidden) if compute_logits else None,
             "hidden_states": hidden,

@@ -10,7 +10,15 @@ and the frozen top branch re-runs from the hidden state captured there
 With `value_branch_at` (method.num_value_layers_unfrozen) the value head
 reads a trainable copy of the top blocks and the final norm (`v_branch`),
 re-run from the hidden state captured at that fork in the same trunk
-pass. LoRA and other peft adapters are not ported yet and raise.
+pass.
+
+Adapters (`models/peft.py`): a wrapper may carry `lora`, `prompt` or
+`prefix` beside `base` (the trainer's `attach_peft`); every forward then
+runs the adapter (LoRA inside the projections, the prompt or prefix as
+`TransformerLM.forward` kwargs), `init_heads` draws its fresh values, the
+trainer freezes the whole base, and the reference model is
+`AdapterOffReference`: the same base with the adapter off, neither a
+hydra branch nor a copy (the reference's peft contract).
 
 `CausalLMWithILQLHeads` and `Seq2SeqLMWithILQLHeads` carry ILQL's head
 group over the (decoder's) final hidden states: their forward gathers the
@@ -36,6 +44,9 @@ from trlx_tpu_torch.models.heads import (
     init_ilql_heads,
     sync_target_q_heads,
 )
+from trlx_tpu_torch.models.generation import cast_params_for_decode
+from trlx_tpu_torch.models.lora import adapters_disabled
+from trlx_tpu_torch.models.peft import adapter_call_kwargs, has_adapter, init_adapters
 from trlx_tpu_torch.models.seq2seq import (
     Seq2SeqConfig,
     T5Branch,
@@ -52,6 +63,36 @@ from trlx_tpu_torch.models.transformer import (
 )
 
 
+class AdapterOffReference(nn.Module):
+    """The reference model of an adapter run: the policy's own base with
+    its adapter off (no LoRA term, no soft prompt or prefix). It holds no
+    parameters of its own (the policy owns the base); attribute reads
+    (`cfg`, `embed`, `lm_head`, ...) go to the base."""
+
+    def __init__(self, base: nn.Module):
+        super().__init__()
+        self.__dict__["disabled_base"] = base
+
+    def forward(self, *args, **kwargs):
+        with adapters_disabled(self.disabled_base):
+            return self.disabled_base(*args, **kwargs)
+
+    def decode_copy(self, compute_dtype: torch.dtype) -> nn.Module:
+        """The samplers' copy of the base with the adapter off (the
+        speculative draft of an adapter run): no pair merged or kept."""
+        with adapters_disabled(self.disabled_base):
+            return cast_params_for_decode(self.disabled_base, compute_dtype)
+
+    def __getattr__(self, name: str):
+        try:
+            return super().__getattr__(name)
+        except AttributeError:
+            base = self.__dict__.get("disabled_base")
+            if base is None:
+                raise
+            return getattr(base, name)
+
+
 class CausalLM(nn.Module):
     """The bare causal LM (the SFT policy): no heads, no reference."""
 
@@ -63,10 +104,12 @@ class CausalLM(nn.Module):
     @torch.no_grad()
     def init_params(self, generator: torch.Generator) -> "CausalLM":
         self.base.init_params(generator)
-        return self
+        return self.init_heads(generator)
 
+    @torch.no_grad()
     def init_heads(self, generator: torch.Generator) -> "CausalLM":
-        return self  # no heads
+        init_adapters(self, generator)  # no heads
+        return self
 
     def logit_project_fn(self):
         return logit_projection(self.base)
@@ -77,7 +120,7 @@ class CausalLM(nn.Module):
         attention_mask: Optional[torch.Tensor] = None,
         compute_logits: bool = True,
     ) -> Dict[str, Any]:
-        return self.base(input_ids, attention_mask, compute_logits=compute_logits)
+        return self.base(input_ids, attention_mask, compute_logits=compute_logits, **adapter_call_kwargs(self))
 
 
 class ValueBranch(nn.Module):
@@ -124,8 +167,6 @@ class CausalLMWithValueHead(nn.Module):
         mc = config.model
         if mc.model_arch_type != "causal":
             raise NotImplementedError(f"model_arch_type={mc.model_arch_type!r} is not ported")
-        if mc.peft_config is not None:
-            raise NotImplementedError("peft adapters are not ported yet")
         tdict = dict(mc.model_extra_configs.get("transformer", {}))
         tdict.setdefault("dtype", config.train.compute_dtype)
         tdict.setdefault("param_dtype", config.train.param_dtype)
@@ -149,12 +190,16 @@ class CausalLMWithValueHead(nn.Module):
             for dst, src in zip(self.v_branch.blocks, self.base.blocks[self.value_branch_at:]):
                 dst.load_state_dict(src.state_dict())
             self.v_branch.ln_f.load_state_dict(self.base.ln_f.state_dict())
+        init_adapters(self, generator)
         return self
 
     def make_ref_params(self) -> nn.Module:
-        """Frozen reference: the top branch (hydra) or a full deep copy."""
+        """Frozen reference: the top branch (hydra), the base with the
+        adapter off, or a full deep copy."""
         if self.branch_at is not None:
             return extract_branch_params(self.base, self.branch_at)
+        if has_adapter(self):
+            return AdapterOffReference(self.base)
         return copy.deepcopy(self.base).requires_grad_(False)
 
     def logit_project_fn(self):
@@ -191,7 +236,7 @@ class CausalLMWithValueHead(nn.Module):
         compute_logits: bool = True,
     ) -> Dict[str, Any]:
         if self.value_branch_at is None:
-            out = self.base(input_ids, attention_mask, compute_logits=compute_logits)
+            out = self.base(input_ids, attention_mask, compute_logits=compute_logits, **adapter_call_kwargs(self))
         else:
             out = self._multi_forward(input_ids, attention_mask, compute_logits)
         return dict(out, values=self._values(out))
@@ -255,8 +300,6 @@ class Seq2SeqLMWithValueHead(nn.Module):
         mc = config.model
         if mc.model_arch_type != "seq2seq":
             raise ValueError(f"model_arch_type={mc.model_arch_type!r}: use CausalLMWithValueHead")
-        if mc.peft_config is not None:
-            raise NotImplementedError("peft adapters are not ported yet (ROADMAP queue 7)")
         sdict = dict(mc.model_extra_configs.get("seq2seq", {}))
         sdict.setdefault("dtype", config.train.compute_dtype)
         sdict.setdefault("param_dtype", config.train.param_dtype)
@@ -273,12 +316,16 @@ class Seq2SeqLMWithValueHead(nn.Module):
     @torch.no_grad()
     def init_heads(self, generator: torch.Generator) -> "Seq2SeqLMWithValueHead":
         init_head(self.v_head, generator)
+        init_adapters(self, generator)
         return self
 
     def make_ref_params(self) -> nn.Module:
-        """Frozen reference: the top decoder branch (hydra) or a full deep copy."""
+        """Frozen reference: the top decoder branch (hydra), the base with
+        the LoRA adapter off, or a full deep copy."""
         if self.branch_at is not None:
             return extract_t5_branch_params(self.base, self.branch_at)
+        if has_adapter(self):
+            return AdapterOffReference(self.base)
         return copy.deepcopy(self.base).requires_grad_(False)
 
     def logit_project_fn(self):
@@ -349,6 +396,7 @@ class _ILQLHeadsMixin:
     @torch.no_grad()
     def init_heads(self, generator: torch.Generator):
         init_ilql_heads(self.heads, generator)
+        init_adapters(self, generator)
         return self
 
     def sync_target(self, alpha: Optional[float] = None):
@@ -403,7 +451,7 @@ class CausalLMWithILQLHeads(_ILQLHeadsMixin, nn.Module):
         actions_ixs: torch.Tensor,
     ):
         """(logits_at_actions, (qs, target_qs, vs)): what `ilql_loss` takes."""
-        out = self.base(input_ids, attention_mask, compute_logits=False)
+        out = self.base(input_ids, attention_mask, compute_logits=False, **adapter_call_kwargs(self))
         return self._at_actions(out["hidden_states"], states_ixs, actions_ixs)
 
 

@@ -4,7 +4,8 @@ Each `csrc/*.cu` compiles with `nvcc` into its own shared library with a
 plain C interface, which `ctypes` loads. Builds land in
 `<repo>/build/kernels/<hash>/`, keyed by a hash of the sources and flags,
 so an unchanged tree never builds twice and an edited source never loads
-a stale library. All sources compile in parallel (one `nvcc` each); the
+a stale library. All sources compile in parallel (one `nvcc` each, each
+spreading its optimiser over the free cores: `--split-compile`); the
 slowest, `paged_attention.cu`, compiles as two libraries side by side,
 one a head width (`-DKERNEL_HEAD_DIM=64` / `128`).
 
@@ -37,6 +38,9 @@ SPLIT_BY_HEAD_DIM = ("paged_attention.cu",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    # optimise each library's kernels on every free core: the sources finish
+    # at different times, and the slowest would otherwise run on one
+    "--split-compile=0",
 )
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -61,6 +61,11 @@ What the port does differently, and why:
   integrity manifest, then the topology, then restores. The loop also
   stores where it stands in its pass over the data (`loop_position`), so
   an offline trainer resumed mid-pass continues the same minibatch order.
+- Adapters (`model.peft_config`). The reference masks the base's updates
+  and keeps the adapter beside it in its param tree; here `init_weights`
+  attaches the adapter to the wrapper (`models/peft.py`), the base gets
+  `requires_grad_(False)` and no AdamW state, and the reference model is
+  the same base with the adapter off (`wrappers.AdapterOffReference`).
 - The robustness (guardrails, watchdog, chaos, flight recorder), transport,
   fleet and serving tiers are not ported yet; each knob that would turn
   one on raises NotImplementedError naming its ROADMAP queue.
@@ -97,9 +102,21 @@ from trlx_tpu_torch.models.generation import (
     SamplerSettings,
     generate,
 )
+from trlx_tpu_torch.models.peft import (
+    ADAPTER_KEYS,
+    adapter_tensors,
+    attach_adapter,
+    check_peft_arch,
+    has_adapter,
+    load_adapter_into,
+    load_peft_adapter,
+    read_peft_config,
+    save_peft_adapter,
+    targets_of,
+)
 from trlx_tpu_torch.models.seq2seq import Seq2SeqConfig, generate_seq2seq
 from trlx_tpu_torch.models.transformer import TransformerConfig, logit_projection
-from trlx_tpu_torch.models.wrappers import CausalLM
+from trlx_tpu_torch.models.wrappers import AdapterOffReference, CausalLM
 from trlx_tpu_torch.ops.common import (
     chunked_logprobs,
     logprobs_of_labels,
@@ -203,7 +220,6 @@ def check_ported(config: TRLConfig) -> None:
          "method.gen_engine.data_groups > 1 (engine lane groups)", "ROADMAP queue 12"),
         (model.model_arch_type not in ("causal", "seq2seq"),
          f"model.model_arch_type={model.model_arch_type!r}", "ROADMAP queue 7"),
-        (model.peft_config is not None, "model.peft_config", "ROADMAP queue 7"),
     ]
     for failed, what, where in checks:
         if failed:
@@ -238,6 +254,9 @@ class TPUBaseTrainer(BaseRLTrainer):
         # the HF directory the base model was loaded from (save_pretrained
         # writes the HF layout again, with its config.json)
         self._hf_config_path: Optional[str] = None
+        # the normalized peft config (model.peft_config's, or its adapter
+        # directory's), read once; attach_peft attaches it
+        self._peft_cfg: Optional[Dict[str, Any]] = read_peft_config(config.model.peft_config)
         self.tokenizer = load_tokenizer(config.tokenizer)
         # the sampler's random stream (the reference splits a jax PRNG key
         # per call; the two streams differ, greedy decoding does not)
@@ -418,21 +437,47 @@ class TPUBaseTrainer(BaseRLTrainer):
 
     @torch.no_grad()
     def init_weights(self) -> None:
-        """Fill `self.model`: random weights from train.seed, or the loaded
-        base weights, then fresh heads from train.seed, then the loaded aux
-        parameters the model has (the reference's `init_params(key,
-        base_params)` and `_loaded_aux` update)."""
+        """Fill `self.model`: the configured adapter attached first
+        (`attach_peft`), then random weights from train.seed, or the loaded
+        base weights, then fresh heads and adapter from train.seed, then the
+        loaded aux parameters the model has (the reference's `init_params(key,
+        base_params)` and `_loaded_aux` update; a saved adapter in the aux
+        file is not one of them: the configured one is, as there), then a
+        trained adapter directory's tensors when `peft_config` names one."""
+        adapter = self.attach_peft()
         gen = torch.Generator().manual_seed(self.config.train.seed)
         if self._loaded_base is None:
             self.model.init_params(gen)
-            return
-        self.model.base.load_state_dict(self._loaded_base)
-        self._loaded_base = None
-        self.model.init_heads(gen)
-        own = self.model.state_dict()
-        aux = {k: v for k, v in (self._loaded_aux or {}).items() if k in own and not k.startswith("base.")}
-        if aux:
-            self.model.load_state_dict(aux, strict=False)
+        else:
+            self.model.base.load_state_dict(self._loaded_base)
+            self._loaded_base = None
+            self.model.init_heads(gen)
+            own = self.model.state_dict()
+            aux = {k: v for k, v in (self._loaded_aux or {}).items()
+                   if k in own and k.split(".", 1)[0] not in ("base",) + ADAPTER_KEYS}
+            if aux:
+                self.model.load_state_dict(aux, strict=False)
+        if adapter is not None:
+            load_adapter_into(self.model, adapter)
+
+    def attach_peft(self) -> Optional[Dict[str, Any]]:
+        """Attach `model.peft_config`'s adapter to `self.model` (its values
+        come with the model's init): an HF-peft-style dict for a fresh one,
+        or the path of a trained HF-peft adapter directory
+        (`adapter_config.json` with `adapter_model.safetensors` or `.bin`),
+        whose tensors it returns in the reference's layout. A loaded LoRA
+        adapter's targets become `self._peft_cfg`'s."""
+        pc = self._peft_cfg
+        if pc is None:
+            return None
+        adapter = None
+        if isinstance(self.config.model.peft_config, str):
+            _, adapter = load_peft_adapter(self.config.model.peft_config, self.model.cfg)
+            if pc["peft_type"] == "LORA":
+                pc = self._peft_cfg = dict(pc, targets=targets_of(adapter))
+        check_peft_arch(pc, self.seq2seq)
+        attach_adapter(self.model, pc)
+        return adapter
 
     def save_pretrained(self, directory: Optional[str] = None) -> None:
         """The deploy artifact. A model loaded from an HF directory is
@@ -462,6 +507,10 @@ class TPUBaseTrainer(BaseRLTrainer):
                     if k not in ("dtype", "param_dtype") and v is not None}
             with open(os.path.join(directory, NATIVE_CONFIG), "w") as f:
                 json.dump({"seq2seq" if self.seq2seq else "transformer": arch, "model_type": self.model_type}, f)
+        if self._peft_cfg is not None:
+            # the trained adapter also in the HF-peft layout, which
+            # `model.peft_config=<directory>` loads
+            save_peft_adapter(directory, adapter_tensors(self.model), self._peft_cfg, self.model_type)
         if hasattr(self.tokenizer, "save_pretrained"):
             self.tokenizer.save_pretrained(directory)
 
@@ -484,12 +533,17 @@ class TPUBaseTrainer(BaseRLTrainer):
         weights of a directory `save_pretrained` wrote) and its frozen
         reference `ref_params`: a full copy of those weights, made after
         they are in place, outside the model and so outside AdamW (GRPO,
-        DPO). Causal only."""
+        DPO); with an adapter, the base itself with the adapter off. Causal
+        only."""
         if self.seq2seq:
             raise NotImplementedError(f"seq2seq {method} is not implemented (causal only)")
         self.model = CausalLM(self.load_base_model(), device=self.device)
         self.init_weights()
-        self.ref_params = copy.deepcopy(self.model.base).requires_grad_(False)
+        if has_adapter(self.model):
+            # the base with the adapter off is the reference: no copy
+            self.ref_params = AdapterOffReference(self.model.base)
+        else:
+            self.ref_params = copy.deepcopy(self.model.base).requires_grad_(False)
 
     def branch_at(self) -> Optional[int]:
         """Layer index where the trainable top starts (None = all): of the
@@ -507,7 +561,11 @@ class TPUBaseTrainer(BaseRLTrainer):
         heads do. Seq2seq (`make_seq2seq_freeze_mask`): the encoder, the
         shared embedding, both relative-bias tables and the decoder blocks
         below n_decoder_layer - k do not train; the top decoder blocks, the
-        decoder's final norm, an untied head and the value head do."""
+        decoder's final norm, an untied head and the value head do. With a
+        peft adapter (`lora_freeze_mask`) the whole base is frozen, and the
+        adapter and the heads train."""
+        if self.lora_freeze_mask():
+            return
         at = self.branch_at()
         if not at:
             return
@@ -522,6 +580,15 @@ class TPUBaseTrainer(BaseRLTrainer):
                 frozen = parts[1] == "embed" or (parts[1] == "blocks" and int(parts[2]) < at)
             if frozen:
                 p.requires_grad_(False)
+
+    def lora_freeze_mask(self) -> bool:
+        """With any peft adapter: freeze the whole base, so only the
+        adapter and the heads train (the reference's peft contract; the
+        optimizer then holds only those). Returns whether it froze."""
+        if not has_adapter(self.model):
+            return False
+        self.model.base.requires_grad_(False)
+        return True
 
     # ------------------------------------------------------------------
     # generation
@@ -576,8 +643,20 @@ class TPUBaseTrainer(BaseRLTrainer):
                     self._warned_engine_fallback = True
                     logger.warning("method.gen_engine.enabled, but this run is outside the engine's envelope "
                                    "(a causal LM without a logits processor): sampling on the static sampler")
-                out = generate(self.model.base, ids, mask, self.generator, settings, logits_processor=processor)
+                out = generate(self.model.base, ids, mask, self.generator, settings, logits_processor=processor,
+                               **self._sampler_adapter_kwargs())
         return dict(out, prompt_mask=mask)
+
+    def _sampler_adapter_kwargs(self) -> Dict[str, Any]:
+        """`generate`'s soft prompt or kv prefix from the live adapter (a
+        LoRA adapter needs none: the sampler merges it)."""
+        prompt = getattr(self.model, "prompt", None)
+        prefix = getattr(self.model, "prefix", None)
+        if prompt is not None:
+            return {"soft_prompt": prompt.embedding.detach()}
+        if prefix is not None:
+            return {"kv_prefix": {"k": prefix.k.detach(), "v": prefix.v.detach()}}
+        return {}
 
     def generate_eval(self, input_ids, attention_mask=None, **kwargs):
         return self.generate(input_ids, attention_mask, settings=self.generate_settings, **kwargs)
@@ -589,8 +668,9 @@ class TPUBaseTrainer(BaseRLTrainer):
         take `generate_seq2seq`) without prompt or prefix adapters and
         without a logits processor (the engine's step has no hook for it;
         ILQL's advantage shaping would be lost), and one data group by
-        `check_ported`."""
-        return (not self.seq2seq and self.config.model.peft_config is None
+        `check_ported`. LoRA is in: the engine samples the merged weights,
+        as the static sampler does."""
+        return (not self.seq2seq and not self._sampler_adapter_kwargs()
                 and self.generation_logits_processor() is None)
 
     def _engine_spec(self, batch: int):
@@ -625,14 +705,18 @@ class TPUBaseTrainer(BaseRLTrainer):
         engine's prompt queue, and finished lanes refill from it. The output
         is the static sampler's plus `gen_stats`. The draft for speculative
         decoding is the frozen reference: the hydra Branch under the
-        policy's trunk, or the full frozen copy."""
+        policy's trunk, the full frozen copy, or under an adapter a decode
+        copy of the base with the adapter off."""
         if self._engine_cfg.spec_decode and getattr(self, "ref_params", None) is None:
             raise ValueError("method.gen_engine.spec_decode needs a frozen reference model to draft from")
         fn, spec = self._get_engine_fn(settings, tuple(input_ids.shape))
         seed = int(torch.randint(0, 2 ** 31 - 1, (), generator=self.generator, device=self.device))
         draft = None
         if spec.spec_decode:
-            draft = compose_draft_params(self.model.cfg, self.model.base, self.ref_params)
+            ref = self.ref_params
+            if isinstance(ref, AdapterOffReference):
+                ref = ref.decode_copy(self.model.cfg.dtype)
+            draft = compose_draft_params(self.model.cfg, self.model.base, ref)
         return fn(input_ids, attention_mask, seed, draft_params=draft)
 
     def decode(

@@ -5,7 +5,8 @@ optimisation (Rafailov et al., arXiv:2305.18290).
 pair store (`pipeline.dpo_pipeline`) and the per-step loop minimises the
 sigmoid preference loss over policy-vs-reference logprob margins
 (`ops.dpo`). The frozen reference is a full copy of the initial policy,
-made after its weights are in place. Each step runs the chosen and
+made after its weights are in place (with a peft adapter, the base with the
+adapter off, and no copy). Each step runs the chosen and
 rejected rows as one stacked forward of 2B rows, and the reference over
 the same rows under `torch.no_grad()`.
 """

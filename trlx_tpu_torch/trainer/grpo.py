@@ -16,6 +16,8 @@ loop, the prefetch (`method.overlap_rollouts`) and the decode engine
 The frozen reference is a full copy of the initial policy, whatever
 `num_layers_unfrozen` says (PPO's hydra branch shares the trunk; GRPO's
 reference does not), so each experience chunk runs two full forwards.
+With a peft adapter it is the base with the adapter off, and no copy is
+made.
 One process, one device: the reference's multi-host pad rows, its
 experience transport (and so its staleness clip) and its microbatch split
 have no counterpart here (`check_ported` raises on their knobs).

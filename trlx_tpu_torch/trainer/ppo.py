@@ -76,6 +76,15 @@ class TPUPPOTrainer(TPUOnlineTrainer):
         seq2seq) for 0 < num_layers_unfrozen k < that depth, else a full
         frozen copy."""
         k = self.config.model.num_layers_unfrozen
+        peft_type = None if self._peft_cfg is None else self._peft_cfg["peft_type"]
+        if peft_type is not None:
+            # with an adapter the reference is the base with the adapter
+            # off, not a hydra branch (the reference's peft contract)
+            k = -1
+            if peft_type != "LORA" and self.config.method.num_value_layers_unfrozen:
+                raise NotImplementedError(
+                    "num_value_layers_unfrozen with prompt/prefix tuning is not supported (the value-branch "
+                    "capture forward does not thread virtual-token adapters)")
         if self.seq2seq:
             cfg = self.load_seq2seq_base()
             n = cfg.n_decoder_layer
