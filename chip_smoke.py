@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive trlx_tpu_torch's rollout and training paths on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N] [--only fwd|paged|decode|bias|sft|ppo|resume|ilql|rft|grpo|dpo|llama|peft]
+    python3 chip_smoke.py [--seed N] [--only fwd|paged|decode|bias|sft|ppo|resume|ilql|rft|grpo|dpo|llama|peft|memory]
 
 Builds the CUDA kernels from `trlx_tpu_torch/csrc` (into build/kernels/)
 and holds each kernel against its plain PyTorch version on the card: both
@@ -120,6 +120,21 @@ through the entry points a user calls:
   at the adapters' layouts (T + 10 rows; T queries over 10 + T keys at
   q_offset 10) against their plain versions. Each run's base stays bit
   for bit as its seed drew it.
+- the single-chip memory recipe (`memory_phases`): kernel 9 (the fused
+  8-bit AdamW step) and kernel 10 (the W8A16 product of int8 decode
+  weights) against their plain versions; the recipe PPO cell, the train
+  path's workload under `configs/mesh/single_chip_1p3b.yml` (bf16
+  gradients, remat "full", the fused 8-bit AdamW, int8 decode weights and
+  KV cache, the hydra reference over the top two blocks) with two
+  microbatches a step: exact launches of kernels 1, 2/3, 8, 9 and 10 (the
+  remat recompute included), one train step against the plain bf16 and
+  fp32 math, greedy agreement with the plain path on the same int8
+  weights; then full-parameter SFT at Llama-2-7B's widths and all 32
+  layers (6.74 B random parameters drawn on the card, batch 8 of 512
+  tokens, 3 steps, an evaluation of 32 prompts x 32 new tokens on int8
+  decode weights): peak device memory at most 66 GB beside the 54.1 GB
+  the recipe's state takes, the loss falls, exact launches (kernels 1 and
+  2/3 on their long routes).
 
 Launch counters, zeroed before each path and read after it, show each
 path ran through its kernels. Then the kernels are timed at the paths'
@@ -132,7 +147,8 @@ train step and one engine call of each mode are profiled.
 `--only ilql`, `--only rft`, `--only grpo` and `--only dpo` the build and
 the ILQL, RFT, GRPO or DPO phases; `--only llama` the build, the head
 width 128 kernel cases, the Llama path and its kernel_time rows; `--only
-peft` the build, the peft phases and their kernel_time rows.
+peft` the build, the peft phases and their kernel_time rows; `--only
+memory` the build, the memory phases and kernels 9 and 10's rows.
 `--only fwd` stops after the build, the flash forward's check and its
 kernel_time rows; `--only paged` after the build, the paged check and the
 paged kernel_time rows; `--only decode` after the build, the int8 decode
@@ -284,8 +300,8 @@ def ptxas_report(log: str, kernel: str) -> list:
     return out
 
 
-def bound_ms(n_bytes: float, n_flops: float):
-    t_bytes, t_flops = n_bytes / HBM_BYTES_PER_S, n_flops / BF16_FLOPS
+def bound_ms(n_bytes: float, n_flops: float, flops_per_s: float = BF16_FLOPS):
+    t_bytes, t_flops = n_bytes / HBM_BYTES_PER_S, n_flops / flops_per_s
     return max(t_bytes, t_flops) * 1e3, "bytes" if t_bytes >= t_flops else "operations"
 
 
@@ -5909,6 +5925,673 @@ def paged_kernel_times(gen, launches, errs) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the single-chip memory recipe (slice 12): kernels 9 and 10, the recipe PPO
+# cell and full-parameter Llama-2-7B
+# ---------------------------------------------------------------------------
+
+FP32_FLOPS = 67e12  # H100 SXM fp32 peak outside the tensor cores (kernel 9's arithmetic)
+# kernel 9's fp32 operations an element: two dequantisations (4 each), the
+# moment updates (3 + 4), the step (5), the decay and the write (2 + 2), two
+# absmax terms (2) and two requantisations (6 each)
+ADAM8_OPS_PER_ELEMENT = 38
+# kernel 9's leaves: a Llama-2-7B MLP kernel, GPT-2's fused qkv width and a
+# leaf of 77,000 elements, which is no whole number of 256-element blocks
+ADAM8_LEAVES = {"llama_mlp": (4096, 11008), "gpt2_qkv": (768, 2304), "ragged": (1000, 77)}
+ADAM8_STEPS, ADAM8_LR, ADAM8_WD = 3, 1e-3, 0.01
+ADAM8_LSB_SHARE = 1e-3  # the share of payload entries allowed one LSB from the plain version's
+# kernel 10's widths (K -> N): GPT-2 small's projections (T5-base's decoder
+# has 768 -> 768, 768 -> 3072 and 3072 -> 768 too) and Llama-2-7B's
+INT8MM_WIDTHS = {"gpt2_qkv": (768, 2304), "d768": (768, 768), "d768_ff": (768, 3072), "ff_d768": (3072, 768),
+                 "llama_attn": (4096, 4096), "llama_fc_in": (4096, 11008), "llama_fc_out": (11008, 4096)}
+INT8MM_ROWS = {"decode": PROMPTS, "prefill": PROMPTS * PROMPT_LEN}  # 64 rows, and 64 prompts x 32
+INT8MM_EDGE_ROWS = (1, 8, 33)  # odd row counts, at llama_fc_in
+# the recipe PPO cell: train_path's workload with the recipe applied and two
+# microbatches a step
+RECIPE_FILE = "configs/mesh/single_chip_1p3b.yml"
+RECIPE_MINIBATCH = 16
+RECIPE_GREEDY_AGREEMENT = 0.95
+# the 7B cell: full-parameter SFT at Llama-2-7B's widths and all 32 layers,
+# batch 8 of 512 tokens, 3 steps on one fixed batch, then an evaluation of 32
+# prompts x 32 new tokens on int8 decode weights
+LLAMA_FULL_BATCH, LLAMA_FULL_LEN, LLAMA_FULL_STEPS = 8, 512, 3
+LLAMA_FULL_EVAL_PROMPTS, LLAMA_FULL_NEW_TOKENS = 32, 32
+# Adam's first steps move every weight by about lr (no warm-up): on the
+# fixed batch the random 7B model's loss went 11.19 -> 14.38 -> 29.45 at
+# lr 1e-4, -> 9.09 -> 11.08 at 1e-5, -> 5.199 -> 5.201 at 3e-6 and ->
+# 6.99 -> 4.80 at 1e-6 (H100), the same within 0.2% with fp32 gradients,
+# and at 4 layers torch's AdamW with fp32 gradients tracks the recipe
+# (scripts/torch_llama_full_lr_witness.py): the rises are the optimizer's
+# dynamics at these rates, so the cell runs at 1e-6 and its loss must fall
+# at every step
+LLAMA_FULL_LR = 1e-6
+LLAMA_FULL_PEAK_BYTES = 66e9
+# the recipe's state at Llama-2-7B's 6.74 B parameters, in GB: fp32 masters,
+# bf16 gradients, the two int8 moments, their fp32 scales (one per 256)
+LLAMA_FULL_STATE_GB = {"fp32_masters": 26.95, "bf16_gradients": 13.48, "int8_moments": 13.48,
+                       "block_scales": 0.21, "total": 54.1}
+
+
+def memory_counters() -> dict:
+    """The training kernels' counters and kernels 9 and 10's."""
+    from trlx_tpu_torch.ops import adam8bit, int8_matmul
+
+    return {**train_counters(), "adam8bit": adam8bit.adam8bit_step,
+            "int8_matmul": int8_matmul.int8_weight_matmul}
+
+
+@contextlib.contextmanager
+def int8_matmul_shapes(tally: collections.Counter):
+    """Counts kernel 10's launches from the models by (M, K, N) while
+    active (QDense imports the wrapper by name)."""
+    from trlx_tpu_torch.models import transformer
+
+    fn = transformer.int8_weight_matmul
+
+    def counted(x, q, s):
+        if x.is_cuda:
+            tally[x.numel() // x.shape[-1], q.shape[0], q.shape[1]] += 1
+        return fn(x, q, s)
+
+    transformer.int8_weight_matmul = counted
+    try:
+        yield tally
+    finally:
+        transformer.int8_weight_matmul = fn
+
+
+def adam8bit_zero_state(p) -> list:
+    """A leaf's zero moments as kernel 9's state arguments."""
+    from trlx_tpu_torch.ops import adam8bit as a8
+
+    st = a8.zero_state(p)
+    return [st[k] for k in a8.LEAF_STATE]
+
+
+def check_adam8bit(gen) -> dict:
+    """Kernel 9 against its plain version: each ADAM8_LEAVES leaf, fp32 and
+    bf16 gradients, the fused and the bnb variant, ADAM8_STEPS steps with
+    weight decay from zero moments, both paths on the same gradients. Gates
+    after every step: parameters within 1e-6 relative (to max(|p|, lr), so
+    that a weight the step carried near zero is held to the update's
+    size), scales within 1e-6 relative, payloads at most one LSB apart in
+    at most ADAM8_LSB_SHARE of the entries. Returns the worst errors."""
+    import torch
+
+    from trlx_tpu_torch.ops import adam8bit as a8
+
+    cases, worst = [], {"param_rel": 0.0, "scale_rel": 0.0, "payload_lsb_share": 0.0, "payload_max_lsb": 0}
+    for leaf, shape in ADAM8_LEAVES.items():
+        for gdt in (torch.float32, torch.bfloat16):
+            for bnb in (False, True):
+                p0 = torch.randn(shape, generator=gen, device="cuda") * 0.02
+                pk, sk = p0.clone(), adam8bit_zero_state(p0)
+                pp, sp = p0.clone(), adam8bit_zero_state(p0)
+                errs = []
+                for step in range(1, ADAM8_STEPS + 1):
+                    g = (torch.randn(shape, generator=gen, device="cuda") * 1e-2).to(gdt)
+                    args = (ADAM8_LR, 0.9, 0.999, 1e-8, ADAM8_WD, *a8.bias_corrections(0.9, 0.999, step))
+                    a8.adam8bit_step(pk, g, *sk, *args, bnb=bnb)
+                    a8.adam8bit_step_plain(pp, g, *sp, *args, bnb=bnb)
+                    torch.cuda.synchronize()
+
+                    def rel(a, b):
+                        return ((a - b).abs() / b.abs().clamp(min=1e-30)).max().item()
+
+                    lsb = [(qk.int() - qp.int()).abs() for qk, qp in ((sk[0], sp[0]), (sk[2], sp[2]))]
+                    p_rel = ((pk - pp).abs() / pp.abs().clamp(min=ADAM8_LR)).max().item()
+                    e = {"param_rel": p_rel, "scale_rel": max(rel(sk[1], sp[1]), rel(sk[3], sp[3])),
+                         "payload_lsb_share": max((d > 0).float().mean().item() for d in lsb),
+                         "payload_max_lsb": max(int(d.max()) for d in lsb)}
+                    errs.append(e)
+                    for k, v in e.items():
+                        worst[k] = max(worst[k], v)
+                    if (e["param_rel"] > 1e-6 or e["scale_rel"] > 1e-6 or e["payload_max_lsb"] > 1
+                            or e["payload_lsb_share"] > ADAM8_LSB_SHARE):
+                        raise AssertionError(f"kernel 9 disagrees with its plain version at {leaf} {gdt} "
+                                             f"bnb={bnb} step {step}: {e}")
+                cases.append({"leaf": leaf, "shape": list(shape), "grad_dtype": str(gdt), "bnb": bnb, "errs": errs})
+    emit("adam8bit_check", cases=cases, worst=worst)
+    # each leaf's own worst parameter error with a bf16 gradient, fused
+    # variant (its kernel_time row's case)
+    by_leaf = {c["leaf"]: max(e["param_rel"] for e in c["errs"]) for c in cases
+               if c["grad_dtype"] == str(torch.bfloat16) and not c["bnb"]}
+    return dict(worst, by_leaf=by_leaf)
+
+
+def int8_matmul_error(x, q, s) -> dict:
+    """Kernel 10 on (x, q, s) against the dequantize-then-fp32 product:
+    every output within half a bf16 ulp of the fp32 product (2^-8 of its
+    size, plus 1e-5 of the largest for the fp32 sum's order), raised
+    otherwise; the port's plain version beside it."""
+    import torch
+
+    from trlx_tpu_torch.ops import int8_matmul as im
+
+    M, (K, N) = x.shape[0], q.shape
+    y = im.int8_weight_matmul(x, q, s).float()
+    ref = torch.matmul(x.float(), q.float()) * s
+    plain = im.int8_weight_matmul_plain(x, q, s).float()
+    torch.cuda.synchronize()
+    allowed = 2.0 ** -8 * ref.abs() + 1e-5 * ref.abs().max()
+    e = {"M": M, "K": K, "N": N, "splits": im.int8_matmul_splits(M, N, K),
+         "rel_to_half_ulp": ((y - ref).abs() / allowed).max().item(),
+         "max_abs_err": (y - ref).abs().max().item(), "vs_plain_max_abs": (y - plain).abs().max().item()}
+    if not e["rel_to_half_ulp"] <= 1.0:
+        raise AssertionError(f"kernel 10 strays from the fp32 product by more than half a bf16 ulp: {e}")
+    return e
+
+
+def check_int8_matmul(gen) -> dict:
+    """Kernel 10 against the plain dequantize-then-fp32 product rounded once
+    to bf16 (`int8_matmul_error`), at every INT8MM_WIDTHS width and
+    INT8MM_ROWS row count, and at INT8MM_EDGE_ROWS rows of llama_fc_in.
+    The paths' own shapes are checked again after they ran
+    (`memory_kernel_times`). Returns the worst errors."""
+    import torch
+
+    from trlx_tpu_torch.ops import int8_matmul as im
+
+    cases = [(name, M, K, N) for name, (K, N) in INT8MM_WIDTHS.items() for M in INT8MM_ROWS.values()]
+    cases += [("llama_fc_in", M, *INT8MM_WIDTHS["llama_fc_in"]) for M in INT8MM_EDGE_ROWS]
+    out, worst = [], {"rel_to_half_ulp": 0.0, "vs_plain_max_abs": 0.0}
+    for name, M, K, N in cases:
+        x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+        w = (torch.randn((K, N), generator=gen, device="cuda") * 0.02).to(torch.bfloat16)
+        q, s = im.quantize_kernel(w)
+        e = dict(name=name, **int8_matmul_error(x, q, s))
+        out.append(e)
+        worst["rel_to_half_ulp"] = max(worst["rel_to_half_ulp"], e["rel_to_half_ulp"])
+        worst["vs_plain_max_abs"] = max(worst["vs_plain_max_abs"], e["vs_plain_max_abs"])
+    emit("int8_matmul_check", cases=out, worst=worst)
+    return worst
+
+
+def recipe_config(seed: int, attention_impl="pallas", kv_cache_quant="int8_kernel", compute_dtype="bfloat16",
+                  decode_weights_quant="int8"):
+    """train_path's config with `configs/mesh/single_chip_1p3b.yml` applied
+    unchanged (bf16 compute, logit_chunks 8, bf16 gradients, remat full,
+    num_layers_unfrozen 2, the int8 KV cache and int8 decode weights, the
+    fused 8-bit AdamW), then train.minibatch_size 16 (two microbatches a
+    step). The recipe's kv_cache_quant "int8" decodes its int8 cache through
+    the plain folded math; the cell decodes the same cache through kernel 8
+    ("int8_kernel"), as every earlier path does. The references' plain
+    paths keep the recipe and take the plain attention (and fp32 compute
+    for the fp32 path, which never samples and has no int8 decode
+    weights: kernel 10 takes bf16 activations only)."""
+    import yaml
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), RECIPE_FILE)) as f:
+        recipe = yaml.safe_load(f)
+    config = train_config(seed).evolve(**recipe)
+    return config.evolve(
+        train=dict(minibatch_size=RECIPE_MINIBATCH, compute_dtype=compute_dtype),
+        model=dict(model_extra_configs={"transformer": dict(attention_impl=attention_impl, kv_cache_quant=kv_cache_quant,
+                                                            decode_weights_quant=decode_weights_quant)}),
+    )
+
+
+def recipe_launches(L: int, K: int, n_mb: int, steps: int, decode_steps: list, trainable: int) -> dict:
+    """The recipe cell's launches: every sampler call's prefill through the
+    L blocks (kernel 1) and each of its forwards through the 6 L int8
+    projections (kernel 10: the prefill and each decode step); each
+    cycle's experience pass through the L trunk blocks and the K of the
+    hydra reference; each microbatch's forward through the L blocks, the
+    recompute of the K trainable ones under remat "full" and their fused
+    backward (the frozen trunk builds no graph, so it is neither recomputed
+    nor differentiated); one decode launch a layer a decode step (kernel
+    8); one kernel 9 launch a trainable tensor a step."""
+    calls, cycles = len(decode_steps), len(decode_steps) - 2
+    n_fwd = L * calls + cycles * (L + K) + steps * n_mb * (L + K)
+    n_decode = L * sum(decode_steps)
+    return {"flash_fwd": n_fwd, "flash_fwd_short": n_fwd, "flash_fwd_long": 0,
+            "flash_bwd": steps * n_mb * K, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+            "decode": n_decode, "decode_short": n_decode, "decode_long": 0,
+            "adam8bit": trainable * steps, "int8_matmul": 6 * L * sum(1 + d for d in decode_steps)}
+
+
+def recipe_ppo_path(seed: int, shapes: dict, int8_shapes: collections.Counter) -> dict:
+    """The recipe PPO cell: `trlx_tpu_torch.train` on train_path's workload
+    (GPT-2 small at EARLIER_LAYERS, 64 rollouts of 32 + 32 tokens, batch
+    32, 4 epochs, two cycles = 16 steps) under `recipe_config`. Gates:
+    finite losses, exact launches of kernels 1, 2/3, 8, 9 and 10 (the
+    remat recompute included), the int8 moments and the bf16 gradient tree
+    in place, the trainable tensors moved and the frozen trunk did not;
+    then `recipe_reference` and `recipe_greedy_reference`."""
+    import torch
+
+    import trlx_tpu_torch
+
+    counters = memory_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    config = recipe_config(seed)
+    t0 = time.perf_counter()
+    with forward_shapes(shapes, "recipe"), int8_matmul_shapes(int8_shapes), sampler_calls() as calls:
+        trainer = trlx_tpu_torch.train(reward_fn=train_reward_fn, prompts=TRAIN_PROMPTS, config=config)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    decode_steps = [c["decode_steps"] for c in calls]
+    L, K = trainer.model.cfg.n_layer, config.model.num_layers_unfrozen
+    expect = recipe_launches(L, K, trainer.num_mb, TRAIN_STEPS, decode_steps, len(trainer.trainable_params))
+    losses = check_train_losses(trainer)
+    state = next(iter(trainer.optimizer.state.values()))
+    emit("recipe_ppo_path", wall_s=wall, launches=launches, expected=expect, losses=losses,
+         decode_steps=decode_steps, num_mb=trainer.num_mb, remat=trainer.model.base.remat,
+         grads_dtype=str(trainer.grads_dtype), optimizer=type(trainer.optimizer).__name__,
+         state_dtypes={k: str(v.dtype) for k, v in state.items()}, cycle_seconds=cycle_split(trainer),
+         decode_weights_quant=trainer.model.cfg.decode_weights_quant, int8_matmul_shapes=[
+             [list(k), n] for k, n in sorted(int8_shapes.items())])
+    if {k: launches[k] for k in expect} != expect or len(decode_steps) != TRAIN_STEPS // 8 + 2:
+        raise AssertionError(f"launch counts {launches} != expected {expect}")
+    if state["m_q"].dtype != torch.int8 or trainer.num_mb != 2 or trainer.grads_dtype != torch.bfloat16:
+        raise AssertionError("the recipe did not take: int8 moments, two microbatches and bf16 gradients expected")
+    check_params_moved(trainer, seed, "recipe_params",
+                       frozen=("base.embed.",) + tuple(f"base.blocks.{i}." for i in range(L - K)))
+    recipe_reference(trainer, seed)
+    recipe_greedy_reference(trainer)
+    batch = next(iter(trainer.store.create_loader(TRAIN_BATCH, shuffle=False)))
+    train_step_profile(trainer, batch, "recipe_train_step")
+    del trainer
+    torch.cuda.empty_cache()
+    return launches
+
+
+def recipe_reference(trainer, seed: int) -> None:
+    """`train_reference` on the recipe trainer (remat, the hydra reference,
+    a frozen trunk) against the plain bf16 and fp32 paths of the same
+    recipe, on a fresh 256-rollout store."""
+    configs = {"plain_bf16": recipe_config(seed, attention_impl="xla", kv_cache_quant="int8"),
+               "fp32": recipe_config(seed, attention_impl="xla", kv_cache_quant=None, compute_dtype="float32",
+                                     decode_weights_quant=None)}
+    train_reference(trainer, seed, configs=configs, phase="recipe_reference")
+
+
+@contextlib.contextmanager
+def plain_decode_math():
+    """The models' kernels swapped for their plain versions while active:
+    kernel 1 (the prefill), kernel 8 (the decode steps) and kernel 10
+    (the int8 projections), as the model module calls them."""
+    from trlx_tpu_torch.models import transformer
+    from trlx_tpu_torch.ops import decode_attention as da
+    from trlx_tpu_torch.ops import flash_attention as fa
+    from trlx_tpu_torch.ops import int8_matmul as im
+
+    def flash(q, k, v, key_mask=None, causal=True, sm_scale=None, q_offset=None, with_stats=False):
+        key_mask, sm_scale, q_offset = fa._prepare(q, k, key_mask, sm_scale, q_offset, causal)
+        return fa.flash_attention_plain(q, k, v, key_mask, causal, sm_scale, q_offset, with_stats=with_stats)
+
+    saved = {name: getattr(transformer, name) for name in ("flash_attention", "decode_attention_int8",
+                                                            "int8_weight_matmul")}
+    transformer.flash_attention = flash
+    transformer.decode_attention_int8 = da.decode_attention_int8_plain
+    transformer.int8_weight_matmul = im.int8_weight_matmul_plain
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(transformer, name, fn)
+
+
+def forced_greedy(model, ids, mask, tokens):
+    """`generate`'s greedy decode with the next tokens forced to `tokens`
+    [B, N]: the argmax at every step on the same prefix, [B, N]."""
+    import torch
+
+    from trlx_tpu_torch.models.generation import cast_params_for_decode
+    from trlx_tpu_torch.models.transformer import quantize_kv_cache, logit_projection
+
+    cfg = model.cfg
+    decode = cast_params_for_decode(model, cfg.dtype)
+    B, P = ids.shape
+    N = tokens.shape[1]
+    total = P + N
+    total += (-total) % 128 if cfg.attention_impl == "pallas" and P % 8 == 0 else 0
+    key_mask = torch.cat([mask.to(torch.int32), torch.ones((B, total - P), dtype=torch.int32, device=ids.device)], 1)
+    key_mask[:, P + N:] = 0
+    cache = decode.init_cache(B, total, key_mask)
+    positions = torch.clamp(torch.cumsum(mask.to(torch.int32), dim=1) - 1, min=0)
+    out = decode(ids, mask, positions=positions, cache=cache, compute_logits=False)
+    project = logit_projection(decode)
+    picks = [torch.argmax(project(out["hidden_states"][:, -1]), dim=-1)]
+    cache = quantize_kv_cache(out["cache"]) if cfg.kv_cache_quant else out["cache"]
+    pos = mask.sum(dim=1).long()
+    for t in range(1, N):
+        step = decode(tokens[:, t - 1:t], positions=pos[:, None], cache=cache)
+        picks.append(torch.argmax(step["logits"][:, -1], dim=-1))
+        cache, pos = step["cache"], pos + 1
+    return torch.stack(picks, dim=1)
+
+
+def fp32_decode_copy(model):
+    """`model`'s decode copy (int8 projections, embeddings and head in the
+    compute dtype) switched in place to fp32 activations: the same int8
+    weights as the compute-dtype copy, for the plain path only (kernel 10
+    takes bf16)."""
+    import torch
+
+    from trlx_tpu_torch.models.generation import cast_params_for_decode
+
+    decode = cast_params_for_decode(model, model.cfg.dtype)
+    cfg = decode.cfg.replace(dtype=torch.float32)
+    for m in decode.modules():
+        if isinstance(getattr(m, "cfg", None), type(cfg)):
+            m.cfg = cfg
+        if isinstance(getattr(m, "dtype", None), torch.dtype):
+            m.dtype = torch.float32
+    return decode
+
+
+def greedy_reference(trainer, batches: list, new_tokens: int, phase: str, per_step_bar=None,
+                     fp32_arbiter=False) -> dict:
+    """A greedy rollout of the trained policy on its int8 decode weights
+    through the kernels (1, 8, 10), and the plain path on the same int8
+    weights and int8 cache fed the same tokens (`forced_greedy` under
+    `plain_decode_math`), for each (ids, mask) of `batches`: the share of
+    real response steps whose argmax agrees, over all the batches' rows,
+    gated per step at `per_step_bar` (None: printed, not gated). With
+    `fp32_arbiter` the plain path also runs the same int8 weights and
+    cache in fp32 (`fp32_decode_copy`), as `llama_reference` arbitrates
+    near-tied random logits: the kernel path must pick fp32's token at
+    least as often as the plain bf16 path does, and agree with plain bf16
+    at least as often as plain bf16 agrees with fp32, each within 2
+    points."""
+    import dataclasses as dc
+
+    import torch
+
+    from trlx_tpu_torch.models.generation import generate
+
+    settings = dc.replace(trainer.generate_settings, do_sample=False, max_new_tokens=new_tokens)
+    policy = trainer.model.base
+    picks = {"kernel": [], "plain_bf16": [], "fp32": []}
+    real = []
+
+    def padded(x, n):  # a batch that stopped early is shorter
+        return torch.nn.functional.pad(x, (0, n - x.shape[1]))
+
+    with torch.no_grad():
+        for ids, mask in batches:
+            out = generate(policy, ids, mask, None, settings)
+            tokens = out["response_ids"]
+            real.append(padded(out["response_mask"].bool(), new_tokens))
+            picks["kernel"].append(padded(tokens, new_tokens))
+            with plain_decode_math():
+                picks["plain_bf16"].append(padded(forced_greedy(policy, ids, mask, tokens), new_tokens))
+                if fp32_arbiter:
+                    fp32 = fp32_decode_copy(policy)
+                    picks["fp32"].append(padded(forced_greedy(fp32, ids, mask, tokens), new_tokens))
+                    del fp32
+    real = torch.cat(real)
+    picks = {k: torch.cat(v) for k, v in picks.items() if v}
+
+    def agree(a, b):
+        return ((picks[a] == picks[b]) & real).sum().item() / max(real.sum().item(), 1)
+
+    agree_k = (picks["kernel"] == picks["plain_bf16"]) & real
+    per_step = [(agree_k[:, t].sum() / real[:, t].sum().clamp(min=1)).item() for t in range(new_tokens)
+                if real[:, t].any()]
+    share = agree("kernel", "plain_bf16")
+    arbiter = ({"kernel_vs_fp32": agree("kernel", "fp32"), "plain_bf16_vs_fp32": agree("plain_bf16", "fp32")}
+               if fp32_arbiter else None)
+    emit(phase, agreement=share, per_step_min=min(per_step), per_step=per_step, rows=int(real.shape[0]),
+         prompt_len=[int(ids.shape[1]) for ids, _ in batches], steps=len(per_step), per_step_bar=per_step_bar,
+         fp32_arbiter=arbiter)
+    if per_step_bar is not None and min(per_step) < per_step_bar:
+        raise AssertionError(f"{phase}: the kernel path's greedy choices agree with the plain path on the same "
+                             f"int8 weights in {min(per_step)} of a step's rows, below {per_step_bar}")
+    if arbiter is not None and (arbiter["kernel_vs_fp32"] < arbiter["plain_bf16_vs_fp32"] - 0.02
+                                or share < arbiter["plain_bf16_vs_fp32"] - 0.02):
+        raise AssertionError(f"{phase}: the kernel path strays from the plain paths more than bf16 rounding does: "
+                             f"kernel vs plain bf16 {share}, {arbiter}")
+    return {"agreement": share, "fp32_arbiter": arbiter}
+
+
+def recipe_greedy_reference(trainer) -> dict:
+    """`greedy_reference` on the recipe policy over `byte_prompts`, gated
+    per step at RECIPE_GREEDY_AGREEMENT."""
+    return greedy_reference(trainer, [byte_prompts(trainer.tokenizer)], TRAIN_NEW_TOKENS, "recipe_greedy_reference",
+                            per_step_bar=RECIPE_GREEDY_AGREEMENT)
+
+
+LLAMA_FULL_WORDS = ("the", "model", "reads", "a", "long", "page", "of", "text", "and", "learns", "its", "next",
+                    "byte", "one", "step", "at", "time")
+
+
+def llama_full_samples(seed: int) -> list:
+    """LLAMA_FULL_BATCH byte strings longer than LLAMA_FULL_LEN tokens (cut
+    to it by the tokenizer): one fixed batch."""
+    import random as _random
+
+    rng = _random.Random(seed)
+    return [" ".join(rng.choice(LLAMA_FULL_WORDS) for _ in range(160)) for _ in range(LLAMA_FULL_BATCH)]
+
+
+def llama_full_config(seed: int):
+    """Full-parameter SFT at Llama-2-7B's published widths and 32 layers
+    (LLAMA_7B at LLAMA_PUBLISHED_LAYERS), random weights, the recipe's
+    memory knobs: the fused 8-bit AdamW (LLAMA_FULL_LR), bf16 gradients, remat
+    "full", logit_chunks 8; batch 8 of 512 tokens, 3 steps on one fixed
+    batch; an evaluation of 32 prompts x 32 new tokens after the steps, on
+    int8 decode weights over the int8 KV cache (kernels 10 and 8)."""
+    from trlx_tpu_torch.data.default_configs import default_sft_config
+
+    transformer = dict(LLAMA_7B, n_layer=LLAMA_PUBLISHED_LAYERS, attention_impl="pallas",
+                       kv_cache_quant="int8_kernel", decode_weights_quant="int8")
+    return default_sft_config().evolve(
+        train=dict(batch_size=LLAMA_FULL_BATCH, total_steps=LLAMA_FULL_STEPS, epochs=LLAMA_FULL_STEPS,
+                   seq_length=LLAMA_FULL_LEN, eval_interval=10_000, checkpoint_interval=10_000, tracker=None,
+                   compute_dtype="bfloat16", seed=seed, grads_dtype="bfloat16", remat_policy="full",
+                   logit_chunks=8, **ckpt_kw()),
+        model=dict(model_path="random", model_extra_configs={"transformer": transformer}),
+        tokenizer=dict(tokenizer_path="byte"),
+        optimizer=dict(name="adamw_8bit_fused", kwargs=dict(lr=LLAMA_FULL_LR, betas=[0.9, 0.95], eps=1e-8,
+                                                             weight_decay=0.0)),
+        method=dict(gen_kwargs=dict(max_new_tokens=LLAMA_FULL_NEW_TOKENS, do_sample=False)),
+    )
+
+
+def llama_full_path(seed: int, shapes: dict, int8_shapes: collections.Counter) -> dict:
+    """The 7B cell: `trlx_tpu_torch.train(samples=...)` under
+    `llama_full_config`. The 6.74 B parameters are drawn on the card (a
+    seeded CUDA generator), the checkpoint commit is skipped (a 27 GB
+    export). Prints the peak device memory beside the state arithmetic
+    (LLAMA_FULL_STATE_GB), the optimizer state's bytes, the steps' losses
+    and walls. Gates: the peak at most LLAMA_FULL_PEAK_BYTES, the loss
+    falls at every step, the trained policy's greedy decisions on the
+    evaluation prompts against the plain bf16 and fp32 paths on the same
+    int8 weights (`greedy_reference` with its fp32 arbiter: the kernel
+    path's near-tie flips no more than bf16 rounding's own), exact
+    launches of kernels 1 and 2/3 (the long
+    routes at T = S = 512, D = 128: a forward and a recompute a layer a
+    step, a dq and a dk/dv launch a layer a step; the evaluations'
+    prefills), 8, 9 and 10 (every projection of the 32 layers in every
+    evaluation forward)."""
+    import torch
+
+    import trlx_tpu_torch
+    from trlx_tpu_torch.models.wrappers import CausalLM
+    from trlx_tpu_torch.ops import decode_attention as da
+    from trlx_tpu_torch.ops import flash_attention as fa
+    from trlx_tpu_torch.ops.adam8bit import state_bytes
+    from trlx_tpu_torch.trainer.base import TPUBaseTrainer
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    counters = memory_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    init_params, save = CausalLM.init_params, TPUBaseTrainer._save_checkpoint
+    init_s = []
+
+    def init_on_card(self, generator):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        self.base.init_params(torch.Generator(device="cuda").manual_seed(seed))
+        torch.cuda.synchronize()
+        init_s.append(time.perf_counter() - t0)
+        return self.init_heads(generator)
+
+    step_walls = []
+    train_step, evaluate = TPUBaseTrainer.train_step, TPUBaseTrainer.evaluate
+
+    def timed_step(self, batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = train_step(self, batch)
+        torch.cuda.synchronize()
+        step_walls.append(time.perf_counter() - t0)
+        return out
+
+    def final_evaluation(self):  # the one after the steps; the untrained model's is skipped for time
+        return evaluate(self) if self.iter_count else {}
+
+    CausalLM.init_params, TPUBaseTrainer._save_checkpoint = init_on_card, lambda self, name, final=False: None
+    TPUBaseTrainer.train_step, TPUBaseTrainer.evaluate = timed_step, final_evaluation
+    eval_prompts = [f"{TRAIN_PROMPTS[i % 8]} ({i})" for i in range(LLAMA_FULL_EVAL_PROMPTS)]
+    t0 = time.perf_counter()
+    try:
+        with forward_shapes(shapes, "llama_full"), int8_matmul_shapes(int8_shapes), sampler_calls() as calls:
+            trainer = trlx_tpu_torch.train(samples=llama_full_samples(seed), eval_prompts=eval_prompts,
+                                           config=llama_full_config(seed))
+        torch.cuda.synchronize()
+    finally:
+        CausalLM.init_params, TPUBaseTrainer._save_checkpoint = init_params, save
+        TPUBaseTrainer.train_step, TPUBaseTrainer.evaluate = train_step, evaluate
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    decode_steps = [c["decode_steps"] for c in calls]
+    cfg = trainer.model.cfg
+    L, steps = cfg.n_layer, LLAMA_FULL_STEPS
+    n_params = sum(p.numel() for p in trainer.model.parameters())
+    # the evaluation's prompts are left-padded to seq_length - max_new_tokens
+    # (480): their prefill (480 queries over a 512-slot cache) and decode
+    # steps take the routes past 128 queries and 256 slots too
+    P = next(iter(trainer.eval_dataloader)).input_ids.shape[1]
+    S = P + LLAMA_FULL_NEW_TOKENS
+    S += (-S) % 128 if P % 8 == 0 else 0  # generate()'s cache length under the flash prefill
+    n_prefill, n_decode = L * len(decode_steps), L * sum(decode_steps)
+    T, D = LLAMA_FULL_LEN, cfg.head_dim
+    prefill_long = fa.forward_route(P, S, D) == "long"
+    train_long = fa.forward_route(T, T, D) == "long"
+    decode_long = da.decode_route(S) == "long"
+    n_train_fwd, n_bwd = 2 * L * steps, L * steps  # a forward and a remat recompute a layer a step
+    bwd_fused = fa.backward_route(T, T, D) == "fused"
+    expect = {"flash_fwd": n_train_fwd + n_prefill,
+              "flash_fwd_long": n_train_fwd * train_long + n_prefill * prefill_long,
+              "flash_fwd_short": n_train_fwd * (not train_long) + n_prefill * (not prefill_long),
+              "flash_bwd": n_bwd * bwd_fused, "flash_bwd_dq": n_bwd * (not bwd_fused),
+              "flash_bwd_dkv": n_bwd * (not bwd_fused),
+              "decode": n_decode, "decode_short": n_decode * (not decode_long), "decode_long": n_decode * decode_long,
+              "adam8bit": len(trainer.trainable_params) * steps,
+              "int8_matmul": 7 * L * sum(1 + d for d in decode_steps)}
+    losses = [st["losses/loss"] for _, st in trainer.stats_history if "losses/loss" in st]
+    emit("llama_full_path", wall_s=wall, init_s=init_s, step_walls_s=step_walls, layers=L,
+         parameters=n_params, trainable_parameters=sum(p.numel() for p in trainer.trainable_params),
+         peak_device_bytes=peak, peak_gate_bytes=LLAMA_FULL_PEAK_BYTES, state_arithmetic_gb=LLAMA_FULL_STATE_GB,
+         optimizer_state_bytes=state_bytes(trainer.optimizer), losses=losses, launches=launches, expected=expect,
+         decode_steps=decode_steps, head_dim=cfg.head_dim, remat=trainer.model.base.remat,
+         grads_dtype=str(trainer.grads_dtype), lr=LLAMA_FULL_LR, int8_matmul_shapes=[[list(k), n] for k, n in sorted(int8_shapes.items())
+                             if k[1] == cfg.hidden_size or k[2] == cfg.hidden_size])
+    if peak > LLAMA_FULL_PEAK_BYTES:
+        raise AssertionError(f"peak device memory {peak / 1e9:.2f} GB > {LLAMA_FULL_PEAK_BYTES / 1e9} GB")
+    if (len(losses) != steps or not all(math.isfinite(x) for x in losses)
+            or not all(b < a for a, b in zip(losses, losses[1:]))):
+        raise AssertionError(f"expected {steps} finite losses, each below the one before, got {losses}")
+    if {k: launches[k] for k in expect} != expect or cfg.head_dim != 128 or L != LLAMA_PUBLISHED_LAYERS:
+        raise AssertionError(f"launch counts {launches} != expected {expect}")
+    # the evaluation's own batches (8 rows each: 32 rows at once would need
+    # an 8 GB fp32 temporary to quantize their cache)
+    greedy_reference(trainer, [(b.input_ids.cuda(), b.attention_mask.cuda()) for b in trainer.eval_dataloader],
+                     LLAMA_FULL_NEW_TOKENS, "llama_full_greedy_reference", fp32_arbiter=True)
+    # one more step, traced; its idle share against the run's own steps on
+    # the same batch (after the first)
+    batch = next(iter(trainer.store.create_loader(LLAMA_FULL_BATCH, shuffle=False)))
+    wall = statistics.median(step_walls[1:])
+    emit("llama_full_train_step_time", wall_ms=wall * 1e3, batch=LLAMA_FULL_BATCH, seq=LLAMA_FULL_LEN,
+         samples_ms=[x * 1e3 for x in step_walls])
+    profile_phase("llama_full_train_step", lambda: trainer.train_step(batch), wall, grad=True)
+    emit("llama_full_memory", peak_device_bytes_with_profile=torch.cuda.max_memory_allocated())
+    del trainer, batch
+    torch.cuda.empty_cache()
+    return launches
+
+
+def memory_phases(seed: int, shapes: dict) -> dict:
+    """Kernels 9 and 10 against their plain versions, then the recipe PPO
+    cell and the 7B cell (each with kernel 10's launches by shape)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    out = {"errs": {"adam8bit": check_adam8bit(gen), "int8_matmul": check_int8_matmul(gen)},
+           "int8_shapes": {"recipe": collections.Counter(), "llama_full": collections.Counter()}}
+    torch.cuda.empty_cache()
+    out["recipe"] = recipe_ppo_path(seed, shapes, out["int8_shapes"]["recipe"])
+    out["llama_full"] = llama_full_path(seed, shapes, out["int8_shapes"]["llama_full"])
+    return out
+
+
+def memory_kernel_times(gen, memory: dict) -> list:
+    """Kernels 9 and 10 at the memory paths' shapes, beside their bounds and
+    plain versions: kernel 9 on a Llama-2-7B MLP leaf and a GPT-2 leaf with
+    a bf16 gradient (no single PyTorch call computes it: library null),
+    kernel 10 at every (M, K, N) the recipe and 7B cells launched it at,
+    each shape held to the fp32 product again (`int8_matmul_error`) and
+    its row carrying its own error (library: torch.matmul on the bf16
+    weight it replaces)."""
+    import torch
+
+    from trlx_tpu_torch.ops import adam8bit as a8
+    from trlx_tpu_torch.ops import int8_matmul as im
+
+    rows = []
+    for leaf in ("llama_mlp", "gpt2_qkv"):
+        shape = ADAM8_LEAVES[leaf]
+        p = torch.randn(shape, generator=gen, device="cuda") * 0.02
+        g = (torch.randn(shape, generator=gen, device="cuda") * 1e-2).to(torch.bfloat16)
+        st = adam8bit_zero_state(p)
+        args = (ADAM8_LR, 0.9, 0.999, 1e-8, ADAM8_WD, *a8.bias_corrections(0.9, 0.999, 1))
+        ms = time_ms(lambda: a8.adam8bit_step(p, g, *st, *args))
+        plain = time_ms(lambda: a8.adam8bit_step_plain(p, g, *st, *args), reps=10)
+        n, nb = p.numel(), a8.n_blocks(p.numel())
+        n_bytes = n * (4 + 2 + 1 + 1) + nb * 8 + n * (4 + 1 + 1) + nb * 8
+        bms, by = bound_ms(n_bytes, ADAM8_OPS_PER_ELEMENT * n, FP32_FLOPS)
+        rows.append(dict(
+            name=f"adam8bit/{leaf}_bf16_grad", route="cuda", source="trlx_tpu_torch/csrc/adam8bit.cu",
+            replaces="none (port-only: trlx_tpu/ops/adam8bit.py:154 fused_adamw_8bit_update runs in XLA)",
+            launches=memory["recipe"]["adam8bit"] + memory["llama_full"]["adam8bit"],
+            launches_by_path={"recipe": memory["recipe"]["adam8bit"], "llama_full": memory["llama_full"]["adam8bit"]},
+            max_abs_err=memory["errs"]["adam8bit"]["by_leaf"][leaf], err_is="this leaf's worst parameter error "
+            "relative to the plain version over adam8bit_check's steps (bf16 gradient, fused)", shape=list(shape),
+            ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
+            bound_bytes=n_bytes, bound_flops=ADAM8_OPS_PER_ELEMENT * n, library_ms=None, library_is="none"))
+    tallies = memory["int8_shapes"]
+    for (M, K, N) in sorted(set(tallies["recipe"]) | set(tallies["llama_full"])):
+        x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+        w = (torch.randn((K, N), generator=gen, device="cuda") * 0.02).to(torch.bfloat16)
+        q, s = im.quantize_kernel(w)
+        err = int8_matmul_error(x, q, s)
+        ms = time_ms(lambda: im.int8_weight_matmul(x, q, s))
+        plain = time_ms(lambda: im.int8_weight_matmul_plain(x, q, s))
+        lib = time_ms(lambda: torch.matmul(x, w))
+        n_bytes = K * N + 2 * M * K + 2 * M * N + 4 * N
+        bms, by = bound_ms(n_bytes, 2 * M * K * N)
+        by_path = {path: tallies[path].get((M, K, N), 0) for path in tallies}
+        rows.append(dict(
+            name=f"int8_matmul/M{M}_K{K}_N{N}", route="cuda", source="trlx_tpu_torch/csrc/int8_weight_matmul.cu",
+            replaces="none (port-only: trlx_tpu/models/transformer.py:574 quantize_decode_weights, QDense's XLA dot)",
+            launches=sum(by_path.values()), launches_by_path=by_path, max_abs_err=err["max_abs_err"],
+            err_is="at this shape, from the fp32 product of the same int8 weights",
+            rel_to_half_ulp=err["rel_to_half_ulp"], vs_plain_max_abs=err["vs_plain_max_abs"], splits=err["splits"],
+            shape=[M, K, N], ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, bound_bytes=n_bytes,
+            bound_flops=2 * M * K * N, library_ms=lib, library_is="torch.matmul on the bf16 weight"))
+    for row in rows:
+        emit("kernel_time", **row)
+    return rows
+
+
 def main() -> int:
     try:
         return run()
@@ -5923,7 +6606,7 @@ def run() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--only", choices=("fwd", "paged", "decode", "bias", "sft", "ppo", "resume", "ilql", "rft",
-                                           "grpo", "dpo", "llama", "peft"),
+                                           "grpo", "dpo", "llama", "peft", "memory"),
                         default=None,
                         help="fwd: the build, flash_check and the flash forward's kernel_time rows only "
                              "(a quick check of kernel 1); paged: the build, paged_check and the paged "
@@ -5940,7 +6623,9 @@ def run() -> int:
                              "dpo_path and dpo_reference; llama: the build, the head width 128 kernel cases, "
                              "llama_path and the head width 128 kernel_time rows; peft: the build, the adapters' "
                              "kernel cases, peft_phases (LoRA, prompt and prefix tuning on GPT-2 small, T5 LoRA, "
-                             "Llama-2-7B LoRA) and their kernel_time rows")
+                             "Llama-2-7B LoRA) and their kernel_time rows; memory: the build, kernels 9 and 10 "
+                             "against their plain versions, the recipe PPO cell, the full-parameter Llama-2-7B "
+                             "cell and kernels 9 and 10's kernel_time rows")
     args = parser.parse_args()
 
     import torch
@@ -6010,6 +6695,10 @@ def run() -> int:
         "paged_short_verify": paged_attention_occupancy("short", 4, 32, 32, 16, 5, True, D=128),
         "paged_short_verify_gqa8_bf16_256": paged_attention_occupancy("short", 4, 64, 8, 16, 16, False, D=128),
     }
+    # kernel 9 (fp32 and bf16 gradients) and kernel 10 (16- and 64-row tiles,
+    # the split-K reduction)
+    memory_kernels = (ptxas_report(log, "adam8bit_kernel") + ptxas_report(log, "int8_weight_matmul_kernel")
+                      + ptxas_report(log, "int8_weight_matmul_reduce_kernel"))
     emit("build", seconds=time.perf_counter() - t0,
          ptxas=[ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln],
          flash_bias_bwd_fused=fused, flash_bwd_fused=fused_plain, flash_fwd_short=short_fwd,
@@ -6019,7 +6708,8 @@ def run() -> int:
          decode_int8_short_occupancy=decode_occupancy,
          flash_bwd_fused_occupancy={"train": flash_attention_bwd_occupancy(TRAIN_LEN, TRAIN_LEN),
                                     "t5_cross": flash_attention_bwd_occupancy(T5_DEC_LEN, T5_PROMPT_LEN)},
-         long_new=long_new, d128_occupancy=d128_occupancy, nvcc_seconds=_build.build_seconds())
+         long_new=long_new, d128_occupancy=d128_occupancy, nvcc_seconds=_build.build_seconds(),
+         memory_kernels=memory_kernels)
     # the short and fused kernels at head widths 64 and 128 (eight
     # instantiations by ceil16(S) / 16 at each; the paged kernel's ten at
     # each; the int8 decode kernel's groups 1-8 at each), and the long
@@ -6032,7 +6722,8 @@ def run() -> int:
                             ("D = 128 dq kernel", long_new["flash_bwd_dq_kernel"], 1),
                             ("D = 128 dk/dv kernel", long_new["flash_bwd_dkv_kernel"], 2),
                             ("new long int8 decode kernel", long_new["decode_int8_kernel"], 8),
-                            ("D = 128 long paged kernel", long_new["paged_attention_kernel"], 6)):
+                            ("D = 128 long paged kernel", long_new["paged_attention_kernel"], 6),
+                            ("kernel 9 and kernel 10", memory_kernels, 5)):
         if len(report) != n or any(f.get("spill_stores", 1) or f.get("spill_loads", 1) for f in report):
             raise AssertionError(f"the {what}'s {n} instantiations must build without spills: {report}")
     if short_occupancy["teacher_forced"]["ctas_per_sm"] < 3:
@@ -6091,6 +6782,8 @@ def run() -> int:
         peft_shapes, peft_bias_shapes = {}, {}
         peft = peft_phases(args.seed, peft_shapes, peft_bias_shapes)
         rows = peft_kernel_times(gen, peft, peft_shapes, peft_bias_shapes)
+    elif args.only == "memory":
+        rows = memory_kernel_times(gen, memory_phases(args.seed, {}))
     if args.only is not None:
         print(json.dumps({"kernels": rows}))
         print(card)
@@ -6137,6 +6830,8 @@ def run() -> int:
     llama = llama_phases(args.seed, shapes)
     peft_shapes, peft_bias_shapes = {}, {}  # apart, so that the earlier rows' launches stay their paths'
     peft = peft_phases(args.seed, peft_shapes, peft_bias_shapes)
+    memory_shapes = {}  # apart too: the recipe and 7B cells' kernel 1 launches by shape
+    memory = memory_phases(args.seed, memory_shapes)
     for phase, tallies in (("fwd_shapes", shapes), ("bias_fwd_shapes", bias_shapes), ("peft_fwd_shapes", peft_shapes),
                            ("peft_bias_fwd_shapes", peft_bias_shapes)):
         emit(phase, **{path: [[route, list(bht), S, n] for (route, bht, S), n in sorted(tally.items())]
@@ -6155,6 +6850,9 @@ def run() -> int:
     rows += bias_kernel_times(gen, t5_train_launches, t5_launches, bias_shapes, bias_errs, offline["ilql_t5"])
     rows += llama_kernel_times(gen, llama, shapes, d128_errs)
     rows += peft_kernel_times(gen, peft, peft_shapes, peft_bias_shapes)
+    rows += memory_kernel_times(gen, memory)
+    emit("memory_fwd_shapes", **{path: [[route, list(bht), S, n] for (route, bht, S), n in sorted(tally.items())]
+                                 for path, tally in memory_shapes.items()})
     emit("run", wall_s=time.perf_counter() - _START)
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -189,7 +189,11 @@ def test_greedy_generate_matches_jax(impl):
 
 
 def test_unported_knobs_raise():
-    with pytest.raises(NotImplementedError, match="queue 1"):
-        seq2seq.T5LM(seq2seq.Seq2SeqConfig(decode_weights_quant="int8", **TINY), device="cpu")
+    """Pipeline parallelism raises; int8 decode weights, which raised until
+    the port reached them, build (test_torch_decode_weights.py), and a
+    quantization the reference does not have is refused."""
+    seq2seq.T5LM(seq2seq.Seq2SeqConfig(decode_weights_quant="int8", **TINY), device="cpu")
+    with pytest.raises(ValueError, match="decode_weights_quant"):
+        seq2seq.T5LM(seq2seq.Seq2SeqConfig(decode_weights_quant="int4", **TINY), device="cpu")
     with pytest.raises(NotImplementedError, match="queue 12"):
         seq2seq.T5LM(seq2seq.Seq2SeqConfig(pp_microbatches=2, **TINY), device="cpu")

@@ -28,6 +28,7 @@ from trlx_tpu_torch.models.transformer import (
     quantize_kv_cache,
 )
 from trlx_tpu_torch.ops.common import topk_mask
+from trlx_tpu_torch.ops.int8_matmul import check_decode_dtype, quantize_kernel
 
 # HF `generate` kwargs this sampler does not implement: ignored with a
 # warning, so reference configs run unmodified
@@ -183,6 +184,19 @@ def categorical_lanes(keys: torch.Tensor, probs: torch.Tensor) -> torch.Tensor:
     return torch.argmax(logp + lane_gumbel(keys, probs.shape[-1]), dim=-1)
 
 
+def _quantized_projections(model: nn.Module) -> Dict[int, nn.Module]:
+    """{id(kernel): projection module} of the block projections an int8
+    decode copy quantizes: every `kernel_scale`-carrying projection under
+    the blocks (a seq2seq model's decoder blocks: its encoder runs once,
+    in full precision), when the config asks for int8 decode weights."""
+    if getattr(getattr(model, "cfg", None), "decode_weights_quant", None) != "int8":
+        return {}
+    decoder = getattr(model, "decoder", None)
+    blocks = decoder.blocks if decoder is not None else model.blocks
+    return {id(m.kernel): m for m in blocks.modules()
+            if hasattr(m, "kernel_scale") and m.kernel.dtype.is_floating_point}
+
+
 def cast_params_for_decode(model: TransformerLM, compute_dtype: torch.dtype) -> TransformerLM:
     """A copy of `model` whose matmul weights (`kernel`, `wte`, `wpe`) are
     pre-cast to the compute dtype, so decode steps do not re-cast them;
@@ -193,9 +207,14 @@ def cast_params_for_decode(model: TransformerLM, compute_dtype: torch.dtype) -> 
 
     A projection with an active LoRA pair gets its merged weight W + s A B
     (fp32, then cast), as the reference merges before its sampler; the
-    copy holds no pair (a pair switched off is dropped unmerged). Only
-    the new weights are allocated: the cast tensors are put in place
-    during the copy."""
+    copy holds no pair (a pair switched off is dropped unmerged). With
+    `decode_weights_quant="int8"` every block projection of the copy is
+    int8 with per-output-channel scales (`kernel_scale`), quantized from
+    its compute-dtype rounding as the reference quantizes its cast tree
+    (`quantize_decode_weights`); embeddings and the head stay in the
+    compute dtype. Only the new weights are allocated, one tensor at a
+    time: the cast and quantized tensors are put in place during the
+    copy."""
     merged = {}
     held = []
     for module in model.modules():
@@ -204,17 +223,29 @@ def cast_params_for_decode(model: TransformerLM, compute_dtype: torch.dtype) -> 
             held.append(pair)
             if pair.enabled:
                 merged[id(module.kernel)] = pair
+    quantized = _quantized_projections(model)
+    if quantized:
+        check_decode_dtype(next(iter(quantized.values())).kernel.device, compute_dtype)
+    scales = {}
     memo = {id(pair): None for pair in held}
     for n, p in model.named_parameters():
         cast = (n.rsplit(".", 1)[-1] in ("kernel", "wte", "wpe") and p.dtype.is_floating_point
                 and p.dtype != compute_dtype)
         pair = merged.get(id(p))
-        if cast or pair is not None:
+        module = quantized.get(id(p))
+        if module is not None:
+            data = p.detach() if pair is None else pair.merged(p.detach())
+            q, scales[id(module)] = quantize_kernel(data.to(compute_dtype))
+            memo[id(p)] = nn.Parameter(q, requires_grad=False)
+        elif cast or pair is not None:
             data = p.detach() if pair is None else pair.merged(p.detach())
             memo[id(p)] = nn.Parameter(data.to(compute_dtype) if cast else data, requires_grad=False)
     if not memo:
         return model
-    return copy.deepcopy(model, memo)
+    out = copy.deepcopy(model, memo)
+    for module_id, s in scales.items():
+        memo[module_id].kernel_scale = s  # the deep copy of that projection
+    return out
 
 
 @torch.no_grad()

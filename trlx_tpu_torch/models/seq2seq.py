@@ -26,9 +26,15 @@ Decode steps over the KV cache always take the einsum path, as in the
 reference (the cross-attention recomputes the encoder's K/V every step,
 as there).
 
-Not ported, raising NotImplementedError: `decode_weights_quant="int8"`
-(`quantize_decode_weights`, ROADMAP queue 1 item 1) and pipeline
-parallelism (`pp_microbatches`, a mesh; ROADMAP queue 12).
+Int8 decode weights (`decode_weights_quant="int8"`): the sampler's decode
+copy holds the decoder blocks' projections as int8 kernels with
+per-output-channel scales (the encoder runs once, in full precision), and
+`Dense` runs the W8A16 product (`ops.int8_matmul`). `remat` (the trainer's
+resolved `train.remat_policy`) checkpoints each block of a pass that
+records a graph, in both stacks (`ops.remat`).
+
+Not ported, raising NotImplementedError: pipeline parallelism
+(`pp_microbatches`, a mesh; ROADMAP queue 12).
 """
 
 from __future__ import annotations
@@ -45,6 +51,8 @@ from torch import nn
 from trlx_tpu_torch.models.lora import adapter_of
 from trlx_tpu_torch.models.transformer import NEG_INF, to_torch_dtype
 from trlx_tpu_torch.ops.flash_attention import flash_attention, flash_attention_bias
+from trlx_tpu_torch.ops.int8_matmul import int8_weight_matmul
+from trlx_tpu_torch.ops.remat import checkpoint_block
 from trlx_tpu_torch.utils.device import resolve_device
 
 
@@ -86,11 +94,8 @@ class Seq2SeqConfig:
 
 def check_ported(cfg: Seq2SeqConfig) -> None:
     """Raise NotImplementedError for a knob of a part not ported yet."""
-    if cfg.decode_weights_quant is not None:
-        raise NotImplementedError(
-            f"Seq2SeqConfig.decode_weights_quant={cfg.decode_weights_quant!r} is not ported yet "
-            "(quantize_decode_weights, ROADMAP queue 1 item 1)"
-        )
+    if cfg.decode_weights_quant not in (None, "int8"):
+        raise ValueError(f"decode_weights_quant={cfg.decode_weights_quant!r} (None or 'int8')")
     if cfg.pp_microbatches:
         raise NotImplementedError("pipeline parallelism (pp_microbatches) is not ported yet (ROADMAP queue 12)")
     if cfg.attention_impl not in ("xla", "pallas"):
@@ -175,15 +180,21 @@ class T5Norm(nn.Module):
 class Dense(nn.Module):
     """Linear map without bias: `kernel` [in, out] (the reference's input
     dims and feature dims flattened); the product runs in `dtype`. A LoRA
-    pair attached to it (`models/lora.py`) adds its unmerged term."""
+    pair attached to it (`models/lora.py`) adds its unmerged term. In the
+    sampler's int8 decode copy the kernel is int8 with `kernel_scale`, and
+    the product the W8A16 one."""
 
     def __init__(self, in_features: int, out_features: int, cfg: Seq2SeqConfig, device=None):
         super().__init__()
         self.dtype = cfg.dtype
         self.kernel = nn.Parameter(torch.empty(in_features, out_features, dtype=cfg.param_dtype, device=device))
+        self.register_buffer("kernel_scale", None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = torch.matmul(x.to(self.dtype), self.kernel.to(self.dtype))
+        if self.kernel_scale is not None:
+            y = int8_weight_matmul(x.to(self.dtype), self.kernel, self.kernel_scale)
+        else:
+            y = torch.matmul(x.to(self.dtype), self.kernel.to(self.dtype))
         pair = adapter_of(self)
         return y if pair is None else y + pair.delta(x, self.dtype)
 
@@ -397,10 +408,10 @@ class T5LM(nn.Module):
     def _embed(self, ids: torch.Tensor) -> torch.Tensor:
         return F.embedding(ids.long(), self.shared.wte).to(self.cfg.dtype)
 
-    @staticmethod
-    def _run(blocks, h, args: Tuple, cache=None):
+    def _run(self, blocks, h, args: Tuple, cache=None):
+        remat = getattr(self, "remat", False)
         for ix, block in enumerate(blocks):
-            h = block(h, *args, cache=cache, ix=ix)
+            h = checkpoint_block(block, remat, h, *args, cache=cache, ix=ix)
         return h
 
     def _logits(self, hidden: torch.Tensor) -> torch.Tensor:

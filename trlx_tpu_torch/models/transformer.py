@@ -33,7 +33,18 @@ sequential or the parallel residual (GPT-J: attention and MLP both read
 ln_1's output, and no ln_2 exists), tied embeddings or an untied
 `lm_head`, and grouped-query attention. The switches of OPT, Bloom,
 GPT-Neo and GPT-BigCode (alibi, pos_offset, embed_layernorm, attn_scale,
-local windows) and int8 decode weights raise NotImplementedError.
+local windows) raise NotImplementedError.
+
+Int8 decode weights (`decode_weights_quant="int8"`): the samplers'
+decode copy (`generation.cast_params_for_decode`) holds every block
+projection as an int8 kernel with per-output-channel fp32 scales
+(`kernel_scale`), and `QDense` then runs the W8A16 product
+(`ops.int8_matmul`, kernel 10 on the card). Training and teacher-forced
+passes never see a scale.
+
+Activation checkpointing (`remat`, set by the trainer from
+`train.remat_policy`): `_run_blocks` wraps each block of a pass that
+records a graph in `ops.remat.checkpoint_block`.
 
 Adapters: a LoRA pair attached to a projection (`models/lora.py`) adds
 its unmerged term inside `QDense`; `forward` takes prompt tuning's soft
@@ -70,6 +81,8 @@ from trlx_tpu_torch.ops.decode_attention import (
 )
 from trlx_tpu_torch.models.lora import adapter_of
 from trlx_tpu_torch.ops.flash_attention import flash_attention
+from trlx_tpu_torch.ops.int8_matmul import int8_weight_matmul
+from trlx_tpu_torch.ops.remat import checkpoint_block
 from trlx_tpu_torch.utils.device import resolve_device
 
 NEG_INF = -1e9  # additive mask value of the plain path (finite: no NaN rows)
@@ -162,14 +175,13 @@ _CHOICES = {
 def check_ported(cfg: TransformerConfig) -> None:
     """Raise NotImplementedError for any switch the port has not reached
     (rather than silently computing another model): the OPT, Bloom,
-    GPT-Neo and GPT-BigCode switches and int8 decode weights."""
+    GPT-Neo and GPT-BigCode switches."""
     unported = {
         "pos_offset": (cfg.pos_offset, 0),
         "embed_layernorm": (cfg.embed_layernorm, False),
         "attn_scale": (cfg.attn_scale, None),
         "local_window": (cfg.local_window, None),
         "attn_layers": (cfg.attn_layers, None),
-        "decode_weights_quant": (cfg.decode_weights_quant, None),
     }
     for name, (got, ported) in unported.items():
         if got != ported:
@@ -188,6 +200,8 @@ def check_ported(cfg: TransformerConfig) -> None:
         raise NotImplementedError(f"attention_impl={cfg.attention_impl!r} is not ported ({_UNPORTED_QUEUE})")
     if cfg.kv_cache_quant not in (None, "int8", "int8_kernel"):
         raise NotImplementedError(f"kv_cache_quant={cfg.kv_cache_quant!r} is not ported")
+    if cfg.decode_weights_quant not in (None, "int8"):
+        raise ValueError(f"decode_weights_quant={cfg.decode_weights_quant!r} (None or 'int8')")
     if cfg.n_head % cfg.n_kv_head:
         raise ValueError(f"n_head={cfg.n_head} not a multiple of n_kv_head={cfg.n_kv_head}")
 
@@ -261,7 +275,10 @@ class QDense(nn.Module):
     (the reference's (input dims..., feature dims...) flattened) and a
     zero-init `bias` [out] unless `use_bias` is off. The product runs in
     `dtype`. A LoRA pair attached to it (`models/lora.py`) adds its
-    unmerged term."""
+    unmerged term. In a samplers' int8 decode copy the kernel is int8 and
+    `kernel_scale` its per-output-channel scales: the product is then the
+    W8A16 one (`int8_weight_matmul`), the bias added after the scale as
+    in the reference."""
 
     def __init__(self, in_features: int, out_features: int, dtype, param_dtype, device=None,
                  use_bias: bool = True):
@@ -274,9 +291,13 @@ class QDense(nn.Module):
             self.bias = nn.Parameter(torch.zeros(out_features, dtype=param_dtype, device=device))
         else:
             self.register_parameter("bias", None)
+        self.register_buffer("kernel_scale", None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = torch.matmul(x.to(self.dtype), self.kernel.to(self.dtype))
+        if self.kernel_scale is not None:
+            y = int8_weight_matmul(x.to(self.dtype), self.kernel, self.kernel_scale)
+        else:
+            y = torch.matmul(x.to(self.dtype), self.kernel.to(self.dtype))
         if self.bias is not None:
             y = y + self.bias.to(self.dtype)
         pair = adapter_of(self)
@@ -606,6 +627,7 @@ class TransformerLM(nn.Module):
         self.blocks = nn.ModuleList(Block(cfg, device) for _ in range(cfg.n_layer))
         self.ln_f = Norm(cfg, device)
         self.lm_head = None if cfg.tie_word_embeddings else LMHead(cfg, device)
+        self.remat = False  # the resolved train.remat_policy (ops/remat.py)
 
     @property
     def device(self) -> torch.device:
@@ -659,11 +681,13 @@ class TransformerLM(nn.Module):
         its branch blocks onto the extension slots); default
         layer_offset + i. `positions` [B, T] are the real positions the
         rope rotates by; `kv_prefix` {k, v} [L, n, Hkv, D] are prefix
-        tuning's keys and values, by cache layer."""
+        tuning's keys and values, by cache layer. Under `remat` each block of
+        a pass that records a graph is checkpointed."""
+        remat = getattr(self, "remat", False)  # a draft composed without __init__ has none
         for i, block in enumerate(blocks):
             ix = layer_offset + i if layer_ixs is None else int(layer_ixs[i])
             prefix = None if kv_prefix is None else (kv_prefix["k"][ix], kv_prefix["v"][ix])
-            h = block(h, attn_bias, cache, ix, key_mask, positions, prefix)
+            h = checkpoint_block(block, remat, h, attn_bias, cache, ix, key_mask, positions, prefix)
         return h
 
     def _logits(self, hidden: torch.Tensor) -> torch.Tensor:

@@ -30,7 +30,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = (
     "flash_fwd.cu", "flash_bwd.cu", "flash_bias_fwd.cu", "flash_bias_bwd.cu",
-    "decode_int8.cu", "paged_attention.cu",
+    "decode_int8.cu", "paged_attention.cu", "adam8bit.cu", "int8_weight_matmul.cu",
 )
 HEAD_DIMS = (64, 128)  # the head widths the attention kernels are instantiated for (the bias ones: 64)
 # sources built once a head width, each into a library of its own

@@ -58,6 +58,7 @@ from typing import Optional
 import torch
 
 from trlx_tpu_torch.ops._build import HEAD_DIMS
+from trlx_tpu_torch.ops.remat import saved_attention
 
 NEG_INF = -1e30
 
@@ -457,7 +458,8 @@ class _FlashAttentionFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, key_mask, causal, sm_scale, q_offset):
-        out, m, l = _forward(q, k, v, key_mask, causal, sm_scale, q_offset)
+        # under remat "save_attn" a recompute reuses the forward's outputs
+        out, m, l = saved_attention(lambda: _forward(q, k, v, key_mask, causal, sm_scale, q_offset))
         ctx.save_for_backward(q, k, v, key_mask, out, m, l)
         ctx.static = (causal, sm_scale, q_offset)
         ctx.mark_non_differentiable(m, l)
@@ -839,7 +841,7 @@ class _FlashBiasAttentionFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, key_mask, bias, causal, sm_scale):
-        out, m, l = _bias_forward(q, k, v, key_mask, bias, causal, sm_scale)
+        out, m, l = saved_attention(lambda: _bias_forward(q, k, v, key_mask, bias, causal, sm_scale))
         ctx.save_for_backward(q, k, v, key_mask, bias, out, m, l)
         ctx.static = (causal, sm_scale)
         ctx.mark_non_differentiable(m, l)

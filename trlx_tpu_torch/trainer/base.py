@@ -61,6 +61,20 @@ What the port does differently, and why:
   integrity manifest, then the topology, then restores. The loop also
   stores where it stands in its pass over the data (`loop_position`), so
   an offline trainer resumed mid-pass continues the same minibatch order.
+- The memory recipe. `train.minibatch_size` splits each step's batch
+  into microbatches whose gradients and stats are summed in fp32 and
+  averaged, as the reference's scan does. `train.grads_dtype` (bf16)
+  keeps the gradient tree in that dtype beside the fp32 masters: a
+  post-accumulate hook on each trainable parameter moves its fp32
+  `.grad` into the tree as the backward produces it, so at most one
+  parameter's fp32 gradient is alive at a time (the reference
+  differentiates through a bf16 view of the parameters instead; the two
+  round differently where a parameter's gradient is a sum, the tied wte,
+  or where it is used in fp32, the norm gains). `train.remat_policy`
+  checkpoints each block (`ops/remat.py`). With the fused 8-bit AdamW a
+  step whose loss or gradients are not finite applies with zeroed
+  gradients (its count advances, its moments decay, its weight decay
+  applies), as in the reference's fused branch; other optimizers skip it.
 - Adapters (`model.peft_config`). The reference masks the base's updates
   and keeps the adapter beside it in its param tree; here `init_weights`
   attaches the adapter to the wrapper (`models/peft.py`), the base gets
@@ -80,6 +94,7 @@ import json
 import os
 import random
 import time
+import weakref
 from abc import abstractmethod
 from collections import defaultdict
 from contextlib import contextmanager
@@ -115,8 +130,10 @@ from trlx_tpu_torch.models.peft import (
     targets_of,
 )
 from trlx_tpu_torch.models.seq2seq import Seq2SeqConfig, generate_seq2seq
-from trlx_tpu_torch.models.transformer import TransformerConfig, logit_projection
+from trlx_tpu_torch.models.transformer import TransformerConfig, logit_projection, to_torch_dtype
 from trlx_tpu_torch.models.wrappers import AdapterOffReference, CausalLM
+from trlx_tpu_torch.ops.int8_matmul import check_decode_dtype
+from trlx_tpu_torch.ops.remat import resolve_remat
 from trlx_tpu_torch.ops.common import (
     chunked_logprobs,
     logprobs_of_labels,
@@ -198,13 +215,8 @@ def check_ported(config: TRLConfig) -> None:
     of the reference the port has not reached, rather than training
     without it."""
     train, method, model = config.train, config.method, config.model
-    mb = train.minibatch_size
     checks = [
-        (mb is not None and mb != train.batch_size,
-         f"train.minibatch_size={mb} (gradient accumulation)", "ROADMAP queue 9"),
-        (train.grads_dtype is not None, f"train.grads_dtype={train.grads_dtype!r}", "ROADMAP queue 9"),
-        (train.remat_policy != "none", f"train.remat_policy={train.remat_policy!r}", "ROADMAP queue 9"),
-        (_enabled(train.memory), "train.memory (the memory doctor)", "ROADMAP queue 9"),
+        (_enabled(train.memory), "train.memory", "ROADMAP queue 9: the memory doctor"),
         (_enabled(train.guardrails), "train.guardrails", "ROADMAP queue 10"),
         (_enabled(train.watchdog), "train.watchdog", "ROADMAP queue 10"),
         (_enabled(train.obs), "train.obs (the flight recorder)", "ROADMAP queue 10"),
@@ -267,12 +279,41 @@ class TPUBaseTrainer(BaseRLTrainer):
         self._engine_fns: Dict[Tuple, Callable] = {}
         self._warned_engine_fallback = False
 
+        # gradient accumulation: the reference's (mb_size, num_mb)
+        self.mb_size = train.minibatch_size or train.batch_size
+        if train.batch_size % self.mb_size:
+            raise ValueError("batch_size must be divisible by minibatch_size")
+        self.num_mb = train.batch_size // self.mb_size
+        self.grads_dtype = to_torch_dtype(train.grads_dtype) if train.grads_dtype else None
+
         self.setup_model()
+        cfg = getattr(self.model, "cfg", None)
+        if getattr(cfg, "decode_weights_quant", None) == "int8":
+            check_decode_dtype(self.device, cfg.dtype)
         self.freeze_parameters()
+        self.model.base.remat = resolve_remat(train.remat_policy)
         self.trainable_params = [p for p in self.model.parameters() if p.requires_grad]
         self.optimizer, self.scheduler, self.schedule = build_optimizer(
             self.trainable_params, config.optimizer, config.scheduler
         )
+        # the gradient tree in train.grads_dtype (the post-accumulate hooks
+        # fill it during train_step's backwards, and only there). A hook
+        # holds the trainer weakly: autograd keeps hooks where the garbage
+        # collector cannot see them, so a strong one would keep the
+        # trainer, its model and its optimizer alive forever
+        self._grad_tree: Dict[torch.Tensor, torch.Tensor] = {}
+        self._grad_sink_on = False
+        if self.grads_dtype is not None:
+            sink = weakref.WeakMethod(self._sink_grad)
+
+            def hook(p: torch.Tensor) -> None:
+                fn = sink()
+                if fn is not None:
+                    fn(p)
+
+            for p in self.trainable_params:
+                if p.dtype != self.grads_dtype:
+                    p.register_post_accumulate_grad_hook(hook)
 
         gen_kwargs = dict(config.method.gen_kwargs)
         self.generate_sweep_kwarg = None
@@ -883,29 +924,110 @@ class TPUBaseTrainer(BaseRLTrainer):
         """(batch) -> (scalar loss with a graph to the trainable
         parameters, {stat key: 0-dim tensor})."""
 
+    def _sink_grad(self, p: torch.Tensor) -> None:
+        """Post-accumulate hook under train.grads_dtype: the parameter's
+        fp32 gradient of this backward, rounded to grads_dtype (the
+        reference's per-microbatch gradient dtype), into the gradient tree
+        (summed there in fp32 across microbatches), and `.grad` freed.
+        Outside train_step a backward leaves `.grad` as it is."""
+        if not self._grad_sink_on:
+            return
+        g = p.grad.to(self.grads_dtype)
+        p.grad = None
+        if self.num_mb == 1:
+            self._grad_tree[p] = g
+        elif p in self._grad_tree:
+            self._grad_tree[p].add_(g.float())
+        else:
+            self._grad_tree[p] = g.float()
+
+    def _pre_accum_batch(self, batch):
+        """Hook on a minibatch that is split into accumulation microbatches:
+        the memory doctor's place to precompute batch-statistic terms over
+        the whole minibatch. Identity: PPO whitens and GRPO normalises per
+        microbatch, as the reference does without the doctor."""
+        return batch
+
+    def _microbatches(self, batch) -> list:
+        if self.num_mb == 1:
+            return [batch]
+        batch = self._pre_accum_batch(batch)
+        mb = self.mb_size
+        return [batch.map(lambda x, i=i: x[i * mb:(i + 1) * mb]) for i in range(self.num_mb)]
+
+    def _step_grads(self) -> Dict[torch.Tensor, torch.Tensor]:
+        """{parameter: its mean gradient over the microbatches}: the
+        gradient tree in grads_dtype, or the parameters' fp32 `.grad`."""
+        n = self.num_mb
+        if self.grads_dtype is not None:
+            grads = self._grad_tree
+            if n > 1:
+                grads = {p: (g / n).to(self.grads_dtype) for p, g in grads.items()}
+            for p in self.trainable_params:  # parameters already in grads_dtype
+                if p.grad is not None:
+                    grads[p] = p.grad if n == 1 else p.grad / n
+            return grads
+        grads = {p: p.grad for p in self.trainable_params if p.grad is not None}
+        if n > 1:
+            torch._foreach_div_(list(grads.values()), float(n))
+        return grads
+
+    def _optimizer_step(self, grads: Dict[torch.Tensor, torch.Tensor]) -> None:
+        if getattr(self.optimizer, "takes_grad_tree", False):
+            self.optimizer.step(grads=grads)
+            return
+        for p, g in grads.items():  # torch's own optimizers read .grad
+            if g is not p.grad:
+                p.grad = g.to(p.dtype)
+        self.optimizer.step()
+
     def train_step(self, batch) -> Tuple[float, Dict[str, float]]:
         """One optimizer step on one minibatch (the reference's
-        `_step_update` for num_mb == 1): loss, backward, AdamW step, then
-        the schedule advances. With train.skip_nan_updates (the default) a
-        non-finite loss or gradient leaves the parameters AND the optimizer
-        state (step count included) untouched and the step returns a NaN
-        loss, which `_guard_bad_loss` counts."""
+        `_step_update`): the minibatch split into train.batch_size /
+        train.minibatch_size microbatches, each one's loss and backward, the
+        gradients and stats summed in fp32 and averaged, the optimizer step,
+        then the schedule advances. With train.skip_nan_updates (the
+        default) a non-finite loss or gradient leaves the parameters AND
+        the optimizer state (step count included) untouched, except under
+        the fused 8-bit AdamW, which applies the step with zeroed gradients;
+        either way the step returns a NaN loss, which `_guard_bad_loss`
+        counts."""
         with self._phase("train"):
             self.optimizer.zero_grad(set_to_none=True)
-            loss, stats = self.loss(batch)
-            loss.backward()
-            grads = [p.grad for p in self.trainable_params if p.grad is not None]
+            self._grad_tree = {}
+            mbs = self._microbatches(batch)
+            loss_sum, stat_sums = None, {}
+            self._grad_sink_on = self.grads_dtype is not None
+            try:
+                for mb in mbs:
+                    loss, stats = self.loss(mb)
+                    loss.backward()
+                    # summed in fp32 as the reference's scan carries them
+                    loss_sum = loss.detach().float() if loss_sum is None else loss_sum + loss.detach().float()
+                    for k, v in stats.items():
+                        v = v.detach().float()
+                        stat_sums[k] = v if k not in stat_sums else stat_sums[k] + v
+            finally:
+                self._grad_sink_on = False
+            n = len(mbs)
+            loss = loss_sum / n if n > 1 else loss_sum
+            stats = {k: v / n for k, v in stat_sums.items()} if n > 1 else stat_sums
+            grads = self._step_grads()
             # one device->host read for the loss, the finiteness check and
             # every stat
             names = list(stats)
-            health = torch.stack(torch._foreach_norm(grads)).sum() if grads else loss.detach()
-            host = torch.stack(
-                [loss.detach().float(), health.float()] + [stats[k].detach().float() for k in names]
-            ).cpu().tolist()
+            health = torch.stack(torch._foreach_norm(list(grads.values()))).float().sum() if grads else loss
+            host = torch.stack([loss, health.float()] + [stats[k] for k in names]).cpu().tolist()
             good = not self.config.train.skip_nan_updates or all(np.isfinite(host[:2]))
-            if good:
-                self.optimizer.step()
+            as_zero = getattr(self.optimizer, "applies_nonfinite_as_zero", False)
+            if not good and as_zero:
+                # the reference's fused branch: zeroed gradients, still applied
+                for g in grads.values():
+                    g.zero_()
+            if good or as_zero:
+                self._optimizer_step(grads)
                 self.scheduler.step()
+            self._grad_tree = {}  # frees a grads_dtype tree before anything else runs
         return (host[0] if good else float("nan")), dict(zip(names, host[2:]))
 
     def _epoch_perms(self, n: int) -> np.ndarray:
@@ -962,19 +1084,23 @@ class TPUBaseTrainer(BaseRLTrainer):
     def _measure_forward(self, batch) -> float:
         """Seconds of a forward-only (no-grad) `loss` pass on `batch`,
         once per batch shape (`train.timing_split`): a warm pass, then a
-        timed one, the device synchronised before each clock read."""
+        timed one, the device synchronised before each clock read. Under
+        gradient accumulation the probe runs the first microbatch and
+        scales by their number, as in the reference."""
         key = _batch_shape_key(batch)
         if key not in self._measured_forward_times:
+            probe = batch.map(lambda x: x[: self.mb_size]) if self.num_mb > 1 else batch
+
             def forward():
                 with torch.no_grad():
-                    self.loss(batch)
+                    self.loss(probe)
                 if self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)
 
             forward()
             t0 = time.perf_counter()
             forward()
-            self._measured_forward_times[key] = time.perf_counter() - t0
+            self._measured_forward_times[key] = (time.perf_counter() - t0) * self.num_mb
         return self._measured_forward_times[key]
 
     def _log_stats(self, stats: Dict[str, Any], step: int) -> None:

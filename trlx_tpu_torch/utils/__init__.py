@@ -5,7 +5,9 @@ The registries keep the reference's names and kwargs (torch-style `lr`,
 `betas`, `eps`, `weight_decay`; `T_max`/`eta_min` for cosine) and its
 numerics: AdamW decays every parameter it is given (one param group, as
 optax.adamw does), and step k uses schedule(k) — the LambdaLR is stepped
-after each optimizer step.
+after each optimizer step. `adamw_8bit_bnb`, `adamw_8bit_fused` and
+`lion` are the port's own optimizers (`ops/adam8bit.py`); their `step`
+takes a gradient tree of another dtype (`grads=`).
 """
 
 from __future__ import annotations
@@ -82,10 +84,22 @@ def get_optimizer_class(name: str) -> Callable:
     """A factory `(params, lr, **kwargs) -> torch.optim.Optimizer` for a
     registry name, taking the reference's torch-style kwargs."""
     name = OptimizerName(name.lower() if isinstance(name, str) else name)
-    if name in (OptimizerName.ADAMW_8BIT_BNB, OptimizerName.ADAMW_8BIT_FUSED, OptimizerName.LION):
-        raise NotImplementedError(
-            f"optimizer {name.value!r} is not ported yet (ROADMAP queue 9: memory and optimizer)"
-        )
+    if name in (OptimizerName.ADAMW_8BIT_BNB, OptimizerName.ADAMW_8BIT_FUSED):
+        from trlx_tpu_torch.ops.adam8bit import AdamW8bit
+
+        fused = name == OptimizerName.ADAMW_8BIT_FUSED
+
+        def make_adam8bit(params, lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0, **kw):
+            return AdamW8bit(params, lr=lr, betas=betas, eps=eps, weight_decay=weight_decay, fused=fused, **kw)
+
+        return make_adam8bit
+    if name == OptimizerName.LION:
+        from trlx_tpu_torch.ops.adam8bit import Lion
+
+        def make_lion(params, lr, betas=(0.9, 0.99), weight_decay=0.0, **kw):
+            return Lion(params, lr=lr, betas=betas, weight_decay=weight_decay, **kw)
+
+        return make_lion
 
     if name in (OptimizerName.ADAM, OptimizerName.ADAMW):
         # "adam" with weight decay is adamw in the reference (decoupled decay)
