@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive trlx_tpu_torch's rollout and training paths on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N] [--only fwd|paged|decode|bias|sft|ppo|resume|ilql|rft|grpo|dpo|llama|peft|memory]
+    python3 chip_smoke.py [--seed N] [--only fwd|paged|decode|bias|sft|ppo|resume|ilql|rft|grpo|dpo|llama|peft|memory|health]
 
 Builds the CUDA kernels from `trlx_tpu_torch/csrc` (into build/kernels/)
 and holds each kernel against its plain PyTorch version on the card: both
@@ -148,7 +148,16 @@ train step and one engine call of each mode are profiled.
 the ILQL, RFT, GRPO or DPO phases; `--only llama` the build, the head
 width 128 kernel cases, the Llama path and its kernel_time rows; `--only
 peft` the build, the peft phases and their kernel_time rows; `--only
-memory` the build, the memory phases and kernels 9 and 10's rows.
+memory` the build, the memory phases and kernels 9 and 10's rows; `--only
+health` the build and the health phases: a real CUDA OOM under a process
+memory cap walks the memory doctor's split_microbatch rung (the losses and
+weights against a run split by a chaos OOM, the losses, gradients and
+update against an unsplit run) and its shrink_pool rung (greedy rollouts
+against the uncapped pool's), the preflight plan's state rows against the
+bytes the trainer holds (the GPT-2 and recipe cells) and
+an over-budget config rejected before any rollout, and a chaos NaN that
+the guardrails roll back to the committed checkpoint bitwise, then a
+chaos hbm_creep that trips the watermark.
 `--only fwd` stops after the build, the flash forward's check and its
 kernel_time rows; `--only paged` after the build, the paged check and the
 paged kernel_time rows; `--only decode` after the build, the int8 decode
@@ -6592,6 +6601,501 @@ def memory_kernel_times(gen, memory: dict) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the health phases: the memory doctor, the guardrails and the chaos harness
+# ---------------------------------------------------------------------------
+
+HEALTH_ROLLOUTS, HEALTH_STEPS = 64, 2  # one cycle: 64 rollouts, batch 32, one epoch
+# the accumulation tolerance of tests/torch_port/test_torch_memory.py: the
+# run split by a real OOM against the one split by chaos (the same code
+# once the failed attempt is gone)
+HEALTH_RTOL = 1e-4
+# the split run against the unsplit one: the losses at HEALTH_RTOL; the
+# split step's gradient and update at about 4x the readings on the H100
+# (PERF.md, Health: 2.03e-3 and 5.98e-3, the losses bitwise equal). bf16
+# compute: each microbatch's weight gradients come out of bf16 matmuls,
+# rounded to bf16 (unit 2^-8) before they are summed in fp32, and Adam's
+# normalised step scales that noise up in small gradient elements
+HEALTH_SPLIT_GRAD_RTOL = 2 ** -7  # ||g_split - g|| / ||g|| over the split step's gradient tree
+HEALTH_SPLIT_UPDATE_RTOL = 2 ** -5  # ||p_split - p|| / ||p - p_before||: the split step's update
+# the engine cell's explicit page pool: about 4 GB of int8 pages at the
+# cell's 4 layers, so that the pool, not the decode's other tensors,
+# decides whether generate() fits under oom_pool_path's cap
+HEALTH_POOL_PAGES = 40_000
+HEALTH_ENGINE = dict(enabled=True, slots=32, page_size=16, paged_attention_impl="pallas",
+                     pool_pages=HEALTH_POOL_PAGES)
+HEALTH_ENGINE_STEP_AGREEMENT = 0.95  # engine_reference's per-step gate
+# guardrail_path: one cycle of 4 steps (two passes of two batches), a
+# committed checkpoint at step 2
+GUARDRAIL_STEPS, GUARDRAIL_INTERVAL = 4, 2
+
+
+def health_config(seed: int, **train):
+    """train_config (GPT-2 small at EARLIER_LAYERS, bf16 compute, the flash
+    and int8 decode kernels) cut to one cycle of HEALTH_STEPS steps, with
+    the memory doctor on; `train` overrides the train section."""
+    config = train_config(seed)
+    return config.evolve(
+        train=dict(dict(total_steps=HEALTH_STEPS, memory=dict(enabled=True)), **train),
+        method=dict(num_rollouts=HEALTH_ROLLOUTS, chunk_size=HEALTH_ROLLOUTS, ppo_epochs=1),
+    )
+
+
+def health_engine_config(seed: int, **train):
+    """health_config with greedy rollouts through the decode engine (32
+    slots, 16-token int8 pages, the paged kernel) over HEALTH_POOL_PAGES
+    pages: oom_pool_path's cell. (Not the split's: the freed pool's
+    segment stays reserved under the tensors later carved from it, so a
+    cap on a train step would not bind.)"""
+    return health_config(seed, **train).evolve(method=dict(gen_engine=HEALTH_ENGINE, gen_kwargs=dict(
+        max_new_tokens=TRAIN_NEW_TOKENS, top_k=0, top_p=1.0, do_sample=False)))
+
+
+def health_counters() -> dict:
+    return {**train_counters(), **paged_counters()}
+
+
+def health_train(config, path: str, cap=None):
+    """`trlx_tpu_torch.train` with every kernel's counter at 0 just before it.
+    With `cap` = (method name, bytes above what is allocated on entry, first
+    step), the process's memory fraction is capped for the duration of each
+    call of that TPUBaseTrainer method from that optimizer step on (the
+    allocator's cache emptied first, so the cap binds) and lifted after it.
+    Returns (trainer, wall s, launches)."""
+    import torch
+
+    import trlx_tpu_torch
+    from trlx_tpu_torch.trainer import base as trainer_base
+
+    counters = health_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    restore = None
+    if cap is not None:
+        name, margin, first = cap
+        inner = getattr(trainer_base.TPUBaseTrainer, name)
+        total = torch.cuda.get_device_properties(0).total_memory
+
+        def capped(self, *args, **kwargs):
+            if self.iter_count < first:
+                return inner(self, *args, **kwargs)
+            torch.cuda.empty_cache()
+            torch.cuda.set_per_process_memory_fraction(min(1.0, (torch.cuda.memory_allocated() + margin) / total))
+            try:
+                return inner(self, *args, **kwargs)
+            finally:
+                torch.cuda.set_per_process_memory_fraction(1.0)
+
+        setattr(trainer_base.TPUBaseTrainer, name, capped)
+        restore = (name, inner)
+    t0 = time.perf_counter()
+    try:
+        trainer = trlx_tpu_torch.train(reward_fn=train_reward_fn, prompts=TRAIN_PROMPTS, config=config)
+    finally:
+        if restore is not None:
+            setattr(trainer_base.TPUBaseTrainer, *restore)
+            torch.cuda.set_per_process_memory_fraction(1.0)
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    return trainer, time.perf_counter() - t0, launches
+
+
+@contextlib.contextmanager
+def optimizer_steps(copy: bool = False):
+    """Records each call of TPUBaseTrainer._optimizer_step while open: the
+    gradient tree's bytes and, with `copy`, the gradients and the
+    parameters before the step, by name, copied to the host (no device
+    memory, so a cap around the step is not disturbed)."""
+    from trlx_tpu_torch.trainer import base as trainer_base
+
+    step, seen = trainer_base.TPUBaseTrainer._optimizer_step, []
+
+    def spied(self, grads):
+        record = {"bytes": sum(g.numel() * g.element_size() for g in grads.values())}
+        if copy:
+            names = {id(p): n for n, p in self.model.named_parameters()}
+            record["grads"] = {names[id(p)]: g.detach().cpu().float() for p, g in grads.items()}
+            record["before"] = {n: p.detach().cpu() for n, p in self.model.named_parameters()}
+        seen.append(record)
+        return step(self, grads)
+
+    trainer_base.TPUBaseTrainer._optimizer_step = spied
+    try:
+        yield seen
+    finally:
+        trainer_base.TPUBaseTrainer._optimizer_step = step
+
+
+def tree_rel(a: dict, b: dict, scale: dict) -> float:
+    """||a - b|| / ||scale|| over the whole tree, in float64."""
+    num = sum(((a[n].double() - b[n].double()) ** 2).sum().item() for n in b)
+    den = sum((scale[n].double() ** 2).sum().item() for n in b)
+    return math.sqrt(num / den)
+
+
+def check_health_launches(launches: dict, kernels: tuple, phase: str) -> None:
+    missing = [k for k in kernels if not launches.get(k)]
+    if missing:
+        raise AssertionError(f"{phase}: the path never launched {missing}: {launches}")
+
+
+def health_losses(trainer) -> list:
+    return [st["losses/total_loss"] for _, st in trainer.stats_history if "losses/total_loss" in st]
+
+
+def oom_events(trainer, action: str) -> list:
+    return [e for e in trainer.memdoctor.events if e["action"] == action]
+
+
+def health_reference(seed: int) -> dict:
+    """Run U, the reference of the split and of the GPT-2 preflight cell:
+    the cell uncapped and unsplit, its optimizer steps recorded (gradients
+    and the parameters before each step, on the host). Kept: its losses,
+    final parameters, the preflight plan it took at the top of learn(), the
+    bytes it holds (`held_bytes`) and its peak allocation; then the peaks
+    of one unsplit step (allocated) and one split step (reserved) on its
+    first batch, probes run after its numbers are taken. Gate: kernels 1,
+    2/3 and 8 launched."""
+    import torch
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with optimizer_steps(copy=True) as steps:
+        trainer, wall, launches = health_train(health_config(seed), "health_reference")
+    peak = torch.cuda.max_memory_allocated()
+    ref = dict(wall_s=wall, launches=launches, steps=steps, losses=health_losses(trainer), peak=peak,
+               params={n: p.detach().cpu() for n, p in trainer.model.named_parameters()},
+               plan=trainer._hbm_plan, held=held_bytes(trainer, [s["bytes"] for s in steps]))
+    batch = next(iter(trainer.store.create_loader(TRAIN_BATCH, shuffle=False)))
+    peaks = {}
+    for num_mb in (1, 2):
+        trainer.num_mb, trainer.mb_size = num_mb, TRAIN_BATCH // num_mb
+        torch.cuda.empty_cache()
+        rest = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        trainer.train_step(batch)
+        torch.cuda.synchronize()
+        peaks[num_mb] = {"rest": rest, "allocated": torch.cuda.max_memory_allocated() - rest,
+                         "reserved": torch.cuda.max_memory_reserved() - rest}
+    ref["peaks"] = peaks
+    del trainer, batch
+    torch.cuda.empty_cache()
+    emit("health_reference", wall_s=wall, losses=ref["losses"], peak_bytes=peak, peaks=peaks, launches=launches)
+    if len(ref["losses"]) != HEALTH_STEPS or len(steps) != HEALTH_STEPS:
+        raise AssertionError(f"health_reference: expected {HEALTH_STEPS} steps, got {ref['losses']}")
+    check_health_launches(launches, ("flash_fwd", "flash_bwd", "decode"), "health_reference")
+    return ref
+
+
+def oom_split_path(seed: int, ref: dict) -> dict:
+    """A real OOM walks the doctor's split_microbatch rung. Run B: its first step whole, then split from its second step on
+    by a chaos `oom_fused_block` on the second dispatch. Run A: no chaos,
+    its second step capped halfway between the split step's reserve and the
+    unsplit step's allocation (`health_reference`'s probes; AdamW's moments
+    exist by then: the first step creates them), so that the configured
+    microbatch cannot fit and half of it can: it dies on
+    torch.cuda.OutOfMemoryError, splits and retries. Gates: the OOM was
+    real and split once, AdamW stepped once a step; against B (the same
+    split, reached by chaos) the losses and final parameters at HEALTH_RTOL,
+    bitwise equality printed: the failed attempt left nothing behind;
+    against U, unsplit (the doctor's contract: PPO whitens the whole step
+    batch and fixes the loss's normaliser, so the split step is the
+    unsplit one up to bf16 rounding), the losses at HEALTH_RTOL, the split
+    step's gradients and its update at the HEALTH_SPLIT_* tolerances; kernels 1,
+    2/3 and 8 launched."""
+    import torch
+
+    chaos = dict(faults=[dict(fault="oom_fused_block", at=2)])
+    trainer_b, wall_b, launches_b = health_train(health_config(seed, chaos=chaos), "oom_split_b")
+    losses_b = health_losses(trainer_b)
+    params_b = {n: p.detach().clone() for n, p in trainer_b.model.named_parameters()}
+    del trainer_b
+    torch.cuda.empty_cache()
+    peaks = ref["peaks"]
+    if peaks[2]["reserved"] >= peaks[1]["allocated"]:
+        raise AssertionError(f"oom_split_path: half a microbatch reserves as much as a whole one allocates: {peaks}")
+    margin = (peaks[2]["reserved"] + peaks[1]["allocated"]) // 2
+    with optimizer_steps(copy=True) as steps:
+        trainer_a, wall_a, launches_a = health_train(health_config(seed), "oom_split_a",
+                                                     cap=("_train_step_under_doctor", margin, 1))
+    losses_a = health_losses(trainer_a)
+    splits = oom_events(trainer_a, "split_microbatch")
+    params_a = dict(trainer_a.model.named_parameters())
+    bitwise = losses_a == losses_b and all(torch.equal(params_a[n], p) for n, p in params_b.items())
+    worst = max((((params_a[n] - p).abs() / p.abs().clamp(min=1e-6)).max().item() for n, p in params_b.items()),
+                default=0.0)
+    adam = sorted({int(st["step"]) for st in trainer_a.optimizer.state.values()})
+    host_a = {n: p.detach().cpu() for n, p in params_a.items()}
+    before, after_u = ref["steps"][-1]["before"], ref["params"]
+    unsplit = {"loss_rel": [abs(a - u) / abs(u) for a, u in zip(losses_a, ref["losses"])],
+               "loss_bitwise": losses_a == ref["losses"],
+               "grad_rel": tree_rel(steps[-1]["grads"], ref["steps"][-1]["grads"], ref["steps"][-1]["grads"]),
+               "update_rel": tree_rel(host_a, after_u, {n: after_u[n] - before[n] for n in after_u}),
+               "before_bitwise": all(torch.equal(steps[-1]["before"][n], t) for n, t in before.items())}
+    emit("oom_split_path", wall_s={"a": wall_a, "b": wall_b}, peaks=peaks, cap_margin_bytes=margin,
+         oom_events=trainer_a.memdoctor.events, num_mb=trainer_a.num_mb, losses_a=losses_a, losses_b=losses_b,
+         losses_unsplit=ref["losses"], bitwise_equal=bitwise, param_max_rel_diff=worst, against_unsplit=unsplit,
+         tolerances={"loss": HEALTH_RTOL, "grad": HEALTH_SPLIT_GRAD_RTOL,
+                     "update": HEALTH_SPLIT_UPDATE_RTOL},
+         adam_steps=adam, optimizer_steps=len(steps), launches=launches_a, launches_b=launches_b)
+    if len(splits) != 1 or not splits[0]["bytes_requested"] or trainer_a.num_mb != 2:
+        raise AssertionError(f"oom_split_path: the cap did not produce one real OOM and one split: "
+                             f"{trainer_a.memdoctor.events}")
+    if len(losses_a) != HEALTH_STEPS or not all(math.isfinite(x) for x in losses_a):
+        raise AssertionError(f"oom_split_path: expected {HEALTH_STEPS} finite losses, got {losses_a}")
+    if adam != [trainer_a.iter_count] or len(steps) != trainer_a.iter_count:
+        raise AssertionError(f"oom_split_path: AdamW's step counts {adam} and {len(steps)} optimizer calls "
+                             f"!= {trainer_a.iter_count} steps")
+    if not (len(losses_a) == len(losses_b) and all(math.isclose(a, b, rel_tol=HEALTH_RTOL, abs_tol=0.0)
+                                                   for a, b in zip(losses_a, losses_b))):
+        raise AssertionError(f"oom_split_path: losses {losses_a} vs the chaos-split run's {losses_b}")
+    for n, p in params_b.items():
+        if not torch.allclose(params_a[n], p, rtol=HEALTH_RTOL, atol=1e-6):
+            raise AssertionError(f"oom_split_path: {n} differs from the chaos-split run's")
+    if not (max(unsplit["loss_rel"]) <= HEALTH_RTOL
+            and unsplit["grad_rel"] <= HEALTH_SPLIT_GRAD_RTOL and unsplit["update_rel"] <= HEALTH_SPLIT_UPDATE_RTOL):
+        raise AssertionError(f"oom_split_path: the split step differs from the unsplit run's: {unsplit}")
+    check_health_launches(launches_a, ("flash_fwd", "flash_bwd", "decode"), "oom_split_path")
+    del trainer_a, params_a
+    torch.cuda.empty_cache()
+    return launches_a
+
+
+def greedy_agreement(a, a_mask, b, b_mask) -> tuple:
+    """(the per-step agreement: at each response step, the share of rows
+    whose tokens agree among those whose earlier tokens all agree; the
+    free-running share of real tokens that agree)."""
+    import torch
+
+    real = (a_mask > 0) & (b_mask > 0)
+    same = (a == b) & real
+    per_step, prefix = [], torch.ones_like(real[:, 0])
+    for t in range(a.shape[1]):
+        live = prefix & real[:, t]
+        if live.any():
+            per_step.append((same[:, t] & live).sum().item() / live.sum().item())
+        prefix = prefix & (same[:, t] | ~real[:, t])
+    return per_step, same.sum().item() / max(real.sum().item(), 1)
+
+
+def oom_pool_path(seed: int) -> dict:
+    """A real OOM walks the doctor's shrink_pool rung, on the engine cell.
+    Run U uncapped; run C with each rollout generate() call capped at 3/4
+    of the full pool above what is allocated on entry: the pool's
+    allocation raises torch.cuda.OutOfMemoryError, the pool and the slots
+    halve, and the chunk retries. Gates: the OOM was real and shrank the
+    pool once, C's greedy rollouts agree with U's at the engine path's
+    per-step gate (the free-running share printed), kernels 1, 2/3 and 7
+    launched."""
+    import torch
+
+    from trlx_tpu_torch.utils.memdoctor import engine_pool_bytes
+
+    trainer_u, wall_u, launches_u = health_train(health_engine_config(seed), "oom_pool_u")
+    spec = trainer_u._engine_spec(HEALTH_ROLLOUTS)
+    pool = engine_pool_bytes(spec, trainer_u.model.cfg, PROMPT_LEN, TRAIN_NEW_TOKENS)
+    hist_u = trainer_u.store.history
+    tokens_u, mask_u = hist_u.response_tensors.clone(), hist_u.response_mask.clone()
+    del trainer_u, hist_u
+    torch.cuda.empty_cache()
+    trainer_c, wall_c, launches_c = health_train(health_engine_config(seed), "oom_pool_c",
+                                                 cap=("_generate_rollout", pool * 3 // 4, 0))
+    hist_c = trainer_c.store.history
+    per_step, free = greedy_agreement(hist_c.response_tensors, hist_c.response_mask, tokens_u, mask_u)
+    shrinks = oom_events(trainer_c, "shrink_pool")
+    emit("oom_pool_path", wall_s={"uncapped": wall_u, "capped": wall_c}, pool_bytes=pool, pool_pages=spec.pool_pages,
+         slots={"uncapped": spec.slots, "capped": trainer_c._engine_spec(HEALTH_ROLLOUTS).slots},
+         oom_events=trainer_c.memdoctor.events, per_step_min=min(per_step), per_step=per_step,
+         free_running=free, launches=launches_c, launches_uncapped=launches_u)
+    if len(shrinks) != 1 or not shrinks[0]["bytes_requested"] or trainer_c.memdoctor.pool_shrinks != 1:
+        raise AssertionError(f"oom_pool_path: the cap did not produce one real OOM and one pool shrink: "
+                             f"{trainer_c.memdoctor.events}")
+    if min(per_step) < HEALTH_ENGINE_STEP_AGREEMENT:
+        raise AssertionError(f"oom_pool_path: the shrunk pool's greedy rollouts agree with the full pool's in "
+                             f"{min(per_step)} of a step's rows")
+    check_health_launches(launches_c, ("flash_fwd", "flash_bwd", "paged"), "oom_pool_path")
+    del trainer_c, hist_c
+    torch.cuda.empty_cache()
+    return launches_c
+
+
+def held_bytes(trainer, grads_seen: list) -> dict:
+    """The bytes of the tensors the trainer holds, counted from the tensors
+    themselves: the model's parameters and buffers, the optimizer's state,
+    the frozen reference's own tensors, the gradient tree of the last
+    optimizer step (`grads_seen`) and the sampler's decode copy (what
+    `cast_params_for_decode` allocates: its tensors that are not the
+    model's)."""
+    import torch
+
+    from trlx_tpu_torch.models.generation import cast_params_for_decode
+    from trlx_tpu_torch.ops.adam8bit import state_bytes
+
+    def nbytes(tensors, exclude=()):
+        seen, total = set(exclude), 0
+        for t in tensors:
+            if t.data_ptr() not in seen:
+                seen.add(t.data_ptr())
+                total += t.numel() * t.element_size()
+        return total
+
+    model = trainer.model
+    own = [*model.parameters(), *model.buffers()]
+    ptrs = {t.data_ptr() for t in own}
+    ref = trainer.ref_params
+    base = model.base
+    with torch.no_grad():
+        copy = cast_params_for_decode(base, base.cfg.dtype)
+        decode = 0 if copy is base else nbytes([*copy.parameters(), *copy.buffers()], ptrs)
+    return {"params": nbytes(own), "opt_state": state_bytes(trainer.optimizer),
+            "ref_params": nbytes([*ref.parameters(), *ref.buffers()], ptrs), "grads": grads_seen[-1],
+            "decode_params": decode}
+
+
+def preflight_plan(seed: int, ref: dict) -> dict:
+    """The preflight plan (the one `_memory_preflight` took at the top of
+    learn(), before any rollout) against the tensors, in two cells: the
+    GPT-2 cell (run U, `health_reference`) and the recipe cell
+    (`recipe_config`: 8-bit AdamW's int8 moments and scales, bf16
+    gradients, int8 decode weights; one train() run). Its state rows must
+    equal `held_bytes` after the run exactly; its peak is printed beside
+    torch.cuda.max_memory_allocated (`memdoctor.cross_check`: the plan's
+    peak phase, its bytes, the measured peak, their ratio). Then a budget
+    below the plan: train() must raise MemoryPlanError before any sampler
+    call, and the seconds to reject are printed."""
+    import torch
+
+    import trlx_tpu_torch
+    from trlx_tpu_torch.utils import memdoctor as md
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    recipe = recipe_config(seed).evolve(train=dict(total_steps=HEALTH_STEPS, memory=dict(enabled=True)), method=dict(
+        num_rollouts=HEALTH_ROLLOUTS, chunk_size=HEALTH_ROLLOUTS, ppo_epochs=1))
+    with optimizer_steps() as steps:
+        trainer, wall, launches = health_train(recipe, "preflight_recipe")
+    cells = {"gpt2": (ref["plan"], ref["held"], ref["peak"], ref["wall_s"], ref["launches"]),
+             "recipe": (trainer._hbm_plan, held_bytes(trainer, [s["bytes"] for s in steps]),
+                        torch.cuda.max_memory_allocated(), wall, launches)}
+    del trainer
+    torch.cuda.empty_cache()
+    out = {}
+    for cell, (plan, held, peak, wall, launches) in cells.items():
+        rows = {name: plan.row(name) for name in held}
+        out[cell] = {"rows": rows, "held": held, **md.cross_check(plan, peak), "wall_s": wall}
+        emit(f"preflight_plan_{cell}", **out[cell], launches=launches)
+        if rows != held:
+            raise AssertionError(f"preflight_plan: the {cell} plan's state rows {rows} != the held bytes {held}")
+        check_health_launches(launches, ("flash_fwd", "flash_bwd", "decode"), f"preflight_plan_{cell}")
+    config = health_config(seed, memory=dict(enabled=True, hbm_bytes=out["gpt2"]["plan_bytes"] // 2))
+    t0 = time.perf_counter()
+    with sampler_calls() as calls:
+        try:
+            trlx_tpu_torch.train(reward_fn=train_reward_fn, prompts=TRAIN_PROMPTS, config=config)
+        except md.MemoryPlanError as e:
+            rejected = str(e).splitlines()[0]
+        else:
+            raise AssertionError("preflight_plan: a budget of half the plan was admitted")
+    seconds = time.perf_counter() - t0
+    emit("preflight_reject", seconds=seconds, sampler_calls=len(calls), message=rejected)
+    if calls:
+        raise AssertionError(f"preflight_plan: {len(calls)} sampler calls ran before the rejection")
+    return out
+
+
+def guardrail_path(seed: int) -> dict:
+    """The guardrails on the cell: one cycle of GUARDRAIL_STEPS steps (64
+    rollouts, 2 epochs of two batches), a full checkpoint (weights and
+    optimizer) committed at step GUARDRAIL_INTERVAL, a chaos `nan_loss` on
+    the batch after step 3 with the ladder [rollback, abort]: the trip
+    rolls back to step 2, and the restored weights and moments must equal
+    the committed files bitwise; the run ends at step 4 with finite losses.
+    A chaos `hbm_creep` on the first step after the rollback trips the
+    watermark (the guardrails' `memory` signal; in the rollback's cooldown
+    the ladder only logs). Then one train step's wall time with the
+    watermark sampler's thread on (every 10 ms) and off."""
+    import torch
+
+    from trlx_tpu_torch.trainer import base as trainer_base
+
+    directory = ckpt_dir()
+    config = health_config(seed, total_steps=GUARDRAIL_STEPS, checkpoint_interval=GUARDRAIL_INTERVAL,
+                           checkpoint_dir=directory, save_optimizer=True, save_best=False,
+                           guardrails=dict(enabled=True, ladder=["rollback", "abort"]),
+                           memory=dict(enabled=True, sample_interval_s=0.01),
+                           chaos=dict(faults=[dict(fault="nan_loss", at=GUARDRAIL_INTERVAL + 2),
+                                              dict(fault="hbm_creep", at=GUARDRAIL_INTERVAL + 3)]))
+    config = config.evolve(method=dict(ppo_epochs=GUARDRAIL_STEPS * TRAIN_BATCH // HEALTH_ROLLOUTS))
+    restored = {}
+    rollback = trainer_base.TPUBaseTrainer._rollback_to_last_good
+
+    def spied(self):
+        path = self.ckpt_manager.latest_resumable()
+        ok = rollback(self)
+        if ok:
+            saved = torch.load(os.path.join(path, "state", "model.pt"), map_location="cuda", weights_only=True)
+            opt = torch.load(os.path.join(path, "state", "optimizer.pt"), map_location="cuda", weights_only=True)
+            live = self.optimizer.state_dict()["state"]
+            restored.update(path=os.path.basename(path), step=self.iter_count, model_bitwise=all(
+                torch.equal(v, self.model.state_dict()[k]) for k, v in saved.items()), optimizer_bitwise=all(
+                torch.equal(t, live[i][k].to(t.device)) for i, st in opt["state"].items() for k, t in st.items()))
+        return ok
+
+    trainer_base.TPUBaseTrainer._rollback_to_last_good = spied
+    try:
+        trainer, wall, launches = health_train(config, "guardrail")
+    finally:
+        trainer_base.TPUBaseTrainer._rollback_to_last_good = rollback
+    losses = health_losses(trainer)
+    batch = next(iter(trainer.store.create_loader(TRAIN_BATCH, shuffle=False)))
+    step_ms = {}
+    for sampler_on in (False, True, False, True):
+        if sampler_on:
+            trainer.memdoctor.sampler.start()
+        trainer.train_step(batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            trainer.train_step(batch)
+        torch.cuda.synchronize()
+        step_ms.setdefault("on" if sampler_on else "off", []).append((time.perf_counter() - t0) / 3 * 1e3)
+        trainer.memdoctor.sampler.stop()
+    emit("guardrail_path", wall_s=wall, restored=restored, trips=trainer.guardrails.trip_history,
+         actions=trainer.guardrails.actions_taken, chaos_fired=trainer.chaos.fired, losses=losses,
+         watermark_trips=trainer.memdoctor.sampler.watermark_trips, sampler_samples=trainer.memdoctor.sampler.samples,
+         train_step_ms=step_ms, launches=launches)
+    if restored.get("step") != GUARDRAIL_INTERVAL or not (restored["model_bitwise"] and restored["optimizer_bitwise"]):
+        raise AssertionError(f"guardrail_path: the rollback did not restore step {GUARDRAIL_INTERVAL}'s "
+                             f"checkpoint bitwise: {restored}")
+    if trainer.guardrails.actions_taken[:1] != ["rollback"] or trainer.guardrails.trip_history[:1] != ["loss"]:
+        raise AssertionError(f"guardrail_path: the NaN did not trip a rollback: {trainer.guardrails.actions_taken}")
+    if "memory" not in trainer.guardrails.trip_history or trainer.memdoctor.sampler.watermark_trips != 1:
+        raise AssertionError(f"guardrail_path: hbm_creep did not trip the watermark: {trainer.guardrails.trip_history}")
+    if trainer.iter_count != GUARDRAIL_STEPS or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"guardrail_path: the run did not end at step {GUARDRAIL_STEPS} with finite losses: "
+                             f"{trainer.iter_count}, {losses}")
+    check_health_launches(launches, ("flash_fwd", "flash_bwd", "decode"), "guardrail_path")
+    del trainer, batch
+    torch.cuda.empty_cache()
+    return launches
+
+
+def health_phases(seed: int) -> dict:
+    """The memory doctor's real OOMs, its preflight plan and the guardrails'
+    rollback on the GPT-2 cell (kernels 1, 2/3 and 8; 7 in the engine's
+    rollouts), timed as a whole."""
+    import torch
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    ref = health_reference(seed)
+    out = {"oom_split": oom_split_path(seed, ref), "oom_pool": oom_pool_path(seed),
+           "preflight": preflight_plan(seed, ref), "guardrail": guardrail_path(seed)}
+    del ref
+    emit("health", wall_s=time.perf_counter() - t0)
+    return out
+
+
 def main() -> int:
     try:
         return run()
@@ -6606,7 +7110,7 @@ def run() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--only", choices=("fwd", "paged", "decode", "bias", "sft", "ppo", "resume", "ilql", "rft",
-                                           "grpo", "dpo", "llama", "peft", "memory"),
+                                           "grpo", "dpo", "llama", "peft", "memory", "health"),
                         default=None,
                         help="fwd: the build, flash_check and the flash forward's kernel_time rows only "
                              "(a quick check of kernel 1); paged: the build, paged_check and the paged "
@@ -6625,7 +7129,9 @@ def run() -> int:
                              "kernel cases, peft_phases (LoRA, prompt and prefix tuning on GPT-2 small, T5 LoRA, "
                              "Llama-2-7B LoRA) and their kernel_time rows; memory: the build, kernels 9 and 10 "
                              "against their plain versions, the recipe PPO cell, the full-parameter Llama-2-7B "
-                             "cell and kernels 9 and 10's kernel_time rows")
+                             "cell and kernels 9 and 10's kernel_time rows; health: the build and the health "
+                             "phases (health_reference, oom_split_path, oom_pool_path, preflight_plan, "
+                             "guardrail_path), no kernel_time rows")
     args = parser.parse_args()
 
     import torch
@@ -6784,6 +7290,9 @@ def run() -> int:
         rows = peft_kernel_times(gen, peft, peft_shapes, peft_bias_shapes)
     elif args.only == "memory":
         rows = memory_kernel_times(gen, memory_phases(args.seed, {}))
+    elif args.only == "health":
+        health_phases(args.seed)
+        rows = []
     if args.only is not None:
         print(json.dumps({"kernels": rows}))
         print(card)
@@ -6832,6 +7341,8 @@ def run() -> int:
     peft = peft_phases(args.seed, peft_shapes, peft_bias_shapes)
     memory_shapes = {}  # apart too: the recipe and 7B cells' kernel 1 launches by shape
     memory = memory_phases(args.seed, memory_shapes)
+    torch.cuda.empty_cache()
+    health_phases(args.seed)
     for phase, tallies in (("fwd_shapes", shapes), ("bias_fwd_shapes", bias_shapes), ("peft_fwd_shapes", peft_shapes),
                            ("peft_bias_fwd_shapes", peft_bias_shapes)):
         emit(phase, **{path: [[route, list(bht), S, n] for (route, bht, S), n in sorted(tally.items())]

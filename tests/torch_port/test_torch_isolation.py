@@ -45,6 +45,17 @@ def test_every_module_imports_without_jax():
     assert res.stdout.strip().endswith("ok")
 
 
+def test_robustness_modules_are_covered():
+    """The guardrails, the memory doctor, the chaos harness and the offline
+    plan CLI are among the modules imported without JAX and scanned for
+    imports."""
+    names = set(_module_names())
+    for name in ("trlx_tpu_torch.utils.chaos", "trlx_tpu_torch.utils.guardrails",
+                 "trlx_tpu_torch.utils.memdoctor", "trlx_tpu_torch.tools.hbm_plan"):
+        assert name in names
+        assert REPO / (name.replace(".", "/") + ".py") in PORT_FILES
+
+
 def test_fault_tolerance_modules_are_covered():
     """The checkpoint, retry and tracker modules are among those the two
     tests above import without JAX and scan for imports."""
@@ -163,17 +174,30 @@ def test_train_raises_without_a_gpu(monkeypatch, tmp_path):
     ("train", dict(mesh={"dp": 2})),
     ("model", dict(model_path="gpt2", model_extra_configs={})),
     ("tokenizer", dict(tokenizer_path="gpt2")),
+    ("train", dict(guardrails={"enabled": True, "consistency_every": 1})),
+    ("train", dict(chaos={"faults": [{"fault": "stall_rollout", "at": 1}]})),
 ])
 def test_unported_training_knobs_raise(section, kw, tmp_path):
     """Each knob that would turn on a part the port has not reached raises
     NotImplementedError naming its ROADMAP queue, rather than training
-    without it. (The memory recipe's knobs, which raised until the port
-    reached them, train: test_torch_memory.py.)"""
+    without it. The guardrails, the memory doctor and the chaos harness
+    raised until the port reached them: they train now, and the part of
+    them that is not ported (the cross-host consistency check, a chaos
+    site whose consumer is not ported) raises. (The memory recipe's knobs
+    train too: test_torch_memory.py.)"""
     import trlx_tpu_torch
 
+    config = _tiny_ppo_config(tmp_path, **{section: kw})
+    name = next(iter(kw))
+    if name in ("guardrails", "memory", "chaos") and kw[name] in ({"enabled": True}, {"seed": 0}):
+        trainer = trlx_tpu_torch.train(reward_fn=lambda **kw: [0.0] * len(kw["samples"]), prompts=["a", "b"],
+                                       config=config, device="cpu")
+        assert trainer.iter_count == 1
+        assert {"guardrails": trainer.guardrails.enabled, "memory": trainer.memdoctor.enabled,
+                "chaos": trainer.chaos is not None}[name]
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP queue"):
-        trlx_tpu_torch.train(reward_fn=lambda **kw: [0.0], prompts=["a", "b"],
-                             config=_tiny_ppo_config(tmp_path, **{section: kw}), device="cpu")
+        trlx_tpu_torch.train(reward_fn=lambda **kw: [0.0], prompts=["a", "b"], config=config, device="cpu")
 
 
 def test_offline_sft_and_stop_sequences_raise(tmp_path):

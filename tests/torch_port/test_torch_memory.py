@@ -172,6 +172,14 @@ def test_minibatch_must_divide_the_batch(tmp_path):
 TINY = dict(vocab_size=300, hidden_size=64, n_layer=2, n_head=1, n_positions=64)
 
 
+@pytest.fixture(scope="module")
+def causal_pair():
+    """The JAX model and its init, the port's model loaded from it, and the
+    inputs: built once for the module's remat cases (each case sets its own
+    policy and zeroes the gradients)."""
+    return _causal_pair()
+
+
 def _causal_pair():
     jlm = JLM(JConfig(dtype=jnp.float32, attention_impl="xla", **TINY))
     jparams = jlm.init(jax.random.PRNGKey(3))
@@ -195,8 +203,8 @@ def _port_loss_and_grads(lm, ids, mask, w, policy):
 
 
 @pytest.mark.parametrize("policy", POLICIES)
-def test_remat_policy_matches_no_remat_and_reference(policy):
-    jlm, jparams, lm, ids, mask, w = _causal_pair()
+def test_remat_policy_matches_no_remat_and_reference(policy, causal_pair):
+    jlm, jparams, lm, ids, mask, w = causal_pair
     loss0, grads0 = _port_loss_and_grads(lm, ids, mask, w, "none")
     loss, grads = _port_loss_and_grads(lm, ids, mask, w, policy)
     assert loss == pytest.approx(loss0, rel=1e-6)
@@ -215,11 +223,11 @@ def test_remat_policy_matches_no_remat_and_reference(policy):
 
 
 @pytest.mark.parametrize("policy", ["full", "save_attn"])
-def test_remat_recomputes_attention_unless_saved(policy, monkeypatch):
+def test_remat_recomputes_attention_unless_saved(policy, monkeypatch, causal_pair):
     """`full` re-runs each block's attention in the backward (one more
     forward launch a block); `save_attn` keeps the kernel's out, m and l
     and re-runs none."""
-    _, _, lm, ids, mask, w = _causal_pair()
+    _, _, lm, ids, mask, w = causal_pair
     calls = []
     forward = fa._forward
     monkeypatch.setattr(fa, "_forward", lambda *a: calls.append(1) or forward(*a))
@@ -424,7 +432,7 @@ def test_resume_with_8bit_state_is_bit_for_bit(tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# the recipe's config files load and train; the memory doctor still raises
+# the recipe's config files load and train, also under the memory doctor
 # ---------------------------------------------------------------------------
 
 
@@ -454,9 +462,10 @@ def test_recipe_configs_load_and_train(which, tmp_path):
     trainer = trlx_tpu_torch.train(reward_fn=ppo_parity.reward_fn, prompts=ppo_parity.PROMPTS, config=config,
                                    device="cpu")
     assert trainer.iter_count == 2 and trainer.num_mb == 2
-    with pytest.raises(NotImplementedError, match="memory doctor"):
-        trlx_tpu_torch.train(reward_fn=ppo_parity.reward_fn, prompts=ppo_parity.PROMPTS, device="cpu",
-                             config=config.evolve(train=dict(memory={"enabled": True})))
+    doctored = trlx_tpu_torch.train(reward_fn=ppo_parity.reward_fn, prompts=ppo_parity.PROMPTS, device="cpu",
+                                    config=config.evolve(train=dict(memory={"enabled": True})))
+    assert doctored.iter_count == 2 and doctored.num_mb == 2 and not doctored.memdoctor.degraded
+    assert doctored._hbm_plan is not None and not doctored._hbm_plan.over_budget()
 
 
 def test_measure_forward_probes_one_microbatch(tmp_path, monkeypatch):

@@ -80,9 +80,19 @@ What the port does differently, and why:
   attaches the adapter to the wrapper (`models/peft.py`), the base gets
   `requires_grad_(False)` and no AdamW state, and the reference model is
   the same base with the adapter off (`wrappers.AdapterOffReference`).
-- The robustness (guardrails, watchdog, chaos, flight recorder), transport,
-  fleet and serving tiers are not ported yet; each knob that would turn
-  one on raises NotImplementedError naming its ROADMAP queue.
+- The guardrails, the memory doctor and the chaos harness
+  (`train.guardrails`, `train.memory`, `train.chaos`) hook into the
+  per-step loop where the reference's per-step loop takes them: the chaos
+  sites at fixed points, an OOM envelope around each train step and each
+  rollout generate() call, the watermark and the ladder once a step. An
+  OOM is handled after its `except` block has ended (the exception's
+  traceback holds the failed step's activations), with the step's partial
+  gradients cleared and the allocator's cache emptied before the retry;
+  an OOM inside the optimizer step leaves some parameters updated and
+  others not, so it rolls back instead of retrying. The watchdog, the
+  flight recorder, the resilient reward I/O, the transport, fleet and
+  serving tiers are not ported yet; each knob that would turn one on
+  raises NotImplementedError naming its ROADMAP queue.
 """
 
 from __future__ import annotations
@@ -149,8 +159,10 @@ from trlx_tpu_torch.utils import (
     significant,
     to_scalar,
 )
+from trlx_tpu_torch.utils.chaos import build_chaos, poison_batch
 from trlx_tpu_torch.utils.checkpointing import (
     TOPOLOGY_MANIFEST,
+    CheckpointCorruptError,
     CheckpointManager,
     ElasticConfig,
     PreemptionHandler,
@@ -158,7 +170,19 @@ from trlx_tpu_torch.utils.checkpointing import (
     verify_or_quarantine,
 )
 from trlx_tpu_torch.utils.device import resolve_device
-from trlx_tpu_torch.utils.resilient import CircuitBreaker, retry_call
+from trlx_tpu_torch.utils.guardrails import MEMORY_SIGNAL, build_monitor
+from trlx_tpu_torch.utils.memdoctor import (
+    MemoryAbortError,
+    MemoryPlanError,
+    OOMEvent,
+    build_memdoctor,
+    classify_oom,
+    estimate_plan,
+    is_degraded_record,
+    is_oom,
+    remat_strength,
+)
+from trlx_tpu_torch.utils.resilient import ChaosFault, CircuitBreaker, retry_call
 from trlx_tpu_torch.utils.tokenizers import load_tokenizer
 from trlx_tpu_torch.utils.trackers import DeferredStats, Tracker
 
@@ -210,19 +234,23 @@ def _enabled(section: Any) -> bool:
     return bool(section) and bool(dict(section).get("enabled", False))
 
 
+# the robustness tier's next slice: the watchdog with the host-RAM shadow
+# and the emergency snapshot, obs/, resilient_io and profile_dir
+_NEXT_ROBUSTNESS = "ROADMAP queue 1, item [10]: the next robustness slice"
+
+
 def check_ported(config: TRLConfig) -> None:
     """Raise NotImplementedError for every knob that would turn on a part
     of the reference the port has not reached, rather than training
     without it."""
     train, method, model = config.train, config.method, config.model
     checks = [
-        (_enabled(train.memory), "train.memory", "ROADMAP queue 9: the memory doctor"),
-        (_enabled(train.guardrails), "train.guardrails", "ROADMAP queue 10"),
-        (_enabled(train.watchdog), "train.watchdog", "ROADMAP queue 10"),
-        (_enabled(train.obs), "train.obs (the flight recorder)", "ROADMAP queue 10"),
-        (train.chaos is not None, "train.chaos", "ROADMAP queue 10"),
-        (bool(train.resilient_io), "train.resilient_io", "ROADMAP queue 10"),
-        (train.profile_dir is not None, "train.profile_dir", "ROADMAP queue 10"),
+        (_enabled(train.guardrails) and int(dict(train.guardrails).get("consistency_every", 0) or 0) > 0,
+         "train.guardrails.consistency_every (the cross-host consistency check)", "ROADMAP queue 1, item [12]"),
+        (_enabled(train.watchdog), "train.watchdog (the hang doctor)", _NEXT_ROBUSTNESS),
+        (_enabled(train.obs), "train.obs (the flight recorder)", _NEXT_ROBUSTNESS),
+        (bool(train.resilient_io), "train.resilient_io", _NEXT_ROBUSTNESS),
+        (train.profile_dir is not None, "train.profile_dir", _NEXT_ROBUSTNESS),
         (_enabled(train.serve), "train.serve", "ROADMAP queue 11"),
         (any(int(v) not in (-1, 1) for v in train.mesh.values()),
          f"train.mesh={train.mesh} (one device only)", "ROADMAP queue 12"),
@@ -258,6 +286,17 @@ class TPUBaseTrainer(BaseRLTrainer):
         train = config.train
         self.device = resolve_device(device)
         self.seq2seq = config.model.model_arch_type == "seq2seq"
+        # the guardrails (divergence watchdog and its ladder), the chaos
+        # harness and the memory doctor (preflight plan, watermark sampler,
+        # OOM ladder): all off by default
+        self.guardrails = build_monitor(train)
+        self.chaos = build_chaos(train)
+        self.memdoctor = build_memdoctor(train, device=self.device)
+        self._hbm_plan = None  # the preflight plan, kept for the abort report
+        self._lr_scale = 1.0  # cumulative guardrail LR-cut factor
+        # an OOM struck inside the optimizer step: some parameters and
+        # moments are updated and others not, so only a restore recovers
+        self._optimizer_step_torn = False
         # what a save_pretrained directory held: the base state dict (kept
         # until init_weights), the aux parameters and the model_type
         self._loaded_base: Optional[Dict[str, torch.Tensor]] = None
@@ -723,6 +762,13 @@ class TPUBaseTrainer(BaseRLTrainer):
             shared = hydra_shared_trunk_layers(self.model.cfg.n_layer, len(self.ref_params.blocks))
             if shared:
                 spec = dataclasses.replace(spec, draft_shared_layers=shared)
+        # the memory doctor's shrink_pool rungs: fewer lanes and a smaller
+        # pool, the same output (the queue drains in more refill waves)
+        scale = self.memdoctor.pool_scale() if self.memdoctor.enabled else 1.0
+        if scale < 1.0:
+            spec = dataclasses.replace(
+                spec, slots=max(1, int(spec.slots * scale)),
+                pool_pages=max(1, int(spec.pool_pages * scale)) if spec.pool_pages else 0)
         return spec
 
     def _decode_impl(self) -> str:
@@ -944,8 +990,9 @@ class TPUBaseTrainer(BaseRLTrainer):
     def _pre_accum_batch(self, batch):
         """Hook on a minibatch that is split into accumulation microbatches:
         the memory doctor's place to precompute batch-statistic terms over
-        the whole minibatch. Identity: PPO whitens and GRPO normalises per
-        microbatch, as the reference does without the doctor."""
+        the whole minibatch. Identity here; PPO and GRPO fill it once the
+        doctor has split (without it they whiten and normalise per
+        microbatch, as the reference does)."""
         return batch
 
     def _microbatches(self, batch) -> list:
@@ -992,6 +1039,8 @@ class TPUBaseTrainer(BaseRLTrainer):
         the fused 8-bit AdamW, which applies the step with zeroed gradients;
         either way the step returns a NaN loss, which `_guard_bad_loss`
         counts."""
+        # a chaos-poisoned batch without float tensors (chaos.poison_batch)
+        poisoned = getattr(batch, "nan_poisoned", False)
         with self._phase("train"):
             self.optimizer.zero_grad(set_to_none=True)
             self._grad_tree = {}
@@ -1001,6 +1050,8 @@ class TPUBaseTrainer(BaseRLTrainer):
             try:
                 for mb in mbs:
                     loss, stats = self.loss(mb)
+                    if poisoned:
+                        loss = loss + float("nan")
                     loss.backward()
                     # summed in fp32 as the reference's scan carries them
                     loss_sum = loss.detach().float() if loss_sum is None else loss_sum + loss.detach().float()
@@ -1013,10 +1064,14 @@ class TPUBaseTrainer(BaseRLTrainer):
             loss = loss_sum / n if n > 1 else loss_sum
             stats = {k: v / n for k, v in stat_sums.items()} if n > 1 else stat_sums
             grads = self._step_grads()
+            norms = torch.stack(torch._foreach_norm(list(grads.values()))).float() if grads else None
+            if norms is not None and self.guardrails.enabled and self.guardrails.cfg.grad_norm_max > 0:
+                # the global gradient norm the guardrails watch
+                stats = dict(stats, **{"losses/grad_norm": torch.sqrt((norms * norms).sum())})
             # one device->host read for the loss, the finiteness check and
             # every stat
             names = list(stats)
-            health = torch.stack(torch._foreach_norm(list(grads.values()))).float().sum() if grads else loss
+            health = norms.sum() if norms is not None else loss
             host = torch.stack([loss, health.float()] + [stats[k] for k in names]).cpu().tolist()
             good = not self.config.train.skip_nan_updates or all(np.isfinite(host[:2]))
             as_zero = getattr(self.optimizer, "applies_nonfinite_as_zero", False)
@@ -1025,7 +1080,9 @@ class TPUBaseTrainer(BaseRLTrainer):
                 for g in grads.values():
                     g.zero_()
             if good or as_zero:
+                self._optimizer_step_torn = True
                 self._optimizer_step(grads)
+                self._optimizer_step_torn = False
                 self.scheduler.step()
             self._grad_tree = {}  # frees a grads_dtype tree before anything else runs
         return (host[0] if good else float("nan")), dict(zip(names, host[2:]))
@@ -1145,8 +1202,16 @@ class TPUBaseTrainer(BaseRLTrainer):
         raises."""
         train = self.config.train
         with self._phase("reward"):
-            return retry_call(self.reward_fn, retries=train.external_retries, base_delay=train.retry_base_delay,
-                              description="reward_fn", **kwargs)
+            return retry_call(self._chaos_wrapped_reward, retries=train.external_retries,
+                              base_delay=train.retry_base_delay, description="reward_fn", **kwargs)
+
+    def _chaos_wrapped_reward(self, **kwargs):
+        """reward_fn with the chaos harness's `nan_reward` site on its result
+        (consulted once a call, retries included)."""
+        out = self.reward_fn(**kwargs)
+        if self.chaos is not None:
+            out = self.chaos.reward_fault_post(out)
+        return out
 
     # ------------------------------------------------------------------
     # checkpointing
@@ -1167,16 +1232,26 @@ class TPUBaseTrainer(BaseRLTrainer):
         train.save_optimizer, and the `hf_model/` export either way. A
         failed commit leaves only a torn tmp_ directory; it is counted and
         training goes on, except on the way out (`final`) or after
-        _CKPT_FAILURE_LIMIT failures in a row, where it raises."""
+        _CKPT_FAILURE_LIMIT failures in a row, where it raises.
+
+        Health-gated: with guardrails on, a commit is skipped while the
+        monitor considers the run unhealthy, so a bad step never becomes
+        the "last good checkpoint" a rollback restores."""
+        if self.guardrails.enabled and not self.guardrails.commit_ok():
+            logger.warning("guardrails: run unhealthy (%s) — skipping checkpoint commit %r so the last good "
+                           "checkpoint stays good", self.guardrails.state_summary(), name)
+            return
         logger.info("Saving checkpoint into %s", os.path.join(self.config.train.checkpoint_dir, name))
 
         def write(tmp_dir: str) -> None:
+            if self.chaos is not None and self.chaos.consult("ckpt_fail"):
+                raise ChaosFault("chaos: injected checkpoint write failure")
             if self.config.train.save_optimizer:
                 self.save(tmp_dir)
             self.save_pretrained(os.path.join(tmp_dir, "hf_model"))
 
         try:
-            self.ckpt_manager.commit(name, write)
+            final_path = self.ckpt_manager.commit(name, write)
         except Exception as e:
             self._ckpt_commit_failures += 1
             if final or self._ckpt_commit_failures >= self._CKPT_FAILURE_LIMIT:
@@ -1186,6 +1261,10 @@ class TPUBaseTrainer(BaseRLTrainer):
                          self._ckpt_commit_failures, self._CKPT_FAILURE_LIMIT, e)
             return
         self._ckpt_commit_failures = 0
+        if self.chaos is not None and self.chaos.consult("ckpt_corrupt"):
+            # silent post-commit storage corruption: the integrity manifest
+            # quarantines it at the next load
+            self.chaos.corrupt_checkpoint(final_path)
 
     def _commit_final_checkpoint(self, reason: str) -> None:
         """Commit this step's checkpoint before the run exits, unless it is
@@ -1264,13 +1343,19 @@ class TPUBaseTrainer(BaseRLTrainer):
             "best_reward": self.best_reward if np.isfinite(self.best_reward) else None,
             "nth_evaluation": self.nth_evaluation,
             "rng_key": self._resumable_sampler_state().tolist(),
-            "lr_scale": 1.0,
+            "lr_scale": self._lr_scale,
             "total_steps": self._restored_total_steps if self._rollout_abandoned else self.total_steps,
             "config_total_steps": (self._restored_config_total_steps if self._rollout_abandoned
                                    else self.config.train.total_steps),
             "random_streams": self._random_streams(),
             "loop_position": dict(self._loop_position),
         }
+        if self.memdoctor.enabled:
+            # the degradation, so a resume starts degraded instead of
+            # re-OOMing at the sizes that already OOMed
+            state["memory_degrade"] = self.memdoctor.degrade_state()
+        if self.guardrails.enabled:
+            state["guardrail_trips"] = self.guardrails.trip_tail()
         state.update(self._extra_state())
         return state
 
@@ -1378,9 +1463,10 @@ class TPUBaseTrainer(BaseRLTrainer):
         best = state.get("best_reward")
         self.best_reward = float(best) if best is not None else -float("inf")
         self.nth_evaluation = state.get("nth_evaluation", 0)
-        if float(state.get("lr_scale", 1.0)) != 1.0:
-            logger.warning("checkpoint %s carries a guardrail LR cut (lr_scale=%s), which the port does not "
-                           "apply (ROADMAP queue 10)", directory, state["lr_scale"])
+        scale = float(state.get("lr_scale", 1.0))
+        if scale != self._lr_scale:
+            self._lr_scale = scale
+            self._rebuild_optimizer()
         if state.get("rng_key") is not None:
             self.generator.set_state(torch.tensor(state["rng_key"], dtype=torch.uint8))
         self._restore_random_streams(state.get("random_streams") or {})
@@ -1388,7 +1474,32 @@ class TPUBaseTrainer(BaseRLTrainer):
         self._restored_config_total_steps = state.get("config_total_steps")
         if state.get("loop_position") is not None:
             self._resume_position = dict(state["loop_position"])
+        self._restore_memory_degrade(state.get("memory_degrade"))
+        self.guardrails.load_trip_tail(state.get("guardrail_trips"))
         self._restore_extra_state(state)
+
+    def _restore_memory_degrade(self, saved: Optional[Dict[str, Any]]) -> None:
+        """Adopt a checkpoint's memory-doctor degradation. A degraded
+        checkpoint exists because the original sizes already OOMed:
+        resuming it with the doctor off would re-OOM at those sizes, so
+        that raises unless `train.memory.accept_undegrade` asserts they fit
+        now. The merge is by max: a rollback never un-degrades."""
+        if not saved or not is_degraded_record(saved):
+            return
+        if self.memdoctor.cfg.accept_undegrade:
+            logger.warning("memory doctor: checkpoint carries degradation (%s) but train.memory.accept_undegrade "
+                           "is set — resuming at the ORIGINAL sizes; you are asserting they fit now", saved)
+            return
+        if not self.memdoctor.enabled:
+            raise ValueError(
+                "this checkpoint was committed DEGRADED by the memory doctor "
+                f"({saved}) — the original sizes already OOMed — but train.memory is disabled in the resuming "
+                "config, which would silently un-degrade it and re-OOM. Enable train.memory.enabled to resume "
+                "degraded, or set train.memory.accept_undegrade: true to assert the original sizes fit now "
+                "(e.g. after moving to larger devices)")
+        self.memdoctor.restore(saved)
+        self._apply_degradation()
+        logger.warning("memory doctor: resumed degraded — %s", self.memdoctor.describe())
 
     # ------------------------------------------------------------------
     # the loop
@@ -1406,6 +1517,13 @@ class TPUBaseTrainer(BaseRLTrainer):
             loss, self.iter_count, self._bad_steps, self.config.train.max_bad_steps,
         )
         if self._bad_steps >= self.config.train.max_bad_steps:
+            if self.guardrails.enabled and any(a != "log" for a in self.guardrails.cfg.ladder):
+                # the ladder owns escalation: a requeue, an LR cut or a
+                # rollback must not be pre-empted by a run-fatal abort (a
+                # log-only ladder cannot intervene, so the abort stays)
+                logger.warning("%d consecutive non-finite losses (max_bad_steps=%d); deferring the abort to the "
+                               "guardrails escalation ladder", self._bad_steps, self.config.train.max_bad_steps)
+                return True
             raise RuntimeError(
                 f"aborting: {self._bad_steps} consecutive non-finite losses "
                 f"(train.max_bad_steps={self.config.train.max_bad_steps}); the model "
@@ -1413,13 +1531,333 @@ class TPUBaseTrainer(BaseRLTrainer):
             )
         return True
 
+    # -- guardrails (the divergence watchdog's ladder) -------------------
+
+    def _run_guardrail_ladder(self) -> bool:
+        """Consume this step's verdict and execute the ladder action.
+        Returns True when the step's data source is gone (the batch was
+        requeued or the state rolled back); raises on abort."""
+        action = self.guardrails.pending_action()
+        if action is None or action == "log":
+            return False  # pending_action logged the trip
+        if action == "requeue":
+            return self._requeue_poisoned_batch()
+        if action == "lr_cut":
+            self._apply_lr_cut(self.guardrails.cfg.lr_cut_factor)
+            return False
+        if action == "rollback":
+            return self._rollback_to_last_good()
+        raise RuntimeError(
+            f"guardrails abort: escalation ladder exhausted ({self.guardrails.state_summary()}); the run did not "
+            "recover — relaunch resumes from the last good checkpoint")
+
+    def _requeue_poisoned_batch(self) -> bool:
+        """Hook: discard the poisoned training batch and replay its source.
+        Offline trainers have no requeue-able store."""
+        return False
+
+    def _reset_data_stream(self) -> None:
+        """Hook: rebuild the training data stream from position zero, so the
+        load() of a rollback can fast-forward it to an earlier cursor."""
+
+    def _apply_lr_cut(self, factor: float) -> None:
+        """Multiply the whole LR schedule by `factor` (cumulative in
+        `_lr_scale`, persisted in state.json); the optimizer's state
+        carries over."""
+        self._lr_scale *= float(factor)
+        self._rebuild_optimizer()
+        logger.warning("guardrails: learning rate cut by %g (cumulative scale %g)", factor, self._lr_scale)
+
+    def _rebuild_optimizer(self) -> None:
+        """The schedule rebuilt at `_lr_scale` (the peak lr and the schedule's
+        floor scaled, as in the reference) on the live optimizer and
+        LambdaLR: the moments and the step count stay as they are."""
+        from trlx_tpu_torch.utils import get_scheduler_class
+
+        okw, skw = dict(self.config.optimizer.kwargs), dict(self.config.scheduler.kwargs)
+        lr = okw["lr"] * self._lr_scale
+        for k in ("eta_min", "final_lr"):
+            if k in skw:
+                skw[k] = skw[k] * self._lr_scale
+        factor = get_scheduler_class(self.config.scheduler.name)(lr, **skw)
+        groups = self.optimizer.param_groups
+        self.scheduler.base_lrs = [lr] * len(groups)
+        self.scheduler.lr_lambdas = [factor] * len(groups)
+        for group in groups:
+            group["initial_lr"] = lr
+            group["lr"] = lr * factor(self.scheduler.last_epoch)
+        self.schedule = lambda step: lr * factor(step)
+
+    def _rollback_to_last_good(self) -> bool:
+        """Restore the newest committed resumable checkpoint in-process, as a
+        relaunch would (weights, optimizer, iter_count, random streams,
+        cursors, the KL controller); commits are health-gated, so it is
+        the last good one. A corrupt target is quarantined by load() and
+        the one before taken. Returns False when nothing is restorable."""
+        path = self.ckpt_manager.latest_resumable()
+        if path is None:
+            logger.error("guardrails: rollback requested but no resumable checkpoint exists under %s — continuing "
+                         "without rollback (the ladder escalates if the run stays unhealthy)",
+                         self.config.train.checkpoint_dir)
+            return False
+        self._abandon_prefetch()
+        self._reset_data_stream()
+        while True:
+            logger.warning("guardrails: auto-rollback to %s (discarding the diverged live state at step %d)",
+                           path, self.iter_count)
+            try:
+                self.load(path)
+                break
+            except CheckpointCorruptError as e:
+                logger.error("guardrails: rollback target was corrupt and has been quarantined (%s); falling "
+                             "back to the previous committed checkpoint", e)
+                path = self.ckpt_manager.latest_resumable()
+                if path is None:
+                    logger.error("guardrails: no earlier resumable checkpoint remains after quarantine — "
+                                 "continuing without rollback; the prompt stream was rebuilt from zero")
+                    return False
+        # the loop continues from the restored step, not from a saved
+        # position inside a pass
+        self._resume_position = None
+        self._bad_steps = 0
+        self._optimizer_step_torn = False
+        self.guardrails.notify_rollback(self.iter_count)
+        return True
+
+    # -- the memory doctor (preflight, watermarks, the OOM ladder) --------
+
+    def _extra_plan_items(self) -> List:
+        """Hook: extra memdoctor.PlanItem rows for the preflight plan (PPO
+        adds its experience forward)."""
+        return []
+
+    def _memory_preflight(self) -> None:
+        """Admission control at the top of learn(), before any rollout: the
+        per-step plan's peak phase against the budget. `enforce` raises
+        MemoryPlanError with the itemized report, `warn` logs it."""
+        md = self.memdoctor
+        if not md.enabled or md.cfg.preflight == "off":
+            return
+        plan = estimate_plan(self)
+        self._hbm_plan = plan
+        logger.info("memory doctor preflight:\n%s", plan.report())
+        if plan.over_budget():
+            msg = ("memory doctor: preflight REJECTED this config — the HBM plan exceeds the admitted budget:\n"
+                   + plan.report())
+            if md.cfg.preflight == "enforce":
+                raise MemoryPlanError(msg, plan)
+            logger.warning(msg)
+
+    def _check_memory_watermark(self) -> None:
+        """Consume a latched watermark trip (and run the `hbm_creep` chaos
+        site) once a step: creeping residency raises the `memory` guardrail
+        signal, or a loud log with the guardrails off."""
+        if not self.memdoctor.enabled:
+            return
+        sampler = self.memdoctor.sampler
+        if self.chaos is not None and self.chaos.consult("hbm_creep"):
+            # sampled inline, so the trip lands on this step
+            sampler.inject_creep()
+            for _ in range(self.memdoctor.cfg.watermark_window):
+                sampler.sample()
+        detail = sampler.consume_trip()
+        if detail:
+            if self.guardrails.enabled:
+                self.guardrails.trip(MEMORY_SIGNAL, detail)
+            else:
+                logger.warning("memory doctor: %s — logged only (enable train.guardrails for the escalation "
+                               "ladder)", detail)
+
+    def _oom_retry_budget(self) -> int:
+        """Attempts of an OOM envelope: every rung the ladder could walk, plus
+        slack (the ladder itself ends in abort)."""
+        cfg = self.memdoctor.cfg
+        return cfg.max_splits + cfg.max_pool_shrinks + 4
+
+    def _oom_caps(self) -> Dict[str, bool]:
+        """What the ladder can do in this run: shrinking the pool needs the
+        decode engine, a split an even microbatch that still divides the
+        batch, remat only escalates past the configured policy."""
+        half = self.mb_size // 2
+        return {
+            "shrink_pool": self._engine_cfg.enabled,
+            "split_microbatch": (self.mb_size % 2 == 0 and half >= 1
+                                 and self.config.train.batch_size % (self.num_mb * 2) == 0),
+            "remat": remat_strength(self.memdoctor.cfg.remat_escalation)
+            > remat_strength(self.config.train.remat_policy),
+            "rollback": True,
+        }
+
+    def _state_buffers_valid(self) -> bool:
+        """False after an OOM inside the optimizer step (kernel 9's fused
+        step included): some parameters moved and others not, so retrying
+        would apply the step twice to some of them."""
+        return not self._optimizer_step_torn
+
+    def _handle_oom(self, event: OOMEvent) -> str:
+        """One rung of the degradation ladder for a classified OOM. Returns
+        "retry" when the failed dispatch should be re-attempted degraded,
+        "skip" when a rollback consumed the step; raises the itemized
+        MemoryAbortError when the ladder is exhausted. Called after the
+        envelope's `except` block has ended."""
+        md = self.memdoctor
+        self.guardrails.trip(MEMORY_SIGNAL, event.summary())
+        action = md.decide(event, self._oom_caps())
+        if action in ("shrink_pool", "split_microbatch", "remat") and not self._state_buffers_valid():
+            logger.warning("memory doctor: %s, but it struck inside the optimizer step — escalating to rollback",
+                           event.summary())
+            action = "rollback"
+        md.note(event, action)
+        if action == "abort":
+            raise MemoryAbortError(md.abort_report(event, self._hbm_plan))
+        if action == "shrink_pool":
+            # the next generate() resolves the spec at the new pool scale
+            self._engine_fns.clear()
+            return "retry"
+        if action == "split_microbatch":
+            self._apply_accum_factor()
+            return "retry"
+        if action == "remat":
+            self._escalate_remat(md.cfg.remat_escalation)
+            return "retry"
+        if self._rollback_to_last_good():
+            return "skip"
+        raise MemoryAbortError(md.abort_report(event, self._hbm_plan))
+
+    def _release_failed_step(self) -> None:
+        """After an OOM: the failed step's partial sums (fp32 `.grad`, the
+        grads_dtype tree) zeroed and the allocator's cached blocks returned,
+        so the retry fails on size, if at all, not on fragmentation."""
+        self._grad_sink_on = False
+        self._grad_tree = {}
+        self.optimizer.zero_grad(set_to_none=True)
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+
+    def _train_step_under_doctor(self, batch):
+        """`train_step` in the memory doctor's envelope (the `oom_fused_block`
+        chaos site consults once an attempt): an OOM walks the ladder and
+        retries the same batch degraded. Returns (loss, stats), or None when
+        a rollback consumed the step."""
+        if not self.memdoctor.enabled:
+            return self.train_step(batch)
+        for _attempt in range(self._oom_retry_budget()):
+            event = None
+            try:
+                if self.chaos is not None:
+                    self.chaos.oom("oom_fused_block")
+                return self.train_step(batch)
+            except Exception as e:
+                if not is_oom(e):
+                    raise
+                event = classify_oom(e, "train_step")
+            # the exception and its traceback are gone here
+            self._release_failed_step()
+            if self._handle_oom(event) == "skip":
+                return None
+        raise RuntimeError("memory doctor: train step still out of memory after exhausting the degradation "
+                           "retry budget")
+
+    def _generate_rollout(self, input_ids, attention_mask):
+        """generate() in the memory doctor's envelope (the `oom_prefill` chaos
+        site consults once an attempt): an OOM walks the shrink_pool rung
+        and the same chunk retries with a smaller pool."""
+        if not self.memdoctor.enabled:
+            return self.generate(input_ids, attention_mask)
+        for _attempt in range(self._oom_retry_budget()):
+            event = None
+            try:
+                if self.chaos is not None:
+                    self.chaos.oom("oom_prefill")
+                return self.generate(input_ids, attention_mask)
+            except Exception as e:
+                if not is_oom(e):
+                    raise
+                event = classify_oom(e, "rollout_prefill")
+            if self.device.type == "cuda":
+                torch.cuda.empty_cache()
+            self._handle_oom(event)  # a rollout OOM retries or aborts
+        raise RuntimeError("memory doctor: rollout generation still out of memory after exhausting the "
+                           "pool-shrink budget")
+
+    def _dispatch_experience(self, fn, *args):
+        """A teacher-forced scoring forward in the doctor's classification
+        envelope: no rung relieves it at run time (train.logit_chunks is the
+        config-time fix), so an OOM there ends in the itemized abort."""
+        if not self.memdoctor.enabled:
+            return fn(*args)
+        event = None
+        try:
+            return fn(*args)
+        except Exception as e:
+            if not is_oom(e):
+                raise
+            event = classify_oom(e, "experience")
+        self._handle_oom(event)
+        raise AssertionError("unreachable: an experience OOM always aborts")
+
+    def _apply_accum_factor(self) -> None:
+        """Re-derive num_mb / mb_size from the configured microbatch and the
+        doctor's accumulation factor (the same global batch, summed in
+        fp32)."""
+        base_mb = self.config.train.minibatch_size or self.config.train.batch_size
+        mb = max(base_mb // self.memdoctor.accum_factor, 1)
+        if self.config.train.batch_size % mb:
+            logger.error("memory doctor: accumulation factor %d does not divide cleanly (batch %d, base mb %d) — "
+                         "keeping the current microbatch", self.memdoctor.accum_factor,
+                         self.config.train.batch_size, base_mb)
+            return
+        if base_mb < self.config.train.batch_size:
+            logger.warning("memory doctor: config already used microbatch accumulation (minibatch_size=%d) — the "
+                           "split switches batch-statistic loss terms (PPO advantage whitening) from "
+                           "per-microbatch to full-batch scope", base_mb)
+        self.mb_size = mb
+        self.num_mb = self.config.train.batch_size // mb
+        logger.warning("memory doctor: train microbatch split to %d rows (x%d gradient accumulation; global batch "
+                       "unchanged)", mb, self.num_mb)
+
+    def _escalate_remat(self, policy: str) -> None:
+        """Switch the run to a stronger activation-checkpoint policy (never
+        weakens one the user set)."""
+        self.config.train.remat_policy = policy
+        self.memdoctor.note_remat(policy)
+        self.model.base.remat = resolve_remat(policy)
+        self._drop_traced_fns()
+        logger.warning("memory doctor: activation checkpointing escalated to %r — backward recomputes instead "
+                       "of keeping residuals", policy)
+
+    def _drop_traced_fns(self) -> None:
+        """Drop the cached functions built for the old configuration (the
+        decode engine's)."""
+        self._engine_fns.clear()
+
+    def _apply_degradation(self) -> None:
+        """Re-apply a restored degradation to the live trainer: pool scale,
+        accumulation factor, remat policy."""
+        md = self.memdoctor
+        if md.pool_shrinks:
+            self._engine_fns.clear()
+        if md.accum_factor > 1:
+            self._apply_accum_factor()
+        if md.remat_policy is not None and (
+                remat_strength(md.remat_policy) > remat_strength(self.config.train.remat_policy)):
+            self.config.train.remat_policy = md.remat_policy
+            self.model.base.remat = resolve_remat(md.remat_policy)
+            self._drop_traced_fns()
+
     def learn(self):
         """The training loop (the reference's per-step `_learn`), with the
-        preemption handler installed for its duration."""
+        preemption handler and the memory doctor's watermark sampler
+        installed for its duration. The memory doctor's admission control
+        runs first, before any rollout: an over-budget config dies here
+        with the itemized plan."""
+        self._memory_preflight()
         self.preemption.install()
+        self.memdoctor.sampler.start()
         try:
             return self._learn()
         finally:
+            self.memdoctor.sampler.stop()
             self.preemption.uninstall()
             # a rollout's held-back stats reach the log even when learn()
             # ends right after it
@@ -1494,17 +1932,41 @@ class TPUBaseTrainer(BaseRLTrainer):
                 # an interval checkpoint on the pass's last step waits for
                 # its callback, so that a resume continues after it
                 end_save = False
+                guard_break = False  # a ladder action consumed this pass's data
                 for b, batch in enumerate(loader):
                     if b < skip:
                         continue
                     if self._should_stop():
                         self._preemption_exit()
                         return results
+                    if self.chaos is not None and self.chaos.consult("nan_loss"):
+                        batch = poison_batch(batch)
                     clock.tick()
-                    loss, stats = self.train_step(batch)
+                    out = self._train_step_under_doctor(batch)
+                    if out is None:
+                        # an OOM rollback consumed the step's data source
+                        guard_break = True
+                        break
+                    loss, stats = out
                     step_time = clock.tick()
                     self._loop_position["batches"] = b + 1
-                    if self._guard_bad_loss(loss):
+                    if self.chaos is not None and self.chaos.consult("sigterm"):
+                        # a preemption landing right after a step
+                        import signal
+
+                        os.kill(os.getpid(), signal.SIGTERM)
+                    bad = self._guard_bad_loss(loss)
+                    self._check_memory_watermark()
+                    if self.guardrails.enabled:
+                        # the per-step loop: one step is one watchdog cycle
+                        self.guardrails.observe_train(step=self.iter_count, loss=loss,
+                                                      grad_norm=stats.get("losses/grad_norm"))
+                        if self._run_guardrail_ladder():
+                            # requeue or rollback: this loader's source is
+                            # gone, the cycle starts over
+                            guard_break = True
+                            break
+                    if bad:
                         # the skipped step does not advance the step index
                         # and logs nothing
                         continue
@@ -1544,6 +2006,8 @@ class TPUBaseTrainer(BaseRLTrainer):
                     if save and b + 1 < len(loader):
                         self._save_checkpoint(self._checkpoint_tag())
                     end_save = save and b + 1 == len(loader)
+                if guard_break:
+                    break
                 self.post_backward_callback()
                 self._loop_position = {"epoch": epoch, "inner": inner + 1, "loader_iter": self.iter_count,
                                        "batches": 0}
@@ -1628,6 +2092,9 @@ class TPUOnlineTrainer(TPUBaseTrainer):
         # the sampler's stream rewinds with it, so that the replayed chunks
         # draw what the abandoned ones drew
         sampler_start = self._resumable_sampler_state()
+        # a guardrail `requeue` rewinds to here: the whole cycle's prompts
+        # replay when its rollout batch turns out poisoned
+        self._cycle_cursor_start = prompt_cursor_start
         self._finish_rollout_stats()
         clock = Clock()
         n_collected = 0
@@ -1673,7 +2140,7 @@ class TPUOnlineTrainer(TPUBaseTrainer):
         took."""
         batch = self._next_prompt_batch()
         t0 = time.time()
-        gen = self.generate(batch.input_ids, batch.attention_mask)
+        gen = self._generate_rollout(batch.input_ids, batch.attention_mask)
         return batch, gen, time.time() - t0
 
     # -- the cross-cycle prefetch (method.overlap_rollouts) ---------------
@@ -1804,11 +2271,27 @@ class TPUOnlineTrainer(TPUBaseTrainer):
         )
         stats["rollout/truncation_rate"] = float((full_rows & ~hit_eos).mean()) if len(full_rows) else 0.0
 
+    def _observe_rollout(self, stats: Dict[str, Any], kl_target: Optional[float] = None) -> None:
+        """Feed the guardrails a flushed rollout's health signals."""
+        if not self.guardrails.enabled:
+            return
+        kl = stats.get("policy/sqrt_kl")
+        self.guardrails.observe_rollout(
+            kl=None if kl is None else float(kl) ** 2,
+            kl_target=kl_target,
+            reward_mean=stats.get("rollout_scores/mean"),
+            running_mean=stats.get("rollout_scores/running_mean"),
+            running_std=stats.get("rollout_scores/running_std"),
+            truncation_rate=stats.get("rollout/truncation_rate"),
+        )
+
     def _finish_rollout_stats(self) -> None:
-        """Log the deferred rollout stats. Idempotent."""
+        """Log the deferred rollout stats, feeding the guardrails their
+        signals. Idempotent."""
         for stats, step, meta in self._deferred_rollout.flush():
             if meta is not None:
                 stats["kl_coef"] = float(meta)
+            self._observe_rollout(stats)
             self._log_stats(stats, step=step)
 
     # -- the prompt stream ----------------------------------------------
@@ -1840,6 +2323,36 @@ class TPUOnlineTrainer(TPUBaseTrainer):
         batch = next(self.prompt_iterator)
         self._prompt_batches_consumed += 1
         return batch
+
+    def _rewind_prompt_stream(self, cursor: int) -> None:
+        """Rebuild the stream so the next pull is chunk `cursor` (host-side
+        pulls only)."""
+        self._build_prompt_iterator()
+        for _ in range(cursor):
+            next(self.prompt_iterator)
+        self._prompt_batches_consumed = cursor
+
+    def _reset_data_stream(self) -> None:
+        """The rollback's hook: the stream back to zero; the load() that
+        follows fast-forwards it to the checkpoint's cursor."""
+        if getattr(self, "_prompt_pipeline", None) is None:
+            return
+        self._resume_prompt_cursor = 0
+        self._build_prompt_iterator()
+
+    def _requeue_poisoned_batch(self) -> bool:
+        """The guardrails' `requeue` rung: drop the poisoned rollout store and
+        rewind the prompt stream to the cycle's start, so the same prompts
+        are collected again with the current policy."""
+        start = getattr(self, "_cycle_cursor_start", None)
+        if len(self.store) == 0 or start is None:
+            return False
+        self._abandon_prefetch()
+        self.store.clear_history()
+        self._rewind_prompt_stream(start)
+        logger.warning("guardrails: discarded the poisoned rollout batch; prompt stream rewound to chunk %d for "
+                       "replay", start)
+        return True
 
     def _fast_forward_prompts(self) -> None:
         """Resume: advance the prompt stream to the restored cursor by

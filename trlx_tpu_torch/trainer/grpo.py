@@ -144,7 +144,17 @@ class TPUGRPOTrainer(TPUOnlineTrainer):
 
     def _experience(self, sequences, prompt_mask, response_mask):
         attention_mask = torch.cat([prompt_mask, response_mask], dim=1).to(torch.int32)
-        return self.experience_forward(sequences, attention_mask, response_mask)
+        return self._dispatch_experience(self.experience_forward, sequences, attention_mask, response_mask)
+
+    def _pre_accum_batch(self, batch):
+        """The split_microbatch rung's compensation for GRPO: the advantages
+        are per sequence, but the loss's mask-count normaliser couples the
+        batch, so it is fixed to the whole batch's count / num_mb (PPO's
+        contract)."""
+        if self.memdoctor.accum_factor <= 1 or not isinstance(batch, GRPORolloutBatch):
+            return batch
+        norm = (batch.response_mask.float().sum() / self.num_mb).expand(batch.response_mask.shape[0]).clone()
+        return batch.replace(norm_n=norm)
 
     def _group_advantages(self, scores: np.ndarray, stats: Dict[str, Any]) -> np.ndarray:
         """Each row's reward z-score in its group; logs the groups' mean

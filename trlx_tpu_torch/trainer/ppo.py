@@ -255,12 +255,15 @@ class TPUPPOTrainer(TPUOnlineTrainer):
 
     def _experience(self, batch: PromptBatch, sequences, prompt_mask, response_mask):
         """The teacher-forced experience forward of one chunk's tokens:
-        (KL-only rollout batch, KL stats)."""
+        (KL-only rollout batch, KL stats), in the memory doctor's
+        classification envelope."""
         if self.seq2seq:
             enc_ids = torch.as_tensor(batch.input_ids, device=self.device)
-            return self.experience_forward_seq2seq(enc_ids, prompt_mask, sequences, response_mask, self.kl_ctl.value)
+            return self._dispatch_experience(self.experience_forward_seq2seq, enc_ids, prompt_mask, sequences,
+                                             response_mask, self.kl_ctl.value)
         attention_mask = torch.cat([prompt_mask, response_mask], dim=1).to(torch.int32)
-        return self.experience_forward(sequences, attention_mask, response_mask, self.kl_ctl.value)
+        return self._dispatch_experience(self.experience_forward, sequences, attention_mask, response_mask,
+                                         self.kl_ctl.value)
 
     def _score_and_assemble(self, batch: PromptBatch, gen_out, stats: Dict[str, Any],
                             iter_count: int, clock: Clock):
@@ -333,11 +336,48 @@ class TPUPPOTrainer(TPUOnlineTrainer):
         for stats, step, kl_ctl_value in self._deferred_rollout.flush():
             stats["kl_ctl_value"] = kl_ctl_value
             self.mean_kl = stats["policy/sqrt_kl"] ** 2
+            self._observe_rollout(stats, kl_target=getattr(self.kl_ctl, "target", None))
             self._log_stats(stats, step=step)
 
     def post_backward_callback(self) -> None:
         super().post_backward_callback()
         self.kl_ctl.update(self.mean_kl, n_steps=self.config.train.batch_size)
+
+    # -- memory doctor hooks ---------------------------------------------
+
+    def _pre_accum_batch(self, batch):
+        """The split_microbatch rung's compensation: GAE and the advantage
+        whitening over the whole step batch before the split, and the loss's
+        mask-count normaliser fixed to the whole batch's count / num_mb, so
+        each microbatch divides by the same constant and the accumulated
+        mean equals the unsplit step's. A config that accumulated before
+        the doctor (train.minibatch_size) keeps its per-microbatch
+        whitening until the doctor splits (the reference's contract)."""
+        if self.memdoctor.accum_factor <= 1 or not isinstance(batch, PPORolloutBatch):
+            return batch
+        method = self.config.method
+        advantages, returns = gae_advantages_and_returns(batch.values, batch.rewards, gamma=method.gamma,
+                                                         lam=method.lam)
+        norm = (batch.response_mask.float().sum() / self.num_mb).expand(batch.response_mask.shape[0]).clone()
+        return batch.replace(advantages=advantages, returns=returns, norm_n=norm)
+
+    def _extra_plan_items(self):
+        """The preflight plan's rows for PPO's experience pass: one chunk's
+        teacher-forced policy and reference forward, beside generation in
+        the rollout phase."""
+        from trlx_tpu_torch.utils.memdoctor import PlanItem, _dtype_size
+
+        train = self.config.train
+        chunk = int(self.config.method.chunk_size)
+        cfg = self.model.base.cfg
+        S = train.seq_length
+        hidden = int(getattr(cfg, "hidden_size", getattr(cfg, "d_model", 768)))
+        act_b = int(chunk * S * hidden * 2 * _dtype_size(train.compute_dtype))
+        chunks = max(int(train.logit_chunks or 0), 0)
+        logit_rows = S if chunks == 0 else -(-S // chunks)
+        logits_b = int(2 * chunk * logit_rows * cfg.vocab_size * 4)
+        return [PlanItem("rollout", "experience_fwd", act_b + logits_b,
+                         "teacher-forced policy+ref forward per chunk")]
 
     # -- resumable state: the KL controller on top of the online core's --
 

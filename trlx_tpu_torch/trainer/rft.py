@@ -77,7 +77,7 @@ class TPURFTTrainer(TPUBaseTrainer):
         for batch in self.prompt_dataloader:
             P = batch.input_ids.shape[1]
             for _ in range(self.config.method.n_generations_per_prompt):
-                sequences = self.generate(batch.input_ids, batch.attention_mask)["sequences"].cpu().numpy()
+                sequences = self._generate_rollout(batch.input_ids, batch.attention_mask)["sequences"].cpu().numpy()
                 _, str_prompts, str_outputs = self.decode(batch.input_ids.numpy(), sequences,
                                                           [P] * len(sequences), append_eos_token=True)
                 generations.extend({"prompt": p, "output": o} for p, o in zip(str_prompts, str_outputs))

@@ -33,6 +33,11 @@ logger = logging.get_logger(__name__)
 _JITTER_RNG = random.Random()
 
 
+class ChaosFault(RuntimeError):
+    """An injected fault (utils/chaos.py), type-distinct so tests can tell
+    injected failures from real ones."""
+
+
 class CircuitOpenError(RuntimeError):
     """The circuit breaker rejected the call without attempting it."""
 
