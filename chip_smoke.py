@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive trlx_tpu_torch's rollout and training paths on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N] [--only fwd|paged|decode|bias|sft|ppo|resume|ilql|rft|grpo|dpo|llama|peft|memory|health]
+    python3 chip_smoke.py [--seed N] [--only fwd|paged|decode|bias|sft|ppo|resume|ilql|rft|grpo|dpo|llama|peft|memory|w8a16|health]
 
 Builds the CUDA kernels from `trlx_tpu_torch/csrc` (into build/kernels/)
 and holds each kernel against its plain PyTorch version on the card: both
@@ -149,15 +149,18 @@ the ILQL, RFT, GRPO or DPO phases; `--only llama` the build, the head
 width 128 kernel cases, the Llama path and its kernel_time rows; `--only
 peft` the build, the peft phases and their kernel_time rows; `--only
 memory` the build, the memory phases and kernels 9 and 10's rows; `--only
-health` the build and the health phases: a real CUDA OOM under a process
-memory cap walks the memory doctor's split_microbatch rung (the losses and
-weights against a run split by a chaos OOM, the losses, gradients and
-update against an unsplit run) and its shrink_pool rung (greedy rollouts
-against the uncapped pool's), the preflight plan's state rows against the
-bytes the trainer holds (the GPT-2 and recipe cells) and
-an over-budget config rejected before any rollout, and a chaos NaN that
-the guardrails roll back to the committed checkpoint bitwise, then a
-chaos hbm_creep that trips the watermark.
+w8a16` the build, kernel 10's check (both routes, every tiling, bit for bit
+on a second call) and its kernel_time rows at the recipe and 7B cells'
+shapes (W8A16_PATH_SHAPES; no path runs, so its rows carry no
+launches); `--only health` the build and the health phases: a real CUDA
+OOM under a process memory cap walks the memory doctor's split_microbatch
+rung (the losses and weights against a run split by a chaos OOM, the
+losses, gradients and update against an unsplit run) and its shrink_pool
+rung (greedy rollouts against the uncapped pool's), the preflight plan's
+state rows against the bytes the trainer holds (the GPT-2 and recipe
+cells) and an over-budget config rejected before any rollout, and a chaos
+NaN that the guardrails roll back to the committed checkpoint bitwise,
+then a chaos hbm_creep that trips the watermark.
 `--only fwd` stops after the build, the flash forward's check and its
 kernel_time rows; `--only paged` after the build, the paged check and the
 paged kernel_time rows; `--only decode` after the build, the int8 decode
@@ -5955,6 +5958,21 @@ INT8MM_WIDTHS = {"gpt2_qkv": (768, 2304), "d768": (768, 768), "d768_ff": (768, 3
                  "llama_attn": (4096, 4096), "llama_fc_in": (4096, 11008), "llama_fc_out": (11008, 4096)}
 INT8MM_ROWS = {"decode": PROMPTS, "prefill": PROMPTS * PROMPT_LEN}  # 64 rows, and 64 prompts x 32
 INT8MM_EDGE_ROWS = (1, 8, 33)  # odd row counts, at llama_fc_in
+# kernel 10's tilings (`int8_matmul_route`) each at least once, the wgmma
+# route's K splits 1, 2, 4 and 8 too, with the K tail (776, 4104: not
+# whole 64- or 256-deep stages), a ragged last channel tile (2320 = 18 x
+# 128 + 16) and row counts that end mid-tile
+INT8MM_ROUTE_CASES = ((8, 4096, 4096), (1, 4104, 768), (16, 768, 768), (16, 4096, 11008), (32, 768, 2304),
+                      (32, 4096, 11008), (33, 776, 2320), (64, 4096, 11008), (100, 776, 2320), (1024, 4096, 4096),
+                      (300, 4104, 2320), (128, 4096, 768), (3840, 4096, 4096))
+# the (M, K, N) the recipe and 7B cells launch kernel 10 at: `--only w8a16`
+# times these without running the cells (the full run times the shapes the
+# cells launched, with their launches)
+W8A16_PATH_SHAPES = (
+    (8, 4096, 4096), (8, 4096, 11008), (8, 11008, 4096), (3840, 4096, 4096), (3840, 4096, 11008),
+    (3840, 11008, 4096), (64, 768, 768), (64, 768, 3072), (64, 3072, 768), (32, 768, 768), (32, 768, 3072),
+    (32, 3072, 768), (2048, 768, 768), (2048, 768, 3072), (2048, 3072, 768), (1024, 768, 768), (1024, 768, 3072),
+    (1024, 3072, 768))
 # the recipe PPO cell: train_path's workload with the recipe applied and two
 # microbatches a step
 RECIPE_FILE = "configs/mesh/single_chip_1p3b.yml"
@@ -5986,7 +6004,8 @@ def memory_counters() -> dict:
     from trlx_tpu_torch.ops import adam8bit, int8_matmul
 
     return {**train_counters(), "adam8bit": adam8bit.adam8bit_step,
-            "int8_matmul": int8_matmul.int8_weight_matmul}
+            "int8_matmul": int8_matmul.int8_weight_matmul, "int8_matmul_stream": int8_matmul.int8_weight_matmul_stream,
+            "int8_matmul_wgmma": int8_matmul.int8_weight_matmul_wgmma}
 
 
 @contextlib.contextmanager
@@ -6071,38 +6090,52 @@ def check_adam8bit(gen) -> dict:
 def int8_matmul_error(x, q, s) -> dict:
     """Kernel 10 on (x, q, s) against the dequantize-then-fp32 product:
     every output within half a bf16 ulp of the fp32 product (2^-8 of its
-    size, plus 1e-5 of the largest for the fp32 sum's order), raised
-    otherwise; the port's plain version beside it."""
+    size, plus 1e-5 of the largest for the fp32 sum's order), and a second
+    call on the same inputs equal bit for bit, raised otherwise; the
+    port's plain version beside it."""
     import torch
 
     from trlx_tpu_torch.ops import int8_matmul as im
 
     M, (K, N) = x.shape[0], q.shape
-    y = im.int8_weight_matmul(x, q, s).float()
+    y16 = im.int8_weight_matmul(x, q, s)
+    again = im.int8_weight_matmul(x, q, s)
+    y = y16.float()
     ref = torch.matmul(x.float(), q.float()) * s
     plain = im.int8_weight_matmul_plain(x, q, s).float()
     torch.cuda.synchronize()
     allowed = 2.0 ** -8 * ref.abs() + 1e-5 * ref.abs().max()
-    e = {"M": M, "K": K, "N": N, "splits": im.int8_matmul_splits(M, N, K),
+    e = {"M": M, "K": K, "N": N, "route": list(im.int8_matmul_route(M, N, K)),
          "rel_to_half_ulp": ((y - ref).abs() / allowed).max().item(),
-         "max_abs_err": (y - ref).abs().max().item(), "vs_plain_max_abs": (y - plain).abs().max().item()}
+         "max_abs_err": (y - ref).abs().max().item(), "vs_plain_max_abs": (y - plain).abs().max().item(),
+         "bitwise_repeat": bool(torch.equal(y16, again))}
     if not e["rel_to_half_ulp"] <= 1.0:
         raise AssertionError(f"kernel 10 strays from the fp32 product by more than half a bf16 ulp: {e}")
+    if not e["bitwise_repeat"]:
+        raise AssertionError(f"kernel 10 gave other bits on a second call with the same inputs: {e}")
     return e
 
 
 def check_int8_matmul(gen) -> dict:
     """Kernel 10 against the plain dequantize-then-fp32 product rounded once
-    to bf16 (`int8_matmul_error`), at every INT8MM_WIDTHS width and
-    INT8MM_ROWS row count, and at INT8MM_EDGE_ROWS rows of llama_fc_in.
-    The paths' own shapes are checked again after they ran
-    (`memory_kernel_times`). Returns the worst errors."""
+    to bf16 (`int8_matmul_error`, a second call bit for bit), at every
+    INT8MM_WIDTHS width and INT8MM_ROWS row count, at INT8MM_EDGE_ROWS rows
+    of llama_fc_in and at INT8MM_ROUTE_CASES, which must reach every
+    tiling of both routes (`int8_matmul_tilings`). The paths' own shapes
+    are checked again after they ran (`memory_kernel_times`). Returns the
+    worst errors."""
     import torch
 
     from trlx_tpu_torch.ops import int8_matmul as im
 
     cases = [(name, M, K, N) for name, (K, N) in INT8MM_WIDTHS.items() for M in INT8MM_ROWS.values()]
     cases += [("llama_fc_in", M, *INT8MM_WIDTHS["llama_fc_in"]) for M in INT8MM_EDGE_ROWS]
+    cases += [("route", M, K, N) for M, K, N in INT8MM_ROUTE_CASES]
+    routes = [im.int8_matmul_route(M, N, K) for _, M, K, N in cases]
+    missing = set(im.int8_matmul_tilings()) - {r[:3] for r in routes}
+    missing |= {("wgmma split", n) for n in (1, 2, 4, 8)} - {("wgmma split", r[3]) for r in routes if r[0] == "wgmma"}
+    if missing:
+        raise AssertionError(f"kernel 10's check misses tilings {missing}")
     out, worst = [], {"rel_to_half_ulp": 0.0, "vs_plain_max_abs": 0.0}
     for name, M, K, N in cases:
         x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
@@ -6156,7 +6189,16 @@ def recipe_launches(L: int, K: int, n_mb: int, steps: int, decode_steps: list, t
     return {"flash_fwd": n_fwd, "flash_fwd_short": n_fwd, "flash_fwd_long": 0,
             "flash_bwd": steps * n_mb * K, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
             "decode": n_decode, "decode_short": n_decode, "decode_long": 0,
-            "adam8bit": trainable * steps, "int8_matmul": 6 * L * sum(1 + d for d in decode_steps)}
+            "adam8bit": trainable * steps, **int8_matmul_launches(6 * L, decode_steps)}
+
+
+def int8_matmul_launches(projections: int, decode_steps: list) -> dict:
+    """Kernel 10's launches over sampler calls of `decode_steps` each:
+    every projection once in each call's prefill (the wgmma route: the
+    prompts' rows are more than 64) and once a decode step (the stream
+    route: a row a prompt, at most 64)."""
+    prefill, decode = projections * len(decode_steps), projections * sum(decode_steps)
+    return {"int8_matmul": prefill + decode, "int8_matmul_wgmma": prefill, "int8_matmul_stream": decode}
 
 
 def recipe_ppo_path(seed: int, shapes: dict, int8_shapes: collections.Counter) -> dict:
@@ -6495,7 +6537,7 @@ def llama_full_path(seed: int, shapes: dict, int8_shapes: collections.Counter) -
               "flash_bwd_dkv": n_bwd * (not bwd_fused),
               "decode": n_decode, "decode_short": n_decode * (not decode_long), "decode_long": n_decode * decode_long,
               "adam8bit": len(trainer.trainable_params) * steps,
-              "int8_matmul": 7 * L * sum(1 + d for d in decode_steps)}
+              **int8_matmul_launches(7 * L, decode_steps)}
     losses = [st["losses/loss"] for _, st in trainer.stats_history if "losses/loss" in st]
     emit("llama_full_path", wall_s=wall, init_s=init_s, step_walls_s=step_walls, layers=L,
          parameters=n_params, trainable_parameters=sum(p.numel() for p in trainer.trainable_params),
@@ -6553,7 +6595,6 @@ def memory_kernel_times(gen, memory: dict) -> list:
     import torch
 
     from trlx_tpu_torch.ops import adam8bit as a8
-    from trlx_tpu_torch.ops import int8_matmul as im
 
     rows = []
     for leaf in ("llama_mlp", "gpt2_qkv"):
@@ -6578,26 +6619,53 @@ def memory_kernel_times(gen, memory: dict) -> list:
             bound_bytes=n_bytes, bound_flops=ADAM8_OPS_PER_ELEMENT * n, library_ms=None, library_is="none"))
     tallies = memory["int8_shapes"]
     for (M, K, N) in sorted(set(tallies["recipe"]) | set(tallies["llama_full"])):
-        x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
-        w = (torch.randn((K, N), generator=gen, device="cuda") * 0.02).to(torch.bfloat16)
-        q, s = im.quantize_kernel(w)
-        err = int8_matmul_error(x, q, s)
-        ms = time_ms(lambda: im.int8_weight_matmul(x, q, s))
-        plain = time_ms(lambda: im.int8_weight_matmul_plain(x, q, s))
-        lib = time_ms(lambda: torch.matmul(x, w))
-        n_bytes = K * N + 2 * M * K + 2 * M * N + 4 * N
-        bms, by = bound_ms(n_bytes, 2 * M * K * N)
-        by_path = {path: tallies[path].get((M, K, N), 0) for path in tallies}
-        rows.append(dict(
-            name=f"int8_matmul/M{M}_K{K}_N{N}", route="cuda", source="trlx_tpu_torch/csrc/int8_weight_matmul.cu",
-            replaces="none (port-only: trlx_tpu/models/transformer.py:574 quantize_decode_weights, QDense's XLA dot)",
-            launches=sum(by_path.values()), launches_by_path=by_path, max_abs_err=err["max_abs_err"],
-            err_is="at this shape, from the fp32 product of the same int8 weights",
-            rel_to_half_ulp=err["rel_to_half_ulp"], vs_plain_max_abs=err["vs_plain_max_abs"], splits=err["splits"],
-            shape=[M, K, N], ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, bound_bytes=n_bytes,
-            bound_flops=2 * M * K * N, library_ms=lib, library_is="torch.matmul on the bf16 weight"))
+        rows.append(int8_matmul_row(gen, M, K, N, {path: tallies[path].get((M, K, N), 0) for path in tallies}))
     for row in rows:
         emit("kernel_time", **row)
+    return rows
+
+
+def int8_matmul_row(gen, M: int, K: int, N: int, by_path: dict) -> dict:
+    """Kernel 10's kernel_time row at (M, K, N) on fresh inputs: held to the
+    fp32 product again (`int8_matmul_error`), timed on the route
+    `int8_matmul_route` names beside the plain version, torch.matmul on the
+    bf16 weight it replaces (library) and the bound; `by_path` the
+    launches of the runs that launched this shape (None: no run did, and
+    the row has no launches)."""
+    import torch
+
+    from trlx_tpu_torch.ops import int8_matmul as im
+
+    x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+    w = (torch.randn((K, N), generator=gen, device="cuda") * 0.02).to(torch.bfloat16)
+    q, s = im.quantize_kernel(w)
+    err = int8_matmul_error(x, q, s)
+    ms = time_ms(lambda: im.int8_weight_matmul(x, q, s))
+    plain = time_ms(lambda: im.int8_weight_matmul_plain(x, q, s))
+    lib = time_ms(lambda: torch.matmul(x, w))
+    n_bytes = K * N + 2 * M * K + 2 * M * N + 4 * N
+    bms, by = bound_ms(n_bytes, 2 * M * K * N)
+    route, tile_rows, tile_cols, splits = err["route"]
+    launches = {} if by_path is None else dict(launches=sum(by_path.values()), launches_by_path=by_path)
+    return dict(
+        name=f"int8_matmul_{route}/M{M}_K{K}_N{N}", route="cuda", source="trlx_tpu_torch/csrc/int8_weight_matmul.cu",
+        replaces="none (port-only: trlx_tpu/models/transformer.py:574 quantize_decode_weights, QDense's XLA dot)",
+        kernel_route=route, tile=[tile_rows, tile_cols], k_splits=splits, **launches,
+        max_abs_err=err["max_abs_err"], err_is="at this shape, from the fp32 product of the same int8 weights",
+        rel_to_half_ulp=err["rel_to_half_ulp"], vs_plain_max_abs=err["vs_plain_max_abs"],
+        bitwise_repeat=err["bitwise_repeat"], shape=[M, K, N], ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
+        bound_bytes=n_bytes, bound_flops=2 * M * K * N, library_ms=lib, library_is="torch.matmul on the bf16 weight")
+
+
+def w8a16_kernel_times(gen) -> list:
+    """`--only w8a16`: kernel 10's rows at W8A16_PATH_SHAPES, the shapes the
+    recipe and 7B cells launch it at. No cell runs here, so the rows carry
+    no launches."""
+    rows = []
+    for M, K, N in W8A16_PATH_SHAPES:
+        row = int8_matmul_row(gen, M, K, N, None)
+        emit("kernel_time", **row)
+        rows.append(row)
     return rows
 
 
@@ -7110,7 +7178,7 @@ def run() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--only", choices=("fwd", "paged", "decode", "bias", "sft", "ppo", "resume", "ilql", "rft",
-                                           "grpo", "dpo", "llama", "peft", "memory", "health"),
+                                           "grpo", "dpo", "llama", "peft", "memory", "w8a16", "health"),
                         default=None,
                         help="fwd: the build, flash_check and the flash forward's kernel_time rows only "
                              "(a quick check of kernel 1); paged: the build, paged_check and the paged "
@@ -7129,7 +7197,8 @@ def run() -> int:
                              "kernel cases, peft_phases (LoRA, prompt and prefix tuning on GPT-2 small, T5 LoRA, "
                              "Llama-2-7B LoRA) and their kernel_time rows; memory: the build, kernels 9 and 10 "
                              "against their plain versions, the recipe PPO cell, the full-parameter Llama-2-7B "
-                             "cell and kernels 9 and 10's kernel_time rows; health: the build and the health "
+                             "cell and kernels 9 and 10's kernel_time rows; w8a16: the build, kernel 10's check "
+                             "and its kernel_time rows at the cells' recorded shapes; health: the build and the health "
                              "phases (health_reference, oom_split_path, oom_pool_path, preflight_plan, "
                              "guardrail_path), no kernel_time rows")
     args = parser.parse_args()
@@ -7201,10 +7270,10 @@ def run() -> int:
         "paged_short_verify": paged_attention_occupancy("short", 4, 32, 32, 16, 5, True, D=128),
         "paged_short_verify_gqa8_bf16_256": paged_attention_occupancy("short", 4, 64, 8, 16, 16, False, D=128),
     }
-    # kernel 9 (fp32 and bf16 gradients) and kernel 10 (16- and 64-row tiles,
-    # the split-K reduction)
-    memory_kernels = (ptxas_report(log, "adam8bit_kernel") + ptxas_report(log, "int8_weight_matmul_kernel")
-                      + ptxas_report(log, "int8_weight_matmul_reduce_kernel"))
+    # kernel 9 (fp32 and bf16 gradients) and kernel 10 (the stream route's
+    # eight tilings, the wgmma route's two)
+    memory_kernels = (ptxas_report(log, "adam8bit_kernel") + ptxas_report(log, "w8a16_stream_kernel")
+                      + ptxas_report(log, "w8a16_wgmma_kernel"))
     emit("build", seconds=time.perf_counter() - t0,
          ptxas=[ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln],
          flash_bias_bwd_fused=fused, flash_bwd_fused=fused_plain, flash_fwd_short=short_fwd,
@@ -7229,7 +7298,7 @@ def run() -> int:
                             ("D = 128 dk/dv kernel", long_new["flash_bwd_dkv_kernel"], 2),
                             ("new long int8 decode kernel", long_new["decode_int8_kernel"], 8),
                             ("D = 128 long paged kernel", long_new["paged_attention_kernel"], 6),
-                            ("kernel 9 and kernel 10", memory_kernels, 5)):
+                            ("kernel 9 and kernel 10", memory_kernels, 12)):
         if len(report) != n or any(f.get("spill_stores", 1) or f.get("spill_loads", 1) for f in report):
             raise AssertionError(f"the {what}'s {n} instantiations must build without spills: {report}")
     if short_occupancy["teacher_forced"]["ctas_per_sm"] < 3:
@@ -7290,6 +7359,9 @@ def run() -> int:
         rows = peft_kernel_times(gen, peft, peft_shapes, peft_bias_shapes)
     elif args.only == "memory":
         rows = memory_kernel_times(gen, memory_phases(args.seed, {}))
+    elif args.only == "w8a16":
+        check_int8_matmul(gen)
+        rows = w8a16_kernel_times(gen)
     elif args.only == "health":
         health_phases(args.seed)
         rows = []

@@ -38,8 +38,12 @@ from trlx_tpu_torch.models.gen_engine import (
 from trlx_tpu_torch.models.generation import SamplerSettings, cast_params_for_decode, generate
 from trlx_tpu_torch.models.transformer import TransformerConfig, TransformerLM, extract_branch_params
 from trlx_tpu_torch.ops.int8_matmul import (
+    SMS,
+    STREAM_MAX_ROWS,
+    STREAM_MIN_CTAS,
     check_decode_dtype,
-    int8_matmul_splits,
+    int8_matmul_route,
+    int8_matmul_tilings,
     int8_weight_matmul,
     int8_weight_matmul_plain,
     quantize_kernel,
@@ -200,16 +204,37 @@ def test_w8a16_plain_product(M, K, N):
 
 
 @pytest.mark.parametrize("M", [1, 8, 16, 32, 64, 2048, 3840])
-def test_w8a16_splits_cover_k_without_an_empty_split(M):
-    """Kernel 10 gives each of `int8_matmul_splits` K ranges the same whole
-    number of 64-deep steps ((K / splits) rounded up to 64, as its launcher
-    computes): the ranges cover K and none starts past it, at every width
-    of GPT-2, T5 and Llama-2-7B and at K not a multiple of 64."""
+def test_w8a16_route_covers_the_product(M):
+    """Kernel 10's route and tiling (`int8_matmul_route`) at every width of
+    GPT-2, T5 and Llama-2-7B and at K not a multiple of 64: a tiling the
+    kernel is built for; the decode route for at most 64 rows with the least
+    row tile that holds them all, its channel tiles 32 wide while that gives
+    the card STREAM_MIN_CTAS CTAs; the prefill route past 64 rows, its tiles
+    256 rows when that gives each SM a CTA, else 128, with K split over the
+    fewest of 2, 4 or 8 CTAs that give each SM one when 128-row tiles do
+    not, keeping at least two 64-deep stages a CTA, and the splits' stages
+    covering K."""
+    tilings = set(int8_matmul_tilings())
     for K in (768, 3072, 4096, 11008, 776, 4104):
+        stages = -(-K // 64)
         for N in (768, 2304, 3072, 4096, 11008, 16):
-            splits = int8_matmul_splits(M, N, K)
-            per = -(-(-(-K // splits)) // 64) * 64
-            assert splits >= 1 and (splits - 1) * per < K <= splits * per, (M, K, N, splits)
+            route, rows, cols, splits = int8_matmul_route(M, N, K)
+            assert (route, rows, cols) in tilings, (M, K, N)
+            tiles = -(-M // rows) * -(-N // cols)
+            if M <= STREAM_MAX_ROWS:
+                assert route == "stream" and splits == 1, (M, K, N)
+                assert rows == min(r for r in (8, 16, 32, 64) if r >= M), (M, K, N)
+                assert (cols == 32) == (-(-N // 32) >= STREAM_MIN_CTAS), (M, K, N)
+                continue
+            assert route == "wgmma" and cols == 128, (M, K, N)
+            assert (rows == 256) == (-(-M // 256) * -(-N // 128) >= SMS), (M, K, N)
+            assert splits in (1, 2, 4, 8) and (splits == 1 or rows == 128), (M, K, N)
+            assert -(-stages // splits) * splits >= stages and 2 * splits <= max(stages, 2), (M, K, N)
+            assert splits == 1 or tiles * splits // 2 < SMS, (M, K, N)  # the fewest splits
+            assert splits == 8 or tiles * splits >= SMS or 4 * splits > stages, (M, K, N)  # enough
+    for bad in ((M, 24, 768), (M, 768, 20)):
+        with pytest.raises(ValueError, match="kernel 10 takes"):
+            int8_matmul_route(*bad)
 
 
 def test_int8_decode_weights_refuse_non_bf16_on_cuda():

@@ -432,6 +432,65 @@ def test_resume_with_8bit_state_is_bit_for_bit(tmp_path):
 
 
 # ---------------------------------------------------------------------------
+# the optimizer's state exists once the trainer is built
+# ---------------------------------------------------------------------------
+
+STATE_KEYS = {"adamw": {"step", "exp_avg", "exp_avg_sq"},
+              "adamw_8bit_fused": {"step", "m_q", "m_scale", "v_q", "v_scale"}, "lion": {"step", "exp_avg"}}
+
+
+def _optimizer_config(tmp_path, name, **train):
+    config = _fused_config(tmp_path, **train)
+    if name == "lion":  # Lion takes no eps
+        config.optimizer.kwargs.pop("eps")
+    return config.evolve(optimizer=dict(name=name))
+
+
+@pytest.mark.parametrize("name", sorted(STATE_KEYS))
+def test_optimizer_state_exists_once_the_trainer_is_built(name, tmp_path):
+    """Every trainable parameter has its whole state before the first step
+    (as the reference's optax state exists from `opt.init`), zero moments
+    and a zero count, and the state's bytes equal the preflight plan's
+    opt_state row."""
+    from trlx_tpu_torch.ops.adam8bit import state_bytes
+    from trlx_tpu_torch.utils import memdoctor
+    from trlx_tpu_torch.utils.loading import get_trainer
+
+    config = _optimizer_config(tmp_path, name)
+    trainer = get_trainer(config.train.trainer)(config=config, device="cpu")
+    assert trainer.trainable_params and len(trainer.optimizer.state) == len(trainer.trainable_params)
+    for p in trainer.trainable_params:
+        st = trainer.optimizer.state[p]
+        assert set(st) == STATE_KEYS[name] and int(st["step"]) == 0
+        assert all(not v.any() for k, v in st.items() if k != "step")
+    plan = memdoctor.estimate_plan(trainer)
+    rows = [it.bytes for it in plan.items if it.component == "opt_state"]
+    assert rows == [state_bytes(trainer.optimizer)] and rows[0] > 0
+
+
+@pytest.mark.parametrize("name", sorted(STATE_KEYS))
+def test_optimizer_state_made_at_build_steps_as_the_lazy_state(name, tmp_path, monkeypatch):
+    """Two steps with the state made when the trainer is built, and two
+    with the optimizer creating it inside its first step (the lazy path
+    the optimizers keep for direct use): the losses, the parameters and
+    the state are equal bit for bit."""
+    eager = trlx_tpu_torch.train(samples=sft_t.SAMPLES, device="cpu",
+                                 config=_optimizer_config(tmp_path / "eager", name, total_steps=2))
+    monkeypatch.setattr(trainer_base, "init_optimizer_state", lambda optimizer: None)
+    lazy = trlx_tpu_torch.train(samples=sft_t.SAMPLES, device="cpu",
+                                config=_optimizer_config(tmp_path / "lazy", name, total_steps=2))
+    losses = [[st["losses/loss"] for _, st in t.stats_history if "losses/loss" in st] for t in (eager, lazy)]
+    assert len(losses[0]) == 2 and losses[0] == losses[1]
+    for (n, a), b in zip(eager.model.named_parameters(), lazy.model.parameters()):
+        assert torch.equal(a, b), n
+    for a, b in zip(eager.trainable_params, lazy.trainable_params):
+        sa, sb = eager.optimizer.state[a], lazy.optimizer.state[b]
+        assert set(sa) == set(sb) == STATE_KEYS[name]
+        for key in sa:
+            assert sa[key].dtype == sb[key].dtype and torch.equal(sa[key], sb[key]), key
+
+
+# ---------------------------------------------------------------------------
 # the recipe's config files load and train, also under the memory doctor
 # ---------------------------------------------------------------------------
 

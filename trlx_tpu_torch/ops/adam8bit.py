@@ -226,6 +226,11 @@ class AdamW8bit(torch.optim.Optimizer):
         self.fused = fused
         self.applies_nonfinite_as_zero = fused
 
+    def init_state(self, p: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """p's state before its first step (the step makes it when it finds
+        none; `utils.init_optimizer_state` makes it ahead)."""
+        return zero_state(p)
+
     @torch.no_grad()
     def step(self, closure=None, grads: Optional[Dict[torch.Tensor, torch.Tensor]] = None):
         if closure is not None:
@@ -235,7 +240,7 @@ class AdamW8bit(torch.optim.Optimizer):
             for p, g in _grads_of(group["params"], grads):
                 st = self.state[p]
                 if not st:
-                    st.update(zero_state(p))
+                    st.update(self.init_state(p))
                 st["step"] += 1
                 bc1, bc2 = bias_corrections(b1, b2, int(st["step"]))
                 adam8bit_step(p, g.contiguous(), *(st[k] for k in LEAF_STATE), float(group["lr"]), b1, b2,
@@ -263,6 +268,10 @@ class Lion(torch.optim.Optimizer):
     def __init__(self, params, lr: float, betas=(0.9, 0.99), weight_decay: float = 0.0):
         super().__init__(params, dict(lr=lr, betas=tuple(betas), weight_decay=weight_decay))
 
+    def init_state(self, p: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """p's state before its first step: the count 0 and a zero moment."""
+        return {"step": torch.zeros((), dtype=torch.float32), "exp_avg": torch.zeros_like(p)}
+
     @torch.no_grad()
     def step(self, closure=None, grads: Optional[Dict[torch.Tensor, torch.Tensor]] = None):
         if closure is not None:
@@ -273,8 +282,7 @@ class Lion(torch.optim.Optimizer):
             for p, g in _grads_of(group["params"], grads):
                 st = self.state[p]
                 if not st:
-                    st["step"] = torch.zeros((), dtype=torch.float32)
-                    st["exp_avg"] = torch.zeros_like(p)
+                    st.update(self.init_state(p))
                 m = st["exp_avg"]
                 # a python scalar times a bf16 gradient is rounded to bf16
                 # first in JAX (a weak type); torch would keep it in fp32

@@ -155,6 +155,7 @@ from trlx_tpu_torch.utils import (
     Clock,
     build_optimizer,
     infinite_loader,
+    init_optimizer_state,
     logging,
     significant,
     to_scalar,
@@ -335,6 +336,7 @@ class TPUBaseTrainer(BaseRLTrainer):
         self.optimizer, self.scheduler, self.schedule = build_optimizer(
             self.trainable_params, config.optimizer, config.scheduler
         )
+        init_optimizer_state(self.optimizer)
         # the gradient tree in train.grads_dtype (the post-accumulate hooks
         # fill it during train_step's backwards, and only there). A hook
         # holds the trainer weakly: autograd keeps hooks where the garbage
@@ -1447,6 +1449,7 @@ class TPUBaseTrainer(BaseRLTrainer):
         # the optimizer places each moment on its parameter's device and
         # keeps AdamW's step a host tensor, as its own steps leave them
         self.optimizer.load_state_dict(read("optimizer", "cpu"))
+        init_optimizer_state(self.optimizer)  # a checkpoint written before a parameter first stepped
         for st in self.optimizer.state.values():
             for k, v in st.items():
                 if isinstance(v, torch.Tensor) and v.device.type == "cpu" and k != "step":
@@ -1587,6 +1590,7 @@ class TPUBaseTrainer(BaseRLTrainer):
             group["initial_lr"] = lr
             group["lr"] = lr * factor(self.scheduler.last_epoch)
         self.schedule = lambda step: lr * factor(step)
+        init_optimizer_state(self.optimizer)
 
     def _rollback_to_last_good(self) -> bool:
         """Restore the newest committed resumable checkpoint in-process, as a

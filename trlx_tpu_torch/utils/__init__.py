@@ -180,3 +180,38 @@ def build_optimizer(params, opt_cfg, sched_cfg) -> Tuple[torch.optim.Optimizer, 
     optimizer = get_optimizer_class(opt_cfg.name)(list(params), lr, **opt_kwargs)
     scheduler = torch.optim.lr_scheduler.LambdaLR(optimizer, factor)
     return optimizer, scheduler, lambda step: lr * factor(step)
+
+
+def _adam_zero_state(group: dict, p: torch.Tensor) -> dict:
+    """torch Adam's and AdamW's state before p's first step, as their
+    `_init_group` makes it: the count on the host unless the step is
+    capturable or fused (then on p's device, fp32), the moments (and
+    amsgrad's maximum) zeros like p."""
+    on_device = group["capturable"] or group["fused"]
+    scalar = torch.float64 if torch.get_default_dtype() == torch.float64 and not group["fused"] else torch.float32
+    st = {"step": torch.zeros((), dtype=scalar, device=p.device if on_device else "cpu")}
+    keys = ("exp_avg", "exp_avg_sq") + (("max_exp_avg_sq",) if group["amsgrad"] else ())
+    st.update({k: torch.zeros_like(p, memory_format=torch.preserve_format) for k in keys})
+    return st
+
+
+def init_optimizer_state(optimizer: torch.optim.Optimizer) -> None:
+    """Create the state of every parameter that has none yet, exactly as the
+    optimizer's first step would (the reference's optax state exists from
+    `opt.init`): the port's optimizers through their own `init_state(p)`
+    (kernel 9's AdamW8bit its zero codes, Lion its moment), torch's Adam
+    and AdamW their step count and moments. Then an OOM inside the first
+    step finds the state whole, and the state's bytes are held from the
+    start. Other optimizers (SGD: its first step stores the gradient
+    itself as the momentum, which a zero buffer would not give with
+    dampening) keep their lazy state."""
+    if hasattr(optimizer, "init_state"):
+        make = lambda group, p: optimizer.init_state(p)  # noqa: E731
+    elif isinstance(optimizer, (torch.optim.Adam, torch.optim.AdamW)):
+        make = _adam_zero_state
+    else:
+        return
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            if not optimizer.state[p]:
+                optimizer.state[p].update(make(group, p))
