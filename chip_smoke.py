@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive trlx_tpu_torch's rollout and training paths on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N] [--only fwd|paged|decode|bias|sft|ppo|resume|ilql|rft|grpo|dpo|llama|peft|memory|w8a16|health]
+    python3 chip_smoke.py [--seed N] [--only fwd|paged|decode|bias|sft|ppo|resume|ilql|rft|grpo|dpo|llama|peft|memory|w8a16|adam8bit|health]
 
 Builds the CUDA kernels from `trlx_tpu_torch/csrc` (into build/kernels/)
 and holds each kernel against its plain PyTorch version on the card: both
@@ -152,6 +152,9 @@ memory` the build, the memory phases and kernels 9 and 10's rows; `--only
 w8a16` the build, kernel 10's check (both routes, every tiling, bit for bit
 on a second call) and its kernel_time rows at the recipe and 7B cells'
 shapes (W8A16_PATH_SHAPES; no path runs, so its rows carry no
+launches); `--only adam8bit` the build, kernel 9's check (every
+ADAM8_LEAVES leaf: fp32 and bf16 gradients, the fused and bnb variants,
+whether each case was bit for bit) and its kernel_time rows (no
 launches); `--only health` the build and the health phases: a real CUDA
 OOM under a process memory cap walks the memory doctor's split_microbatch
 rung (the losses and weights against a run split by a chaos OOM, the
@@ -180,6 +183,7 @@ import argparse
 import collections
 import contextlib
 import dataclasses
+import itertools
 import json
 import math
 import os
@@ -5704,6 +5708,7 @@ def profile_phase(name: str, fn, wall_s: float, grad: bool = False, host_ops: bo
         paged_kernel_ms=share("paged_attention_kernel", "paged_attention_short_kernel"),
         decode_kernel_ms=share("decode_int8_kernel", "decode_int8_short_kernel"),
         flash_bwd_kernels_ms=share("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel", "flash_bwd_fused_kernel"),
+        adam8bit_kernel_ms=share("adam8bit"),
         matmul_ms=share("gemm", "Gemm", "xmma", "nvjet", "cutlass"),
         top=[dict(kernel=e.key[:90], ms=e.self_device_time_total / 1e3, calls=e.count) for e in top])
     emit("profile", what=name, **sums)
@@ -5947,9 +5952,14 @@ FP32_FLOPS = 67e12  # H100 SXM fp32 peak outside the tensor cores (kernel 9's ar
 # moment updates (3 + 4), the step (5), the decay and the write (2 + 2), two
 # absmax terms (2) and two requantisations (6 each)
 ADAM8_OPS_PER_ELEMENT = 38
-# kernel 9's leaves: a Llama-2-7B MLP kernel, GPT-2's fused qkv width and a
-# leaf of 77,000 elements, which is no whole number of 256-element blocks
-ADAM8_LEAVES = {"llama_mlp": (4096, 11008), "gpt2_qkv": (768, 2304), "ragged": (1000, 77)}
+# kernel 9's leaves: a Llama-2-7B MLP kernel, GPT-2's fused qkv width, a
+# leaf of 77,000 elements, which is no whole number of 256-element blocks,
+# one under one block, a Llama-2-7B norm weight, and the ragged leaf again
+# with every operand a view ADAM8_OFFSET elements into its buffer (not
+# 16- or 8-byte aligned: the kernel's scalar path)
+ADAM8_LEAVES = {"llama_mlp": (4096, 11008), "gpt2_qkv": (768, 2304), "ragged": (1000, 77), "sub_block": (100,),
+                "norm": (4096,), "misaligned": (1000, 77)}
+ADAM8_OFFSET = {"misaligned": 1}
 ADAM8_STEPS, ADAM8_LR, ADAM8_WD = 3, 1e-3, 0.01
 ADAM8_LSB_SHARE = 1e-3  # the share of payload entries allowed one LSB from the plain version's
 # kernel 10's widths (K -> N): GPT-2 small's projections (T5-base's decoder
@@ -6036,55 +6046,72 @@ def adam8bit_zero_state(p) -> list:
     return [st[k] for k in a8.LEAF_STATE]
 
 
+def _offset_copy(x, offset: int):
+    """A contiguous copy of `x` that starts `offset` elements into a buffer
+    of its own (so its data pointer is that many elements past an
+    allocation's start)."""
+    import torch
+
+    buf = torch.empty(x.numel() + offset, dtype=x.dtype, device=x.device)
+    return buf[offset:].view(x.shape).copy_(x)
+
+
 def check_adam8bit(gen) -> dict:
     """Kernel 9 against its plain version: each ADAM8_LEAVES leaf, fp32 and
-    bf16 gradients, the fused and the bnb variant, ADAM8_STEPS steps with
-    weight decay from zero moments, both paths on the same gradients. Gates
-    after every step: parameters within 1e-6 relative (to max(|p|, lr), so
-    that a weight the step carried near zero is held to the update's
-    size), scales within 1e-6 relative, payloads at most one LSB apart in
-    at most ADAM8_LSB_SHARE of the entries. Returns the worst errors."""
+    bf16 gradients, the fused and the bnb variant, each with weight decay
+    ADAM8_WD and without (the kernel's four update variants), ADAM8_STEPS
+    steps from zero moments, both paths on the same gradients (the
+    kernel's operands of an ADAM8_OFFSET leaf views off their buffers'
+    alignment). Gates after every step: parameters within 1e-6 relative
+    (to max(|p|, lr), so that a weight the step carried near zero is held
+    to the update's size), scales within 1e-6 relative, payloads at most
+    one LSB apart in at most ADAM8_LSB_SHARE of the entries. Each case
+    also reports whether every step was bit for bit (parameters, payloads
+    and scales). Returns the worst errors."""
     import torch
 
     from trlx_tpu_torch.ops import adam8bit as a8
 
     cases, worst = [], {"param_rel": 0.0, "scale_rel": 0.0, "payload_lsb_share": 0.0, "payload_max_lsb": 0}
     for leaf, shape in ADAM8_LEAVES.items():
-        for gdt in (torch.float32, torch.bfloat16):
-            for bnb in (False, True):
-                p0 = torch.randn(shape, generator=gen, device="cuda") * 0.02
-                pk, sk = p0.clone(), adam8bit_zero_state(p0)
-                pp, sp = p0.clone(), adam8bit_zero_state(p0)
-                errs = []
-                for step in range(1, ADAM8_STEPS + 1):
-                    g = (torch.randn(shape, generator=gen, device="cuda") * 1e-2).to(gdt)
-                    args = (ADAM8_LR, 0.9, 0.999, 1e-8, ADAM8_WD, *a8.bias_corrections(0.9, 0.999, step))
-                    a8.adam8bit_step(pk, g, *sk, *args, bnb=bnb)
-                    a8.adam8bit_step_plain(pp, g, *sp, *args, bnb=bnb)
-                    torch.cuda.synchronize()
+        off = ADAM8_OFFSET.get(leaf, 0)
+        for gdt, bnb, wd in itertools.product((torch.float32, torch.bfloat16), (False, True), (ADAM8_WD, 0.0)):
+            p0 = torch.randn(shape, generator=gen, device="cuda") * 0.02
+            pk, sk = _offset_copy(p0, off), [_offset_copy(x, off) for x in adam8bit_zero_state(p0)]
+            pp, sp = p0.clone(), adam8bit_zero_state(p0)
+            errs, bitwise = [], True
+            for step in range(1, ADAM8_STEPS + 1):
+                g = (torch.randn(shape, generator=gen, device="cuda") * 1e-2).to(gdt)
+                args = (ADAM8_LR, 0.9, 0.999, 1e-8, wd, *a8.bias_corrections(0.9, 0.999, step))
+                a8.adam8bit_step(pk, _offset_copy(g, off), *sk, *args, bnb=bnb)
+                a8.adam8bit_step_plain(pp, g, *sp, *args, bnb=bnb)
+                torch.cuda.synchronize()
 
-                    def rel(a, b):
-                        return ((a - b).abs() / b.abs().clamp(min=1e-30)).max().item()
+                def rel(a, b):
+                    return ((a - b).abs() / b.abs().clamp(min=1e-30)).max().item()
 
-                    lsb = [(qk.int() - qp.int()).abs() for qk, qp in ((sk[0], sp[0]), (sk[2], sp[2]))]
-                    p_rel = ((pk - pp).abs() / pp.abs().clamp(min=ADAM8_LR)).max().item()
-                    e = {"param_rel": p_rel, "scale_rel": max(rel(sk[1], sp[1]), rel(sk[3], sp[3])),
-                         "payload_lsb_share": max((d > 0).float().mean().item() for d in lsb),
-                         "payload_max_lsb": max(int(d.max()) for d in lsb)}
-                    errs.append(e)
-                    for k, v in e.items():
-                        worst[k] = max(worst[k], v)
-                    if (e["param_rel"] > 1e-6 or e["scale_rel"] > 1e-6 or e["payload_max_lsb"] > 1
-                            or e["payload_lsb_share"] > ADAM8_LSB_SHARE):
-                        raise AssertionError(f"kernel 9 disagrees with its plain version at {leaf} {gdt} "
-                                             f"bnb={bnb} step {step}: {e}")
-                cases.append({"leaf": leaf, "shape": list(shape), "grad_dtype": str(gdt), "bnb": bnb, "errs": errs})
-    emit("adam8bit_check", cases=cases, worst=worst)
+                lsb = [(qk.int() - qp.int()).abs() for qk, qp in ((sk[0], sp[0]), (sk[2], sp[2]))]
+                p_rel = ((pk - pp).abs() / pp.abs().clamp(min=ADAM8_LR)).max().item()
+                e = {"param_rel": p_rel, "scale_rel": max(rel(sk[1], sp[1]), rel(sk[3], sp[3])),
+                     "payload_lsb_share": max((d > 0).float().mean().item() for d in lsb),
+                     "payload_max_lsb": max(int(d.max()) for d in lsb)}
+                errs.append(e)
+                bitwise = bitwise and torch.equal(pk, pp) and all(torch.equal(a, b) for a, b in zip(sk, sp))
+                for k, v in e.items():
+                    worst[k] = max(worst[k], v)
+                if (e["param_rel"] > 1e-6 or e["scale_rel"] > 1e-6 or e["payload_max_lsb"] > 1
+                        or e["payload_lsb_share"] > ADAM8_LSB_SHARE):
+                    raise AssertionError(f"kernel 9 disagrees with its plain version at {leaf} {gdt} "
+                                         f"bnb={bnb} wd={wd} step {step}: {e}")
+            cases.append({"leaf": leaf, "shape": list(shape), "offset": off, "grad_dtype": str(gdt), "bnb": bnb,
+                          "weight_decay": wd, "bitwise": bitwise, "errs": errs})
+    all_bitwise = all(c["bitwise"] for c in cases)
+    emit("adam8bit_check", cases=cases, worst=worst, all_bitwise=all_bitwise)
     # each leaf's own worst parameter error with a bf16 gradient, fused
-    # variant (its kernel_time row's case)
+    # variant with decay (its kernel_time row's case)
     by_leaf = {c["leaf"]: max(e["param_rel"] for e in c["errs"]) for c in cases
-               if c["grad_dtype"] == str(torch.bfloat16) and not c["bnb"]}
-    return dict(worst, by_leaf=by_leaf)
+               if c["grad_dtype"] == str(torch.bfloat16) and not c["bnb"] and c["weight_decay"] == ADAM8_WD}
+    return dict(worst, by_leaf=by_leaf, all_bitwise=all_bitwise)
 
 
 def int8_matmul_error(x, q, s) -> dict:
@@ -6592,10 +6619,28 @@ def memory_kernel_times(gen, memory: dict) -> list:
     each shape held to the fp32 product again (`int8_matmul_error`) and
     its row carrying its own error (library: torch.matmul on the bf16
     weight it replaces)."""
+    rows = adam8bit_rows(gen, memory["errs"]["adam8bit"]["by_leaf"],
+                         {"recipe": memory["recipe"]["adam8bit"], "llama_full": memory["llama_full"]["adam8bit"]})
+    tallies = memory["int8_shapes"]
+    for (M, K, N) in sorted(set(tallies["recipe"]) | set(tallies["llama_full"])):
+        rows.append(int8_matmul_row(gen, M, K, N, {path: tallies[path].get((M, K, N), 0) for path in tallies}))
+    for row in rows:
+        emit("kernel_time", **row)
+    return rows
+
+
+def adam8bit_rows(gen, errs_by_leaf: dict, by_path: dict) -> list:
+    """Kernel 9's kernel_time rows: a Llama-2-7B MLP leaf and a GPT-2 leaf
+    with a bf16 gradient (fused, with decay), beside the plain version and
+    the bound (no single PyTorch call computes it: library null);
+    `errs_by_leaf` the leaves' errors from `check_adam8bit`, `by_path` the
+    launches of the runs that launched it (None: no run did, and the rows
+    carry no launches)."""
     import torch
 
     from trlx_tpu_torch.ops import adam8bit as a8
 
+    launches = {} if by_path is None else dict(launches=sum(by_path.values()), launches_by_path=by_path)
     rows = []
     for leaf in ("llama_mlp", "gpt2_qkv"):
         shape = ADAM8_LEAVES[leaf]
@@ -6611,17 +6656,10 @@ def memory_kernel_times(gen, memory: dict) -> list:
         rows.append(dict(
             name=f"adam8bit/{leaf}_bf16_grad", route="cuda", source="trlx_tpu_torch/csrc/adam8bit.cu",
             replaces="none (port-only: trlx_tpu/ops/adam8bit.py:154 fused_adamw_8bit_update runs in XLA)",
-            launches=memory["recipe"]["adam8bit"] + memory["llama_full"]["adam8bit"],
-            launches_by_path={"recipe": memory["recipe"]["adam8bit"], "llama_full": memory["llama_full"]["adam8bit"]},
-            max_abs_err=memory["errs"]["adam8bit"]["by_leaf"][leaf], err_is="this leaf's worst parameter error "
+            **launches, max_abs_err=errs_by_leaf[leaf], err_is="this leaf's worst parameter error "
             "relative to the plain version over adam8bit_check's steps (bf16 gradient, fused)", shape=list(shape),
             ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
             bound_bytes=n_bytes, bound_flops=ADAM8_OPS_PER_ELEMENT * n, library_ms=None, library_is="none"))
-    tallies = memory["int8_shapes"]
-    for (M, K, N) in sorted(set(tallies["recipe"]) | set(tallies["llama_full"])):
-        rows.append(int8_matmul_row(gen, M, K, N, {path: tallies[path].get((M, K, N), 0) for path in tallies}))
-    for row in rows:
-        emit("kernel_time", **row)
     return rows
 
 
@@ -7178,7 +7216,7 @@ def run() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--only", choices=("fwd", "paged", "decode", "bias", "sft", "ppo", "resume", "ilql", "rft",
-                                           "grpo", "dpo", "llama", "peft", "memory", "w8a16", "health"),
+                                           "grpo", "dpo", "llama", "peft", "memory", "w8a16", "adam8bit", "health"),
                         default=None,
                         help="fwd: the build, flash_check and the flash forward's kernel_time rows only "
                              "(a quick check of kernel 1); paged: the build, paged_check and the paged "
@@ -7198,7 +7236,9 @@ def run() -> int:
                              "Llama-2-7B LoRA) and their kernel_time rows; memory: the build, kernels 9 and 10 "
                              "against their plain versions, the recipe PPO cell, the full-parameter Llama-2-7B "
                              "cell and kernels 9 and 10's kernel_time rows; w8a16: the build, kernel 10's check "
-                             "and its kernel_time rows at the cells' recorded shapes; health: the build and the health "
+                             "and its kernel_time rows at the cells' recorded shapes; adam8bit: the build, "
+                             "kernel 9's check (bit for bit or not, every leaf) and its kernel_time rows; health: "
+                             "the build and the health "
                              "phases (health_reference, oom_split_path, oom_pool_path, preflight_plan, "
                              "guardrail_path), no kernel_time rows")
     args = parser.parse_args()
@@ -7270,8 +7310,8 @@ def run() -> int:
         "paged_short_verify": paged_attention_occupancy("short", 4, 32, 32, 16, 5, True, D=128),
         "paged_short_verify_gqa8_bf16_256": paged_attention_occupancy("short", 4, 64, 8, 16, 16, False, D=128),
     }
-    # kernel 9 (fp32 and bf16 gradients) and kernel 10 (the stream route's
-    # eight tilings, the wgmma route's two)
+    # kernel 9 (fp32 and bf16 gradients x its four update variants) and
+    # kernel 10 (the stream route's eight tilings, the wgmma route's two)
     memory_kernels = (ptxas_report(log, "adam8bit_kernel") + ptxas_report(log, "w8a16_stream_kernel")
                       + ptxas_report(log, "w8a16_wgmma_kernel"))
     emit("build", seconds=time.perf_counter() - t0,
@@ -7298,7 +7338,7 @@ def run() -> int:
                             ("D = 128 dk/dv kernel", long_new["flash_bwd_dkv_kernel"], 2),
                             ("new long int8 decode kernel", long_new["decode_int8_kernel"], 8),
                             ("D = 128 long paged kernel", long_new["paged_attention_kernel"], 6),
-                            ("kernel 9 and kernel 10", memory_kernels, 12)):
+                            ("kernel 9 and kernel 10", memory_kernels, 18)):
         if len(report) != n or any(f.get("spill_stores", 1) or f.get("spill_loads", 1) for f in report):
             raise AssertionError(f"the {what}'s {n} instantiations must build without spills: {report}")
     if short_occupancy["teacher_forced"]["ctas_per_sm"] < 3:
@@ -7362,6 +7402,10 @@ def run() -> int:
     elif args.only == "w8a16":
         check_int8_matmul(gen)
         rows = w8a16_kernel_times(gen)
+    elif args.only == "adam8bit":
+        rows = adam8bit_rows(gen, check_adam8bit(gen)["by_leaf"], None)
+        for row in rows:
+            emit("kernel_time", **row)
     elif args.only == "health":
         health_phases(args.seed)
         rows = []

@@ -10,7 +10,9 @@ pre-increment count, with fp32 and with bf16 gradients (the same bf16
 values fed to both): parameters within 1e-6 (atol 1e-6 on weights of
 size 0.02), payloads equal or one LSB apart in at most 0.1% of the
 entries, scales to 1e-6 relative; the optimizer's state_dict round trip
-bit for bit."""
+bit for bit. Kernel 9's own shortcuts, mirrored in plain PyTorch: its
+dequantisation table times the scale is `deq_blocks` bit for bit, and its
+fast requantisation rule gives `quant_blocks`' payloads exactly."""
 
 import jax
 import jax.numpy as jnp
@@ -46,6 +48,57 @@ def test_blockwise_code_matches_reference(shape, spread):
     np.testing.assert_allclose(s.numpy(), np.asarray(jq.scale), rtol=1e-7, atol=0)
     np.testing.assert_allclose(a8.dequantize(q, s, shape).numpy(), np.asarray(j8._dequantize(jq)),
                                rtol=1e-6, atol=0)
+
+
+def _kernel_table() -> torch.Tensor:
+    """Kernel 9's dequantisation table as the kernel builds it in shared
+    memory: entry q + 128 = sign(u) * u * u with u = q / 127 correctly
+    rounded, for every int8 payload q."""
+    u = torch.arange(-128, 128, dtype=torch.float32) / torch.tensor(127.0)
+    return torch.sign(u) * u * u
+
+
+@pytest.mark.parametrize("scale", [0.0, 1e-30, 1e-40, 1.0, 1e30], ids=["zero", "1e-30", "subnormal", "one", "1e30"])
+def test_kernel_table_dequantisation_is_exact(scale):
+    """The table entry times the block's scale is `deq_blocks` bit for bit
+    at every payload value (-128 .. 127), so kernel 9's table read and one
+    multiply give its plain version's moments exactly."""
+    q = torch.arange(-128, 128, dtype=torch.int32).to(torch.int8)[None]
+    s = torch.tensor([scale], dtype=torch.float32)
+    got = _kernel_table()[q.long() + 128] * s[:, None]
+    want = a8.deq_blocks(q, s)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_fast_requantisation_rule_gives_the_exact_code():
+    """Kernel 9's requantisation rule: t = sqrt(|x| * (1 / A)) * 127 from an
+    approximate square root, off the exact chain's t by less than 2^-13,
+    is rounded to the code when it lies more than 2^-10 from a
+    half-integer, else the exact chain decides. Mirrored with t pushed the
+    whole 2^-13 either way, over random blocks and values placed on each
+    rounding boundary, it gives `quant_blocks`' payloads exactly."""
+    rng = np.random.default_rng(7)
+    x = (rng.standard_normal((64, a8.BLOCK)) * np.exp(rng.uniform(-8, 0, (64, a8.BLOCK)))).astype(np.float32)
+    # m's and v's values on each boundary k + 0.5 of a block whose absmax is 1
+    k = np.arange(127, dtype=np.float64)
+    edge = ((k + 0.5) / 127) ** 2
+    near = np.concatenate([edge, np.nextafter(edge.astype(np.float32), 0), np.nextafter(edge.astype(np.float32), 2)])
+    y = np.zeros((2, a8.BLOCK), np.float32)
+    y[:, 0] = 1.0
+    y[0, 1:1 + near.size // 2] = near[: near.size // 2]
+    y[1, 1:1 + near.size - near.size // 2] = -near[near.size // 2:]
+    blocks = torch.from_numpy(np.concatenate([x, y]))
+    want, scale = a8.quant_blocks(blocks)
+    a = torch.clamp(scale, min=1e-30)[:, None]
+    t = torch.sqrt(blocks.abs() * (1 / a)) * 127.0
+    exact = want.float().abs()
+    for push in (-(2.0 ** -13), 2.0 ** -13):
+        tf = t + push
+        r = torch.round(tf)
+        fast = (tf - r).abs() < 0.5 - 2.0 ** -10
+        code = torch.where(fast, r, exact) * torch.sign(blocks)
+        assert torch.equal(code.to(torch.int8), want), push
+    assert not fast.all()  # the boundary values take the exact chain
 
 
 def _leaves(seed=0):

@@ -14,7 +14,7 @@ import torch
 REPO = Path(__file__).resolve().parents[2]
 PKG = REPO / "trlx_tpu_torch"
 PORT_FILES = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"] + [
-    REPO / "scripts" / name for name in ("torch_knobs_gate_diag.py", "torch_w8a16_ab.py")]
+    REPO / "scripts" / name for name in ("torch_knobs_gate_diag.py", "torch_w8a16_ab.py", "torch_adam8bit_ab.py")]
 
 
 def _module_names():

@@ -237,12 +237,16 @@ class AdamW8bit(torch.optim.Optimizer):
             raise ValueError("AdamW8bit takes no closure")
         for group in self.param_groups:
             b1, b2 = group["betas"]
+            corrections = {}  # count -> (bc1, bc2): once a group and count, not once a leaf
             for p, g in _grads_of(group["params"], grads):
                 st = self.state[p]
                 if not st:
                     st.update(self.init_state(p))
                 st["step"] += 1
-                bc1, bc2 = bias_corrections(b1, b2, int(st["step"]))
+                count = int(st["step"])
+                if count not in corrections:
+                    corrections[count] = bias_corrections(b1, b2, count)
+                bc1, bc2 = corrections[count]
                 adam8bit_step(p, g.contiguous(), *(st[k] for k in LEAF_STATE), float(group["lr"]), b1, b2,
                               group["eps"], group["weight_decay"], bc1, bc2, bnb=not self.fused)
 
